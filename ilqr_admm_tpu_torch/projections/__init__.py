@@ -1,0 +1,1 @@
+"""projections of the PyTorch port (see the package docstring)."""
