@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 The sources under `csrc/` have plain `extern "C"` entry points. At first
-use they are compiled with `nvcc` for `sm_90a` into one shared library,
+use each is compiled with `nvcc` for `sm_90a` into an object, all at
+once in parallel, and the objects are linked into one shared library,
 `build/torch_kernels/<hash of sources and flags>/libilqr_admm_torch.so`
-under the repository root, and loaded with `ctypes`. Nothing is built
+under the repository root, which is loaded with `ctypes`. Nothing is built
 or loaded when the package is imported. A failed build raises with
 `nvcc`'s output; there is no fallback.
 """
@@ -20,11 +21,9 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-_SOURCES = ("admm_u_only.cu",)
-_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+_SOURCES = ("admm_u_only.cu", "sls_admm.cu")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libilqr_admm_torch.so"
 
 _P = ctypes.c_void_p
@@ -56,23 +55,45 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile the library unless it exists; returns its path.
 
-    nvcc's output (with `-Xptxas -v`: registers, shared memory and spills
-    of each kernel) is kept beside the library as `nvcc.log`.
+    One nvcc per source, started together, then one link. Their output
+    (with `-Xptxas -v`: registers, shared memory and spills of each
+    kernel) is kept beside the library as `nvcc.log`.
     """
     out_dir = build_dir()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *(str(_PKG / "csrc" / s) for s in _SOURCES)]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    (out_dir / "nvcc.log").write_text(log + f"\n[{time.perf_counter() - t0:.2f} s]\n")
-    if proc.returncode != 0:
+    objs, procs = [], []
+    for name in _SOURCES:
+        obj = out_dir / f"{name}.{tag}.o"
+        cmd = [nvcc, *_FLAGS, "-c", str(_PKG / "csrc" / name), "-o", str(obj)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"$ {' '.join(cmd)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    if not failed:
+        cmd = [nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    text = "\n".join(log)
+    (out_dir / "nvcc.log").write_text(text + f"\n[{time.perf_counter() - t0:.2f} s]\n")
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{log}")
+        raise RuntimeError(f"nvcc failed with exit code {failed[0]}:\n{text}")
     os.replace(tmp, lib)
     return lib
 
@@ -92,4 +113,15 @@ def load_library() -> ctypes.CDLL:
     lib.admm_u_only_launch.restype = _I
     lib.admm_u_only_error_string.argtypes = [_I]
     lib.admm_u_only_error_string.restype = ctypes.c_char_p
+    lib.sls_admm_launch.argtypes = [
+        _P, _P, _P, _P,  # bounds, U_base, W, U_out
+        _I, _I, _I, _I,  # batch, Nm, batch_tile, p1
+        _I, _I,  # chunk_len, n_chunks
+        _F, _F, _F,  # alpha, 1 - alpha, stop_tol
+        _I, _P, _I, _I, _I,  # z_update, coeffs (host f32), n_sets, q, n_cons_iters
+        _P,  # stream
+    ]
+    lib.sls_admm_launch.restype = _I
+    lib.sls_admm_error_string.argtypes = [_I]
+    lib.sls_admm_error_string.restype = ctypes.c_char_p
     return lib

@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from ilqr_admm_tpu_torch.ops.lifted import build_Su, build_Sx
-from ilqr_admm_tpu_torch.problem import QuadCost
+from ilqr_admm_tpu_torch.problem import QuadCost, host_f64
 from ilqr_admm_tpu_torch.solvers.admm import validate_constraint_blocks
 from ilqr_admm_tpu_torch.solvers.lqt import block_diag_stacked, broadcast_rho
 from ilqr_admm_tpu_torch.utils.precision import full_f32_matmul
@@ -309,22 +309,18 @@ def make_fused_lqt_admm(
         )
     _schedule(n_iters, refresh_every, polish_iters, stop_tol, check_every)
 
-    cpu, f64 = torch.device("cpu"), torch.float64
-
-    def data(t):  # round to the working dtype, then lift exactly to f64
-        return torch.as_tensor(t).to(cpu, dtype).to(f64)
-
-    A, B = data(A), data(B)
+    f64 = torch.float64
+    A, B, cost = host_f64(A, B, cost, dtype)
     N, d, m = A.shape[0], A.shape[-1], B.shape[-1]
-    Rr = data(broadcast_rho(rho_u, m, N, dtype, cpu))
+    Rr = broadcast_rho(rho_u, m, N, dtype, A.device).to(f64)
 
     Su = build_Su(A, B)
     Sx = build_Sx(A).reshape(N * d, d)
-    SuTQ = Su.T @ block_diag_stacked(data(cost.Q))
+    SuTQ = Su.T @ block_diag_stacked(cost.Q)
     Rr_l = block_diag_stacked(Rr)
-    l_side = SuTQ @ Su + block_diag_stacked(data(cost.R)) + Rr_l
+    l_side = SuTQ @ Su + block_diag_stacked(cost.R) + Rr_l
     l_inv = torch.linalg.inv(l_side)
-    r_const = SuTQ @ data(cost.lifted_xd())
+    r_const = SuTQ @ cost.lifted_xd()
     W_u = Rr_l.T @ l_inv.T  # (Nm, Nm) in-loop control response
     W_x = W_u @ Su.T  # (Nm, Nd) state recovery
 

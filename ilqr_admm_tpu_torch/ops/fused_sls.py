@@ -1,0 +1,512 @@
+"""Fused robust SLS-ADMM scenario fleet on the card.
+
+Counterpart of `ilqr_admm_tpu/ops/pallas_sls.py` (`make_pallas_sls_admm`
+and its kernel `_sls_admm_kernel`). The one-time operator setup runs in
+float64 on the host and is cast to the working dtype once; the ADMM loop
+is one hand-written CUDA kernel (`csrc/sls_admm.cu`), launched by
+`sls_admm`. On CPU tensors `sls_admm` runs its plain torch version
+`sls_admm_reference` instead.
+
+The decision matrix [du | Phi_u columns] of each instance is kept as
+p + 1 column slabs of Nm rows. Each iteration is
+
+    U_k = U_base_k + (Z_k - L_k) @ W                (W = (l_inv Rr)^T)
+    Z   = P(alpha U + (1 - alpha) Z + L)           (row by row, over k)
+    L   = L + U - Z
+
+from Z = U_base, L = 0. P is either the exact projection of each row
+(du_r, phi_r) onto the diamond w0 |du_r| + w1 |phi_r| <= bound
+(z_update="diamond") or a fixed-count consensus ADMM onto the
+intersection of second-order cones {phi : A_i phi + b_i in SOC}, with
+b_i = b_fixed_i + bound * b_bound_i (z_update="consensus").
+
+Every product is plain f32. The TPU kernel's `gemm_precision="bf16x3"`
+is a workaround for Mosaic, which rejects `Precision.HIGH`, and was
+measured insufficient at N = 100; it is not carried.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ilqr_admm_tpu_torch.ops.lifted import build_Su, build_Sx
+from ilqr_admm_tpu_torch.problem import QuadCost, host_f64
+from ilqr_admm_tpu_torch.solvers.lqt import block_diag_stacked, broadcast_rho, lqt_solve_sls
+from ilqr_admm_tpu_torch.utils.precision import full_f32_matmul
+
+# Number of times `sls_admm` has launched its CUDA kernel in this process.
+launch_count = 0
+
+_EPS = 1e-30
+
+# Kernel geometry, as in csrc/sls_admm.cu: each thread owns a 2 x 4
+# (instances x controls) tile in every slab; a block holds at most 512
+# threads and stages W, U_base and two copies of the tile's s in shared
+# memory.
+_ROWS = 2
+_COLS = 4
+_MAX_THREADS = 512
+_MAX_SMEM = 232448 - 16  # an H100 block's 227 KB, less the kernel's static word
+
+# The (p1, n_sets, q) of the consensus z-updates that csrc/sls_admm.cu
+# instantiates; the diamond z-update is built for p1 = 2.
+CONSENSUS_SHAPES = ((2, 2, 3),)
+Z_UPDATES = ("consensus", "diamond")
+
+
+def launch_geometry(batch_tile: int, Nm: int, p1: int) -> tuple[int, int]:
+    """(threads, dynamic shared-memory bytes) of one kernel block.
+
+    Raises ValueError when the tile cannot be launched: batch_tile must
+    be a multiple of 2, the block must fit in 512 threads, and W, U_base
+    and two copies of the tile's s must fit in shared memory.
+    """
+    if batch_tile < _ROWS or batch_tile % _ROWS:
+        raise ValueError(f"batch_tile={batch_tile} must be a positive multiple of {_ROWS}")
+    col_groups = -(-Nm // _COLS)
+    threads = (batch_tile // _ROWS) * col_groups
+    if threads > _MAX_THREADS:
+        raise ValueError(
+            f"batch_tile={batch_tile} at Nm={Nm} needs {threads} threads per block; "
+            f"the kernel takes at most {_MAX_THREADS}, so batch_tile <= "
+            f"{_ROWS * (_MAX_THREADS // col_groups)}"
+        )
+    ldw = col_groups * _COLS
+    smem = 4 * (Nm * ldw + p1 * ldw + 2 * Nm * batch_tile * p1)
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"Nm={Nm} with batch_tile={batch_tile} and p1={p1} needs {smem} bytes of shared "
+            f"memory to stage W, U_base and the tile's iterate; the limit is {_MAX_SMEM} bytes"
+        )
+    return threads, smem
+
+
+def _schedule(n_iters: int, stop_tol: float, check_every: int) -> tuple[int, int]:
+    """(chunk_len, n_chunks): the iteration counts of one solve.
+
+    With stop_tol > 0 a tile runs up to ceil(n_iters / check_every)
+    chunks of check_every iterations and leaves after any chunk whose
+    residual is below stop_tol, so an unconverged tile runs up to
+    check_every - 1 iterations past n_iters, as `_sls_admm_kernel` does.
+    With stop_tol = 0 it runs exactly n_iters.
+    """
+    if n_iters < 0:
+        raise ValueError(f"n_iters must be >= 0, got {n_iters}")
+    if check_every < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    if stop_tol > 0.0:
+        return check_every, -(-n_iters // check_every)
+    return n_iters, 1
+
+
+def _soc_project_slabs(ws, t):
+    """SOC projection of slab-decomposed [w_0..w_{q-2} | t] onto ||w|| <= t."""
+    n2 = ws[0] * ws[0]
+    for w in ws[1:]:
+        n2 = n2 + w * w
+    n = torch.sqrt(n2)
+    inside = n <= t
+    polar = n <= -t
+    scale = 0.5 * (n + t) / (n + _EPS)
+    w_out = [torch.where(inside, w, torch.where(polar, 0.0, scale * w)) for w in ws]
+    t_out = torch.where(inside, t, torch.where(polar, 0.0, 0.5 * (n + t)))
+    return w_out, t_out
+
+
+def _diamond_project_slabs(a, b, w0: float, w1: float, r):
+    """Exact projection of rows (a, b) onto {w0 |a| + w1 |b| <= r}.
+
+    The soft-threshold solution with the 2D multiplier in closed form:
+    the line projection where both coordinates stay active, else the
+    vertex where one is clamped to 0. sign(0) = 0 keeps a zero
+    coordinate at zero.
+    """
+    aa = torch.abs(a)
+    ab = torch.abs(b)
+    s = w0 * aa + w1 * ab
+    inside = s <= r
+    lam = (s - r) / (w0 * w0 + w1 * w1)
+    xa = aa - lam * w0
+    xb = ab - lam * w1
+    na = torch.where(xb < 0.0, r / w0, torch.where(xa < 0.0, 0.0, xa))
+    nb = torch.where(xb < 0.0, 0.0, torch.where(xa < 0.0, r / w1, xb))
+    return (torch.where(inside, a, torch.sign(a) * na),
+            torch.where(inside, b, torch.sign(b) * nb))
+
+
+def _consensus_project(ys, bound, *, soc_A, soc_b_fixed, soc_b_bound, l_inv_cons, cons_rho,
+                       n_cons_iters):
+    """Project each row y (slab list of length p1) onto the intersection
+    {phi : A_i phi + b_i in SOC for all i} by n_cons_iters consensus-ADMM
+    iterations from z_i = A_i y + b_i, lambda_i = 0, and one x-update
+    after the last. Zero coefficients are skipped, as in the TPU kernel."""
+    nsets = len(soc_A)
+    p1 = len(ys)
+    q = soc_A[0].shape[0] if nsets else 0
+    zero = torch.zeros_like(ys[0])
+
+    def offset(i, r):
+        out = torch.full_like(ys[0], float(soc_b_fixed[i][r]))
+        s = float(soc_b_bound[i][r])
+        return out + s * bound if s != 0.0 else out
+
+    bsl = [[offset(i, r) for r in range(q)] for i in range(nsets)]
+
+    def A_times(i, r, vs, acc):
+        for k in range(p1):
+            a = float(soc_A[i][r, k])
+            if a != 0.0:
+                acc = acc + a * vs[k]
+        return acc
+
+    def x_update(zs, lmbs):
+        rx = []
+        for k in range(p1):
+            acc = ys[k]
+            for i in range(nsets):
+                for r in range(q):
+                    a = float(soc_A[i][r, k])
+                    if a != 0.0:
+                        acc = acc + (cons_rho * a) * (zs[i][r] - bsl[i][r] - lmbs[i][r])
+            rx.append(acc)
+        xs = []
+        for k in range(p1):
+            acc = zero
+            for j in range(p1):
+                c = float(l_inv_cons[k, j])
+                if c != 0.0:
+                    acc = acc + c * rx[j]
+            xs.append(acc)
+        return xs
+
+    zs = [[A_times(i, r, ys, zero) + bsl[i][r] for r in range(q)] for i in range(nsets)]
+    lmbs = [[zero] * q for _ in range(nsets)]
+    for _ in range(n_cons_iters):
+        xs = x_update(zs, lmbs)
+        zs_new, lmbs_new = [], []
+        for i in range(nsets):
+            Ax_b = [A_times(i, r, xs, bsl[i][r]) for r in range(q)]
+            w_in = [Ax_b[r] + lmbs[i][r] for r in range(q)]
+            w_out, t_out = _soc_project_slabs(w_in[:-1], w_in[-1])
+            z_new = w_out + [t_out]
+            lmbs_new.append([lmbs[i][r] + Ax_b[r] - z_new[r] for r in range(q)])
+            zs_new.append(z_new)
+        zs, lmbs = zs_new, lmbs_new
+    return x_update(zs, lmbs)
+
+
+def _check_inputs(bounds, U_base, W, batch_tile):
+    named = dict(bounds=bounds, U_base=U_base, W=W)
+    for name, t in named.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if t.device != W.device:
+            raise ValueError(f"{name} is on {t.device} but W is on {W.device}")
+        if t.dtype != W.dtype:
+            raise TypeError(f"{name} is {t.dtype} but W is {W.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if W.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"sls_admm takes float32 (or float64 on CPU), got {W.dtype}")
+    if bounds.ndim != 1 or U_base.ndim != 2 or W.ndim != 2:
+        raise ValueError("bounds, U_base and W must be (batch,), (p1, Nm) and (Nm, Nm)")
+    Nm = U_base.shape[1]
+    if tuple(W.shape) != (Nm, Nm):
+        raise ValueError(f"W has shape {tuple(W.shape)}, expected {(Nm, Nm)}")
+    batch = bounds.shape[0]
+    if batch_tile < 1 or batch % batch_tile:
+        raise ValueError(f"batch {batch} must be a multiple of batch_tile {batch_tile}")
+
+
+def sls_admm_reference(
+    bounds, U_base, W, *, n_iters, n_cons_iters=20, alpha=1.0, cons_rho=10.0, stop_tol=0.0,
+    check_every=8, batch_tile=8, z_update="consensus", diamond_w=None, soc_A=(),
+    soc_b_fixed=(), soc_b_bound=(), l_inv_cons=None,
+):
+    """Plain torch version of the kernel, in f32 or f64, on any device.
+
+    Works on (n_tiles, batch_tile, Nm) slabs so that early exit is per
+    tile, as in the kernel: a tile that has exited keeps its iterates.
+    With stop_tol > 0 the residual of a chunk is the max over the tile
+    of |U - Z| and |Z - Z_prev| at the chunk's last iteration; a NaN
+    residual stops the tile. Returns U (batch, Nm, p1).
+    """
+    chunk_len, n_chunks = _schedule(n_iters, stop_tol, check_every)
+    batch = bounds.shape[0]
+    p1, Nm = U_base.shape
+    n_tiles = batch // batch_tile
+    bound = bounds.reshape(n_tiles, batch_tile, 1)
+    ub = U_base[:, None, None, :]  # (p1, 1, 1, Nm) against (p1, n_tiles, batch_tile, Nm)
+    if z_update == "diamond":
+        w0, w1 = float(diamond_w[0]), float(diamond_w[1])
+
+        def project(Y):
+            return torch.stack(_diamond_project_slabs(Y[0], Y[1], w0, w1, bound))
+    else:
+        cons = dict(soc_A=soc_A, soc_b_fixed=soc_b_fixed, soc_b_bound=soc_b_bound,
+                    l_inv_cons=l_inv_cons, cons_rho=cons_rho, n_cons_iters=n_cons_iters)
+
+        def project(Y):
+            return torch.stack(_consensus_project(list(Y), bound, **cons))
+
+    def step(Z, L):
+        U = ub + (Z - L) @ W
+        Z_new = project(alpha * U + (1.0 - alpha) * Z + L)
+        return Z_new, L + U - Z_new, U
+
+    with full_f32_matmul():
+        Z = ub.expand(p1, n_tiles, batch_tile, Nm)
+        L = torch.zeros_like(Z)
+        U = Z
+        active = None  # per-tile mask, once early exit has been tested
+        for _ in range(n_chunks):
+            for _ in range(chunk_len):
+                Z_prev = Z
+                new = step(Z, L)
+                if active is None:
+                    Z, L, U = new
+                else:
+                    keep = active[None, :, None, None]
+                    Z, L, U = (torch.where(keep, a, b) for a, b in zip(new, (Z, L, U)))
+            if stop_tol > 0.0:
+                res = torch.maximum(torch.abs(U - Z), torch.abs(Z - Z_prev))
+                running = torch.amax(res, dim=(0, 2, 3)) >= stop_tol
+                active = running if active is None else active & running
+                if not bool(active.any()):
+                    break
+    return U.permute(1, 2, 3, 0).reshape(batch, Nm, p1)
+
+
+def kernel_z_update(p1, z_update, diamond_w, soc_A, soc_b_fixed, soc_b_bound, l_inv_cons,
+                    cons_rho):
+    """(mode, coeffs, n_sets, q): the z-update as `csrc/sls_admm.cu` takes it.
+
+    mode 0 is the diamond, with coeffs (w0, w1, w0^2 + w1^2); mode 1 the
+    consensus, with coeffs A, cons_rho * A, b_fixed, b_bound and
+    l_inv_cons packed row-major. Each f32 coefficient is rounded once
+    from its f64 value, as the TPU kernel's trace-time constants are.
+    Raises ValueError for a shape the kernel is not built for.
+    """
+    if z_update == "diamond":
+        if p1 != 2:
+            raise ValueError(f"the diamond kernel is built for p1 = 2, got p1 = {p1}")
+        w0, w1 = float(diamond_w[0]), float(diamond_w[1])
+        return 0, np.asarray([w0, w1, w0 * w0 + w1 * w1], np.float32), 0, 0
+    n_sets = len(soc_A)
+    q = soc_A[0].shape[0] if n_sets else 0
+    if (p1, n_sets, q) not in CONSENSUS_SHAPES:
+        raise ValueError(
+            f"the consensus kernel is not built for (p1, n_sets, q) = {(p1, n_sets, q)}; "
+            f"csrc/sls_admm.cu instantiates {list(CONSENSUS_SHAPES)}"
+        )
+    A = np.stack([np.asarray(a, np.float64) for a in soc_A])
+    parts = (A, cons_rho * A, np.stack(soc_b_fixed), np.stack(soc_b_bound), l_inv_cons)
+    coeffs = np.concatenate([np.asarray(x, np.float64).ravel() for x in parts])
+    return 1, coeffs.astype(np.float32), n_sets, q
+
+
+def sls_admm(
+    bounds, U_base, W, *, n_iters, n_cons_iters=20, alpha=1.0, cons_rho=10.0, stop_tol=0.0,
+    check_every=8, batch_tile=8, z_update="consensus", diamond_w=None, soc_A=(),
+    soc_b_fixed=(), soc_b_bound=(), l_inv_cons=None,
+):
+    """Run the robust SLS-ADMM loop on a fleet; returns U (batch, Nm, p1).
+
+    bounds (batch,): the per-instance scenario bound; U_base (p1, Nm):
+    the unconstrained x-update, shared by every instance; W (Nm, Nm):
+    the response to s = Z - L. batch must be a multiple of batch_tile.
+    The z-update options are those of `make_fused_sls_admm`; soc_* and
+    l_inv_cons are float64 numpy arrays.
+
+    CUDA tensors (float32) go to the kernel in `csrc/sls_admm.cu`; CPU
+    tensors go to `sls_admm_reference`. Any other device raises.
+    """
+    global launch_count
+    _check_inputs(bounds, U_base, W, batch_tile)
+    kw = dict(
+        n_iters=n_iters, n_cons_iters=n_cons_iters, alpha=alpha, cons_rho=cons_rho,
+        stop_tol=stop_tol, check_every=check_every, batch_tile=batch_tile, z_update=z_update,
+        diamond_w=diamond_w, soc_A=soc_A, soc_b_fixed=soc_b_fixed, soc_b_bound=soc_b_bound,
+        l_inv_cons=l_inv_cons,
+    )
+    device = W.device
+    if device.type == "cpu":
+        return sls_admm_reference(bounds, U_base, W, **kw)
+    if device.type != "cuda":
+        raise ValueError(f"sls_admm runs on CPU or CUDA tensors, got {device}")
+    if W.dtype != torch.float32:
+        raise TypeError(f"the CUDA kernel takes float32, got {W.dtype}")
+    chunk_len, n_chunks = _schedule(n_iters, stop_tol, check_every)
+    batch = bounds.shape[0]
+    p1, Nm = U_base.shape
+    launch_geometry(batch_tile, Nm, p1)
+    mode, coeffs, n_sets, q = kernel_z_update(
+        p1, z_update, diamond_w, soc_A, soc_b_fixed, soc_b_bound, l_inv_cons, cons_rho
+    )
+
+    from ilqr_admm_tpu_torch._build import load_library
+
+    lib = load_library()
+    U = torch.empty((batch, Nm, p1), dtype=W.dtype, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.sls_admm_launch(
+            bounds.data_ptr(), U_base.data_ptr(), W.data_ptr(), U.data_ptr(),
+            batch, Nm, batch_tile, p1, chunk_len, n_chunks,
+            float(alpha), float(1.0 - alpha), float(stop_tol),
+            mode, coeffs.ctypes.data, n_sets, q, int(n_cons_iters), stream,
+        )
+    if err != 0:
+        msg = lib.sls_admm_error_string(err).decode()
+        raise RuntimeError(f"sls_admm kernel launch failed: {msg} (cudaError {err})")
+    launch_count += 1
+    return U
+
+
+class FusedSLSADMM(nn.Module):
+    """Batched robust SLS-ADMM solver for one problem and z-update.
+
+    Holds the one-time operators as buffers (PHI_unc (Nm, Nd), U_base
+    (p1, Nm), W (Nm, Nm)); `forward(bounds (batch,))` returns (du (batch,
+    Nm), phi_u (batch, Nm, Nd), U (batch, Nm, p1)) like the JAX `solve`.
+    """
+
+    def __init__(self, operators: dict, robust_dim: int, **kernel_options):
+        super().__init__()
+        for name, value in operators.items():
+            self.register_buffer(name, value)
+        self.robust_dim = robust_dim
+        self.kernel_options = kernel_options
+
+    def forward(self, bounds):
+        bounds = torch.as_tensor(bounds).to(self.W.device, self.W.dtype).contiguous()
+        U = sls_admm(bounds, self.U_base, self.W, **self.kernel_options)
+        p = self.robust_dim
+        phi_u = torch.cat(
+            [U[:, :, 1:], self.PHI_unc[:, p:].expand(U.shape[0], -1, -1)], dim=-1
+        )
+        return U[:, :, 0], phi_u, U
+
+
+def make_fused_sls_admm(
+    A,
+    B,
+    cost: QuadCost,
+    soc_A,
+    soc_b_fixed,
+    soc_b_bound,
+    rho_u,
+    robust_dim: int = 1,
+    n_iters: int = 50,
+    n_cons_iters: int = 20,
+    cons_rho: float = 10.0,
+    alpha: float = 1.0,
+    batch_tile: int = 8,
+    gemm_precision: str = "f32",
+    stop_tol: float = 0.0,
+    check_every: int = 8,
+    z_update: str = "consensus",
+    diamond_w=None,
+    *,
+    device=None,
+    dtype: torch.dtype = torch.float32,
+) -> FusedSLSADMM:
+    """Build a batched robust SLS-ADMM solver for the fused kernel.
+
+    The arguments are those of `make_pallas_sls_admm`, with `device` and
+    `dtype` in place of `interpret`. Returns a module; solver(bounds
+    (batch,)) -> (du, phi_u, U) with batch a multiple of batch_tile.
+
+    Chance-constrained control rows: every row phi (length p + 1) of
+    [du | Phi_u columns] must satisfy soc_A[i] @ phi + b_i in SOC for
+    each set i, with b_i = soc_b_fixed[i] + bound * soc_b_bound[i]
+    (z_update="consensus", n_cons_iters inner iterations at cons_rho).
+    z_update="diamond" needs robust_dim = 1 and diamond_w = (w_du,
+    w_phi) > 0 and projects each row exactly onto w_du |du| + w_phi |phi|
+    <= bound; soc_* are then ignored. stop_tol > 0 turns on per-tile
+    early exit, tested every check_every iterations.
+
+    batch_tile is the number of instances one CUDA block owns (and the
+    early-exit group). The default 8 gives the bench batch of 1024 128
+    blocks, about one for each of an H100's 132 SMs; at Nm = 100 the
+    kernel takes at most 40 (see `launch_geometry`). On a CUDA device
+    dtype must be float32.
+
+    The problem data are rounded to `dtype`, then the setup (PHI_unc
+    from `lqt_solve_sls`, U_base = (l_inv r_base)^T and W = (l_inv Rr)^T)
+    runs in float64 and is cast to `dtype` once.
+    """
+    if z_update not in Z_UPDATES:
+        raise ValueError(f"unknown z_update {z_update!r}; expected one of {Z_UPDATES}")
+    p1 = robust_dim + 1
+    if z_update == "diamond":
+        if p1 != 2 or diamond_w is None or len(diamond_w) != 2:
+            raise ValueError(
+                "z_update='diamond' requires robust_dim == 1 and diamond_w = (w_du, w_phi)"
+            )
+        diamond_w = np.asarray(diamond_w, np.float64)
+        if not np.all(diamond_w > 0.0):
+            # a zero weight makes r / w infinite in the vertex branch of the
+            # closed-form projection: NaN iterates with no error
+            raise ValueError(f"diamond_w must be strictly positive, got {tuple(diamond_w)}")
+        soc_A, soc_b_fixed, soc_b_bound = (), (), ()
+        l_inv_cons = np.eye(p1)
+    else:
+        soc_A = tuple(np.asarray(a, np.float64) for a in soc_A)
+        soc_b_fixed = tuple(np.asarray(b, np.float64) for b in soc_b_fixed)
+        soc_b_bound = tuple(np.asarray(b, np.float64) for b in soc_b_bound)
+        if len({a.shape[0] for a in soc_A}) > 1:
+            # the row loops run over q = soc_A[0].shape[0]; a ragged set
+            # would have its extra rows silently dropped
+            raise ValueError(
+                "all soc_A constraint sets must have the same number of rows; "
+                f"got {[a.shape[0] for a in soc_A]}; zero-pad the smaller sets"
+            )
+        if not len(soc_A) == len(soc_b_fixed) == len(soc_b_bound):
+            raise ValueError("soc_A, soc_b_fixed and soc_b_bound must have equal lengths")
+        for a, bf, bb in zip(soc_A, soc_b_fixed, soc_b_bound):
+            q = a.shape[0]
+            if a.shape != (q, p1) or bf.shape != (q,) or bb.shape != (q,):
+                raise ValueError(
+                    f"each soc_A must be (q, robust_dim + 1) = (q, {p1}) and each soc_b (q,); "
+                    f"got {a.shape}, {bf.shape}, {bb.shape}"
+                )
+        lc = np.eye(p1)
+        for a in soc_A:
+            lc = lc + cons_rho * (a.T @ a)
+        l_inv_cons = np.linalg.inv(lc)
+    if gemm_precision == "bf16x3":
+        raise ValueError(
+            "gemm_precision='bf16x3' is not carried by the port: it exists because Mosaic "
+            "rejects Precision.HIGH on the TPU, and was measured insufficient at N = 100 "
+            "(19% solution drift through the ill-conditioned (l_inv Rr) operator); use 'f32'"
+        )
+    if gemm_precision != "f32":
+        raise ValueError(f"unknown gemm_precision {gemm_precision!r}; the port has only 'f32'")
+    _schedule(n_iters, stop_tol, check_every)
+
+    A, B, cost = host_f64(A, B, cost, dtype)
+    N, m = A.shape[0], B.shape[-1]
+    p = robust_dim
+    with full_f32_matmul():
+        PHI_unc, _ = lqt_solve_sls(A, B, cost)
+        Su = build_Su(A, B)
+        Sx = build_Sx(A, p).reshape(-1, p)
+        Rr_l = block_diag_stacked(broadcast_rho(rho_u, m, N, dtype).to(torch.float64))
+        SuTQ = Su.T @ block_diag_stacked(cost.Q)
+        l_inv = torch.linalg.inv(SuTQ @ Su + block_diag_stacked(cost.R) + Rr_l)
+        r_base = torch.cat([(SuTQ @ cost.lifted_xd())[:, None], -SuTQ @ Sx], dim=-1)
+        operators = dict(
+            PHI_unc=PHI_unc,
+            U_base=(l_inv @ r_base).T,  # (p1, Nm)
+            W=(l_inv @ Rr_l).T,  # (Nm, Nm); U += (Z - L) @ W
+        )
+    operators = {k: v.to(device=device, dtype=dtype).contiguous() for k, v in operators.items()}
+    return FusedSLSADMM(
+        operators, robust_dim, n_iters=n_iters, n_cons_iters=n_cons_iters, alpha=alpha,
+        cons_rho=cons_rho, stop_tol=float(stop_tol), check_every=int(check_every),
+        batch_tile=batch_tile, z_update=z_update, diamond_w=diamond_w, soc_A=soc_A,
+        soc_b_fixed=soc_b_fixed, soc_b_bound=soc_b_bound, l_inv_cons=l_inv_cons,
+    )

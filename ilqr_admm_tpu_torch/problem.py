@@ -68,6 +68,21 @@ class QuadCost(nn.Module):
         return self.xd.reshape(-1)
 
 
+def host_f64(A, B, cost: QuadCost, dtype: torch.dtype):
+    """(A, B, cost) rounded to `dtype`, then lifted exactly to f64 on the host.
+
+    The port's one-time setups run on these: they describe the problem
+    that the working dtype holds, at f64 accuracy (setup at reduced
+    precision converges to the optimum of a perturbed problem).
+    """
+    cpu, f64 = torch.device("cpu"), torch.float64
+
+    def data(t):
+        return torch.as_tensor(t).to(cpu, dtype).to(f64)
+
+    return data(A), data(B), QuadCost(data(cost.Q), data(cost.xd), data(cost.R))
+
+
 def broadcast_AB(A, B, N: int):
     """Accept (x,x)/(N,x,x) A and (x,u)/(N,x,u) B, return (N, ., .) tensors."""
     A = torch.as_tensor(A)

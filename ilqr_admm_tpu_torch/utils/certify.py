@@ -1,19 +1,28 @@
-"""Solution certificates of the box-constrained LQT-ADMM fleet.
+"""Solution certificates of the port's fleets.
 
-Counterpart of the certificate section of the repository's `bench.py`
-(`_oracle_cost_gap` and the gates after it): feasibility of the
-projected iterate, the fraction of instances at the reference primal
-tolerance, and the relative cost gap against a float64 L-BFGS-B oracle
-on a subsample. Built on the port's own `build_Su` and `sw_x0`.
+The box-constrained LQT-ADMM fleet: counterpart of the certificate
+section of the repository's `bench.py` (`_oracle_cost_gap` and the gates
+after it): feasibility of the projected iterate, the fraction of
+instances at the reference primal tolerance, and the relative cost gap
+against a float64 L-BFGS-B oracle on a subsample.
+
+The robust SLS fleet: counterpart of `benchmarks/_oracles.py`
+(`_project_diamond`, `sls_qp`) and the gates of
+`benchmarks/bench_pallas_sls.py`: the distance of each reported U to its
+exact f64 diamond projection, and the relative cost gap of that
+projection against a float64 trust-constr QP oracle on a subsample
+spread over the fleet.
+
+Built on the port's own `build_Su`, `build_Sx` and `sw_x0`; no jax.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-from scipy.optimize import minimize
+from scipy.optimize import LinearConstraint, minimize
 
-from ilqr_admm_tpu_torch.ops.lifted import build_Su, sw_x0
+from ilqr_admm_tpu_torch.ops.lifted import build_Su, build_Sx, sw_x0
 from ilqr_admm_tpu_torch.problem import QuadCost
 from ilqr_admm_tpu_torch.solvers.lqt import block_diag_stacked
 
@@ -106,4 +115,145 @@ def gate_failures(cert: dict) -> list[str]:
     for key in ("cost_gap_median", "cost_gap_max"):
         if not cert[key] <= MAX_COST_GAP:
             failures.append(f"{key} {cert[key]} > {MAX_COST_GAP}")
+    return failures
+
+
+# The gates of benchmarks/bench_pallas_sls.py:194-197: 99% of instances
+# within 5e-3 of their diamond projection, and an oracle cost gap of at
+# most 1e-4 (median) and 1e-3 (max) on 8 instances spread over the fleet.
+SLS_PRIMAL_TOL = 5e-3
+SLS_MAX_GAP_MEDIAN = 1e-4
+SLS_MAX_GAP_MAX = 1e-3
+SLS_N_ORACLE = 8
+
+
+def project_diamond(v, c: float, r):
+    """Exact projection of rows v = (a, b) onto {|a| + c |b| <= r}, in f64.
+
+    v: (..., 2); r: the radius of each row, broadcastable to v's leading
+    axes. Soft-thresholds v_i(l) = sign(v_i) max(|v_i| - l w_i, 0) with
+    w = (1, c); the radius sum_i w_i |v_i(l)| is piecewise linear and
+    decreasing in l, solved by 64 bisection steps.
+    """
+    v = np.asarray(v, np.float64)
+    rows = v.reshape(-1, 2)
+    r = np.broadcast_to(np.asarray(r, np.float64)[..., None], v.shape[:-1] + (1,)).reshape(-1)
+    w = np.asarray([1.0, c])
+    a = np.abs(rows)
+    need = a @ w > r
+    out = rows.copy()
+    if np.any(need):
+        av = a[need]
+        lo = np.zeros(av.shape[0])
+        hi = np.max(av / w, axis=1)
+        for _ in range(64):
+            mid = 0.5 * (lo + hi)
+            too_big = np.maximum(av - mid[:, None] * w, 0.0) @ w > r[need]
+            lo = np.where(too_big, mid, lo)
+            hi = np.where(too_big, hi, mid)
+        lam = 0.5 * (lo + hi)
+        out[need] = np.sign(rows[need]) * np.maximum(av - lam[:, None] * w, 0.0)
+    return out.reshape(v.shape)
+
+
+def sls_primal_residuals(U, bounds, c: float) -> np.ndarray:
+    """||U_i - P_diamond(U_i)|| of each instance; U (batch, Nm, 2), bounds (batch,)."""
+    U = _f64(U).numpy()
+    return np.linalg.norm((U - project_diamond(U, c, _f64(bounds).numpy()[:, None]))
+                          .reshape(U.shape[0], -1), axis=-1)
+
+
+def sls_qp(A, B, cost: QuadCost, bounds, U, c: float) -> dict:
+    """The exact convex oracle of the robust SLS fleet, per instance.
+
+    Minimizes J(du, phi) = (Su du - xd)' Q (Su du - xd) + du' R du
+    + (Su phi + Sx)' Q (Su phi + Sx) + phi' R phi subject to
+    |du_r| + c |phi_r| <= bound on every row, written as 4 linear
+    constraints a row, with scipy trust-constr from the exact diamond
+    projection z of the reported U (bounds (B,), U (B, Nm, 2)). Returns
+    j_z = J(z), j_star = min(J at the oracle's optimum, j_z) and
+    prim = ||U - z||.
+    """
+    A, B = _f64(A), _f64(B)
+    Su = build_Su(A, B).numpy()
+    Sx = build_Sx(A, 1).reshape(-1, 1)[:, 0].numpy()
+    Ql = block_diag_stacked(_f64(cost.Q)).numpy()
+    Rl = block_diag_stacked(_f64(cost.R)).numpy()
+    xd = _f64(cost.lifted_xd()).numpy()
+    bounds, U = _f64(bounds).numpy(), _f64(U).numpy()
+    Nm = Su.shape[1]
+
+    H = Su.T @ Ql @ Su + Rl  # shared curvature of both columns
+    g_du = -Su.T @ (Ql @ xd)
+    g_phi = Su.T @ (Ql @ Sx)
+    const_du = xd @ Ql @ xd
+    const_phi = Sx @ Ql @ Sx
+    eye = np.eye(Nm)
+    A_con = np.concatenate(
+        [np.concatenate([sa * eye, sb * c * eye], axis=1)
+         for sa, sb in ((1, 1), (1, -1), (-1, 1), (-1, -1))]
+    )
+    Hfull = np.zeros((2 * Nm, 2 * Nm))
+    Hfull[:Nm, :Nm] = H
+    Hfull[Nm:, Nm:] = H
+    gfull = np.concatenate([g_du, g_phi])
+
+    def j_of(du, phi):
+        return (du @ H @ du + 2 * g_du @ du + const_du
+                + phi @ H @ phi + 2 * g_phi @ phi + const_phi)
+
+    def f(v):
+        return v @ Hfull @ v + 2 * gfull @ v + const_du + const_phi
+
+    def jac(v):
+        return 2 * (Hfull @ v + gfull)
+
+    j_z, j_star, prim = (np.zeros(len(bounds)) for _ in range(3))
+    for i, r in enumerate(bounds):
+        z = project_diamond(U[i], c, r)  # exact feasible iterate
+        prim[i] = np.linalg.norm(U[i] - z)
+        j_z[i] = j_of(z[:, 0], z[:, 1])
+        res = minimize(
+            f, z.T.reshape(-1),  # [du; phi], a feasible start
+            jac=jac, method="trust-constr", hess=lambda v: 2 * Hfull,
+            constraints=[LinearConstraint(A_con, -np.inf, float(r))],
+            options={"gtol": 1e-12, "xtol": 1e-14, "maxiter": 3000},
+        )
+        j_star[i] = min(res.fun, j_z[i])
+    return {"j_z": j_z, "j_star": j_star, "prim": prim}
+
+
+def oracle_indices(batch: int, n: int = SLS_N_ORACLE) -> np.ndarray:
+    """n instances spread evenly over the fleet (both ends of a sorted one)."""
+    return np.linspace(0, batch - 1, n).astype(int)
+
+
+def certify_sls(A, B, cost: QuadCost, bounds, U, c: float, n_oracle: int = SLS_N_ORACLE) -> dict:
+    """All certificates of one robust SLS fleet solve (U (batch, Nm, 2)).
+
+    converged_frac and prim_max cover every instance; the oracle sees
+    `oracle_indices(batch, n_oracle)`.
+    """
+    prim = sls_primal_residuals(U, bounds, c)
+    idx = oracle_indices(len(prim), n_oracle)
+    orc = sls_qp(A, B, cost, _f64(bounds)[idx], _f64(U)[idx], c)
+    gaps = (orc["j_z"] - orc["j_star"]) / np.maximum(np.abs(orc["j_star"]), 1e-12)
+    return {
+        "converged_frac": float(np.mean(prim < SLS_PRIMAL_TOL)),
+        "prim_max": float(prim.max()),
+        "cost_gap_median": float(np.median(gaps)),
+        "cost_gap_max": float(np.max(gaps)),
+        "oracle_indices": idx.tolist(),
+    }
+
+
+def sls_gate_failures(cert: dict) -> list[str]:
+    """The SLS bench gates a certificate misses; empty when it passes."""
+    failures = []
+    if not cert["converged_frac"] >= MIN_CONVERGED_FRAC:
+        failures.append(f"converged_frac {cert['converged_frac']} < {MIN_CONVERGED_FRAC}")
+    if not cert["cost_gap_median"] <= SLS_MAX_GAP_MEDIAN:
+        failures.append(f"cost_gap_median {cert['cost_gap_median']} > {SLS_MAX_GAP_MEDIAN}")
+    if not cert["cost_gap_max"] <= SLS_MAX_GAP_MAX:
+        failures.append(f"cost_gap_max {cert['cost_gap_max']} > {SLS_MAX_GAP_MAX}")
     return failures
