@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's two paths on the card:
+Drives the port's three paths on the card:
 
 - the box-constrained LQT-ADMM fleet of the repository's bench (16,384
   double-integrator instances, N = 100, |u| <= 5, rho_u = 0.1, 100
   iterations) through `make_fused_lqt_admm`;
+- the same fleet with a velocity box |v| <= 1.3 (position free), rho_x =
+  10, 200 iterations, through `make_fused_lqt_admm(..., x_lower, x_upper)`,
+  whose loop is the `admm_box` kernel;
 - the robust SLS-ADMM scenario fleet of `benchmarks/bench_pallas_sls.py`
   (1,024 chance-constrained syntheses, N = 100, robust_dim 1, bounds
   U(2, 4), rho_u = 1.0, 200 iterations) through `make_fused_sls_admm`
@@ -18,13 +21,15 @@ Phases:
 2. build: compile the CUDA kernel library from the sources in the tree;
 3. for each path: kernel vs plain, the kernel against its plain torch
    version on the same card inputs (the LQT fleet's `admm_u_only` in
-   three modes and at an odd width; `sls_admm` in the diamond, early-exit
-   and consensus modes and at an odd width);
+   three modes and at an odd width; `admm_box` at the full width, with a
+   state box only, and at an odd width; `sls_admm` in the diamond,
+   early-exit and consensus modes and at an odd width);
 4. for each path: main path, one fleet solve with every launch counter
    set to 0 just before it and read just after, checked against the
-   bench certificates (`utils/certify.py`);
+   certificates (`utils/certify.py`);
 5. for each path: time, the kernel and the plain version with CUDA
-   events.
+   events (for the state-bounded path also the whole forward and the
+   plain fleet `make_batched_lqt_admm`).
 
 Any failure exits non-zero before the last line. The last line is
 {"ok": true, "device": {...}}; the line before it lists each kernel.
@@ -47,16 +52,21 @@ from ilqr_admm_tpu_torch import _build
 from ilqr_admm_tpu_torch.models.double_integrator import DoubleIntegrator
 from ilqr_admm_tpu_torch.ops import fused_admm, fused_sls
 from ilqr_admm_tpu_torch.ops.fused_admm import (
+    admm_box,
+    admm_box_reference,
     admm_u_only,
     admm_u_only_reference,
     make_fused_lqt_admm,
 )
 from ilqr_admm_tpu_torch.ops.fused_sls import make_fused_sls_admm, sls_admm, sls_admm_reference
+from ilqr_admm_tpu_torch.solvers.batched import make_batched_lqt_admm
 from ilqr_admm_tpu_torch.utils.certify import (
     certify,
     certify_sls,
+    certify_state_box,
     gate_failures,
     sls_gate_failures,
+    state_box_gate_failures,
 )
 from ilqr_admm_tpu_torch.utils.cost_assembly import viapoint_cost
 
@@ -75,6 +85,13 @@ MODES = {
 }
 TIMING_WINDOWS = 7
 CALLS_PER_WINDOW = 10
+
+# The state-bounded fleet: the bench problem with a velocity box
+BOX_ITERS = 200
+RHO_X = 10.0
+V_MAX = 1.3
+BOX_TILE = 32
+BOX_TOL = 1e-4  # times max(1, max|u_hat|, max|x_hat|)
 
 # The robust SLS fleet of benchmarks/bench_pallas_sls.py:41-160
 SLS_BATCH = 1024
@@ -156,8 +173,27 @@ def sls_solver(device, mode: str, horizon: int = N, **overrides):
     return (A, B, cost), make_fused_sls_admm(A, B, cost, *sets, **kw)
 
 
+def velocity_box(horizon: int = N, v_max=V_MAX):
+    """(x_lower, x_upper) as (N*d,) vectors: position free, |v| <= v_max
+    (a scalar or one limit a step)."""
+    v = np.broadcast_to(np.asarray(v_max, np.float64), (horizon,))
+    inf = np.full(horizon, np.inf)
+    return np.stack([-inf, -v], 1).reshape(-1), np.stack([inf, v], 1).reshape(-1)
+
+
+def box_solver(device, horizon: int = N, **overrides):
+    """`make_fused_lqt_admm` with the velocity box (the state-bounded main path)."""
+    A, B, cost, _ = bench_problem(device, horizon=horizon, batch=1)
+    x_lower, x_upper = velocity_box(horizon)
+    kw = dict(u_lower=-U_MAX, u_upper=U_MAX, x_lower=x_lower, x_upper=x_upper, rho_x=RHO_X,
+              rho_u=RHO_U, n_iters=BOX_ITERS, batch_tile=BOX_TILE, device=device)
+    kw.update(overrides)
+    return (A, B, cost), make_fused_lqt_admm(A, B, cost, **kw)
+
+
 def reset_launch_counts():
     fused_admm.launch_count = 0
+    fused_admm.box_launch_count = 0
     fused_sls.launch_count = 0
 
 
@@ -283,6 +319,136 @@ def phase_time(solver, u_base, x_base, card):
     return result
 
 
+def box_cases(device):
+    """(label, solver, kernel inputs) of the three kernel-vs-plain cases."""
+    _, full = box_solver(device)
+    x0s = bench_problem(device)[3]
+    # state box only (the u block is off): rho_u is dropped with the bounds
+    _, x_only = box_solver(device, u_lower=None, u_upper=None, rho_u=None)
+    # Nm = 98 is not a multiple of the kernel's 4-column thread tile; over-
+    # relaxation (1.3: at 1.6 the JAX package's relaxed step, whose dual
+    # update takes the unrelaxed x_hat, diverges on every state box), a
+    # velocity limit that varies along the horizon, control bounds that
+    # vary too, and a small tile
+    A, B, cost, x0_odd = bench_problem(device, horizon=98, batch=64, seed=1)
+    x_lower, x_upper = velocity_box(98, 1.2 + 0.3 * np.cos(np.linspace(0.0, 3.0, 98)))
+    odd = make_fused_lqt_admm(
+        A, B, cost, u_lower=np.full(98, -4.0), u_upper=np.linspace(3.0, 5.0, 98),
+        x_lower=x_lower, x_upper=x_upper, rho_x=RHO_X, rho_u=RHO_U, n_iters=BOX_ITERS,
+        alpha=1.3, batch_tile=8, device=device,
+    )
+    return [
+        (f"full width (batch {BATCH}, tile {BOX_TILE})", full, full.kernel_inputs(x0s)),
+        ("state box only, |v| <= 1.3 (batch 1024)", x_only, x_only.kernel_inputs(x0s[:1024])),
+        ("Nm=98, alpha=1.3, vector bounds (batch 64, tile 8)", odd, odd.kernel_inputs(x0_odd)),
+    ]
+
+
+def phase_box_compare(device):
+    """`admm_box` against `admm_box_reference` on the same card inputs."""
+    worst = 0.0
+    for label, solver, inputs in box_cases(device):
+        kw = solver.kernel_options
+        got = admm_box(*inputs, solver.packed, **kw)
+        torch.cuda.synchronize()
+        want = admm_box_reference(*inputs, **kw)
+        torch.cuda.synchronize()
+        scale = max(1.0, float(want[0].abs().max()), float(want[1].abs().max()))
+        errs = {}
+        for name, g, w in zip(("x", "u", "z_x", "z_u"), got, want):
+            check(bool(torch.isfinite(g).all()), f"box {label}: kernel {name} has non-finite values")
+            errs[name] = float((g - w).abs().max())
+        err = max(errs.values())
+        worst = max(worst, err)
+        print(f"[box kernel vs plain] {label}: " + ", ".join(
+            f"max|d{k}| {v:.3e}" for k, v in errs.items()) + f" (tolerance {BOX_TOL * scale:.3g})")
+        check(err <= BOX_TOL * scale, f"box {label}: kernel disagrees with plain version")
+    return worst
+
+
+def phase_box_main_path(device):
+    """The state-bounded fleet at full width, through the kernel only, certified."""
+    (A, B, cost), solver = box_solver(device)
+    x0s = bench_problem(device)[3]
+
+    def plain_must_not_run(*args, **kwargs):
+        raise SmokeFailure("the state-bounded main path ran admm_box_reference")
+
+    reset_launch_counts()
+    fused_admm.admm_box_reference = plain_must_not_run
+    try:
+        x, u, z_x, z_u = solver(x0s)
+        torch.cuda.synchronize()
+    finally:
+        fused_admm.admm_box_reference = admm_box_reference
+    launches = fused_admm.box_launch_count
+    print(f"[box main path] admm_box kernel launches: {launches}; admm_u_only: "
+          f"{fused_admm.launch_count}")
+    check(launches == 1, f"the state-bounded main path launched admm_box {launches} times, not 1")
+    check(fused_admm.launch_count == 0, "the state-bounded main path launched admm_u_only")
+    check(tuple(x.shape) == tuple(z_x.shape) == (BATCH, 2 * N)
+          and tuple(u.shape) == tuple(z_u.shape) == (BATCH, N), "unexpected output shapes")
+    for name, t in (("x", x), ("u", u), ("z_x", z_x), ("z_u", z_u)):
+        check(bool(torch.isfinite(t).all()), f"box main path output {name} has non-finite values")
+    x_lower, x_upper = velocity_box()
+    t0 = time.perf_counter()
+    cert = certify_state_box(A, B, cost, x0s, x, u, z_x, z_u, -U_MAX, U_MAX, x_lower, x_upper)
+    print(f"[box main path] certificates ({time.perf_counter() - t0:.1f} s): max_violation "
+          f"z_x {cert['max_violation_x']}, z_u {cert['max_violation_u']}; converged_frac "
+          f"{cert['converged_frac']} (max ||x - z_x|| {cert['prim_x_max']:.3e}, ||u - z_u|| "
+          f"{cert['prim_u_max']:.3e}); oracle |cost gap| median {cert['cost_gap_median']:.3e} "
+          f"max {cert['cost_gap_max']:.3e}, state excursion of free + Su z_u "
+          f"{cert['state_violation_max']:.3e}, on instances {cert['oracle_indices']} "
+          f"(oracle failures: {len(cert['oracle_failures'])})")
+    failures = state_box_gate_failures(cert)
+    check(not failures, "; ".join(failures))
+    return launches, cert
+
+
+def phase_box_time(device, card):
+    """The kernel, the whole forward, the plain version and the plain
+    fleet, per solve; windows alternate."""
+    (A, B, cost), solver = box_solver(device)
+    x0s = bench_problem(device)[3]
+    inputs = solver.kernel_inputs(x0s)
+    kw = solver.kernel_options
+    xb, ub = solver.xb, solver.ub
+    fleet = make_batched_lqt_admm(
+        A, B, cost, project_x=lambda x: torch.minimum(torch.maximum(x, xb[0]), xb[1]),
+        project_u=lambda u: torch.minimum(torch.maximum(u, ub[0]), ub[1]),
+        rho_x=RHO_X, rho_u=RHO_U, n_iters=BOX_ITERS, device=device, dtype=torch.float32,
+    )
+    fleet_u = make_batched_lqt_admm(
+        A, B, cost, project_u=lambda u: torch.clamp(u, -U_MAX, U_MAX), rho_u=RHO_U,
+        n_iters=ADMM_ITERS, device=device, dtype=torch.float32,
+    )
+    paths = {
+        "kernel": (lambda: admm_box(*inputs, solver.packed, **kw), TIMING_WINDOWS,
+                   CALLS_PER_WINDOW),
+        "forward": (lambda: solver(x0s), TIMING_WINDOWS, CALLS_PER_WINDOW),
+        "plain": (lambda: admm_box_reference(*inputs, **kw), 5, 2),
+        "plain fleet": (lambda: fleet(x0s), 5, 2),
+        "plain fleet, u-only bench": (lambda: fleet_u(x0s), 5, 2),
+    }
+    for fn, _, _ in paths.values():  # warm up
+        fn()
+    torch.cuda.synchronize()
+    ms = {name: [] for name in paths}
+    for w in range(TIMING_WINDOWS):
+        for name, (fn, windows, calls) in paths.items():
+            if w < windows:
+                ms[name].append(_event_ms(fn, calls))
+    result = {}
+    for name, samples in ms.items():
+        med, q1, q3 = _median_iqr(samples)
+        result[name] = med
+        iters = ADMM_ITERS if name.endswith("u-only bench") else BOX_ITERS
+        print(f"[box time] {name}: {med:.4f} ms per solve (IQR {q1:.4f}-{q3:.4f}, "
+              f"{len(samples)} windows) = {BATCH * iters / (med * 1e-3):.4g} ADMM iterations/s "
+              f"at B={BATCH}, {iters} iterations; card: {card}")
+    return result
+
+
 def phase_sls_compare(device):
     """`sls_admm` against `sls_admm_reference` on the same card inputs."""
     cases = [(f"{mode} (batch {SLS_BATCH}, tile {SLS_TILE}"
@@ -404,6 +570,9 @@ def main() -> int:
         max_err = phase_compare(cases)
         launches, _ = phase_main_path(solver, A, B, cost, x0s)
         times = phase_time(solver, u_base, x_base, card)
+        box_max_err = phase_box_compare("cuda")
+        box_launches, _ = phase_box_main_path("cuda")
+        box_times = phase_box_time("cuda", card)
         sls_max_err = phase_sls_compare("cuda")
         sls_launches, _ = phase_sls_main_path("cuda")
         sls_times = phase_sls_time("cuda", card)
@@ -428,6 +597,15 @@ def main() -> int:
         "max_abs_err": sls_max_err,
         "ms": sls_times[("diamond_ee", SLS_BATCH, "kernel")],
         "plain_ms": sls_times[("diamond_ee", SLS_BATCH, "plain")],
+    }, {
+        "name": "admm_box",
+        "route": "cuda",
+        "source": "ilqr_admm_tpu_torch/csrc/admm_box.cu",
+        "replaces": "ilqr_admm_tpu/ops/pallas_admm.py:229",
+        "launches": box_launches,
+        "max_abs_err": box_max_err,
+        "ms": box_times["kernel"],
+        "plain_ms": box_times["plain"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,17 +13,20 @@ import torch
 from ilqr_admm_tpu_torch.problem import QuadCost
 
 
-def _tensor(a, device, dtype) -> torch.Tensor:
+def array_from_numpy(a, *, device, dtype) -> torch.Tensor:
+    """A tensor copy of one array of problem data: a penalty rho_x
+    (N, x, x), a bound vector (N*x,) or initial states (batch, x)."""
     return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
 
 def quadcost_from_numpy(Q, xd, R, *, device, dtype) -> QuadCost:
     """QuadCost from stacked Q (N, x, x), xd (N, x) and R (N, u, u)."""
-    return QuadCost(
-        Q=_tensor(Q, device, dtype), xd=_tensor(xd, device, dtype), R=_tensor(R, device, dtype)
-    )
+    kw = dict(device=device, dtype=dtype)
+    return QuadCost(Q=array_from_numpy(Q, **kw), xd=array_from_numpy(xd, **kw),
+                    R=array_from_numpy(R, **kw))
 
 
 def dynamics_from_numpy(A, B, *, device, dtype):
     """(A (N, x, x), B (N, x, u)) tensors from the stacked dynamics."""
-    return _tensor(A, device, dtype), _tensor(B, device, dtype)
+    kw = dict(device=device, dtype=dtype)
+    return array_from_numpy(A, **kw), array_from_numpy(B, **kw)

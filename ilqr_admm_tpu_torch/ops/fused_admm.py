@@ -1,21 +1,25 @@
 """Fused box-constrained LQT-ADMM fleet on the card.
 
 Counterpart of `ilqr_admm_tpu/ops/pallas_admm.py` (`make_pallas_lqt_admm`
-and its kernel `_admm_kernel_u_only`). The one-time operator setup runs
-in float64 on the host and is cast to the working dtype; the per-solve
-pre-kernel products are plain torch matmuls in full f32; the ADMM loop
-itself is one hand-written CUDA kernel (`csrc/admm_u_only.cu`), launched
-by `admm_u_only`. On CPU tensors `admm_u_only` runs its plain torch
-version `admm_u_only_reference` instead.
+and its kernels `_admm_kernel_u_only` and `_admm_kernel`). The one-time
+operator setup runs in float64 on the host and is cast to the working
+dtype; the per-solve pre-kernel products are plain torch matmuls in full
+f32; the ADMM loop itself is one hand-written CUDA kernel:
 
-Only the control-bounds (u-only) path is ported. State bounds need the
-general kernel `_admm_kernel`, which is still to be ported.
+- control bounds only: `csrc/admm_u_only.cu`, launched by `admm_u_only`;
+- state bounds, with or without control bounds: `csrc/admm_box.cu`,
+  launched by `admm_box`.
 
-Unlike the TPU kernel, every product is plain f32 (no bf16 splits), so
-`refresh_every` and `polish_iters` change only the iteration count: the
-main phase runs ceil(n_main / refresh_every) * refresh_every iterations
-and the tail min(polish_iters, n_iters) more, with
-n_main = max(n_iters - polish_iters, 0).
+On CPU tensors each wrapper runs its plain torch version
+(`admm_u_only_reference`, `admm_box_reference`) instead.
+
+Unlike the TPU kernels, every product is plain f32 (no bf16 splits), so
+on the u-only path `refresh_every` and `polish_iters` change only the
+iteration count: the main phase runs ceil(n_main / refresh_every) *
+refresh_every iterations and the tail min(polish_iters, n_iters) more,
+with n_main = max(n_iters - polish_iters, 0). The state-bounded path
+ignores `refresh_every`, `polish_iters`, `stop_tol` and `check_every`,
+as the JAX factory does.
 """
 
 from __future__ import annotations
@@ -222,6 +226,224 @@ def admm_u_only(
     return x, u, z_u
 
 
+# ---- the state-bounded path: csrc/admm_box.cu -----------------------------
+
+# Number of times `admm_box` has launched its CUDA kernel in this process.
+box_launch_count = 0
+
+
+def profile_pack(W: torch.Tensor):
+    """Row-profile storage of a (K, C) operator for `csrc/admm_box.cu`.
+
+    Row k keeps the columns [start[k], stop[k]) of W zero-padded to a
+    multiple of 4 columns; start and stop are multiples of 4,
+    nondecreasing in k, and every entry of a row outside its range is
+    zero. Element (k, j) of the kept range is packed[base[k] + j]. So a
+    thread that owns columns j0..j0+3 (j0 a multiple of 4) reads exactly
+    the rows with start <= j0 < stop, which are contiguous. Su is
+    strictly block lower-triangular, so Su^T's profile holds about half
+    of its entries; a dense W packs whole. Returns (packed, base, start,
+    stop), the last three int32.
+    """
+    K, C = W.shape
+    Cp = -(-C // 4) * 4
+    Wp = torch.nn.functional.pad(W, (0, Cp - C))
+    nz = Wp != 0
+    cols = torch.arange(Cp, device=W.device)
+    first = torch.where(nz, cols, Cp).amin(dim=1)  # Cp for an empty row
+    last = torch.where(nz, cols, -1).amax(dim=1)  # -1 for an empty row
+    start = torch.flip(torch.cummin(torch.flip(first // 4 * 4, (0,)), 0).values, (0,))
+    stop = torch.cummax((last + 4) // 4 * 4, 0).values
+    length = torch.clamp(stop - start, min=0)
+    packed = Wp[(cols >= start[:, None]) & (cols < stop[:, None])]
+    base = torch.cumsum(length, 0) - length - start
+    return packed, base.int(), start.int(), stop.int()
+
+
+def pack_box_operators(W_s, SuT):
+    """(ops_f, ops_i): W_s and Su^T in `profile_pack` storage, in the
+    kernel's order; ops_f is the two packed operators end to end, ops_i
+    their row tables base (offset into ops_f), start and stop."""
+    packs = [profile_pack(W) for W in (W_s, SuT)]
+    offset, bases = 0, []
+    for packed, base, _, _ in packs:
+        bases.append(base + offset)
+        offset += packed.numel()
+    ops_f = torch.cat([p[0] for p in packs])
+    ops_i = torch.cat(bases + [p[2] for p in packs] + [p[3] for p in packs])
+    return ops_f, ops_i
+
+
+def box_launch_geometry(batch_tile: int, Nm: int, Nd: int, operator_words: int) -> tuple[int, int]:
+    """(threads, dynamic shared-memory bytes) of one `admm_box` block.
+
+    As in csrc/admm_box.cu, a thread owns a 4 x 4 (instances x columns)
+    tile and each control tile is split over two threads; the block stages
+    the packed operators (operator_words floats, the sum of
+    `profile_pack`'s lengths), their row tables, the tile buffers (s,
+    u_hat and a partial sum) and the bounds in shared memory. Raises
+    ValueError when the tile cannot be launched: batch_tile must be a
+    multiple of 4, the block must fit in 512 threads, and all of that in
+    shared memory.
+    """
+    if batch_tile < _ROWS or batch_tile % _ROWS:
+        raise ValueError(f"batch_tile={batch_tile} must be a positive multiple of {_ROWS}")
+    per_row_group = max(2 * -(-Nm // _COLS), -(-Nd // _COLS))
+    threads = (batch_tile // _ROWS) * per_row_group
+    if threads > _MAX_THREADS:
+        raise ValueError(
+            f"batch_tile={batch_tile} at Nm={Nm}, Nd={Nd} needs {threads} threads per block; "
+            f"the kernel takes at most {_MAX_THREADS}, so batch_tile <= "
+            f"{_ROWS * (_MAX_THREADS // per_row_group)}"
+        )
+    table_words = -(-(Nd + 2 * Nm) // 4) * 4
+    smem = 4 * (operator_words + table_words + (Nd + 3 * Nm) * batch_tile + 2 * (Nd + Nm))
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"Nm={Nm}, Nd={Nd} with batch_tile={batch_tile} needs {smem} bytes of shared memory "
+            f"({4 * operator_words} of them packed operators); the limit is {_MAX_SMEM} bytes"
+        )
+    return threads, smem
+
+
+def _check_box_inputs(free, u_base, u0, W_s, SuT, xb, ub, n_iters, batch_tile):
+    named = dict(free=free, u_base=u_base, u0=u0, W_s=W_s, SuT=SuT, xb=xb, ub=ub)
+    for name, t in named.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if t.device != free.device:
+            raise ValueError(f"{name} is on {t.device} but free is on {free.device}")
+        if t.dtype != free.dtype:
+            raise TypeError(f"{name} is {t.dtype} but free is {free.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if free.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"admm_box takes float32 (or float64 on CPU), got {free.dtype}")
+    if free.ndim != 2 or u_base.ndim != 2:
+        raise ValueError("free and u_base must be (batch, Nd) and (batch, Nm)")
+    (batch, Nd), Nm = free.shape, u_base.shape[1]
+    expected = dict(u_base=(batch, Nm), u0=(batch, Nm), W_s=(Nd + Nm, Nm), SuT=(Nm, Nd),
+                    xb=(2, Nd), ub=(2, Nm))
+    for name, shape in expected.items():
+        if tuple(named[name].shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(named[name].shape)}, expected {shape}")
+    if batch_tile < 1 or batch % batch_tile:
+        raise ValueError(f"batch {batch} must be a multiple of batch_tile {batch_tile}")
+    if n_iters < 0:
+        raise ValueError("n_iters must be >= 0")
+
+
+def _box_update(v_hat, z, lam, bounds, alpha):
+    """Over-relaxed clip and scaled dual update of one block."""
+    z_rel = v_hat if alpha == 1.0 else alpha * v_hat + (1.0 - alpha) * z
+    z_new = torch.minimum(torch.maximum(z_rel + lam, bounds[0]), bounds[1])
+    return z_new, lam + v_hat - z_new
+
+
+def admm_box_reference(
+    free, u_base, u0, W_s, SuT, xb, ub, *, n_iters, alpha=1.0, has_u=True, batch_tile=32,
+):
+    """Plain torch version of the kernel, in f32 or f64, on any device.
+
+    From (z_x, z_u, l_x, l_u) = (free + u0 Su^T, u0, 0, 0), each iteration
+    is
+        u_hat = u_base + [z_x - l_x, z_u - l_u] W_s
+        x_hat = free + u_hat Su^T
+    then the clip and dual update of the x block and, with has_u, of the
+    u block. This is `_admm_kernel`'s iteration with l_inv folded into
+    the operators: u_base = r_base l_inv^T and W_s = [(l_inv Su^T Qr)^T;
+    (l_inv Rr)^T], whose last Nm rows are zero without control bounds.
+    Returns (x_hat, u_hat, z_x, z_u) of the last iteration ((z_x, z_u)
+    after none). batch_tile does not change the result.
+    """
+    with full_f32_matmul():
+        z_u = u0
+        z_x = free + u0 @ SuT
+        l_x, l_u = torch.zeros_like(z_x), torch.zeros_like(z_u)
+        x, u = z_x, z_u
+        for _ in range(n_iters):
+            u = u_base + torch.cat([z_x - l_x, z_u - l_u], dim=1) @ W_s
+            x = free + u @ SuT
+            z_x, l_x = _box_update(x, z_x, l_x, xb, alpha)
+            if has_u:
+                z_u, l_u = _box_update(u, z_u, l_u, ub, alpha)
+    return x, u, z_x, z_u
+
+
+def _check_packed(packed, free, Nm, Nd):
+    if not (isinstance(packed, tuple) and len(packed) == 2
+            and all(isinstance(t, torch.Tensor) for t in packed)):
+        raise TypeError("packed must be the pair (ops_f, ops_i) of pack_box_operators(W_s, SuT)")
+    ops_f, ops_i = packed
+    if ops_f.device != free.device or ops_i.device != free.device:
+        raise ValueError(f"packed is on {ops_f.device}/{ops_i.device} but free is on {free.device}")
+    if ops_f.dtype != free.dtype or ops_i.dtype != torch.int32:
+        raise TypeError(f"packed must be ({free.dtype}, torch.int32), got "
+                        f"({ops_f.dtype}, {ops_i.dtype})")
+    if ops_f.ndim != 1 or ops_f.numel() % 4 or tuple(ops_i.shape) != (3 * (Nd + 2 * Nm),):
+        raise ValueError("packed does not have the shapes of pack_box_operators(W_s, SuT) at "
+                         f"Nm={Nm}, Nd={Nd}")
+    if not (ops_f.is_contiguous() and ops_i.is_contiguous()):
+        raise ValueError("packed must be contiguous")
+
+
+def admm_box(
+    free, u_base, u0, W_s, SuT, xb, ub, packed, *, n_iters, alpha=1.0, has_u=True,
+    batch_tile=32,
+):
+    """Run the state-and-control box ADMM loop on a fleet; returns
+    (x_hat, u_hat, z_x, z_u).
+
+    free (B, Nd): free responses; u_base (B, Nm): r_base l_inv^T; u0
+    (B, Nm): the warm start; W_s (Nd + Nm, Nm): the response of u_hat to
+    [z_x - l_x, z_u - l_u]; SuT (Nm, Nd); xb (2, Nd) and ub (2, Nm):
+    [lower; upper] bounds, +-inf where free; packed: (ops_f, ops_i) =
+    `pack_box_operators(W_s, SuT)`, the same two operators in the
+    kernel's storage (the solver packs them once, at setup). B must be a
+    multiple of batch_tile. See `admm_box_reference` for the iteration.
+
+    CUDA tensors (float32) go to the kernel in `csrc/admm_box.cu`, which
+    reads only the packed operators; CPU tensors go to
+    `admm_box_reference`, which reads only the dense ones. Any other
+    device raises.
+    """
+    global box_launch_count
+    _check_box_inputs(free, u_base, u0, W_s, SuT, xb, ub, n_iters, batch_tile)
+    batch, Nd = free.shape
+    Nm = u_base.shape[1]
+    _check_packed(packed, free, Nm, Nd)
+    kw = dict(n_iters=n_iters, alpha=alpha, has_u=has_u, batch_tile=batch_tile)
+    device = free.device
+    if device.type == "cpu":
+        return admm_box_reference(free, u_base, u0, W_s, SuT, xb, ub, **kw)
+    if device.type != "cuda":
+        raise ValueError(f"admm_box runs on CPU or CUDA tensors, got {device}")
+    if free.dtype != torch.float32:
+        raise TypeError(f"the CUDA kernel takes float32, got {free.dtype}")
+    ops_f, ops_i = packed
+    box_launch_geometry(batch_tile, Nm, Nd, ops_f.numel())
+
+    from ilqr_admm_tpu_torch._build import load_library
+
+    lib = load_library()
+    x, z_x = torch.empty_like(free), torch.empty_like(free)
+    u, z_u = torch.empty_like(u0), torch.empty_like(u0)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.admm_box_launch(
+            free.data_ptr(), u_base.data_ptr(), u0.data_ptr(), ops_f.data_ptr(), ops_f.numel(),
+            ops_i.data_ptr(), xb.data_ptr(), ub.data_ptr(),
+            x.data_ptr(), u.data_ptr(), z_x.data_ptr(), z_u.data_ptr(),
+            batch, Nm, Nd, batch_tile, n_iters, int(has_u),
+            float(alpha), float(1.0 - alpha), stream,
+        )
+    if err != 0:
+        msg = lib.admm_box_error_string(err).decode()
+        raise RuntimeError(f"admm_box kernel launch failed: {msg} (cudaError {err})")
+    box_launch_count += 1
+    return x, u, z_x, z_u
+
+
 class FusedLQTADMM(nn.Module):
     """Batched solver for one box-constrained LQT problem.
 
@@ -255,6 +477,40 @@ class FusedLQTADMM(nn.Module):
         return x, u, x, z_u
 
 
+class FusedBoxLQTADMM(FusedLQTADMM):
+    """The state-bounded solver: `forward(x0s)` returns (x, u, z_x, z_u)
+    like the JAX `solve`, through `admm_box`."""
+
+    def bases(self, x0s):
+        """(free, r_base, u0): the JAX general path's per-solve products."""
+        x0s = torch.as_tensor(x0s).to(self.l_invT.device, self.l_invT.dtype)
+        if x0s.shape[0] % self.kernel_options["batch_tile"]:
+            raise ValueError("batch must be a multiple of batch_tile")
+        with full_f32_matmul():
+            free = x0s @ self.Sx.T
+            r0 = self.r_const[None] - free @ self.SuTQ.T
+            r_base = r0 - free @ self.SuTQrT
+            # warm start through the regularized inverse, as the TPU path does
+            u0 = r0 @ self.l_invT
+        return free, r_base, u0
+
+    @property
+    def packed(self):
+        """(ops_f, ops_i): W_s and Su^T in the kernel's storage."""
+        return self.ops_f, self.ops_i
+
+    def kernel_inputs(self, x0s):
+        """`admm_box_reference`'s positional arguments for a batch of
+        initial states (`admm_box` takes `packed` after them)."""
+        free, r_base, u0 = self.bases(x0s)
+        with full_f32_matmul():
+            u_base = r_base @ self.l_invT
+        return free, u_base, u0, self.W_s, self.SuT, self.xb, self.ub
+
+    def forward(self, x0s):
+        return admm_box(*self.kernel_inputs(x0s), self.packed, **self.kernel_options)
+
+
 def make_fused_lqt_admm(
     A,
     B,
@@ -267,7 +523,7 @@ def make_fused_lqt_admm(
     rho_u=None,
     n_iters: int = 100,
     alpha: float = 1.0,
-    batch_tile: int = 64,
+    batch_tile: int | None = None,
     refresh_every: int = 1,
     polish_iters: int = 8,
     stop_tol: float = 0.0,
@@ -280,19 +536,32 @@ def make_fused_lqt_admm(
 
     The arguments are those of `make_pallas_lqt_admm`, with `device` and
     `dtype` in place of `interpret`. u_lower/u_upper: scalars or (N*u_dim,)
-    bounds. Returns a module; solver(x0s (batch, d)) -> (x, u, z_x, z_u)
-    with batch a multiple of batch_tile.
+    bounds; x_lower/x_upper: scalars or (N*x_dim,) bounds, +-inf where a
+    coordinate is free (None disables that block). rho_x: scalar, (d, d)
+    or (N, d, d). Returns a module; solver(x0s (batch, d)) -> (x, u, z_x,
+    z_u) with batch a multiple of batch_tile.
 
-    batch_tile is the number of instances one CUDA block owns (and the
-    early-exit group); the default 64 fills an H100 with 256 blocks at the
-    bench width, where the largest tile the kernel takes is 80 (see
-    `launch_geometry`). On a CUDA device dtype must be float32.
+    Without state bounds the solver runs `admm_u_only` and z_x is x. With
+    state bounds it runs `admm_box`: the general path of the JAX factory,
+    warm-started through the regularized inverse as there, with l_inv
+    folded into the loop's operators (in f32 the unfolded loop holds the
+    residual above the 1e-4 certificate; see csrc/admm_box.cu); and
+    `refresh_every`, `polish_iters`, `stop_tol` and `check_every` are
+    accepted and ignored, as there.
+
+    batch_tile is the number of instances one CUDA block owns (and, on
+    the u-only path, the early-exit group). The default (None) is 64 on
+    the u-only path, which fills an H100 with 256 blocks at the bench
+    width (the largest tile it takes there is 80, see `launch_geometry`),
+    and 32 on the state-bounded path, whose block stages its packed
+    operators in shared memory (see `box_launch_geometry`). On a CUDA
+    device dtype must be float32.
 
     The problem data are rounded to `dtype` (as the JAX factory rounds
     them to f32), then the setup (Su, the lifted normal matrix, its
-    inverse, W_u = (Rr l_inv)^T and W_x = W_u Su^T) runs in float64 and
-    is cast to `dtype`: setup at reduced precision converges to the
-    optimum of a perturbed problem.
+    inverse and the loop operators) runs in float64 and is cast to
+    `dtype`: setup at reduced precision converges to the optimum of a
+    perturbed problem.
     """
     has_u = u_lower is not None or u_upper is not None
     has_x = x_lower is not None or x_upper is not None
@@ -302,40 +571,71 @@ def make_fused_lqt_admm(
         object() if has_x else None, rho_x,
         object() if has_u else None, rho_u,
     )
-    if has_x:
-        raise NotImplementedError(
-            "state bounds (x_lower/x_upper) need the general kernel `_admm_kernel` "
-            "(ROADMAP.md, TPU kernels still to port, entry 2), which is not ported yet"
-        )
-    _schedule(n_iters, refresh_every, polish_iters, stop_tol, check_every)
+    if not has_x:
+        _schedule(n_iters, refresh_every, polish_iters, stop_tol, check_every)
+    elif n_iters < 0:
+        raise ValueError("n_iters must be >= 0")
+    if batch_tile is None:
+        batch_tile = 32 if has_x else 64
 
     f64 = torch.float64
     A, B, cost = host_f64(A, B, cost, dtype)
     N, d, m = A.shape[0], A.shape[-1], B.shape[-1]
-    Rr = broadcast_rho(rho_u, m, N, dtype, A.device).to(f64)
 
     Su = build_Su(A, B)
     Sx = build_Sx(A).reshape(N * d, d)
     SuTQ = Su.T @ block_diag_stacked(cost.Q)
-    Rr_l = block_diag_stacked(Rr)
-    l_side = SuTQ @ Su + block_diag_stacked(cost.R) + Rr_l
-    l_inv = torch.linalg.inv(l_side)
+    l_side = SuTQ @ Su + block_diag_stacked(cost.R)
     r_const = SuTQ @ cost.lifted_xd()
+
+    def bounds(lo, hi, size):
+        lo = -float("inf") if lo is None else lo
+        hi = float("inf") if hi is None else hi
+        return torch.stack([torch.as_tensor(v, dtype=f64).expand(size) for v in (lo, hi)])
+
+    def cast(operators):
+        return {k: v.to(device=device, dtype=dtype).contiguous() for k, v in operators.items()}
+
+    if has_x:
+        # the general path of `make_pallas_lqt_admm` (pallas_admm.py:356-398, 424-429)
+        SuTQr = torch.zeros((N * m, N * d), dtype=f64)
+        Rr_l = torch.zeros((N * m, N * m), dtype=f64)
+        Qr = broadcast_rho(rho_x, d, N, dtype)
+        if Qr is not None:
+            SuTQr = Su.T @ block_diag_stacked(Qr.to(f64))
+            l_side = l_side + SuTQr @ Su
+        Rr = broadcast_rho(rho_u, m, N, dtype)
+        if Rr is not None and has_u:
+            Rr_l = block_diag_stacked(Rr.to(f64))
+            l_side = l_side + Rr_l
+        l_inv = torch.linalg.inv(l_side)
+        operators = dict(
+            Sx=Sx, SuTQ=SuTQ, r_const=r_const, SuTQrT=SuTQr.T, l_invT=l_inv.T,
+            W_s=torch.cat([(l_inv @ SuTQr).T, (l_inv @ Rr_l).T]), SuT=Su.T,
+            xb=bounds(x_lower, x_upper, N * d), ub=bounds(u_lower, u_upper, N * m),
+        )
+        operators = cast(operators)
+        # the kernel's storage of its two operators, packed once
+        operators["ops_f"], operators["ops_i"] = pack_box_operators(
+            operators["W_s"], operators["SuT"]
+        )
+        return FusedBoxLQTADMM(
+            operators, n_iters=n_iters, alpha=alpha, has_u=has_u, batch_tile=batch_tile,
+        )
+
+    Rr = broadcast_rho(rho_u, m, N, dtype).to(f64)
+    Rr_l = block_diag_stacked(Rr)
+    l_side = l_side + Rr_l
+    l_inv = torch.linalg.inv(l_side)
     W_u = Rr_l.T @ l_inv.T  # (Nm, Nm) in-loop control response
     W_x = W_u @ Su.T  # (Nm, Nd) state recovery
-
-    def bound(v, default):
-        v = default if v is None else v
-        return torch.as_tensor(v, dtype=f64).expand(N * m)
-
+    lo, hi = bounds(u_lower, u_upper, N * m)
     operators = dict(
         Su=Su, Sx=Sx, SuTQ=SuTQ, l_side=l_side, l_inv=l_inv, r_const=r_const,
-        W_u=W_u, W_x=W_x,
-        lo=bound(u_lower, -float("inf")), hi=bound(u_upper, float("inf")),
+        W_u=W_u, W_x=W_x, lo=lo, hi=hi,
     )
-    operators = {k: v.to(device=device, dtype=dtype).contiguous() for k, v in operators.items()}
     return FusedLQTADMM(
-        operators, n_iters=n_iters, alpha=alpha, batch_tile=batch_tile,
+        cast(operators), n_iters=n_iters, alpha=alpha, batch_tile=batch_tile,
         refresh_every=refresh_every, polish_iters=polish_iters,
         stop_tol=float(stop_tol), check_every=int(check_every),
     )

@@ -244,16 +244,6 @@ def test_bounds_without_rho_raise():
         make_fused_lqt_admm(tA, tB, tcost)
 
 
-def test_state_bounds_are_not_ported_yet():
-    A, B, cost = _problem(16)
-    tA, tB, tcost = _port(A, B, cost)
-    with pytest.raises(NotImplementedError, match="_admm_kernel"):
-        make_fused_lqt_admm(
-            tA, tB, tcost, u_lower=-4.0, u_upper=4.0, x_lower=-10.0, x_upper=0.9,
-            rho_x=0.1, rho_u=1e-2,
-        )
-
-
 def test_cpu_tensors_do_not_launch_the_kernel():
     A, B, cost = _problem()
     solve = make_fused_lqt_admm(*_port(A, B, cost), u_lower=-5.0, u_upper=5.0, rho_u=1e-1,
