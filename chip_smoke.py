@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's three paths on the card:
+Drives the port's four paths on the card:
 
 - the box-constrained LQT-ADMM fleet of the repository's bench (16,384
   double-integrator instances, N = 100, |u| <= 5, rho_u = 0.1, 100
@@ -13,7 +13,13 @@ Drives the port's three paths on the card:
   (1,024 chance-constrained syntheses, N = 100, robust_dim 1, bounds
   U(2, 4), rho_u = 1.0, 200 iterations) through `make_fused_sls_admm`
   in its serving configuration (exact diamond z-update, per-tile early
-  exit at 3e-3 every 16 iterations, fleet sorted by bound).
+  exit at 3e-3 every 16 iterations, fleet sorted by bound);
+- the blocked time-parallel LQT Riccati backward pass of
+  `benchmarks/bench_parallel_riccati.py` (2-D double integrator, dt =
+  0.01, Q = 100 I, R = 0.01 I, N = 10,000, nb = 128 blocks) through
+  `lqt_backward_parallel_fused`, whose scan is the `riccati_scan`,
+  `riccati_level2` and `riccati_join` kernels, then the closed loop from
+  x0 through `rollout_closed_loop_parallel`.
 
 Phases:
 
@@ -23,22 +29,34 @@ Phases:
    version on the same card inputs (the LQT fleet's `admm_u_only` in
    three modes and at an odd width; `admm_box` at the full width, with a
    state box only, and at an odd width; `sls_admm` in the diamond,
-   early-exit and consensus modes and at an odd width);
-4. for each path: main path, one fleet solve with every launch counter
-   set to 0 just before it and read just after, checked against the
-   certificates (`utils/certify.py`);
+   early-exit and consensus modes and at an odd width; the three Riccati
+   kernels at N = 10,000 with d = 4, N = 1,001 with nb = 8, d = 3 and
+   the ADMM regularizers, d = 2, d = 1, and N = 100 < nb);
+4. for each path: main path, one fleet solve (one backward pass) with
+   every launch counter set to 0 just before it and read just after,
+   checked against the certificates (`utils/certify.py`);
 5. for each path: time, the kernel and the plain version with CUDA
    events (for the state-bounded path also the whole forward and the
-   plain fleet `make_batched_lqt_admm`).
+   plain fleet `make_batched_lqt_admm`; for the Riccati path, at N =
+   100, 1,000 and 10,000, each kernel's device time from a CUDA graph of
+   its launches and its wrapper's time a call, the whole backward pass,
+   its plain version, the plain torch blocked and flat scans and the
+   sequential pass, then an nb sweep, the parallel against the
+   sequential closed-loop rollout, and a `torch.profiler` split of the
+   pass).
 
 Any failure exits non-zero before the last line. The last line is
-{"ok": true, "device": {...}}; the line before it lists each kernel.
+{"ok": true, "device": {...}}; the line before it lists each kernel with
+its launches on its main path, its error against its plain version, its
+time, its plain version's time and its bound on an H100; the line
+before that, the seconds each phase took.
 
 Run from the repository root: python3 chip_smoke.py
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -50,7 +68,7 @@ from scipy.stats import norm
 
 from ilqr_admm_tpu_torch import _build
 from ilqr_admm_tpu_torch.models.double_integrator import DoubleIntegrator
-from ilqr_admm_tpu_torch.ops import fused_admm, fused_sls
+from ilqr_admm_tpu_torch.ops import fused_admm, fused_riccati, fused_sls
 from ilqr_admm_tpu_torch.ops.fused_admm import (
     admm_box,
     admm_box_reference,
@@ -58,17 +76,36 @@ from ilqr_admm_tpu_torch.ops.fused_admm import (
     admm_u_only_reference,
     make_fused_lqt_admm,
 )
+from ilqr_admm_tpu_torch.ops.fused_riccati import (
+    lqt_backward_parallel_fused,
+    pack_elements,
+    riccati_join,
+    riccati_join_reference,
+    riccati_level2,
+    riccati_level2_reference,
+    riccati_scan,
+    riccati_scan_reference,
+)
 from ilqr_admm_tpu_torch.ops.fused_sls import make_fused_sls_admm, sls_admm, sls_admm_reference
+from ilqr_admm_tpu_torch.ops.parallel_riccati import (
+    lqt_backward_parallel,
+    rollout_closed_loop_parallel,
+    value_elements,
+)
+from ilqr_admm_tpu_torch.ops.riccati import lqt_backward
+from ilqr_admm_tpu_torch.ops.rollout import rollout_closed_loop
 from ilqr_admm_tpu_torch.solvers.batched import make_batched_lqt_admm
 from ilqr_admm_tpu_torch.utils.certify import (
     certify,
+    certify_riccati,
     certify_sls,
     certify_state_box,
     gate_failures,
+    riccati_gate_failures,
     sls_gate_failures,
     state_box_gate_failures,
 )
-from ilqr_admm_tpu_torch.utils.cost_assembly import viapoint_cost
+from ilqr_admm_tpu_torch.utils.cost_assembly import get_double_integrator_AB, viapoint_cost
 
 N = 100
 BATCH = 16384
@@ -112,6 +149,33 @@ C_COEF = PSI_INV * SIGMA
 SLS_FIXED_TOL = 1e-4  # times max(1, max|U|)
 SLS_EARLY_EXIT_TOL = 2e-3
 SLS_MODES = ("diamond", "diamond_ee", "consensus")
+
+# The time-parallel Riccati of benchmarks/bench_parallel_riccati.py:36-44:
+# the 2-D double integrator at dt = 0.01, Q = 100 I, R = 0.01 I, xd = 0
+# but for xd[N-1, 0] = 1, blocked with nb = 128 lanes
+RICCATI_N = 10_000
+RICCATI_NB = 128
+RICCATI_HORIZONS = (100, 1_000, 10_000)
+RICCATI_NB_SWEEP = (128, 256, 512, 1024)
+# kernel and plain version differ only in the order of f32 operations and
+# FMA contraction; times max(1, max|ref|), per component. The card showed
+# at most 1.6e-6 at these shapes, so 1e-5 keeps a margin of six.
+RICCATI_KERNEL_TOL = 1e-5
+RICCATI_PROFILED_CALLS = 20
+# (windows, calls a window) of the plain versions' timings, cut from the
+# fleets' (5, 2) to keep the run near the earlier slices' length; the
+# sequential pass (6-10 s a call) and rollout (~1 s) at N = 10,000 run once
+RICCATI_PLAIN = (3, 1)
+# (N, nb, state dim, with regularizers): the main width, a non-divisible N
+# with L > nb and the ADMM regularizers on the triple integrator, d = 2 and
+# d = 1, and N < nb (L = 1, most lanes identity padding)
+RICCATI_CASES = ((10_000, 128, 4, False), (1_001, 8, 3, True), (500, 16, 2, False),
+                 (300, 32, 1, False), (100, 128, 4, False))
+RICCATI_KERNELS = ("riccati_scan", "riccati_level2", "riccati_join")
+
+# Published peaks of one H100 SXM: f32 outside the tensor cores and HBM3
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 class SmokeFailure(Exception):
@@ -195,6 +259,35 @@ def reset_launch_counts():
     fused_admm.launch_count = 0
     fused_admm.box_launch_count = 0
     fused_sls.launch_count = 0
+    fused_riccati.scan_launch_count = 0
+    fused_riccati.level2_launch_count = 0
+    fused_riccati.join_launch_count = 0
+
+
+@contextlib.contextmanager
+def _swapped(module, **attrs):
+    """Sets attributes of a module for the duration of the block."""
+    saved = {name: getattr(module, name) for name in attrs}
+    for name, value in attrs.items():
+        setattr(module, name, value)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(module, name, value)
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time of a kernel's work on an H100: the larger of its f32
+    operations over the f32 peak and its bytes (each input read once, each
+    output written once) over the HBM rate."""
+    ms_ops, ms_bytes = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    return {"bound_ms": max(ms_ops, ms_bytes),
+            "bound_by": "operations" if ms_ops >= ms_bytes else "bytes"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def phase_device():
@@ -366,21 +459,18 @@ def phase_box_compare(device):
     return worst
 
 
-def phase_box_main_path(device):
-    """The state-bounded fleet at full width, through the kernel only, certified."""
-    (A, B, cost), solver = box_solver(device)
-    x0s = bench_problem(device)[3]
+def phase_box_main_path(box, x0s):
+    """The state-bounded fleet at full width, through the kernel only,
+    certified. box: `box_solver`'s ((A, B, cost), solver)."""
+    (A, B, cost), solver = box
 
     def plain_must_not_run(*args, **kwargs):
         raise SmokeFailure("the state-bounded main path ran admm_box_reference")
 
     reset_launch_counts()
-    fused_admm.admm_box_reference = plain_must_not_run
-    try:
+    with _swapped(fused_admm, admm_box_reference=plain_must_not_run):
         x, u, z_x, z_u = solver(x0s)
         torch.cuda.synchronize()
-    finally:
-        fused_admm.admm_box_reference = admm_box_reference
     launches = fused_admm.box_launch_count
     print(f"[box main path] admm_box kernel launches: {launches}; admm_u_only: "
           f"{fused_admm.launch_count}")
@@ -480,10 +570,10 @@ def phase_sls_compare(device):
     return worst
 
 
-def phase_sls_main_path(device):
-    """The serving configuration on the sorted bench fleet, certified."""
-    (A, B, cost), solver = sls_solver(device, "diamond_ee")
-    bounds = sls_bounds(device, batch=SLS_BATCH, sort=True)
+def phase_sls_main_path(sls, bounds):
+    """The serving configuration on the sorted bench fleet, certified.
+    sls: `sls_solver`'s ((A, B, cost), solver) in the diamond_ee mode."""
+    (A, B, cost), solver = sls
     reset_launch_counts()
     du, phi_u, U = solver(bounds)
     torch.cuda.synchronize()
@@ -520,6 +610,24 @@ def _event_ms(fn, calls):
     return start.elapsed_time(end) / calls
 
 
+def _graph_ms(fn, windows=TIMING_WINDOWS, calls=CALLS_PER_WINDOW):
+    """Device time of one call of fn: `calls` back-to-back calls captured
+    in one CUDA graph, replayed under CUDA events, so the host's work a
+    call (a wrapper's checks, allocations and ctypes call) drops out.
+    Returns (median, q1, q3) in ms over the windows."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up outside the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    return _median_iqr([_event_ms(graph.replay, 1) / calls for _ in range(windows)])
+
+
 def phase_sls_time(device, card):
     """Kernel alone, whole forward (kernel + phi_u) and the plain version,
     per mode and batch; windows alternate between the three."""
@@ -554,10 +662,356 @@ def phase_sls_time(device, card):
     return result
 
 
+# ---- the time-parallel Riccati ---------------------------------------------
+
+
+def riccati_problem(device, horizon: int = RICCATI_N, d: int = 4, regularized: bool = False,
+                    seed: int = 0):
+    """bench_parallel_riccati.py's problem on the n-th order integrator of
+    state dim d (d = 4: the 2-D double integrator; d = 3: the 1-D triple,
+    d = 2: the 1-D double, d = 1: the 1-D single integrator), f32. Returns
+    ((A, B, Q, xd, R), regularizers, x0)."""
+    A1, B1 = get_double_integrator_AB(2, 2, dt=0.01) if d == 4 else \
+        get_double_integrator_AB(1, d, dt=0.01)
+    m = B1.shape[1]
+    f32 = dict(dtype=torch.float32, device=device)
+    A = A1.to(**f32).expand(horizon, d, d).contiguous()
+    B = B1.to(**f32).expand(horizon, d, m).contiguous()
+    Q = (1e2 * torch.eye(d, **f32)).expand(horizon, d, d).contiguous()
+    R = (1e-2 * torch.eye(m, **f32)).expand(horizon, m, m).contiguous()
+    xd = torch.zeros((horizon, d), **f32)
+    xd[-1, 0] = 1.0
+    rng = np.random.default_rng(seed)
+    reg = {}
+    if regularized:
+        reg = dict(Qr=(0.4 * torch.eye(d, **f32)).expand(horizon, d, d).contiguous(),
+                   xr=torch.tensor(rng.normal(size=(horizon, d)), **f32),
+                   Rr=(0.2 * torch.eye(m, **f32)).expand(horizon, m, m).contiguous(),
+                   ur=torch.tensor(rng.normal(size=(horizon, m)), **f32))
+    x0 = torch.tensor(np.random.default_rng(0).normal(0.0, 0.1, size=d), **f32)
+    return (A, B, Q, xd, R), reg, x0
+
+
+def riccati_slabs(device, horizon, nb, d=4, regularized=False):
+    """The packed (L, rows, nb) element slabs the scan kernel takes."""
+    data, reg, _ = riccati_problem(device, horizon, d, regularized)
+    elems, _, _ = value_elements(*data, **reg, fast_inverse=True)
+    return pack_elements(elems, horizon, d, nb)
+
+
+def _max_errs(got, want):
+    """(max abs difference, max of it over max(1, max|ref|)) over components."""
+    abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    rel = max(float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+              for g, w in zip(got, want))
+    return abs_err, rel
+
+
+def phase_riccati_compare(device):
+    """Each Riccati kernel against its plain version on the same card inputs."""
+    worst = {"riccati_scan": 0.0, "riccati_level2": 0.0, "riccati_join": 0.0}
+    for horizon, nb, d, regularized in RICCATI_CASES:
+        slabs = riccati_slabs(device, horizon, nb, d, regularized)
+        r = riccati_scan(*slabs)
+        torch.cuda.synchronize()
+        S = riccati_level2(*r)
+        torch.cuda.synchronize()
+        out = riccati_join(*r, *S)
+        torch.cuda.synchronize()
+        for t in (*r, *S, *out):
+            check(bool(torch.isfinite(t).all()), f"riccati N={horizon}: non-finite kernel output")
+        errs = {
+            "riccati_scan": _max_errs(r, riccati_scan_reference(*slabs)),
+            "riccati_level2": _max_errs(S, riccati_level2_reference(*r)),
+            "riccati_join": _max_errs(out, riccati_join_reference(*r, *S)),
+        }
+        label = (f"N={horizon}, nb={nb}, d={d}" + (", Qr/xr/Rr/ur" if regularized else ""))
+        print(f"[riccati kernel vs plain] {label}: " + ", ".join(
+            f"{k} max abs {a:.3e} (scaled {s:.3e})" for k, (a, s) in errs.items())
+            + f"; tolerance {RICCATI_KERNEL_TOL:g} x max(1, max|ref|)")
+        for k, (abs_err, scaled) in errs.items():
+            worst[k] = max(worst[k], abs_err)
+            check(scaled <= RICCATI_KERNEL_TOL, f"{k} at {label}: kernel disagrees with plain")
+    return worst
+
+
+def phase_riccati_main_path(device):
+    """One N = 10,000 backward pass through the kernels only, certified."""
+    data, _, x0 = riccati_problem(device)
+
+    def plain_must_not_run(*args, **kwargs):
+        raise SmokeFailure("the Riccati main path ran a plain version of a kernel")
+
+    reset_launch_counts()
+    with _swapped(fused_riccati, **{f"{k}_reference": plain_must_not_run for k in RICCATI_KERNELS}):
+        gains = lqt_backward_parallel_fused(*data, nb=RICCATI_NB, device=device)
+        torch.cuda.synchronize()
+    launches = {"riccati_scan": fused_riccati.scan_launch_count,
+                "riccati_level2": fused_riccati.level2_launch_count,
+                "riccati_join": fused_riccati.join_launch_count}
+    print(f"[riccati main path] N={RICCATI_N}, nb={RICCATI_NB}: kernel launches {launches}")
+    check(all(v == 1 for v in launches.values()),
+          f"the Riccati main path did not launch each kernel once: {launches}")
+    d, m = data[0].shape[-1], data[1].shape[-1]
+    check(tuple(gains.K.shape) == (RICCATI_N, m, d) and tuple(gains.k.shape) == (RICCATI_N, m),
+          "unexpected gain shapes")
+    t0 = time.perf_counter()
+    cert = certify_riccati(*data, gains, x0)
+    print(f"[riccati main path] certificates ({time.perf_counter() - t0:.1f} s) against the f64 "
+          f"sequential pass: max|K - K*|/max|K*| {cert['K_rel']:.3e} (gate 5e-5), max|k - k*| "
+          f"{cert['k_max_err']:.3e} (ratio to atol = rtol = 2e-4: {cert['k_ratio']:.3g}), "
+          f"max|Quu - Quu*| {cert['Quu_max_err']:.3e} (ratio to 1e-4: {cert['Quu_ratio']:.3g}), "
+          f"closed-loop cost {cert['cost']:.9g} vs {cert['cost_star']:.9g} "
+          f"(relative {cert['cost_rel']:.3e}, gate 1e-4)")
+    failures = riccati_gate_failures(cert)
+    check(not failures, "; ".join(failures))
+    return launches, cert
+
+
+def combine_flops(d: int, join: bool = False) -> int:
+    """f32 operations of one combine as csrc/riccati_scan.cu computes it
+    (an FMA counts two); join=True: only the (eta, J) part."""
+    mm, mv = d * d * (2 * d - 1), d * (2 * d - 1)
+    minor = {1: 0, 2: 0, 3: 3, 4: 14}[d]
+    inv = 1 if d == 1 else 4 * d * d + d * d * minor + 2 * d + 1
+    if join:
+        return 4 * mm + 2 * mv + d * d + 3 * d + inv
+    return 8 * mm + 4 * mv + 2 * d * d + 5 * d + inv
+
+
+def riccati_bounds(slabs, r, S, out):
+    """Bounds of the three kernels on these inputs. The level-2 work is the
+    nb - 1 combines a sequential suffix needs."""
+    d, nb = slabs[1].shape[1], slabs[0].shape[2]
+    n_elems = slabs[0].shape[0] * nb
+    totals = sum(x[0].numel() * 4 for x in r)
+    return {
+        "riccati_scan": bound(n_elems * combine_flops(d), nbytes(*slabs, *r)),
+        "riccati_level2": bound((nb - 1) * combine_flops(d), totals + nbytes(*S)),
+        "riccati_join": bound(n_elems * combine_flops(d, join=True), nbytes(*r, *S, *out)),
+    }
+
+
+def _timed(paths, windows=TIMING_WINDOWS):
+    """paths: name -> (fn, windows, calls); windows alternate between paths.
+    Returns name -> (median, q1, q3, number of windows) in ms a call. Paths
+    timed one call a window are not warmed up: each of their windows is
+    a whole slow call, and the median drops a first-call outlier."""
+    for fn, _, calls in paths.values():
+        if calls > 1:
+            fn()
+    torch.cuda.synchronize()
+    ms = {name: [] for name in paths}
+    for w in range(windows):
+        for name, (fn, n_windows, calls) in paths.items():
+            if w < n_windows:
+                ms[name].append(_event_ms(fn, calls))
+    return {name: (*_median_iqr(v), len(v)) for name, v in ms.items()}
+
+
+def plain_backward(*data, nb, device):
+    """`lqt_backward_parallel_fused` with its three wrappers swapped for
+    their plain versions: the yardstick of the kernels on the card."""
+    with _swapped(fused_riccati, **{k: getattr(fused_riccati, f"{k}_reference")
+                                    for k in RICCATI_KERNELS}):
+        return lqt_backward_parallel_fused(*data, nb=nb, device=device)
+
+
+def riccati_kernel_calls(slabs):
+    """name -> (kernel call, plain call) of the three kernels on these
+    slabs, and the outputs (r, S, out) of one kernel pass."""
+    r = riccati_scan(*slabs)
+    S = riccati_level2(*r)
+    out = riccati_join(*r, *S)
+    calls = {"riccati_scan": (lambda: riccati_scan(*slabs), lambda: riccati_scan_reference(*slabs)),
+             "riccati_level2": (lambda: riccati_level2(*r), lambda: riccati_level2_reference(*r)),
+             "riccati_join": (lambda: riccati_join(*r, *S),
+                              lambda: riccati_join_reference(*r, *S))}
+    return calls, (r, S, out)
+
+
+def phase_riccati_time(device, card):
+    """Kernels (device time from a CUDA graph, and the wrapper's time a
+    call), their plain versions, the whole backward pass and its plain
+    version, the plain torch scans and the sequential pass at each
+    horizon; then the nb sweep and the rollouts."""
+    result = {}
+    for horizon in RICCATI_HORIZONS:
+        data, _, _ = riccati_problem(device, horizon)
+        slabs = riccati_slabs(device, horizon, RICCATI_NB)
+        calls, (r, S, out) = riccati_kernel_calls(slabs)
+        long = horizon >= 10_000
+        paths = {}
+        for kname, (kernel, plain) in calls.items():
+            paths[f"{kname} wrapper"] = (kernel, TIMING_WINDOWS, CALLS_PER_WINDOW)
+            paths[f"{kname} plain"] = (plain, *RICCATI_PLAIN)
+        paths.update({
+            "fused forward": (lambda: lqt_backward_parallel_fused(*data, nb=RICCATI_NB,
+                                                                  device=device),
+                              TIMING_WINDOWS, CALLS_PER_WINDOW),
+            "fused forward, plain versions": (
+                lambda: plain_backward(*data, nb=RICCATI_NB, device=device), *RICCATI_PLAIN),
+            "lqt_backward_parallel(block_size=128, fast_inverse=True)": (
+                lambda: lqt_backward_parallel(*data, block_size=128, fast_inverse=True),
+                *RICCATI_PLAIN),
+            "lqt_backward (sequential)": (lambda: lqt_backward(*data), 1 if long else 3, 1),
+        })
+        if not long:  # the flat scan is left out at 10k, as in the JAX bench
+            paths["lqt_backward_parallel(block_size=None)"] = (
+                lambda: lqt_backward_parallel(*data), *RICCATI_PLAIN)
+        timed = _timed(paths)
+        for kname, (kernel, _) in calls.items():
+            timed[f"{kname} kernel"] = (*_graph_ms(kernel), TIMING_WINDOWS)
+        for name, (med, q1, q3, n) in timed.items():
+            result[(horizon, name)] = med
+            how = "CUDA graph of 10 calls" if name.endswith(" kernel") else "CUDA events"
+            print(f"[riccati time] N={horizon}, nb={RICCATI_NB}, {name}: {med:.4f} ms "
+                  f"(IQR {q1:.4f}-{q3:.4f}, {n} windows, {how}); card: {card}")
+        if long:
+            result["bounds"] = riccati_bounds(slabs, r, S, out)
+            device_ms = sum(result[(horizon, f"{k} kernel")] for k in calls)
+            wrapper_ms = sum(result[(horizon, f"{k} wrapper")] for k in calls)
+            print(f"[riccati split] N={horizon}, nb={RICCATI_NB}: of a "
+                  f"{result[(horizon, 'fused forward')]:.4f} ms pass, the three wrapper calls "
+                  f"take {wrapper_ms:.4f} ms back to back (host-bound: checks, allocations, "
+                  f"ctypes), their kernels {device_ms:.4f} ms of device time; card: {card}")
+    for nb in RICCATI_NB_SWEEP:
+        data, _, _ = riccati_problem(device)
+        calls, _ = riccati_kernel_calls(riccati_slabs(device, RICCATI_N, nb))
+        timed = {f"{kname} device": _graph_ms(kernel)[0] for kname, (kernel, _) in calls.items()}
+        timed["fused forward"] = _timed({"fused forward": (
+            lambda: lqt_backward_parallel_fused(*data, nb=nb, device=device),
+            TIMING_WINDOWS, CALLS_PER_WINDOW)})["fused forward"][0]
+        print(f"[riccati nb sweep] N={RICCATI_N}, nb={nb} (L={-(-RICCATI_N // nb)}): " + ", ".join(
+            f"{name} {med:.4f} ms" for name, med in timed.items()) + f"; card: {card}")
+    data, _, x0 = riccati_problem(device)
+    gains = lqt_backward_parallel_fused(*data, nb=RICCATI_NB, device=device)
+    A, B = data[0], data[1]
+    step = iter(())
+
+    def plant(x, u):
+        t = next(step)
+        return A[t] @ x + B[t] @ u
+
+    def sequential():
+        nonlocal step
+        step = iter(range(A.shape[0]))
+        return rollout_closed_loop(plant, x0, gains.K, gains.k)
+
+    paths = {"rollout_closed_loop_parallel": (
+                 lambda: rollout_closed_loop_parallel(A, B, gains.K, gains.k, x0),
+                 TIMING_WINDOWS, CALLS_PER_WINDOW),
+             "rollout_closed_loop (sequential)": (sequential, 1, 1)}
+    for name, (med, q1, q3, n) in _timed(paths).items():
+        print(f"[riccati rollout time] N={RICCATI_N}, {name}: {med:.4f} ms (IQR {q1:.4f}-{q3:.4f}, "
+              f"{n} windows); card: {card}")
+    return result
+
+
+def phase_riccati_profile(device, card):
+    """Device time of back-to-back N = 10,000 backward passes under
+    `torch.profiler`: the kernels' share, everything else the card ran
+    (the plain torch around the kernels), and the idle share of the wall
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    data, _, _ = riccati_problem(device)
+
+    def forward():
+        return lqt_backward_parallel_fused(*data, nb=RICCATI_NB, device=device)
+
+    for _ in range(3):
+        forward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(RICCATI_PROFILED_CALLS):
+            forward()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    on_device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in on_device)
+    if busy_us <= 0.0:
+        print("[riccati profile] the profiler saw no device time: not measured")
+        return None
+    ours = {e.key: e.self_device_time_total / RICCATI_PROFILED_CALLS for e in on_device
+            if "riccati_" in e.key}
+    n = RICCATI_PROFILED_CALLS
+    kernel_us = sum(ours.values())
+    print(f"[riccati profile] {n} backward passes, N={RICCATI_N}, nb={RICCATI_NB}: wall "
+          f"{wall_us / n / 1e3:.4f} ms a pass; device busy {busy_us / n / 1e3:.4f} ms "
+          f"({100 * busy_us / wall_us:.2f}% of wall), of which the three kernels "
+          f"{kernel_us / 1e3:.4f} ms and {len(on_device) - len(ours)} other kernels "
+          f"{(busy_us / n - kernel_us) / 1e3:.4f} ms; card: {card}")
+    for key, us in sorted(ours.items()):
+        print(f"[riccati profile] device time a pass: {us / 1e3:.4f} ms {key[:90]}")
+    return {"busy_share": busy_us / wall_us, "kernel_ms": kernel_us / 1e3}
+
+
+def sls_tile_iterations(solver, bounds):
+    """Iterations each tile of the early-exit `sls_admm` ran on these
+    bounds. The kernel is deterministic, and a tile that leaves after
+    chunk j gives the same bits under every schedule of at least j chunks,
+    so it ran the fewest chunks k at which a k-chunk solve matches the
+    full one."""
+    kw = solver.kernel_options
+    every, tile = kw["check_every"], kw["batch_tile"]
+    max_chunks = -(-kw["n_iters"] // every)
+
+    def solve(n_iters):
+        U = sls_admm(bounds, solver.U_base, solver.W, **dict(kw, n_iters=n_iters))
+        return U.reshape(bounds.shape[0] // tile, -1)
+
+    full = solve(kw["n_iters"])
+    chunks = torch.full((full.shape[0],), max_chunks, device=full.device)
+    for k in range(max_chunks - 1, 0, -1):
+        same = (solve(k * every) == full).all(dim=1)
+        chunks = torch.where(same, k, chunks)
+    return chunks * every
+
+
+def existing_bounds(solver, u_base, x_base, box, x0s, sls, sls_fleet):
+    """Bounds of the fleet kernels on their main paths' inputs: products
+    only (the clips and dual updates are O(1) a coordinate against O(Nm)
+    or more multiply-adds a coordinate); bytes of inputs and outputs.
+    box and sls: the state-bounded and diamond_ee solvers of the main
+    paths; sls_fleet: the bounds that path solved."""
+    ko = solver.kernel_options
+    chunk_len, n_chunks, n_tail = fused_admm._schedule(
+        ko["n_iters"], ko["refresh_every"], ko["polish_iters"], ko["stop_tol"], ko["check_every"])
+    iters = chunk_len * n_chunks + n_tail
+    Nm, Nd = u_base.shape[1], x_base.shape[1]
+    u_only = bound(iters * 2 * BATCH * Nm * Nm + 2 * BATCH * Nm * Nd,
+                   nbytes(u_base, x_base, solver.W_u, solver.W_x, solver.lo, solver.hi)
+                   + nbytes(x_base, u_base, u_base))
+    free, bu, u0, W_s, SuT, xb, ub = box.kernel_inputs(x0s)
+    nnz = int(torch.count_nonzero(W_s)) + int(torch.count_nonzero(SuT))
+    box_bound = bound(2 * BATCH * (BOX_ITERS * nnz + int(torch.count_nonzero(SuT))),
+                      nbytes(free, bu, u0, *box.packed, xb, ub) + 2 * nbytes(free, bu))
+    tile_iters = sls_tile_iterations(sls, sls_fleet)
+    instance_iters = int(tile_iters.sum()) * sls.kernel_options["batch_tile"]
+    print(f"[sls bound] diamond_ee tiles ran {int(tile_iters.min())}-{int(tile_iters.max())} "
+          f"iterations, {instance_iters / SLS_BATCH:.2f} an instance on average")
+    p1, sNm = sls.U_base.shape
+    sls_bound = bound(instance_iters * 2 * p1 * sNm * sNm,
+                      nbytes(sls_fleet, sls.U_base, sls.W) + 4 * SLS_BATCH * sNm * p1)
+    return {"admm_u_only": u_only, "admm_box": box_bound, "sls_admm": sls_bound}
+
+
 def main() -> int:
+    seconds = {}
+
+    def run(label, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[label] = time.perf_counter() - t0
+
     try:
-        name, card = phase_device()
-        phase_build()
+        name, card = run("device", phase_device)
+        run("build", phase_build)
         A, B, cost, x0s = bench_problem("cuda")
         solver = make_fused_lqt_admm(
             A, B, cost, u_lower=-U_MAX, u_upper=U_MAX, rho_u=RHO_U,
@@ -567,18 +1021,30 @@ def main() -> int:
         odd, odd_u, odd_x = odd_width_case("cuda")
         cases = [(mode, solver, u_base, x_base, extra) for mode, extra in MODES.items()]
         cases.append(("Nm=98, alpha=1.6, |u|<=4, batch_tile=8", odd, odd_u, odd_x, {}))
-        max_err = phase_compare(cases)
-        launches, _ = phase_main_path(solver, A, B, cost, x0s)
-        times = phase_time(solver, u_base, x_base, card)
-        box_max_err = phase_box_compare("cuda")
-        box_launches, _ = phase_box_main_path("cuda")
-        box_times = phase_box_time("cuda", card)
-        sls_max_err = phase_sls_compare("cuda")
-        sls_launches, _ = phase_sls_main_path("cuda")
-        sls_times = phase_sls_time("cuda", card)
+        max_err = run("u-only compare", phase_compare, cases)
+        launches, _ = run("u-only main path", phase_main_path, solver, A, B, cost, x0s)
+        times = run("u-only time", phase_time, solver, u_base, x_base, card)
+        box = box_solver("cuda")
+        box_max_err = run("box compare", phase_box_compare, "cuda")
+        box_launches, _ = run("box main path", phase_box_main_path, box, x0s)
+        box_times = run("box time", phase_box_time, "cuda", card)
+        sls = sls_solver("cuda", "diamond_ee")
+        sls_fleet = sls_bounds("cuda", batch=SLS_BATCH, sort=True)
+        sls_max_err = run("sls compare", phase_sls_compare, "cuda")
+        sls_launches, _ = run("sls main path", phase_sls_main_path, sls, sls_fleet)
+        sls_times = run("sls time", phase_sls_time, "cuda", card)
+        riccati_max_err = run("riccati compare", phase_riccati_compare, "cuda")
+        riccati_launches, _ = run("riccati main path", phase_riccati_main_path, "cuda")
+        riccati_times = run("riccati time", phase_riccati_time, "cuda", card)
+        run("riccati profile", phase_riccati_profile, "cuda", card)
+        bounds = dict(run("fleet bounds", existing_bounds, solver, u_base, x_base, box[1], x0s,
+                          sls[1], sls_fleet), **riccati_times["bounds"])
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
+    print("[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"; total {sum(seconds.values()):.1f}")
+    # no single PyTorch call computes any of these functions
     kernels = [{
         "name": "admm_u_only",
         "route": "cuda",
@@ -607,6 +1073,27 @@ def main() -> int:
         "ms": box_times["kernel"],
         "plain_ms": box_times["plain"],
     }]
+    riccati_replaces = {
+        "riccati_scan": "ilqr_admm_tpu/ops/pallas_riccati.py:145",
+        # the XLA scan over the block totals between the two Pallas kernels
+        "riccati_level2": "ilqr_admm_tpu/ops/pallas_riccati.py:275",
+        "riccati_join": "ilqr_admm_tpu/ops/pallas_riccati.py:171",
+    }
+    for kname, replaces in riccati_replaces.items():
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "ilqr_admm_tpu_torch/csrc/riccati_scan.cu",
+            "replaces": replaces,
+            "launches": riccati_launches[kname],
+            "max_abs_err": riccati_max_err[kname],
+            # device time (a CUDA graph of the wrapper's launches): a call
+            # through the wrapper is bounded by the host at these sizes
+            "ms": riccati_times[(RICCATI_N, f"{kname} kernel")],
+            "plain_ms": riccati_times[(RICCATI_N, f"{kname} plain")],
+        })
+    for k in kernels:
+        k.update(bounds[k["name"]], library_ms=None)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -2,10 +2,11 @@
 
 Module paths mirror the JAX package, so `ilqr_admm_tpu/ops/lifted.py`
 has its counterpart in `ilqr_admm_tpu_torch/ops/lifted.py`; the
-exceptions are the kernel modules `ops/pallas_admm.py` and
-`ops/pallas_sls.py`, whose counterparts are `ops/fused_admm.py` and
-`ops/fused_sls.py`. The JAX package stays as the reference; this package
-imports torch, numpy and scipy and never jax.
+exceptions are the kernel modules `ops/pallas_admm.py`,
+`ops/pallas_sls.py` and `ops/pallas_riccati.py`, whose counterparts are
+`ops/fused_admm.py`, `ops/fused_sls.py` and `ops/fused_riccati.py`.
+The JAX package stays as the reference; this package imports torch,
+numpy and scipy and never jax.
 
 Ported so far:
 
@@ -20,23 +21,36 @@ Ported so far:
   with `x_lower`/`x_upper`, whose ADMM loop is the CUDA kernel
   `csrc/admm_box.cu`, and the plain torch fleet `make_batched_lqt_admm`
   (`solvers/batched.py`) in its fixed-count, early-stop and Anderson
-  modes.
+  modes;
+- slice 4, the LQT Riccati core: the sequential and time-parallel
+  Riccati passes (`ops/riccati.py`, `ops/parallel_riccati.py`), the
+  rollouts, the LQT solvers (`lqt_solve_dp` and the rest of
+  `solvers/lqt.py`), and `lqt_backward_parallel_fused`, whose blocked
+  scan is the CUDA kernels of `csrc/riccati_scan.cu`.
 
 The kernels are built with nvcc at first use on a CUDA tensor. Importing
-the package builds and loads nothing.
+the package builds and loads nothing. Entry points that take a `device`
+run on the CUDA card unless the caller passes another (the CPU runs the
+plain torch versions of the kernels).
 """
 
 from ilqr_admm_tpu_torch.models.double_integrator import DoubleIntegrator
 from ilqr_admm_tpu_torch.ops.fused_admm import make_fused_lqt_admm
+from ilqr_admm_tpu_torch.ops.fused_riccati import lqt_backward_parallel_fused
 from ilqr_admm_tpu_torch.ops.fused_sls import make_fused_sls_admm
+from ilqr_admm_tpu_torch.ops.riccati import DPGains
 from ilqr_admm_tpu_torch.problem import QuadCost
 from ilqr_admm_tpu_torch.solvers.batched import make_batched_lqt_admm
 from ilqr_admm_tpu_torch.solvers.batched_sls import make_batched_sls_admm
+from ilqr_admm_tpu_torch.solvers.lqt import lqt_solve_dp
 from ilqr_admm_tpu_torch.utils.cost_assembly import viapoint_cost
 
 __all__ = [
+    "DPGains",
     "DoubleIntegrator",
     "QuadCost",
+    "lqt_backward_parallel_fused",
+    "lqt_solve_dp",
     "make_batched_lqt_admm",
     "make_batched_sls_admm",
     "make_fused_lqt_admm",

@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-_SOURCES = ("admm_u_only.cu", "sls_admm.cu", "admm_box.cu")
+_SOURCES = ("admm_u_only.cu", "sls_admm.cu", "admm_box.cu", "riccati_scan.cu")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libilqr_admm_torch.so"
@@ -136,4 +136,28 @@ def load_library() -> ctypes.CDLL:
     lib.admm_box_launch.restype = _I
     lib.admm_box_error_string.argtypes = [_I]
     lib.admm_box_error_string.restype = ctypes.c_char_p
+    lib.riccati_scan_launch.argtypes = [
+        _P, _P, _P, _P, _P,  # A, b, C, eta, J slabs
+        _P, _P, _P, _P, _P,  # their local suffixes
+        _I, _I, _I,  # L, nb, d
+        _P,  # stream
+    ]
+    lib.riccati_scan_launch.restype = _I
+    lib.riccati_level2_launch.argtypes = [
+        _P, _P, _P, _P, _P,  # the local suffix slabs (step 0: block totals)
+        _P, _P,  # S_eta, S_J
+        _I, _I,  # nb, d
+        _P,  # stream
+    ]
+    lib.riccati_level2_launch.restype = _I
+    lib.riccati_join_launch.argtypes = [
+        _P, _P, _P, _P, _P,  # the local suffix slabs
+        _P, _P,  # S_eta, S_J
+        _P, _P,  # eta_out, J_out
+        _I, _I, _I,  # L, nb, d
+        _P,  # stream
+    ]
+    lib.riccati_join_launch.restype = _I
+    lib.riccati_error_string.argtypes = [_I]
+    lib.riccati_error_string.restype = ctypes.c_char_p
     return lib

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ilqr_admm_tpu_torch.ops.riccati import DPGains
 from ilqr_admm_tpu_torch.problem import QuadCost
 
 
@@ -30,3 +31,10 @@ def dynamics_from_numpy(A, B, *, device, dtype):
     """(A (N, x, x), B (N, x, u)) tensors from the stacked dynamics."""
     kw = dict(device=device, dtype=dtype)
     return array_from_numpy(A, **kw), array_from_numpy(B, **kw)
+
+
+def dpgains_from_numpy(K, k, Quu, Quu_inv, Qux, *, device, dtype) -> DPGains:
+    """DPGains from stacked K (N, u, x), k (N, u), Quu and Quu_inv (N, u, u)
+    and Qux (N, u, x), e.g. the fields of the JAX package's `DPGains`."""
+    kw = dict(device=device, dtype=dtype)
+    return DPGains(*(array_from_numpy(a, **kw) for a in (K, k, Quu, Quu_inv, Qux)))

@@ -31,6 +31,7 @@ from ilqr_admm_tpu_torch.ops.lifted import build_Su, build_Sx
 from ilqr_admm_tpu_torch.problem import QuadCost, host_f64
 from ilqr_admm_tpu_torch.solvers.admm import validate_constraint_blocks
 from ilqr_admm_tpu_torch.solvers.lqt import block_diag_stacked, broadcast_rho
+from ilqr_admm_tpu_torch.utils.device import resolve_device
 from ilqr_admm_tpu_torch.utils.precision import full_f32_matmul
 
 # Number of times `admm_u_only` has launched its CUDA kernel in this process.
@@ -535,7 +536,8 @@ def make_fused_lqt_admm(
     """Build a batched box-constrained LQT-ADMM solver for the fused kernel.
 
     The arguments are those of `make_pallas_lqt_admm`, with `device` and
-    `dtype` in place of `interpret`. u_lower/u_upper: scalars or (N*u_dim,)
+    `dtype` in place of `interpret`; device defaults to the CUDA card
+    ("cpu" runs the plain versions of the kernels). u_lower/u_upper: scalars or (N*u_dim,)
     bounds; x_lower/x_upper: scalars or (N*x_dim,) bounds, +-inf where a
     coordinate is free (None disables that block). rho_x: scalar, (d, d)
     or (N, d, d). Returns a module; solver(x0s (batch, d)) -> (x, u, z_x,
@@ -563,6 +565,7 @@ def make_fused_lqt_admm(
     `dtype`: setup at reduced precision converges to the optimum of a
     perturbed problem.
     """
+    device = resolve_device(device)
     has_u = u_lower is not None or u_upper is not None
     has_x = x_lower is not None or x_upper is not None
     if not (has_u or has_x):

@@ -34,6 +34,7 @@ from torch import nn
 from ilqr_admm_tpu_torch.ops.lifted import build_Su, build_Sx
 from ilqr_admm_tpu_torch.problem import QuadCost, host_f64
 from ilqr_admm_tpu_torch.solvers.lqt import block_diag_stacked, broadcast_rho, lqt_solve_sls
+from ilqr_admm_tpu_torch.utils.device import resolve_device
 from ilqr_admm_tpu_torch.utils.precision import full_f32_matmul
 
 # Number of times `sls_admm` has launched its CUDA kernel in this process.
@@ -416,7 +417,8 @@ def make_fused_sls_admm(
     """Build a batched robust SLS-ADMM solver for the fused kernel.
 
     The arguments are those of `make_pallas_sls_admm`, with `device` and
-    `dtype` in place of `interpret`. Returns a module; solver(bounds
+    `dtype` in place of `interpret`; device defaults to the CUDA card
+    ("cpu" runs the plain version of the kernel). Returns a module; solver(bounds
     (batch,)) -> (du, phi_u, U) with batch a multiple of batch_tile.
 
     Chance-constrained control rows: every row phi (length p + 1) of
@@ -438,6 +440,7 @@ def make_fused_sls_admm(
     from `lqt_solve_sls`, U_base = (l_inv r_base)^T and W = (l_inv Rr)^T)
     runs in float64 and is cast to `dtype` once.
     """
+    device = resolve_device(device)
     if z_update not in Z_UPDATES:
         raise ValueError(f"unknown z_update {z_update!r}; expected one of {Z_UPDATES}")
     p1 = robust_dim + 1

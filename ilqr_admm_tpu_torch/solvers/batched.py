@@ -24,6 +24,7 @@ from ilqr_admm_tpu_torch.ops.lifted import build_Su, build_Sx
 from ilqr_admm_tpu_torch.problem import QuadCost, host_f64
 from ilqr_admm_tpu_torch.solvers.admm import validate_constraint_blocks
 from ilqr_admm_tpu_torch.solvers.lqt import block_diag_stacked, broadcast_rho
+from ilqr_admm_tpu_torch.utils.device import resolve_device
 from ilqr_admm_tpu_torch.utils.precision import full_f32_matmul
 
 
@@ -253,7 +254,8 @@ def make_batched_lqt_admm(
     """Build a batched constrained-LQT ADMM solver (the plain torch fleet).
 
     The arguments are those of the JAX `make_batched_lqt_admm`, with
-    `device` and `dtype` (default: A's dtype) added. project_x /
+    `device` (default: the CUDA card) and `dtype` (default: A's dtype)
+    added. project_x /
     project_u map flattened (batch, N*dim) tensors to the constraint
     sets. Returns a module; solver(x0s (batch, d)) -> (x (batch, N*d),
     u (batch, N*m)).
@@ -273,6 +275,7 @@ def make_batched_lqt_admm(
     data rounded to `dtype` and is cast to `dtype` once; the hot
     products run in full f32 (no TF32).
     """
+    device = resolve_device(device)
     validate_constraint_blocks(project_x, rho_x, project_u, rho_u)
     if anderson_m > 0 and tol <= 0.0:
         raise ValueError(

@@ -23,6 +23,7 @@ from ilqr_admm_tpu_torch.ops.lifted import build_Su, build_Sx
 from ilqr_admm_tpu_torch.problem import QuadCost, host_f64
 from ilqr_admm_tpu_torch.solvers.admm import validate_constraint_blocks
 from ilqr_admm_tpu_torch.solvers.lqt import block_diag_stacked, broadcast_rho, lqt_solve_sls
+from ilqr_admm_tpu_torch.utils.device import resolve_device
 from ilqr_admm_tpu_torch.utils.precision import full_f32_matmul
 
 
@@ -120,7 +121,8 @@ def make_batched_sls_admm(
     """Build a batched robust SLS-ADMM solver (the plain torch fleet).
 
     The arguments are those of the JAX `make_batched_sls_admm`, with
-    `device` and `dtype` (default: A's dtype) added. tol = 0 runs exactly
+    `device` (default: the CUDA card) and `dtype` (default: A's dtype)
+    added. tol = 0 runs exactly
     n_iters iterations; tol > 0 freezes an instance once its Frobenius
     primal residual ||x_iter - z|| and dual residual ||z - z_prev||
     (summed over the enabled blocks) are both below tol, and stops when
@@ -135,6 +137,7 @@ def make_batched_sls_admm(
     and is cast to `dtype` once. Returns solve(params) -> (du (batch,
     Nm), phi_u (batch, Nm, Nd), U (batch, Nm, p+1)).
     """
+    device = resolve_device(device)
     validate_constraint_blocks(project_x, rho_x, project_u, rho_u)
     if project_x is None and project_u is None:
         raise ValueError("at least one projection required")

@@ -18,6 +18,11 @@ fraction of instances with both primal residuals at the reference
 tolerance, and the relative cost gap against a float64 QP oracle with the
 state box as linear constraints, on a subsample spread over the fleet.
 
+The time-parallel Riccati: the gates of `tests/test_pallas_riccati.py`
+(K, k and Quu against a float64 sequential `lqt_backward` of the same
+f32-rounded problem) and the tracking cost of the closed loop the gains
+drive, against the f64 optimum's.
+
 Built on the port's own `build_Su`, `build_Sx` and `sw_x0`; no jax.
 """
 
@@ -28,6 +33,8 @@ import torch
 from scipy.optimize import LinearConstraint, minimize
 
 from ilqr_admm_tpu_torch.ops.lifted import build_Su, build_Sx, sw_x0
+from ilqr_admm_tpu_torch.ops.parallel_riccati import rollout_closed_loop_parallel
+from ilqr_admm_tpu_torch.ops.riccati import lqt_backward
 from ilqr_admm_tpu_torch.problem import QuadCost
 from ilqr_admm_tpu_torch.solvers.lqt import block_diag_stacked
 
@@ -380,4 +387,75 @@ def sls_gate_failures(cert: dict) -> list[str]:
         failures.append(f"cost_gap_median {cert['cost_gap_median']} > {SLS_MAX_GAP_MEDIAN}")
     if not cert["cost_gap_max"] <= SLS_MAX_GAP_MAX:
         failures.append(f"cost_gap_max {cert['cost_gap_max']} > {SLS_MAX_GAP_MAX}")
+    return failures
+
+
+# The gates of tests/test_pallas_riccati.py:46-52 (f32 against the f64
+# sequential pass) and a closed-loop tracking cost within 1e-4.
+RICCATI_MAX_K_REL = 5e-5
+RICCATI_K_TOL = 2e-4  # atol and rtol of k
+RICCATI_QUU_TOL = 1e-4  # atol and rtol of Quu
+RICCATI_MAX_COST_REL = 1e-4
+
+
+def tracking_cost(Q, xd, R, xs, us) -> float:
+    """sum_t (x_t - xd_t)^T Q_t (x_t - xd_t) + u_t^T R_t u_t in f64."""
+    Q, xd, R, xs, us = (_f64(t) for t in (Q, xd, R, xs, us))
+    dx = xs - xd
+    return float(torch.einsum("ti,tij,tj->", dx, Q, dx) + torch.einsum("ti,tij,tj->", us, R, us))
+
+
+def certify_riccati(A, B, Q, xd, R, gains, x0) -> dict:
+    """Gains of a time-parallel LQT pass against the f64 sequential oracle.
+
+    The oracle runs on the host on the problem rounded to the gains'
+    dtype. The closed loop from x0 runs with the gains where they are
+    (`rollout_closed_loop_parallel`) and with the oracle's gains in f64
+    on the host; the two tracking costs are compared.
+    """
+    dtype = gains.K.dtype
+    A, B, Q, xd, R = (torch.as_tensor(t).to("cpu", dtype).to(torch.float64)
+                      for t in (A, B, Q, xd, R))
+    star = lqt_backward(A, B, Q, xd, R)
+    K, k, Quu = (_f64(t) for t in (gains.K, gains.k, gains.Quu))
+    dev = gains.K.device
+    xs, us = rollout_closed_loop_parallel(A.to(dev, dtype), B.to(dev, dtype), gains.K, gains.k,
+                                          torch.as_tensor(x0).to(dev, dtype))
+    x0 = torch.as_tensor(x0).to("cpu", torch.float64)
+    # the oracle's closed loop: u_t = K*_t x_t + k*_t on the linear plant, sequentially
+    x, us_star, xs_star = x0, [], []
+    for t in range(A.shape[0]):
+        u = star.K[t] @ x + star.k[t]
+        xs_star.append(x)
+        us_star.append(u)
+        x = A[t] @ x + B[t] @ u
+    xs_star, us_star = torch.stack(xs_star), torch.stack(us_star)
+    c, c_star = tracking_cost(Q, xd, R, xs, us), tracking_cost(Q, xd, R, xs_star, us_star)
+    finite = all(bool(torch.isfinite(t).all()) for t in (gains.K, gains.k, gains.Quu, xs, us))
+    return dict(
+        finite=finite,
+        K_rel=float((K - star.K).abs().max() / star.K.abs().max()),
+        k_ratio=float(((k - star.k).abs() / (RICCATI_K_TOL + RICCATI_K_TOL * star.k.abs())).max()),
+        Quu_ratio=float(((Quu - star.Quu).abs()
+                         / (RICCATI_QUU_TOL + RICCATI_QUU_TOL * star.Quu.abs())).max()),
+        k_max_err=float((k - star.k).abs().max()),
+        Quu_max_err=float((Quu - star.Quu).abs().max()),
+        cost=c, cost_star=c_star, cost_rel=abs(c - c_star) / abs(c_star),
+    )
+
+
+def riccati_gate_failures(cert: dict) -> list[str]:
+    failures = []
+    if not cert["finite"]:
+        failures.append("non-finite gains or closed loop")
+    if not cert["K_rel"] <= RICCATI_MAX_K_REL:
+        failures.append(f"max|K - K*| / max|K*| = {cert['K_rel']:.3e} > {RICCATI_MAX_K_REL:g}")
+    if not cert["k_ratio"] <= 1.0:
+        failures.append(f"k outside atol = rtol = {RICCATI_K_TOL:g} (ratio {cert['k_ratio']:.3g})")
+    if not cert["Quu_ratio"] <= 1.0:
+        failures.append(f"Quu outside atol = rtol = {RICCATI_QUU_TOL:g} "
+                        f"(ratio {cert['Quu_ratio']:.3g})")
+    if not cert["cost_rel"] <= RICCATI_MAX_COST_REL:
+        failures.append(
+            f"closed-loop cost off by {cert['cost_rel']:.3e} > {RICCATI_MAX_COST_REL:g}")
     return failures

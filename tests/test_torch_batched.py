@@ -91,7 +91,7 @@ def test_fixed_count_u_only():
         jnp.asarray(x0s)
     )
     solver = make_batched_lqt_admm(*_port(A, B, cost), project_u=lambda u: u.clamp(-5.0, 5.0),
-                                   **kw)
+                                   **kw, device="cpu")
     got = solver(torch.tensor(x0s))
     _agree(got, want, 1e-10)
     assert got[1].dtype == F64 and tuple(got[0].shape) == (8, 2 * N)
@@ -110,7 +110,8 @@ def test_fixed_count_both_blocks_terminal_pin():
                      rho_x=jnp.asarray(rho_x), rho_u=1e-3, n_iters=300)(jnp.asarray(x0s))
     got = make_batched_lqt_admm(
         *_port(A, B, cost), project_x=_pin(N, "torch"), project_u=lambda u: u.clamp(-3.0, 3.0),
-        rho_x=array_from_numpy(rho_x, device="cpu", dtype=F64), rho_u=1e-3, n_iters=300,
+        rho_x=array_from_numpy(rho_x,
+        device="cpu", dtype=F64), rho_u=1e-3, n_iters=300, device="cpu",
     )(torch.tensor(x0s))
     _agree(got, want, 1e-10)
     xs = got[0].numpy().reshape(4, N, 2)
@@ -128,7 +129,8 @@ def test_tol_freeze_matches_jax(tol):
     want = jax_fleet(A, B, cost, project_x=_vbox(N, 1.3, "jax"),
                      project_u=lambda u: project_bound(u, -5.0, 5.0), **kw)(jnp.asarray(x0s))
     got = make_batched_lqt_admm(*_port(A, B, cost), project_x=_vbox(N, 1.3, "torch"),
-                                project_u=lambda u: u.clamp(-5.0, 5.0), **kw)(torch.tensor(x0s))
+                                project_u=lambda u: u.clamp(-5.0, 5.0), **kw,
+                                device="cpu")(torch.tensor(x0s))
     _agree(got, want, 1e-10)
 
 
@@ -150,7 +152,7 @@ def test_anderson_matches_jax(blocks):
     want = jax_fleet(A, B, cost, project_u=lambda u: project_bound(u, -5.0, 5.0), **jax_kw,
                      **kw)(jnp.asarray(x0s))
     got = make_batched_lqt_admm(*_port(A, B, cost), project_u=lambda u: u.clamp(-5.0, 5.0),
-                                **port_kw, **kw)(torch.tensor(x0s))
+                                **port_kw, **kw, device="cpu")(torch.tensor(x0s))
     _agree(got, want, 1e-8)
     assert float(got[1].abs().max()) <= 5.0 + 1e-7
 
@@ -166,7 +168,8 @@ def test_alpha_over_relaxation_diverges_alike_on_a_state_box():
     _, u_j = jax_fleet(A, B, cost, project_x=_vbox(N, 1.3, "jax"),
                        project_u=lambda u: project_bound(u, -5.0, 5.0), **kw)(jnp.asarray(x0s))
     _, u_t = make_batched_lqt_admm(*_port(A, B, cost), project_x=_vbox(N, 1.3, "torch"),
-                                   project_u=lambda u: u.clamp(-5.0, 5.0), **kw)(torch.tensor(x0s))
+                                   project_u=lambda u: u.clamp(-5.0, 5.0), **kw,
+                                   device="cpu")(torch.tensor(x0s))
     u_j = np.asarray(u_j)
     assert np.abs(u_j).max() > 1e2  # diverging
     np.testing.assert_allclose(u_t.numpy(), u_j, rtol=0, atol=1e-9 * np.abs(u_j).max())
@@ -187,10 +190,10 @@ def test_argument_errors():
     A, B, cost = _port(*_problem(16))
     proj = lambda u: u.clamp(-1.0, 1.0)  # noqa: E731
     with pytest.raises(ValueError, match="anderson"):
-        make_batched_lqt_admm(A, B, cost, project_u=proj, rho_u=1e-2, anderson_m=5)
+        make_batched_lqt_admm(A, B, cost, project_u=proj, rho_u=1e-2, anderson_m=5, device="cpu")
     with pytest.raises(ValueError, match="rho_u"):
-        make_batched_lqt_admm(A, B, cost, project_u=proj)
+        make_batched_lqt_admm(A, B, cost, project_u=proj, device="cpu")
     with pytest.raises(ValueError, match="rho_x"):
-        make_batched_lqt_admm(A, B, cost, project_x=proj, project_u=proj, rho_u=1e-2)
+        make_batched_lqt_admm(A, B, cost, project_x=proj, project_u=proj, rho_u=1e-2, device="cpu")
     with pytest.raises(ValueError, match="project_u"):
-        make_batched_lqt_admm(A, B, cost, project_x=proj, rho_x=1.0, rho_u=1e-2)
+        make_batched_lqt_admm(A, B, cost, project_x=proj, rho_x=1.0, rho_u=1e-2, device="cpu")

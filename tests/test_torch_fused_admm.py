@@ -90,7 +90,7 @@ def test_setup_operators_match_jax_f64():
 
     tA, tB, tcost = _port(A, B, cost)
     kw = dict(u_lower=-5.0, u_upper=5.0, rho_u=rho_u, batch_tile=8)
-    s64 = make_fused_lqt_admm(tA, tB, tcost, dtype=torch.float64, **kw)
+    s64 = make_fused_lqt_admm(tA, tB, tcost, dtype=torch.float64, **kw, device="cpu")
     assert _rel_err(_np(s64.W_u), W_u) < 1e-9
     assert _rel_err(_np(s64.W_x), W_x) < 1e-9
     ub64, xb64 = s64.bases(torch.tensor(x0s))
@@ -99,9 +99,9 @@ def test_setup_operators_match_jax_f64():
 
     # the f32 solver holds the f64 setup of the f32-rounded data (rho
     # included), rounded once to f32
-    s32 = make_fused_lqt_admm(tA, tB, tcost, **kw)
+    s32 = make_fused_lqt_admm(tA, tB, tcost, **kw, device="cpu")
     s64 = make_fused_lqt_admm(
-        tA, tB, tcost, dtype=torch.float64, **dict(kw, rho_u=float(np.float32(rho_u)))
+        tA, tB, tcost, dtype=torch.float64, **dict(kw, rho_u=float(np.float32(rho_u))), device="cpu"
     )
     for name in ("Su", "Sx", "SuTQ", "l_side", "l_inv", "r_const", "W_u", "W_x"):
         got = getattr(s32, name)
@@ -122,7 +122,8 @@ def test_fused_u_only_matches_interpret_pallas():
     kw = dict(u_lower=-5.0, u_upper=5.0, rho_u=1e-2, n_iters=50, batch_tile=8, refresh_every=1)
     x0s = _x0s(0, 16)
     x_p, u_p, _, zu_p = make_pallas_lqt_admm(A, B, cost, interpret=True, **kw)(jnp.asarray(x0s))
-    x_t, u_t, zx_t, zu_t = make_fused_lqt_admm(*_port(A, B, cost), **kw)(torch.tensor(x0s))
+    x_t, u_t, zx_t, zu_t = make_fused_lqt_admm(*_port(A, B, cost), **kw,
+                                               device="cpu")(torch.tensor(x0s))
     assert np.abs(_np(u_t) - np.asarray(u_p)).max() < 5e-2
     assert np.abs(_np(x_t) - np.asarray(x_p)).max() < 5e-2
     assert np.abs(_np(zu_t) - np.asarray(zu_p)).max() < 5e-2
@@ -141,7 +142,7 @@ def test_fused_delta_mode_converges_to_fixed_point():
     _, u_s = star(jnp.asarray(x0s))
     solve = make_fused_lqt_admm(
         *_port(A, B, cost), u_lower=-5.0, u_upper=5.0, rho_u=1e-2,
-        n_iters=1000, batch_tile=8, refresh_every=8,
+        n_iters=1000, batch_tile=8, refresh_every=8, device="cpu",
     )
     _, u_t, _, zu_t = solve(torch.tensor(x0s))
     assert np.abs(_np(u_t) - np.asarray(u_s)).max() < 5e-3
@@ -158,7 +159,7 @@ def test_fused_polish_reaches_primal_tolerance():
     def prim(polish):
         solve = make_fused_lqt_admm(
             *_port(A, B, cost), u_lower=-5.0, u_upper=5.0, rho_u=1e-1,
-            n_iters=100, batch_tile=8, polish_iters=polish,
+            n_iters=100, batch_tile=8, polish_iters=polish, device="cpu",
         )
         _, u, _, zu = solve(x0s)
         return float(torch.linalg.vector_norm(u - zu, dim=-1).max())
@@ -176,8 +177,8 @@ def test_fused_early_exit_matches_full_schedule():
     kw = dict(u_lower=-5.0, u_upper=5.0, rho_u=1e-2, n_iters=120, batch_tile=8, refresh_every=1)
     tA, tB, tcost = _port(A, B, cost)
     x0s = torch.tensor(_x0s(1, 16))
-    x_f, u_f, _, zu_f = make_fused_lqt_admm(tA, tB, tcost, **kw)(x0s)
-    x_e, u_e, _, zu_e = make_fused_lqt_admm(tA, tB, tcost, stop_tol=1e-5, **kw)(x0s)
+    x_f, u_f, _, zu_f = make_fused_lqt_admm(tA, tB, tcost, **kw, device="cpu")(x0s)
+    x_e, u_e, _, zu_e = make_fused_lqt_admm(tA, tB, tcost, stop_tol=1e-5, **kw, device="cpu")(x0s)
     np.testing.assert_allclose(_np(u_e), _np(u_f), atol=2e-4)
     np.testing.assert_allclose(_np(x_e), _np(x_f), atol=2e-4)
     assert float(zu_e.abs().max()) <= 5.0 + 1e-5
@@ -194,8 +195,9 @@ def test_fused_early_exit_with_delta_mode():
     kw = dict(u_lower=-5.0, u_upper=5.0, rho_u=1e-1, n_iters=96, batch_tile=8, refresh_every=8)
     tA, tB, tcost = _port(A, B, cost)
     x0s = torch.tensor(_x0s(2, 8))
-    _, u_f, _, zu_f = make_fused_lqt_admm(tA, tB, tcost, **kw)(x0s)
-    _, u_e, _, zu_e = make_fused_lqt_admm(tA, tB, tcost, stop_tol=1e-5, check_every=4, **kw)(x0s)
+    _, u_f, _, zu_f = make_fused_lqt_admm(tA, tB, tcost, **kw, device="cpu")(x0s)
+    _, u_e, _, zu_e = make_fused_lqt_admm(tA, tB, tcost, stop_tol=1e-5, check_every=4, **kw,
+                                          device="cpu")(x0s)
     np.testing.assert_allclose(_np(u_e), _np(u_f), atol=5e-4)
     r_e = torch.linalg.vector_norm(u_e - zu_e, dim=-1)
     r_f = torch.linalg.vector_norm(u_f - zu_f, dim=-1)
@@ -211,7 +213,7 @@ def test_early_exit_is_per_tile():
               stop_tol=1e-4, check_every=2, polish_iters=0)
     easy = np.zeros((8, 2), np.float32)
     hard = _x0s(3, 8) * 30.0
-    solve = make_fused_lqt_admm(tA, tB, tcost, **kw)
+    solve = make_fused_lqt_admm(tA, tB, tcost, **kw, device="cpu")
     _, u_both, _, _ = solve(torch.tensor(np.concatenate([easy, hard])))
     _, u_easy, _, _ = solve(torch.tensor(easy))
     _, u_hard, _, _ = solve(torch.tensor(hard))
@@ -237,17 +239,17 @@ def test_bounds_without_rho_raise():
     A, B, cost = _problem(16)
     tA, tB, tcost = _port(A, B, cost)
     with pytest.raises(ValueError, match="rho_u"):
-        make_fused_lqt_admm(tA, tB, tcost, u_lower=-1.0, u_upper=1.0)
+        make_fused_lqt_admm(tA, tB, tcost, u_lower=-1.0, u_upper=1.0, device="cpu")
     with pytest.raises(ValueError, match="rho_u"):
-        make_fused_lqt_admm(tA, tB, tcost, u_lower=-1.0, u_upper=1.0, rho_u=0.0)
+        make_fused_lqt_admm(tA, tB, tcost, u_lower=-1.0, u_upper=1.0, rho_u=0.0, device="cpu")
     with pytest.raises(ValueError, match="at least one box"):
-        make_fused_lqt_admm(tA, tB, tcost)
+        make_fused_lqt_admm(tA, tB, tcost, device="cpu")
 
 
 def test_cpu_tensors_do_not_launch_the_kernel():
     A, B, cost = _problem()
     solve = make_fused_lqt_admm(*_port(A, B, cost), u_lower=-5.0, u_upper=5.0, rho_u=1e-1,
-                                n_iters=20, batch_tile=8)
+                                n_iters=20, batch_tile=8, device="cpu")
     before = fused_admm.launch_count
     solve(torch.tensor(_x0s(0, 16)))
     assert fused_admm.launch_count == before == 0
@@ -263,8 +265,9 @@ def test_f32_plain_path_agrees_with_f64():
     A, B, cost = _problem()
     kw = dict(u_lower=-5.0, u_upper=5.0, rho_u=1e-1, n_iters=100, batch_tile=8)
     x0s = torch.tensor(_x0s(4, 16))
-    s32 = make_fused_lqt_admm(*_port(A, B, cost), **kw)
-    s64 = make_fused_lqt_admm(*_port(A, B, cost, torch.float64), dtype=torch.float64, **kw)
+    s32 = make_fused_lqt_admm(*_port(A, B, cost), **kw, device="cpu")
+    s64 = make_fused_lqt_admm(*_port(A, B, cost, torch.float64), dtype=torch.float64, **kw,
+                              device="cpu")
     assert float((s32.bases(x0s)[0].double() - s64.bases(x0s)[0]).abs().max()) < 1e-4
     out32, out64 = s32(x0s), s64(x0s)
     assert out64[1].dtype == torch.float64
@@ -283,7 +286,7 @@ def test_alpha_over_relaxation_matches_batched_fixed_point():
     )
     _, u_s = star(jnp.asarray(x0s))
     solve = make_fused_lqt_admm(*_port(A, B, cost), u_lower=-5.0, u_upper=5.0, rho_u=1e-1,
-                                n_iters=600, batch_tile=8, alpha=1.6)
+                                n_iters=600, batch_tile=8, alpha=1.6, device="cpu")
     _, u_t, _, zu_t = solve(torch.tensor(x0s))
     assert np.abs(_np(u_t) - np.asarray(u_s)).max() < 5e-3
     assert float(zu_t.abs().max()) <= 5.0 + 1e-5

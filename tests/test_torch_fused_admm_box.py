@@ -109,7 +109,7 @@ def test_general_setup_matches_jax_f64(rho_x_kind):
                                                                     dtype=F64)
     kw = dict(u_lower=-5.0, u_upper=5.0, x_lower=x_lower, x_upper=x_upper, rho_x=rho_x_t,
               rho_u=rho_u, batch_tile=8)
-    s64 = make_fused_lqt_admm(tA, tB, tcost, dtype=F64, **kw)
+    s64 = make_fused_lqt_admm(tA, tB, tcost, dtype=F64, **kw, device="cpu")
     assert _rel_err(_np(s64.SuTQrT), SuTQr.T) < 1e-10
     assert _rel_err(_np(s64.l_invT), l_inv.T) < 1e-10
     assert _rel_err(_np(s64.W_s), np.concatenate([(l_inv @ SuTQr).T, (l_inv @ Rr_l).T])) < 1e-10
@@ -124,8 +124,9 @@ def test_general_setup_matches_jax_f64(rho_x_kind):
 
     # the f32 solver holds the f64 setup of the f32-rounded data (rho
     # included), rounded once
-    s32 = make_fused_lqt_admm(*_port(A, B, cost), **kw)
-    s64 = make_fused_lqt_admm(tA, tB, tcost, dtype=F64, **dict(kw, rho_u=float(np.float32(rho_u))))
+    s32 = make_fused_lqt_admm(*_port(A, B, cost), **kw, device="cpu")
+    s64 = make_fused_lqt_admm(tA, tB, tcost, dtype=F64, **dict(kw, rho_u=float(np.float32(rho_u))),
+                              device="cpu")
     for name in ("Sx", "SuTQ", "r_const", "SuTQrT", "l_invT", "W_s", "SuT", "xb", "ub"):
         got = getattr(s32, name)
         assert got.dtype == F32 and got.is_contiguous()
@@ -141,7 +142,7 @@ def test_folded_iteration_is_the_tpu_kernels_iteration():
     x_lower, x_upper = _vbox(N, 1.3)
     solver = make_fused_lqt_admm(*_port(A, B, cost, F64), u_lower=-5.0, u_upper=5.0,
                                  x_lower=x_lower, x_upper=x_upper, rho_x=10.0, rho_u=0.1,
-                                 n_iters=40, alpha=1.3, batch_tile=8, dtype=F64)
+                                 n_iters=40, alpha=1.3, batch_tile=8, dtype=F64, device="cpu")
     x0s = torch.tensor(_x0s(1, 8), dtype=F64)
     free, r_base, u0 = solver.bases(x0s)
     SuTQrT, l_invT, SuT, xb, ub = solver.SuTQrT, solver.l_invT, solver.SuT, solver.xb, solver.ub
@@ -173,7 +174,7 @@ def test_unfolded_f32_iteration_stalls_above_the_certificate(n_iters):
     x_lower, x_upper = _vbox(N, 1.3)
     solver = make_fused_lqt_admm(*_port(A, B, cost), u_lower=-5.0, u_upper=5.0,
                                  x_lower=x_lower, x_upper=x_upper, rho_x=10.0, rho_u=0.1,
-                                 n_iters=200, batch_tile=32)
+                                 n_iters=200, batch_tile=32, device="cpu")
     x0s = torch.tensor(_x0s(0, batch))
 
     def frac(x, u, z_x, z_u):
@@ -214,7 +215,7 @@ def test_box_reference_matches_interpret_pallas(case):
     x0s = _x0s(2, 8)
     jax_kw = dict(kw, rho_x=jnp.asarray(kw["rho_x"]))
     want = make_pallas_lqt_admm(A, B, cost, interpret=True, **jax_kw)(jnp.asarray(x0s))
-    got = make_fused_lqt_admm(*_port(A, B, cost), **kw)(torch.tensor(x0s))
+    got = make_fused_lqt_admm(*_port(A, B, cost), **kw, device="cpu")(torch.tensor(x0s))
     for name, g, w in zip(("x", "u", "z_x", "z_u"), got, want):
         assert np.abs(_np(g) - np.asarray(w)).max() < 5e-2, name
 
@@ -235,7 +236,7 @@ def test_fixed_point_matches_long_jax_fleet():
     x_s, u_s = star(jnp.asarray(x0s, jnp.float64))
     solver = make_fused_lqt_admm(*_port(A, B, cost, F64), u_lower=-5.0, u_upper=5.0,
                                  x_lower=x_lower, x_upper=x_upper, rho_x=10.0, rho_u=0.1,
-                                 n_iters=600, batch_tile=8, dtype=F64)
+                                 n_iters=600, batch_tile=8, dtype=F64, device="cpu")
     x, u, z_x, z_u = solver(torch.tensor(x0s, dtype=F64))
     assert np.abs(_np(u) - np.asarray(u_s)).max() < 5e-3
     assert np.abs(_np(x) - np.asarray(x_s)).max() < 5e-3
@@ -258,7 +259,8 @@ def test_state_only_box_with_over_relaxation():
                                  rho_x=10.0, n_iters=4000, alpha=1.3)
     x_s, u_s = star(jnp.asarray(x0s, jnp.float64))
     solver = make_fused_lqt_admm(*_port(A, B, cost, F64), x_lower=x_lower, x_upper=x_upper,
-                                 rho_x=10.0, n_iters=1500, alpha=1.3, batch_tile=8, dtype=F64)
+                                 rho_x=10.0, n_iters=1500, alpha=1.3, batch_tile=8, dtype=F64,
+                                 device="cpu")
     assert solver.kernel_options["has_u"] is False
     x0 = torch.tensor(x0s, dtype=F64)
     x, u, z_x, z_u = solver(x0)
@@ -278,9 +280,9 @@ def test_ignored_knobs_leave_the_output_bit_identical():
                 rho_u=0.1, n_iters=40, batch_tile=8)
     tA, tB, tcost = _port(A, B, cost)
     x0s = torch.tensor(_x0s(5, 16))
-    want = make_fused_lqt_admm(tA, tB, tcost, **base)(x0s)
+    want = make_fused_lqt_admm(tA, tB, tcost, **base, device="cpu")(x0s)
     got = make_fused_lqt_admm(tA, tB, tcost, refresh_every=8, polish_iters=0, stop_tol=1e-3,
-                              check_every=2, **base)(x0s)
+                              check_every=2, **base, device="cpu")(x0s)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
@@ -290,7 +292,8 @@ def test_zero_iterations_return_the_warm_start():
     A, B, cost = _problem(N)
     x_lower, x_upper = _vbox(N, 1.3)
     solver = make_fused_lqt_admm(*_port(A, B, cost), u_lower=-5.0, u_upper=5.0, x_lower=x_lower,
-                                 x_upper=x_upper, rho_x=10.0, rho_u=0.1, n_iters=0, batch_tile=8)
+                                 x_upper=x_upper, rho_x=10.0, rho_u=0.1, n_iters=0, batch_tile=8,
+                                 device="cpu")
     x0s = torch.tensor(_x0s(6, 8))
     free, _, u0 = solver.bases(x0s)
     x, u, z_x, z_u = solver(x0s)
@@ -302,11 +305,13 @@ def test_zero_iterations_return_the_warm_start():
 def test_state_bounds_without_rho_x_raise():
     tA, tB, tcost = _port(*_problem(16))
     with pytest.raises(ValueError, match="rho_x"):
-        make_fused_lqt_admm(tA, tB, tcost, x_lower=-1.0, x_upper=1.0)
+        make_fused_lqt_admm(tA, tB, tcost, x_lower=-1.0, x_upper=1.0, device="cpu")
     with pytest.raises(ValueError, match="rho_x"):
-        make_fused_lqt_admm(tA, tB, tcost, u_lower=-1.0, u_upper=1.0, rho_u=0.1, rho_x=1.0)
+        make_fused_lqt_admm(tA, tB, tcost, u_lower=-1.0, u_upper=1.0, rho_u=0.1, rho_x=1.0,
+                            device="cpu")
     with pytest.raises(ValueError, match="n_iters"):
-        make_fused_lqt_admm(tA, tB, tcost, x_lower=-1.0, x_upper=1.0, rho_x=1.0, n_iters=-1)
+        make_fused_lqt_admm(tA, tB, tcost, x_lower=-1.0, x_upper=1.0, rho_x=1.0, n_iters=-1,
+                            device="cpu")
 
 
 def _emulate_kernel_product(s, packed, base, start, stop, width, halves):
@@ -337,7 +342,7 @@ def test_profile_pack_matches_the_dense_product(kind):
         x_lower, x_upper = _vbox(N, 1.3)
         solver = make_fused_lqt_admm(*_port(A, B, cost, F64), u_lower=-5.0, u_upper=5.0,
                                      x_lower=x_lower, x_upper=x_upper, rho_x=10.0, rho_u=0.1,
-                                     batch_tile=8, dtype=F64)
+                                     batch_tile=8, dtype=F64, device="cpu")
         W = getattr(solver, kind)
     elif kind == "diagonal":
         W = torch.diag(torch.tensor(rng.normal(size=N)))
@@ -421,7 +426,8 @@ def test_cpu_tensors_do_not_launch_the_kernel():
     A, B, cost = _problem(N)
     x_lower, x_upper = _vbox(N, 1.3)
     solver = make_fused_lqt_admm(*_port(A, B, cost), u_lower=-5.0, u_upper=5.0, x_lower=x_lower,
-                                 x_upper=x_upper, rho_x=10.0, rho_u=0.1, n_iters=10, batch_tile=8)
+                                 x_upper=x_upper, rho_x=10.0, rho_u=0.1, n_iters=10, batch_tile=8,
+                                 device="cpu")
     before = (fused_admm.box_launch_count, fused_admm.launch_count)
     solver(torch.tensor(_x0s(7, 16)))
     assert (fused_admm.box_launch_count, fused_admm.launch_count) == before == (0, 0)

@@ -104,8 +104,9 @@ def test_setup_operators_match_jax_f64():
     want = dict(PHI_unc=PHI_unc, U_base=(l_inv @ r_base).T, W=(l_inv @ Rr_l).T)
 
     tA, tB, tcost = _port(A, B, cost)
-    s64 = make_fused_sls_admm(tA, tB, tcost, *NO_SOC, rho_u=rho_u, dtype=torch.float64, **DIAMOND)
-    s32 = make_fused_sls_admm(tA, tB, tcost, *NO_SOC, rho_u=rho_u, **DIAMOND)
+    s64 = make_fused_sls_admm(tA, tB, tcost, *NO_SOC, rho_u=rho_u, dtype=torch.float64, **DIAMOND,
+                              device="cpu")
+    s32 = make_fused_sls_admm(tA, tB, tcost, *NO_SOC, rho_u=rho_u, **DIAMOND, device="cpu")
     for name, value in want.items():
         assert _rel_err(_np(getattr(s64, name)), value) < 1e-10, name
         got = getattr(s32, name)
@@ -134,7 +135,8 @@ def test_fused_sls_matches_interpret_pallas(case):
     bounds = _bounds(0, lo=lo, hi=hi, sort="early" in case)
     du_p, phi_p, U_p = make_pallas_sls_admm(A, B, cost, *soc, interpret=True, **kw)(
         jnp.asarray(bounds))
-    du_t, phi_t, U_t = make_fused_sls_admm(*_port(A, B, cost), *soc, **kw)(torch.tensor(bounds))
+    du_t, phi_t, U_t = make_fused_sls_admm(*_port(A, B, cost), *soc, **kw,
+                                           device="cpu")(torch.tensor(bounds))
     assert U_t.shape == (8, 20, 2) and phi_t.shape == (8, 20, 40) and du_t.shape == (8, 20)
     assert _rel_err(_np(U_t), U_p) < tol
     assert _rel_err(_np(du_t), du_p) < tol
@@ -151,9 +153,9 @@ def test_diamond_iterate_is_feasible_and_early_exit_agrees():
     tA, tB, tcost = _port(A, B, cost)
     kw = dict(rho_u=1.0, robust_dim=1, n_iters=300, batch_tile=4, **DIAMOND)
     bounds = torch.tensor(_bounds(2))
-    _, _, U_f = make_fused_sls_admm(tA, tB, tcost, *NO_SOC, **kw)(bounds)
+    _, _, U_f = make_fused_sls_admm(tA, tB, tcost, *NO_SOC, **kw, device="cpu")(bounds)
     _, _, U_e = make_fused_sls_admm(tA, tB, tcost, *NO_SOC, stop_tol=1e-4, check_every=16,
-                                    **kw)(bounds)
+                                    **kw, device="cpu")(bounds)
     np.testing.assert_allclose(_np(U_e), _np(U_f), atol=2e-3)
     margin = U_f[:, :, 0].abs() + C_COEF * U_f[:, :, 1].abs() - bounds[:, None]
     assert float(margin.max()) < 5e-3
@@ -183,10 +185,12 @@ def test_early_exit_overruns_to_whole_chunks(z_update):
     bounds = _bounds(3)
     tA, tB, tcost = _port(A, B, cost)
     never = dict(stop_tol=1e-30, check_every=8)
-    _, _, U_e = make_fused_sls_admm(tA, tB, tcost, *soc, n_iters=20, **never, **kw)(
+    _, _, U_e = make_fused_sls_admm(tA, tB, tcost, *soc, n_iters=20, **never, **kw, device="cpu")(
         torch.tensor(bounds))
-    _, _, U_24 = make_fused_sls_admm(tA, tB, tcost, *soc, n_iters=24, **kw)(torch.tensor(bounds))
-    _, _, U_20 = make_fused_sls_admm(tA, tB, tcost, *soc, n_iters=20, **kw)(torch.tensor(bounds))
+    _, _, U_24 = make_fused_sls_admm(tA, tB, tcost, *soc, n_iters=24, **kw,
+                                     device="cpu")(torch.tensor(bounds))
+    _, _, U_20 = make_fused_sls_admm(tA, tB, tcost, *soc, n_iters=20, **kw,
+                                     device="cpu")(torch.tensor(bounds))
     assert torch.equal(U_e, U_24)
     assert not torch.equal(U_e, U_20)
     if z_update == "diamond":
@@ -202,7 +206,7 @@ def test_early_exit_is_per_tile():
     easy tile's result equals a solve of that tile alone."""
     A, B, cost = _problem()
     solve = make_fused_sls_admm(*_port(A, B, cost), *NO_SOC, rho_u=1.0, n_iters=400,
-                                batch_tile=4, stop_tol=1e-4, check_every=4, **DIAMOND)
+                                batch_tile=4, stop_tol=1e-4, check_every=4, **DIAMOND, device="cpu")
     easy = np.full(4, 40.0, np.float32)  # the bound is slack: converges at once
     hard = _bounds(4, batch=4, lo=1.0, hi=1.5)
     _, _, U_both = solve(torch.tensor(np.concatenate([easy, hard])))
@@ -211,7 +215,7 @@ def test_early_exit_is_per_tile():
     assert torch.equal(U_both[:4], U_easy)
     assert torch.equal(U_both[4:], U_hard)
     _, _, U_full = make_fused_sls_admm(*_port(A, B, cost), *NO_SOC, rho_u=1.0, n_iters=400,
-                                       batch_tile=4, **DIAMOND)(torch.tensor(easy))
+                                       batch_tile=4, **DIAMOND, device="cpu")(torch.tensor(easy))
     assert not torch.equal(U_easy, U_full)  # the easy tile did leave early
 
 
@@ -254,12 +258,12 @@ def test_factory_validation(kwargs, err):
     kwargs = dict(kwargs)
     soc = kwargs.pop("soc", NO_SOC)
     with pytest.raises(ValueError, match=err):
-        make_fused_sls_admm(tA, tB, tcost, *soc, rho_u=1.0, n_iters=10, **kwargs)
+        make_fused_sls_admm(tA, tB, tcost, *soc, rho_u=1.0, n_iters=10, **kwargs, device="cpu")
 
 
 def test_batch_not_a_multiple_of_the_tile_raises():
     solve = make_fused_sls_admm(*_port(*_problem(8)), *NO_SOC, rho_u=1.0, n_iters=10,
-                                batch_tile=4, **DIAMOND)
+                                batch_tile=4, **DIAMOND, device="cpu")
     with pytest.raises(ValueError, match="multiple of batch_tile"):
         solve(torch.full((6,), 2.0))
 
@@ -302,7 +306,7 @@ def test_wrapper_checks_its_inputs():
 def test_cpu_tensors_do_not_launch_the_kernel():
     A, B, cost = _problem(8)
     solve = make_fused_sls_admm(*_port(A, B, cost), *NO_SOC, rho_u=1.0, n_iters=10,
-                                batch_tile=4, **DIAMOND)
+                                batch_tile=4, **DIAMOND, device="cpu")
     before = fused_sls.launch_count
     solve(torch.tensor(_bounds(5)))
     assert fused_sls.launch_count == before == 0

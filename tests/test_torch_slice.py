@@ -53,7 +53,8 @@ def test_slice_meets_bench_gates_and_matches_pallas():
         np.asarray(cost.Q), np.asarray(cost.xd), np.asarray(cost.R),
         device="cpu", dtype=torch.float32,
     )
-    x, u, _, z_u = make_fused_lqt_admm(tA, tB, tcost, batch_tile=64, **kw)(torch.tensor(x0s))
+    x, u, _, z_u = make_fused_lqt_admm(tA, tB, tcost, batch_tile=64, **kw,
+                                       device="cpu")(torch.tensor(x0s))
     assert x.shape == (BATCH, 2 * N) and u.shape == (BATCH, N) and z_u.shape == (BATCH, N)
     assert all(bool(torch.isfinite(t).all()) for t in (x, u, z_u))
 
@@ -84,6 +85,9 @@ def test_port_imports_without_jax():
             ilqr_admm_tpu_torch.__path__, "ilqr_admm_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
+        for name in ("ops.riccati", "ops.parallel_riccati", "ops.scan", "ops.fused_riccati",
+                     "ops.rollout", "solvers.lqt", "utils.device"):
+            assert "ilqr_admm_tpu_torch." + name in names, name
         import chip_smoke
         leaked = sorted(m for m in sys.modules if m == "ilqr_admm_tpu" or m.startswith("ilqr_admm_tpu."))
         assert not leaked, leaked
@@ -95,4 +99,4 @@ def test_port_imports_without_jax():
         [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 15
+    assert int(proc.stdout.split()[-1]) >= 21

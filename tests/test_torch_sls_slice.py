@@ -58,7 +58,7 @@ def _solve(N, batch, **overrides):
     kw.update(overrides)
     bounds = np.sort(np.random.default_rng(0).uniform(2.0, 4.0, batch)).astype(np.float32)
     bounds = torch.tensor(bounds)
-    du, phi_u, U = make_fused_sls_admm(A, B, cost, (), (), (), **kw)(bounds)
+    du, phi_u, U = make_fused_sls_admm(A, B, cost, (), (), (), **kw, device="cpu")(bounds)
     return (A, B, cost), bounds, du, phi_u, U
 
 

@@ -152,7 +152,7 @@ def test_batched_sls_weighted_l1_matches_jax(tol):
     bounds = np.random.default_rng(0).uniform(1.5, 3.0, 6)
     du_j, phi_j, U_j = j_make_batched_sls_admm(A, B, cost, project_u=j_proj, **kw)(
         jnp.asarray(bounds))
-    du, phi, U = make_batched_sls_admm(*_port(A, B, cost), project_u=t_proj, **kw)(
+    du, phi, U = make_batched_sls_admm(*_port(A, B, cost), project_u=t_proj, **kw, device="cpu")(
         torch.tensor(bounds))
     assert U.dtype == F64 and phi.shape == (6, 20, 40)
     close(U, U_j, 1e-9)
@@ -167,8 +167,8 @@ def test_batched_sls_early_stop_matches_fixed_count():
     tA, tB, tcost = _port(A, B, cost)
     kw = dict(project_u=t_proj, rho_u=1.0, robust_dim=1, n_iters=800)
     bounds = torch.tensor(np.random.default_rng(1).uniform(1.5, 3.0, 5))
-    _, _, U_f = make_batched_sls_admm(tA, tB, tcost, **kw)(bounds)
-    _, _, U_s = make_batched_sls_admm(tA, tB, tcost, tol=1e-8, **kw)(bounds)
+    _, _, U_f = make_batched_sls_admm(tA, tB, tcost, **kw, device="cpu")(bounds)
+    _, _, U_s = make_batched_sls_admm(tA, tB, tcost, tol=1e-8, **kw, device="cpu")(bounds)
     np.testing.assert_allclose(U_s.numpy(), U_f.numpy(), atol=1e-6)
 
 
@@ -197,7 +197,7 @@ def test_batched_sls_consensus_matches_jax():
     bounds = np.random.default_rng(2).uniform(2.0, 4.0, 4)
     _, _, U_j = j_make_batched_sls_admm(
         A, B, cost, project_u=lambda y, p: jax.vmap(j_soc)(y, p), **kw)(jnp.asarray(bounds))
-    _, _, U = make_batched_sls_admm(*_port(A, B, cost), project_u=t_soc, **kw)(
+    _, _, U = make_batched_sls_admm(*_port(A, B, cost), project_u=t_soc, **kw, device="cpu")(
         torch.tensor(bounds))
     close(U, U_j, 1e-9)
 
@@ -213,7 +213,8 @@ def test_batched_sls_state_block_matches_jax():
         A, B, cost, project_x=lambda y, p: jnp.clip(y, -2.0, 2.0), project_u=j_u, **kw
     )(jnp.asarray(bounds))
     _, _, U = make_batched_sls_admm(
-        *_port(A, B, cost), project_x=lambda y, p: y.clamp(-2.0, 2.0), project_u=t_proj, **kw
+        *_port(A, B, cost), project_x=lambda y, p: y.clamp(-2.0, 2.0), project_u=t_proj, **kw,
+        device="cpu"
     )(torch.tensor(bounds))
     close(U, U_j, 1e-9)
 
@@ -221,8 +222,9 @@ def test_batched_sls_state_block_matches_jax():
 def test_batched_sls_argument_errors():
     tA, tB, tcost = _port(*_problem(8))
     with pytest.raises(ValueError, match="at least one projection"):
-        make_batched_sls_admm(tA, tB, tcost)
+        make_batched_sls_admm(tA, tB, tcost, device="cpu")
     with pytest.raises(ValueError, match="rho_u"):
-        make_batched_sls_admm(tA, tB, tcost, project_u=lambda y, p: y)
+        make_batched_sls_admm(tA, tB, tcost, project_u=lambda y, p: y, device="cpu")
     with pytest.raises(ValueError, match="project_u"):
-        make_batched_sls_admm(tA, tB, tcost, project_x=lambda y, p: y, rho_x=1.0, rho_u=1.0)
+        make_batched_sls_admm(tA, tB, tcost, project_x=lambda y, p: y, rho_x=1.0, rho_u=1.0,
+                              device="cpu")

@@ -71,7 +71,8 @@ def test_slice_meets_certificates_and_matches_pallas():
     tA, tB, tcost = _port(A, B, cost)
     xl_t = array_from_numpy(x_lower, device="cpu", dtype=torch.float32)
     xu_t = array_from_numpy(x_upper, device="cpu", dtype=torch.float32)
-    solver = make_fused_lqt_admm(tA, tB, tcost, x_lower=xl_t, x_upper=xu_t, batch_tile=32, **kw)
+    solver = make_fused_lqt_admm(tA, tB, tcost, x_lower=xl_t, x_upper=xu_t, batch_tile=32, **kw,
+                                 device="cpu")
     x, u, z_x, z_u = solver(torch.tensor(x0s))
     assert x.shape == z_x.shape == (batch, 2 * N) and u.shape == z_u.shape == (batch, N)
     assert all(bool(torch.isfinite(t).all()) for t in (x, u, z_x, z_u))
@@ -148,7 +149,7 @@ def test_an_oracle_that_stops_early_fails_the_gates(monkeypatch):
     tA, tB, tcost = _port(A, B, cost)
     solver = make_fused_lqt_admm(tA, tB, tcost, u_lower=-U_MAX, u_upper=U_MAX, x_lower=x_lower,
                                  x_upper=x_upper, rho_x=RHO_X, rho_u=RHO_U, n_iters=200,
-                                 batch_tile=8)
+                                 batch_tile=8, device="cpu")
     x, u, z_x, z_u = solver(torch.tensor(x0s))
     args = (tA, tB, tcost, torch.tensor(x0s), x, u, z_x, z_u, -U_MAX, U_MAX, x_lower, x_upper)
     assert certify_state_box(*args, n_oracle=2)["oracle_failures"] == []
