@@ -19,7 +19,12 @@ Drives the port's four paths on the card:
   0.01, Q = 100 I, R = 0.01 I, N = 10,000, nb = 128 blocks) through
   `lqt_backward_parallel_fused`, whose scan is the `riccati_scan`,
   `riccati_level2` and `riccati_join` kernels, then the closed loop from
-  x0 through `rollout_closed_loop_parallel`.
+  x0 through `rollout_closed_loop_parallel`;
+- the control-limited car of `benchmarks/run_all.py:274-329` through the
+  nonlinear constrained solver `ilqr_admm` (CarFrontWheel, N = 500, the
+  parking cost, |w| <= 0.5, |a| <= 2, rho_u = diag(1e-2, 1e-3), 60 outer
+  steps, 30 ADMM iterations, 20 alphas, SQP-style outer line search,
+  f32), whose line-search rollout is the `linesearch_rollout` kernel.
 
 Phases:
 
@@ -31,10 +36,14 @@ Phases:
    state box only, and at an odd width; `sls_admm` in the diamond,
    early-exit and consensus modes and at an odd width; the three Riccati
    kernels at N = 10,000 with d = 4, N = 1,001 with nb = 8, d = 3 and
-   the ADMM regularizers, d = 2, d = 1, and N = 100 < nb);
-4. for each path: main path, one fleet solve (one backward pass) with
-   every launch counter set to 0 just before it and read just after,
-   checked against the certificates (`utils/certify.py`);
+   the ADMM regularizers, d = 2, d = 1, and N = 100 < nb;
+   `linesearch_rollout` at N = 500 with 20, 1 and 128 candidates, N = 60,
+   N = 37, and a candidate set with NaN states);
+4. for each path: main path, one fleet solve (one backward pass, one car
+   solve) with every launch counter set to 0 just before it and read
+   just after, checked against the certificates (`utils/certify.py`;
+   for the car the cost and bound gates of `tests/test_ilqr_admm.py`, an
+   f64 solve on the host, and an inner-line-search solve);
 5. for each path: time, the kernel and the plain version with CUDA
    events (for the state-bounded path also the whole forward and the
    plain fleet `make_batched_lqt_admm`; for the Riccati path, at N =
@@ -43,7 +52,8 @@ Phases:
    its plain version, the plain torch blocked and flat scans and the
    sequential pass, then an nb sweep, the parallel against the
    sequential closed-loop rollout, and a `torch.profiler` split of the
-   pass).
+   pass; for the car, the kernel, its plain version, the whole solve and
+   a `torch.profiler` split of a solve).
 
 Any failure exits non-zero before the last line. The last line is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
@@ -67,8 +77,9 @@ import torch
 from scipy.stats import norm
 
 from ilqr_admm_tpu_torch import _build
+from ilqr_admm_tpu_torch.models.car import CarFrontWheel, CarParkingCost
 from ilqr_admm_tpu_torch.models.double_integrator import DoubleIntegrator
-from ilqr_admm_tpu_torch.ops import fused_admm, fused_riccati, fused_sls
+from ilqr_admm_tpu_torch.ops import fused_admm, fused_riccati, fused_rollout, fused_sls
 from ilqr_admm_tpu_torch.ops.fused_admm import (
     admm_box,
     admm_box_reference,
@@ -86,6 +97,11 @@ from ilqr_admm_tpu_torch.ops.fused_riccati import (
     riccati_scan,
     riccati_scan_reference,
 )
+from ilqr_admm_tpu_torch.ops.fused_rollout import (
+    linesearch_rollout,
+    linesearch_rollout_reference,
+    make_fused_linesearch_rollout,
+)
 from ilqr_admm_tpu_torch.ops.fused_sls import make_fused_sls_admm, sls_admm, sls_admm_reference
 from ilqr_admm_tpu_torch.ops.parallel_riccati import (
     lqt_backward_parallel,
@@ -93,8 +109,11 @@ from ilqr_admm_tpu_torch.ops.parallel_riccati import (
     value_elements,
 )
 from ilqr_admm_tpu_torch.ops.riccati import lqt_backward
-from ilqr_admm_tpu_torch.ops.rollout import rollout_closed_loop
+from ilqr_admm_tpu_torch.ops.rollout import rollout_closed_loop, rollout_nonlinear
+from ilqr_admm_tpu_torch.problem import SolveStatus
+from ilqr_admm_tpu_torch.solvers import admm as admm_solver
 from ilqr_admm_tpu_torch.solvers.batched import make_batched_lqt_admm
+from ilqr_admm_tpu_torch.solvers.ilqr_admm import ilqr_admm
 from ilqr_admm_tpu_torch.utils.certify import (
     certify,
     certify_riccati,
@@ -172,6 +191,42 @@ RICCATI_PLAIN = (3, 1)
 RICCATI_CASES = ((10_000, 128, 4, False), (1_001, 8, 3, True), (500, 16, 2, False),
                  (300, 32, 1, False), (100, 128, 4, False))
 RICCATI_KERNELS = ("riccati_scan", "riccati_level2", "riccati_join")
+
+# The control-limited car of benchmarks/run_all.py:274-329 through ilqr_admm
+CAR_N = 500
+CAR_X0 = (1.0, 1.0, 3.0 * np.pi / 2, 0.0)
+CAR_U_LO, CAR_U_HI = (-0.5, -2.0), (0.5, 2.0)
+CAR_RHO_U = (1e-2, 1e-3)
+CAR_SOLVE = dict(max_iter=60, max_admm_iter=30, tol=1e-3, outer_tol=1e-5, osc_tol=1e-5,
+                 line_search="outer")
+CAR_ALPHAS = 20
+# the inner-line-search configuration of tests/test_ilqr_admm.py:27-46,
+# its u0 from default_rng(3) included (from default_rng(0) the port's f32
+# solve ends at 1.9643 on an H100 80GB HBM3)
+CAR_INNER = dict(max_iter=60, max_admm_iter=8, tol=1e-3, outer_tol=1e-5, osc_tol=1e-5,
+                 line_search="inner")
+CAR_INNER_ALPHAS = 40
+CAR_INNER_SEED = 3
+# gates: tests/test_ilqr_admm.py:73-82 (outer), :50-55 (inner); the f64
+# host solve of the same problem within 1e-3 of the cost
+CAR_COST_MAX, CAR_COST_MIN, CAR_VIOLATION_MAX = 1.907, 0.9, 3e-4
+CAR_INNER_COST_MAX, CAR_INNER_VIOLATION_MAX = 1.92, 1e-3
+CAR_F64_REL = 1e-3
+CAR_STATUSES = (SolveStatus.CONVERGED, SolveStatus.OSCILLATING, SolveStatus.MAX_ITER)
+# (N, candidates): the main path's, the JAX test's, one and the most
+# candidates, an odd horizon
+ROLLOUT_CASES = ((500, 20), (60, 20), (500, 1), (500, 128), (37, 20))
+# kernel and plain version run the same f32 operations in the same order
+# (no FMA contraction, the same libdevice transcendentals); times
+# max(1, max|xs| over finite entries)
+ROLLOUT_TOL = 1e-5
+# f32 operations of one car step of one candidate, a transcendental or a
+# square root counting one
+CAR_STEP_OPS = 22
+CAR_SOLVES_TIMED = 3
+# outer steps of the profiled solve: the profiler's post-processing of a
+# whole 44-step solve (~100,000 device ops) took 79 s on the H100's host
+CAR_PROFILED_STEPS = 10
 
 # Published peaks of one H100 SXM: f32 outside the tensor cores and HBM3
 PEAK_F32_FLOPS = 67e12
@@ -262,6 +317,7 @@ def reset_launch_counts():
     fused_riccati.scan_launch_count = 0
     fused_riccati.level2_launch_count = 0
     fused_riccati.join_launch_count = 0
+    fused_rollout.launch_count = 0
 
 
 @contextlib.contextmanager
@@ -999,6 +1055,235 @@ def existing_bounds(solver, u_base, x_base, box, x0s, sls, sls_fleet):
     return {"admm_u_only": u_only, "admm_box": box_bound, "sls_admm": sls_bound}
 
 
+# ---- the control-limited car through ilqr_admm -----------------------------
+
+
+def car_problem(device, dtype=torch.float32, n_alphas=CAR_ALPHAS, seed=0):
+    """run_all.py's car: the plant, the parking cost, x_nom0 (the open-loop
+    rollout of u0 ~ 0.1 N(0, 1) from default_rng(seed)), u0, the clip
+    projection and the alpha grid, on `device` in `dtype`."""
+    kw = dict(dtype=dtype, device=device)
+    car = CarFrontWheel(dt=15.0 / CAR_N)
+    cost = CarParkingCost(**kw)
+    u0 = torch.tensor(np.random.default_rng(seed).normal(size=(CAR_N, 2)) * 0.1, **kw)
+    x_nom0 = rollout_nonlinear(car.step, torch.tensor(CAR_X0, **kw), u0)
+    lo, hi = torch.tensor(CAR_U_LO, **kw), torch.tensor(CAR_U_HI, **kw)
+
+    def project_u(u):
+        return torch.minimum(torch.maximum(u.reshape(CAR_N, 2), lo), hi).reshape(-1)
+
+    alphas = (10.0 ** torch.linspace(0.0, -5.0, 50, **kw))[:n_alphas]
+    return car, cost, x_nom0, u0, project_u, alphas
+
+
+def car_solve(device, dtype=torch.float32, fused=True, config=CAR_SOLVE, n_alphas=CAR_ALPHAS,
+              seed=0):
+    """One ilqr_admm solve of the car; fused: the line-search rollout is
+    the kernel (else the default vmapped plain rollout)."""
+    car, cost, x_nom0, u0, project_u, alphas = car_problem(device, dtype, n_alphas, seed)
+    kw = dict(config, get_Cs=cost.get_Cs, project_u=project_u, alphas=alphas,
+              rho_u=torch.diag(torch.tensor(CAR_RHO_U, dtype=dtype, device=device)),
+              device=device)
+    if fused:
+        kw["linesearch_rollout"] = make_fused_linesearch_rollout(car, CAR_N, 4, 2, n_alphas,
+                                                                 device=device)
+    return ilqr_admm(car.step, car.get_AB, cost, x_nom0, u0, **kw)
+
+
+def car_violation(u_nom) -> float:
+    u = u_nom.double().cpu()
+    lo, hi = torch.tensor(CAR_U_LO, dtype=torch.float64), torch.tensor(CAR_U_HI, dtype=torch.float64)
+    return float(torch.clamp(torch.maximum(u - hi, lo - u), min=0.0).max())
+
+
+def rollout_case(device, horizon, n_cands, nan=False, seed=0):
+    """(car, x0, u_cands) for the kernel: alphas x a random step, N(0, 0.1^2);
+    nan: the first three candidates steer at 1.5 rad with a large
+    acceleration, so that their asin argument leaves [-1, 1]."""
+    f32 = dict(dtype=torch.float32, device=device)
+    delta = np.random.default_rng(seed).normal(size=(horizon, 2)) * 0.1
+    alphas = 10.0 ** np.linspace(0.0, -5.0, max(50, n_cands))[:n_cands]
+    u = torch.tensor(alphas[:, None, None] * delta[None], **f32)
+    if nan:
+        u[:3, :, 0], u[:3, :, 1] = 1.5, 40.0
+    return CarFrontWheel(dt=15.0 / horizon), torch.tensor(CAR_X0, **f32), u.contiguous()
+
+
+def phase_car_compare(device):
+    """`linesearch_rollout` against `linesearch_rollout_reference` on the
+    same card inputs; NaN positions must match exactly."""
+    worst = 0.0
+    cases = [(n, a, False) for n, a in ROLLOUT_CASES] + [(CAR_N, CAR_ALPHAS, True)]
+    for horizon, n_cands, nan in cases:
+        car, x0, u = rollout_case(device, horizon, n_cands, nan)
+        got = linesearch_rollout(car, x0, u)
+        torch.cuda.synchronize()
+        want = linesearch_rollout_reference(car.step_cols, x0, u)
+        torch.cuda.synchronize()
+        label = f"N={horizon}, A={n_cands}" + (", NaN candidates" if nan else "")
+        check(tuple(got.shape) == (n_cands, horizon, 4), f"rollout {label}: shape {got.shape}")
+        check(torch.equal(torch.isnan(got), torch.isnan(want)), f"rollout {label}: NaN positions differ")
+        check(torch.equal(got[:, 0], x0.expand(n_cands, 4)), f"rollout {label}: xs[:, 0] != x0")
+        fin = torch.isfinite(want)
+        n_nan = int((~fin).sum())
+        check(n_nan > 0 if nan else n_nan == 0, f"rollout {label}: {n_nan} non-finite states")
+        err = float((got - want)[fin].abs().max())
+        tol = ROLLOUT_TOL * max(1.0, float(want[fin].abs().max()))
+        same = torch.equal(torch.nan_to_num(got, nan=7.0), torch.nan_to_num(want, nan=7.0))
+        worst = max(worst, err)
+        print(f"[car kernel vs plain] {label}: max|dxs| {err:.3e} over finite states "
+              f"(tolerance {tol:.3g}); bit-identical {same}; NaN states {n_nan}")
+        check(err <= tol, f"rollout {label}: kernel disagrees with plain version")
+    return worst
+
+
+def _car_gates(res, label, cost_max, violation_max):
+    """Shapes, finiteness, status and the cost and bound gates of a solve."""
+    cost, viol = float(res.cost), car_violation(res.u_nom)
+    check(tuple(res.x_nom.shape) == (CAR_N, 4) and tuple(res.u_nom.shape) == (CAR_N, 2),
+          f"{label}: unexpected shapes")
+    check(bool(torch.isfinite(res.x_nom).all() and torch.isfinite(res.u_nom).all()),
+          f"{label}: non-finite trajectory")
+    check(res.status in CAR_STATUSES, f"{label}: status {SolveStatus(res.status).name}")
+    check(CAR_COST_MIN < cost <= cost_max, f"{label}: cost {cost} outside ({CAR_COST_MIN}, {cost_max}]")
+    check(viol <= violation_max, f"{label}: bound violation {viol:.3e} > {violation_max}")
+    return cost, viol
+
+
+def phase_car_main_path(device):
+    """The outer-mode solve through the kernel only: one launch an outer
+    step, the gates of tests/test_ilqr_admm.py."""
+
+    def plain_must_not_run(*args, **kwargs):
+        raise SmokeFailure("the car main path ran linesearch_rollout_reference")
+
+    reset_launch_counts()
+    syncs0 = admm_solver.host_sync_count
+    t0 = time.perf_counter()
+    with _swapped(fused_rollout, linesearch_rollout_reference=plain_must_not_run):
+        res = car_solve(device)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fused_rollout.launch_count
+    syncs = admm_solver.host_sync_count - syncs0
+    cost, viol = _car_gates(res, "car main path", CAR_COST_MAX, CAR_VIOLATION_MAX)
+    print(f"[car main path] outer-mode solve: cost {cost:.6f} (gate <= {CAR_COST_MAX}; JAX on the "
+          f"TPU 1.9055, reference 1.903), max bound violation {viol:.3e} (gate {CAR_VIOLATION_MAX}), "
+          f"{res.outer_iters} outer steps, status {SolveStatus(res.status).name}, "
+          f"{seconds:.2f} s with the build loaded; linesearch_rollout launches {launches}; "
+          f"host reads of stop flags {syncs}")
+    check(launches == res.outer_iters,
+          f"linesearch_rollout launched {launches} times in {res.outer_iters} outer steps")
+    return launches, res
+
+
+def phase_car_host_f64(main):
+    """The same problem solved by the port in f64 on the host CPU with the
+    plain vmapped rollout: the f32 card solve must be within 1e-3 of it."""
+    t0 = time.perf_counter()
+    ref = car_solve("cpu", torch.float64, fused=False)
+    seconds = time.perf_counter() - t0
+    cost, viol = _car_gates(ref, "car f64 host solve", CAR_COST_MAX, CAR_VIOLATION_MAX)
+    rel = abs(float(main.cost) - cost) / cost
+    print(f"[car f64 host] cost {cost:.6f}, violation {viol:.3e}, {ref.outer_iters} outer steps, "
+          f"status {SolveStatus(ref.status).name}, {seconds:.1f} s on the host; card f32 cost "
+          f"{float(main.cost):.6f}, |dcost|/cost {rel:.3e} (gate {CAR_F64_REL:g})")
+    check(rel <= CAR_F64_REL, f"card f32 cost differs from the f64 host solve by {rel:.3e}")
+    return ref
+
+
+def phase_car_inner(device):
+    """The inner-line-search configuration through the kernel: a rollout
+    in each ADMM iteration."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = car_solve(device, config=CAR_INNER, n_alphas=CAR_INNER_ALPHAS, seed=CAR_INNER_SEED)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fused_rollout.launch_count
+    cost, viol = _car_gates(res, "car inner mode", CAR_INNER_COST_MAX, CAR_INNER_VIOLATION_MAX)
+    most = CAR_INNER["max_admm_iter"] * res.outer_iters
+    print(f"[car inner mode] cost {cost:.6f} (gate < {CAR_INNER_COST_MAX}), violation {viol:.3e} "
+          f"(gate {CAR_INNER_VIOLATION_MAX}), {res.outer_iters} outer steps, status "
+          f"{SolveStatus(res.status).name}, {seconds:.2f} s; linesearch_rollout launches "
+          f"{launches} (between {res.outer_iters} and {most})")
+    check(res.outer_iters <= launches <= most, f"inner mode launched the kernel {launches} times")
+    return launches, res
+
+
+def car_bound(x0, u, xs):
+    """Bytes of x0, the candidates and the trajectories once each; the
+    step's operations for every candidate and step."""
+    n_cands, horizon = u.shape[0], u.shape[1]
+    return bound(CAR_STEP_OPS * n_cands * horizon, nbytes(x0, u, xs))
+
+
+def phase_car_time(device, card):
+    """The kernel (device time from a CUDA graph of 10 wrapper calls, and
+    the wrapper's event time), its plain version, and the whole solve."""
+    car, x0, u = rollout_case(device, CAR_N, CAR_ALPHAS)
+    kernel = (lambda: linesearch_rollout(car, x0, u))
+    timed = _timed({"wrapper": (kernel, TIMING_WINDOWS, CALLS_PER_WINDOW),
+                    "plain": (lambda: linesearch_rollout_reference(car.step_cols, x0, u), 3, 1)})
+    timed["kernel"] = (*_graph_ms(kernel), TIMING_WINDOWS)
+    for name, (med, q1, q3, n) in timed.items():
+        how = "CUDA graph of 10 calls" if name == "kernel" else "CUDA events"
+        print(f"[car time] linesearch_rollout {name}: {med:.4f} ms (IQR {q1:.4f}-{q3:.4f}, "
+              f"{n} windows, {how}) at N={CAR_N}, A={CAR_ALPHAS}; card: {card}")
+    car_solve(device)  # warm-up
+    torch.cuda.synchronize()
+    solves = []
+    for _ in range(CAR_SOLVES_TIMED):
+        t0 = time.perf_counter()
+        res = car_solve(device)
+        torch.cuda.synchronize()
+        solves.append((time.perf_counter() - t0) * 1e3)
+    med = float(np.median(solves))
+    print(f"[car time] whole outer-mode solve: median {med:.1f} ms of {CAR_SOLVES_TIMED} "
+          f"({', '.join(f'{t:.1f}' for t in solves)}), {res.outer_iters} outer steps = "
+          f"{med / res.outer_iters:.2f} ms an outer step; card: {card}")
+    xs = linesearch_rollout(car, x0, u)
+    return {"kernel": timed["kernel"][0], "wrapper": timed["wrapper"][0],
+            "plain": timed["plain"][0], "solve_ms": med, "bound": car_bound(x0, u, xs)}
+
+
+def phase_car_profile(device, card):
+    """The first CAR_PROFILED_STEPS outer steps of the main path's solve
+    under `torch.profiler`: device busy share of the wall time, the top
+    device ops, and the host syncs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    config = dict(CAR_SOLVE, max_iter=CAR_PROFILED_STEPS)
+    car_solve(device, config=config)
+    torch.cuda.synchronize()
+    syncs0 = admm_solver.host_sync_count
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = car_solve(device, config=config)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    flag_reads = admm_solver.host_sync_count - syncs0
+    events = prof.key_averages()
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in on_device)
+    waits = {e.key: e.count for e in events
+             if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "aten::_local_scalar_dense",
+                          "aten::item", "cudaMemcpyAsync")}
+    print(f"[car profile] the solve's first {res.outer_iters} outer steps: wall {wall_us / 1e3:.1f} ms "
+          f"under the profiler; host reads of stop flags {flag_reads}; host-side sync and copy "
+          f"calls {waits}; card: {card}")
+    if busy_us <= 0.0:
+        print("[car profile] the profiler saw no device time: not measured")
+        return None
+    print(f"[car profile] device busy {busy_us / 1e3:.1f} ms = {100 * busy_us / wall_us:.2f}% of "
+          f"the wall time; {sum(e.count for e in on_device)} device ops of {len(on_device)} kinds")
+    for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[car profile] {e.self_device_time_total / 1e3:9.3f} ms, {e.count:6d} calls: "
+              f"{e.key[:90]}")
+    return {"busy_share": busy_us / wall_us}
+
+
 def main() -> int:
     seconds = {}
 
@@ -1037,8 +1322,15 @@ def main() -> int:
         riccati_launches, _ = run("riccati main path", phase_riccati_main_path, "cuda")
         riccati_times = run("riccati time", phase_riccati_time, "cuda", card)
         run("riccati profile", phase_riccati_profile, "cuda", card)
+        car_max_err = run("car compare", phase_car_compare, "cuda")
+        car_launches, car_main = run("car main path", phase_car_main_path, "cuda")
+        run("car f64 host solve", phase_car_host_f64, car_main)
+        run("car inner mode", phase_car_inner, "cuda")
+        car_times = run("car time", phase_car_time, "cuda", card)
+        run("car profile", phase_car_profile, "cuda", card)
         bounds = dict(run("fleet bounds", existing_bounds, solver, u_base, x_base, box[1], x0s,
-                          sls[1], sls_fleet), **riccati_times["bounds"])
+                          sls[1], sls_fleet), **riccati_times["bounds"],
+                      linesearch_rollout=car_times["bound"])
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
@@ -1092,6 +1384,18 @@ def main() -> int:
             "ms": riccati_times[(RICCATI_N, f"{kname} kernel")],
             "plain_ms": riccati_times[(RICCATI_N, f"{kname} plain")],
         })
+    kernels.append({
+        "name": "linesearch_rollout",
+        "route": "cuda",
+        "source": "ilqr_admm_tpu_torch/csrc/linesearch_rollout.cu",
+        "replaces": "ilqr_admm_tpu/ops/pallas_rollout.py:90",
+        "launches": car_launches,
+        "max_abs_err": car_max_err,
+        # device time (a CUDA graph of the wrapper's launches), as for the
+        # Riccati kernels
+        "ms": car_times["kernel"],
+        "plain_ms": car_times["plain"],
+    })
     for k in kernels:
         k.update(bounds[k["name"]], library_ms=None)
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,9 @@
 Module paths mirror the JAX package, so `ilqr_admm_tpu/ops/lifted.py`
 has its counterpart in `ilqr_admm_tpu_torch/ops/lifted.py`; the
 exceptions are the kernel modules `ops/pallas_admm.py`,
-`ops/pallas_sls.py` and `ops/pallas_riccati.py`, whose counterparts are
-`ops/fused_admm.py`, `ops/fused_sls.py` and `ops/fused_riccati.py`.
+`ops/pallas_sls.py`, `ops/pallas_riccati.py` and `ops/pallas_rollout.py`,
+whose counterparts are `ops/fused_admm.py`, `ops/fused_sls.py`,
+`ops/fused_riccati.py` and `ops/fused_rollout.py`.
 The JAX package stays as the reference; this package imports torch,
 numpy and scipy and never jax.
 
@@ -26,7 +27,12 @@ Ported so far:
   Riccati passes (`ops/riccati.py`, `ops/parallel_riccati.py`), the
   rollouts, the LQT solvers (`lqt_solve_dp` and the rest of
   `solvers/lqt.py`), and `lqt_backward_parallel_fused`, whose blocked
-  scan is the CUDA kernels of `csrc/riccati_scan.cu`.
+  scan is the CUDA kernels of `csrc/riccati_scan.cu`;
+- slice 5, the nonlinear constrained solver on the control-limited car:
+  `models/car.py`, the ADMM solver `solvers/admm.py`, the square-root
+  Riccati pass, iLQR, the constrained LQT and robust SLS ADMM solvers,
+  and `ilqr_admm`, whose line-search rollout is the CUDA kernel
+  `csrc/linesearch_rollout.cu` behind `make_fused_linesearch_rollout`.
 
 The kernels are built with nvcc at first use on a CUDA tensor. Importing
 the package builds and loads nothing. Entry points that take a `device`
@@ -34,25 +40,32 @@ run on the CUDA card unless the caller passes another (the CPU runs the
 plain torch versions of the kernels).
 """
 
+from ilqr_admm_tpu_torch.models.car import CarFrontWheel, CarParkingCost
 from ilqr_admm_tpu_torch.models.double_integrator import DoubleIntegrator
 from ilqr_admm_tpu_torch.ops.fused_admm import make_fused_lqt_admm
 from ilqr_admm_tpu_torch.ops.fused_riccati import lqt_backward_parallel_fused
+from ilqr_admm_tpu_torch.ops.fused_rollout import make_fused_linesearch_rollout
 from ilqr_admm_tpu_torch.ops.fused_sls import make_fused_sls_admm
 from ilqr_admm_tpu_torch.ops.riccati import DPGains
 from ilqr_admm_tpu_torch.problem import QuadCost
 from ilqr_admm_tpu_torch.solvers.batched import make_batched_lqt_admm
 from ilqr_admm_tpu_torch.solvers.batched_sls import make_batched_sls_admm
+from ilqr_admm_tpu_torch.solvers.ilqr_admm import ilqr_admm
 from ilqr_admm_tpu_torch.solvers.lqt import lqt_solve_dp
 from ilqr_admm_tpu_torch.utils.cost_assembly import viapoint_cost
 
 __all__ = [
+    "CarFrontWheel",
+    "CarParkingCost",
     "DPGains",
     "DoubleIntegrator",
     "QuadCost",
+    "ilqr_admm",
     "lqt_backward_parallel_fused",
     "lqt_solve_dp",
     "make_batched_lqt_admm",
     "make_batched_sls_admm",
+    "make_fused_linesearch_rollout",
     "make_fused_lqt_admm",
     "make_fused_sls_admm",
     "viapoint_cost",

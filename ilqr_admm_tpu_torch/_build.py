@@ -21,7 +21,8 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-_SOURCES = ("admm_u_only.cu", "sls_admm.cu", "admm_box.cu", "riccati_scan.cu")
+_SOURCES = ("admm_u_only.cu", "sls_admm.cu", "admm_box.cu", "riccati_scan.cu",
+            "linesearch_rollout.cu")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libilqr_admm_torch.so"
@@ -160,4 +161,13 @@ def load_library() -> ctypes.CDLL:
     lib.riccati_join_launch.restype = _I
     lib.riccati_error_string.argtypes = [_I]
     lib.riccati_error_string.restype = ctypes.c_char_p
+    lib.linesearch_rollout_car_front_wheel_launch.argtypes = [
+        _P, _P, _P,  # x0, u_cands, xs
+        _I, _I,  # A, N
+        _F, _F, _F,  # dt, dist, dist**2
+        _P,  # stream
+    ]
+    lib.linesearch_rollout_car_front_wheel_launch.restype = _I
+    lib.linesearch_rollout_error_string.argtypes = [_I]
+    lib.linesearch_rollout_error_string.restype = ctypes.c_char_p
     return lib

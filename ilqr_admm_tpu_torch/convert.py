@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ilqr_admm_tpu_torch.models.car import CarFrontWheel, CarParkingCost
 from ilqr_admm_tpu_torch.ops.riccati import DPGains
 from ilqr_admm_tpu_torch.problem import QuadCost
 
@@ -38,3 +39,22 @@ def dpgains_from_numpy(K, k, Quu, Quu_inv, Qux, *, device, dtype) -> DPGains:
     and Qux (N, u, x), e.g. the fields of the JAX package's `DPGains`."""
     kw = dict(device=device, dtype=dtype)
     return DPGains(*(array_from_numpy(a, **kw) for a in (K, k, Quu, Quu_inv, Qux)))
+
+
+def car_from_numpy(dt, dist=None) -> CarFrontWheel:
+    """CarFrontWheel with the JAX plant's dt and dist (default 2.0)."""
+    return CarFrontWheel(dt=float(dt)) if dist is None else CarFrontWheel(float(dt), float(dist))
+
+
+def car_parking_cost_from_numpy(cu, cf, pf, cx, px, *, device, dtype) -> CarParkingCost:
+    """CarParkingCost from the weights of a JAX `CarParkingCost` (its
+    cu, cf, pf, cx and px attributes, or the sequences it was built from)."""
+    kw = dict(device=device, dtype=dtype)
+    return CarParkingCost(*(array_from_numpy(w, **kw) for w in (cu, cf, pf, cx, px)), **kw)
+
+
+def admm_warm_from_numpy(z_x, z_u, lmb_x, lmb_u, *, device, dtype):
+    """The `warm` tuple of `ilqr_admm` from a JAX `ILQRADMMResult`'s
+    flattened z_x (N*x,), z_u (N*u,), lmb_x and lmb_u."""
+    kw = dict(device=device, dtype=dtype)
+    return tuple(array_from_numpy(a, **kw) for a in (z_x, z_u, lmb_x, lmb_u))

@@ -86,10 +86,15 @@ def _history_rollout(f, x0, K, k, x_dim, u_dim, N, x_nom, u_nom, ws):
     (+ u_nom_t); K is the lifted causal gain (N*u, N*x)."""
     K4 = K.reshape(N, u_dim, N, x_dim)
     k2 = k.reshape(N, u_dim)
+    steps = torch.arange(N, device=K.device)[:, None]
     hist = torch.zeros((N, x_dim), dtype=K.dtype, device=K.device)
 
     def control(t, x):
-        hist[t] = x if x_nom is None else x - x_nom[t]
+        nonlocal hist
+        dx = x if x_nom is None else x - x_nom[t]
+        # out of place, so that torch.func.vmap can batch the rollout over
+        # line-search candidates
+        hist = torch.where(steps == t, dx, hist)
         u = torch.einsum("unj,nj->u", K4[t], hist) + k2[t]
         return u if u_nom is None else u + u_nom[t]
 

@@ -2,11 +2,15 @@
 
 The JAX package keeps problem data in pytrees; here they are
 `nn.Module`s that hold their arrays as buffers, so `.to(device, dtype)`
-moves them as a unit. The solver configs and `SolveStatus` are not
-ported yet.
+moves them as a unit. The solver configs are frozen dataclasses, as in
+the JAX package, and `SolveStatus` is the same `IntEnum`.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Optional
 
 import torch
 from torch import nn
@@ -92,3 +96,70 @@ def broadcast_AB(A, B, N: int):
     if B.ndim == 2:
         B = B.expand((N,) + tuple(B.shape))
     return A, B
+
+
+@dataclasses.dataclass(frozen=True)
+class ADMMConfig:
+    """Config for the generic two-block scaled ADMM solver.
+
+    The fields and defaults of the JAX package's `ADMMConfig`:
+    max_iter, relaxation alpha, absolute tolerance and the relative-stall
+    tolerance; residual-balancing adaptive penalties (adaptive_rho with
+    rho_mu, rho_tau, rho_freq, rho_freeze_after and the scale clip; the
+    x-update must then accept a third rho_scale argument); Nesterov
+    acceleration with adaptive restart (accel, accel_eta); safeguarded
+    type-II Anderson acceleration (anderson_m > 0, anderson_reg,
+    anderson_safeguard). accel, adaptive_rho and Anderson exclude each
+    other.
+    """
+
+    max_iter: int = 20
+    alpha: float = 1.0
+    tol: float = 1e-3
+    stall_tol: Optional[float] = None  # defaults to tol when None
+    log: bool = False
+    adaptive_rho: bool = False
+    rho_mu: float = 10.0
+    rho_tau: float = 2.0
+    rho_freq: int = 4
+    rho_freeze_after: int = 100
+    rho_scale_min: float = 1e-3
+    rho_scale_max: float = 1e3
+    accel: bool = False
+    accel_eta: float = 1.02
+    anderson_m: int = 0
+    anderson_reg: float = 1e-10
+    anderson_safeguard: float = 10.0
+
+    @property
+    def stall(self) -> float:
+        return self.tol if self.stall_tol is None else self.stall_tol
+
+
+@dataclasses.dataclass(frozen=True)
+class ILQRConfig:
+    """Config for the iLQR outer loop."""
+
+    max_iter: int = 100
+    max_line_search_iter: int = 50
+    tol_fun: float = 1e-5
+    tol_grad: float = 1e-4
+    # line-search grid alphas = 10^linspace(0, alpha_min_exp, 50)[:n]
+    alpha_min_exp: float = -5.0
+
+
+class SolveStatus(enum.IntEnum):
+    """Structured solver statuses."""
+
+    RUNNING = 0
+    CONVERGED = 1
+    STALLED = 2
+    MAX_ITER = 3
+    LINE_SEARCH_FAILED = 4
+    OSCILLATING = 5
+
+
+def line_search_alphas(cfg: ILQRConfig, dtype=torch.float32, device=None) -> torch.Tensor:
+    """The parallel line-search step grid, 10^linspace(0, alpha_min_exp, 50)[:n]."""
+    n = cfg.max_line_search_iter
+    return 10.0 ** torch.linspace(0.0, cfg.alpha_min_exp, 50, dtype=dtype, device=device)[:n]

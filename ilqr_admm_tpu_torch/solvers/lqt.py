@@ -37,8 +37,14 @@ def broadcast_rho(rho, dim: int, N: int, dtype: torch.dtype | None = None, devic
 
 
 def block_diag_stacked(blocks: torch.Tensor) -> torch.Tensor:
-    """Dense block-diagonal (N*d, N*d) from stacked (N, d, d) blocks."""
-    return torch.block_diag(*blocks)
+    """Dense block-diagonal (N*d, N*e) from stacked (N, d, e) blocks, in
+    one scatter (`torch.block_diag(*blocks)` copies block by block: N
+    launches on a card)."""
+    N, d, e = blocks.shape
+    out = blocks.new_zeros((N, d, N, e))
+    idx = torch.arange(N, device=blocks.device)
+    out[idx, :, idx, :] = blocks
+    return out.reshape(N * d, N * e)
 
 
 def sqrt_psd_stacked(blocks: torch.Tensor) -> torch.Tensor:
