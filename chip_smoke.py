@@ -33,7 +33,8 @@ Phases:
 3. for each path: kernel vs plain, the kernel against its plain torch
    version on the same card inputs (the LQT fleet's `admm_u_only` in
    three modes and at an odd width; `admm_box` at the full width, with a
-   state box only, and at an odd width; `sls_admm` in the diamond,
+   state box only, and at an odd width, also against the plain version
+   with its 3xTF32 products; `sls_admm` in the diamond,
    early-exit and consensus modes and at an odd width; the three Riccati
    kernels at N = 10,000 with d = 4, N = 1,001 with nb = 8, d = 3 and
    the ADMM regularizers, d = 2, d = 1, and N = 100 < nb;
@@ -58,8 +59,9 @@ Phases:
 Any failure exits non-zero before the last line. The last line is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
 its launches on its main path, its error against its plain version, its
-time, its plain version's time and its bound on an H100; the line
-before that, the seconds each phase took.
+time, its plain version's time and its bound on an H100 (`bound_ops`:
+the f32 CUDA cores or 3xTF32 on the tensor cores); the line before that,
+the seconds each phase took.
 
 Run from the repository root: python3 chip_smoke.py
 """
@@ -228,8 +230,10 @@ CAR_SOLVES_TIMED = 3
 # whole 44-step solve (~100,000 device ops) took 79 s on the H100's host
 CAR_PROFILED_STEPS = 10
 
-# Published peaks of one H100 SXM: f32 outside the tensor cores and HBM3
+# Published peaks of one H100 SXM: f32 outside the tensor cores, dense
+# TF32 on the tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -333,13 +337,21 @@ def _swapped(module, **attrs):
             setattr(module, name, value)
 
 
-def bound(flops: float, nbytes: float) -> dict:
+def bound(flops: float, nbytes: float, products: bool = False) -> dict:
     """The least time of a kernel's work on an H100: the larger of its f32
     operations over the f32 peak and its bytes (each input read once, each
-    output written once) over the HBM rate."""
-    ms_ops, ms_bytes = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    output written once) over the HBM rate. products: the operations are
+    f32-accurate matrix products, which the tensor cores can also take as
+    three TF32 products (3xTF32), so their least time is the smaller of
+    the f32 CUDA-core time and 3 flops over the TF32 peak; `bound_ops`
+    says which route sets it."""
+    ms_ops = 1e3 * flops / PEAK_F32_FLOPS
+    route = "f32 CUDA cores"
+    if products and 3e3 * flops / PEAK_TF32_FLOPS < ms_ops:
+        ms_ops, route = 3e3 * flops / PEAK_TF32_FLOPS, "3xTF32 tensor cores"
+    ms_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
     return {"bound_ms": max(ms_ops, ms_bytes),
-            "bound_by": "operations" if ms_ops >= ms_bytes else "bytes"}
+            "bound_by": "operations" if ms_ops >= ms_bytes else "bytes", "bound_ops": route}
 
 
 def nbytes(*tensors) -> int:
@@ -468,39 +480,48 @@ def phase_time(solver, u_base, x_base, card):
     return result
 
 
-def box_cases(device):
-    """(label, solver, kernel inputs) of the three kernel-vs-plain cases."""
+def box_cases(device, batch: int = BATCH):
+    """(label, solver, kernel inputs) of the three kernel-vs-plain cases;
+    batch: the full-width case's (the state-box-only case takes at most
+    1,024 of it)."""
     _, full = box_solver(device)
-    x0s = bench_problem(device)[3]
-    # state box only (the u block is off): rho_u is dropped with the bounds
-    _, x_only = box_solver(device, u_lower=None, u_upper=None, rho_u=None)
-    # Nm = 98 is not a multiple of the kernel's 4-column thread tile; over-
+    x0s = bench_problem(device, batch=batch)[3]
+    # state box only (the u block is off): rho_u is dropped with the bounds;
+    # 16 instances a block, so that with the two others the card checks
+    # each of the kernel's four builds (16 or 32 instances, alpha = 1 or not)
+    _, x_only = box_solver(device, u_lower=None, u_upper=None, rho_u=None, batch_tile=16)
+    # Nm = 98 is not a multiple of the kernel's 8-column n-tile; over-
     # relaxation (1.3: at 1.6 the JAX package's relaxed step, whose dual
     # update takes the unrelaxed x_hat, diverges on every state box), a
-    # velocity limit that varies along the horizon, control bounds that
-    # vary too, and a small tile
+    # velocity limit that varies along the horizon, and control bounds that
+    # vary too
     A, B, cost, x0_odd = bench_problem(device, horizon=98, batch=64, seed=1)
     x_lower, x_upper = velocity_box(98, 1.2 + 0.3 * np.cos(np.linspace(0.0, 3.0, 98)))
     odd = make_fused_lqt_admm(
         A, B, cost, u_lower=np.full(98, -4.0), u_upper=np.linspace(3.0, 5.0, 98),
         x_lower=x_lower, x_upper=x_upper, rho_x=RHO_X, rho_u=RHO_U, n_iters=BOX_ITERS,
-        alpha=1.3, batch_tile=8, device=device,
+        alpha=1.3, batch_tile=32, device=device,
     )
     return [
-        (f"full width (batch {BATCH}, tile {BOX_TILE})", full, full.kernel_inputs(x0s)),
-        ("state box only, |v| <= 1.3 (batch 1024)", x_only, x_only.kernel_inputs(x0s[:1024])),
-        ("Nm=98, alpha=1.3, vector bounds (batch 64, tile 8)", odd, odd.kernel_inputs(x0_odd)),
+        (f"full width (batch {batch}, tile {BOX_TILE})", full, full.kernel_inputs(x0s)),
+        (f"state box only, |v| <= 1.3 (batch {min(batch, 1024)}, tile 16)", x_only,
+         x_only.kernel_inputs(x0s[:1024])),
+        ("Nm=98, alpha=1.3, vector bounds (batch 64, tile 32)", odd, odd.kernel_inputs(x0_odd)),
     ]
 
 
 def phase_box_compare(device):
-    """`admm_box` against `admm_box_reference` on the same card inputs."""
+    """`admm_box` against `admm_box_reference` on the same card inputs: the
+    gate is the f32 plain version; the plain version with the kernel's
+    3xTF32 products beside it separates the split from the order of the
+    sums."""
     worst = 0.0
     for label, solver, inputs in box_cases(device):
         kw = solver.kernel_options
         got = admm_box(*inputs, solver.packed, **kw)
         torch.cuda.synchronize()
         want = admm_box_reference(*inputs, **kw)
+        emulated = admm_box_reference(*inputs, **kw, products="tf32x3")
         torch.cuda.synchronize()
         scale = max(1.0, float(want[0].abs().max()), float(want[1].abs().max()))
         errs = {}
@@ -509,8 +530,11 @@ def phase_box_compare(device):
             errs[name] = float((g - w).abs().max())
         err = max(errs.values())
         worst = max(worst, err)
+        err3 = max(float((g - e).abs().max()) for g, e in zip(got, emulated))
+        split = max(float((e - w).abs().max()) for e, w in zip(emulated, want))
         print(f"[box kernel vs plain] {label}: " + ", ".join(
-            f"max|d{k}| {v:.3e}" for k, v in errs.items()) + f" (tolerance {BOX_TOL * scale:.3g})")
+            f"max|d{k}| {v:.3e}" for k, v in errs.items()) + f" (tolerance {BOX_TOL * scale:.3g}); "
+            f"kernel vs 3xTF32 plain {err3:.3e}, 3xTF32 plain vs f32 plain {split:.3e}")
         check(err <= BOX_TOL * scale, f"box {label}: kernel disagrees with plain version")
     return worst
 
@@ -1030,7 +1054,9 @@ def sls_tile_iterations(solver, bounds):
 def existing_bounds(solver, u_base, x_base, box, x0s, sls, sls_fleet):
     """Bounds of the fleet kernels on their main paths' inputs: products
     only (the clips and dual updates are O(1) a coordinate against O(Nm)
-    or more multiply-adds a coordinate); bytes of inputs and outputs.
+    or more multiply-adds a coordinate), on the f32 CUDA cores or as
+    3xTF32 on the tensor cores, whichever is faster; bytes of inputs and
+    outputs.
     box and sls: the state-bounded and diamond_ee solvers of the main
     paths; sls_fleet: the bounds that path solved."""
     ko = solver.kernel_options
@@ -1040,18 +1066,20 @@ def existing_bounds(solver, u_base, x_base, box, x0s, sls, sls_fleet):
     Nm, Nd = u_base.shape[1], x_base.shape[1]
     u_only = bound(iters * 2 * BATCH * Nm * Nm + 2 * BATCH * Nm * Nd,
                    nbytes(u_base, x_base, solver.W_u, solver.W_x, solver.lo, solver.hi)
-                   + nbytes(x_base, u_base, u_base))
+                   + nbytes(x_base, u_base, u_base), products=True)
     free, bu, u0, W_s, SuT, xb, ub = box.kernel_inputs(x0s)
     nnz = int(torch.count_nonzero(W_s)) + int(torch.count_nonzero(SuT))
     box_bound = bound(2 * BATCH * (BOX_ITERS * nnz + int(torch.count_nonzero(SuT))),
-                      nbytes(free, bu, u0, *box.packed, xb, ub) + 2 * nbytes(free, bu))
+                      nbytes(free, bu, u0, *box.packed, xb, ub) + 2 * nbytes(free, bu),
+                      products=True)
     tile_iters = sls_tile_iterations(sls, sls_fleet)
     instance_iters = int(tile_iters.sum()) * sls.kernel_options["batch_tile"]
     print(f"[sls bound] diamond_ee tiles ran {int(tile_iters.min())}-{int(tile_iters.max())} "
           f"iterations, {instance_iters / SLS_BATCH:.2f} an instance on average")
     p1, sNm = sls.U_base.shape
     sls_bound = bound(instance_iters * 2 * p1 * sNm * sNm,
-                      nbytes(sls_fleet, sls.U_base, sls.W) + 4 * SLS_BATCH * sNm * p1)
+                      nbytes(sls_fleet, sls.U_base, sls.W) + 4 * SLS_BATCH * sNm * p1,
+                      products=True)
     return {"admm_u_only": u_only, "admm_box": box_bound, "sls_admm": sls_bound}
 
 

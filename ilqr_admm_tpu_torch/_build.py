@@ -127,7 +127,7 @@ def load_library() -> ctypes.CDLL:
     lib.sls_admm_error_string.restype = ctypes.c_char_p
     lib.admm_box_launch.argtypes = [
         _P, _P, _P,  # free, u_base, u0
-        _P, _I, _P,  # ops_f, its length, ops_i
+        _P, _I, _P, _I,  # ops_f, its length, the warp schedule, its warps
         _P, _P,  # xb, ub
         _P, _P, _P, _P,  # x_out, u_out, zx_out, zu_out
         _I, _I, _I, _I, _I,  # batch, Nm, Nd, batch_tile, n_iters

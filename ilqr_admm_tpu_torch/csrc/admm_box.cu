@@ -32,46 +32,75 @@
 // What bounds it on an H100: at the full width (Nm = 100, Nd = 200) an
 // instance-iteration is 2 ((Nd + Nm) Nm + Nm Nd / 2) = 80,000 FLOP with
 // the zeros of Su^T skipped; 16,384 instances x 200 iterations is
-// 2.6e11 FLOP, 3.9 ms at the 67 TFLOP/s f32 CUDA-core peak, against
-// ~40 MB of traffic in and out: compute bound. Inside the loop the limit
-// is the rate at which shared memory feeds the FMA units.
+// 2.6e11 FLOP against ~40 MB of traffic in and out: compute bound. As
+// three TF32 products (below) that is 1.56 ms at the 495 TFLOP/s dense
+// TF32 peak, against 3.9 ms at the 67 TFLOP/s f32 CUDA-core peak. Two
+// things measured on an H100 (tools/mma_sync_bench.cu, PERF.md) shape the
+// design: `mma.sync` TF32 reaches ~260 TFLOP/s (one m16n8k8 every ~7.4
+// cycles on each of an SM's four sub-partitions), and other instructions
+// a sub-partition issues beside it add to that time as often as they
+// hide behind it. So the design spends as few instructions as it can on
+// each mma, and none on spills.
 //
 // What the design does about it:
-// - The operators live in shared memory in row-profile form
-//   (`profile_pack` in ops/fused_admm.py): row k keeps the columns
-//   [start_k, stop_k), both multiples of 4 and nondecreasing in k. A thread
-//   that owns 4 columns reads one contiguous range of rows, and exact zeros
-//   are skipped. Su is strictly block lower-triangular, so Su^T packs to
-//   half; W_s is dense and packs whole: ~40,000 floats (159 KB) at the
-//   full width. Skipping exact zeros changes no sum, so the kernel differs
-//   from the dense plain version only in summation order.
-// - Tile buffers in shared memory, stored transposed as buf[k][b], carry
-//   the all-to-all products: s = [s_x; s_u], u_hat and a partial sum. z
-//   and l live in registers; the bounds in shared memory (registers are
-//   the scarce resource: a 13-warp block gets at most 128 a thread).
-// - A thread owns a 4 x 4 (instances x columns) tile, so every k step is
-//   two 16-byte shared loads feeding 16 FMAs; row groups vary fastest over
-//   a warp's threads, so those loads are two shared-memory wavefronts a
-//   warp. Phase 1 has half as many output tiles as phase 2 but three times
-//   its rows (Nd + Nm against ~Nm / 2), so each of its tiles is split over
-//   two threads, each taking half of the rows; the second half's partial
-//   sum goes through shared memory. Every thread then works in both
-//   phases; an iteration has three barriers.
-// - Products are plain f32 FMAs. The TPU kernel's bf16 hi/lo splits were
-//   a Mosaic workaround and are not carried. The clip and dual updates use
-//   explicitly rounded f32 operations (no FMA contraction), as the plain
-//   torch version rounds them.
-// Tensor cores (3xTF32 wgmma) and TMA staging are left for later work.
+// - Both products run on the tensor cores as warp-level
+//   `mma.sync.m16n8k8` in TF32, with instances as M, output columns as N
+//   and the reduction as K. TF32 alone keeps 11 bits of each operand,
+//   which holds the residual near 1e-2 (the plain TF32 trap); so every
+//   operand x is split into hi = tf32(x) and lo = x - hi, and each
+//   product is lo_a hi_b + hi_a lo_b + hi_a hi_b, the two small terms
+//   first, into one f32 accumulator: 3xTF32, the Hopper counterpart of the
+//   TPU kernel's bf16x3 `_dot3`. Operands are split as their fragments are
+//   loaded (pre-split operators would not fit): three integer or f32
+//   operations a value (`split`).
+// - A warp takes two n-tiles at a time (16 output columns) for all T
+//   instances, so each A fragment it splits feeds two n-tiles and each B
+//   fragment MT row tiles: 12 mma a k-step.
+// - The operators live in shared memory, in f32, as 8 x 8 (k, n) blocks in
+//   the B-fragment order of the mma, the two n-tiles of a pair interleaved
+//   (lane 4 g + t reads (k, n) = (t, g) and (t + 4, g) of each in one
+//   16-byte load), one contiguous run for each pair over its k-range
+//   (`pair_pack` in ops/fused_admm.py). Su^T is block triangular, so its
+//   pairs keep only their nonzero blocks: exact zeros are skipped and no
+//   sum changes. W_s is dense (38 x 13 blocks at the full width); Su^T
+//   keeps 169 of its 13 x 25.
+// - s = [z_x - l_x, z_u - l_u] and u_hat, the A operands, go to shared
+//   memory group-major (`a_pos`): every address in the inner loop is a
+//   per-thread base plus a constant, and the fragment loads are free of
+//   bank conflicts. s_x is padded to whole 8-column tiles, and W_s's rows
+//   with it, so that no store needs a mask.
+// - The host deals the work out (`box_schedule`): phase 1 splits each
+//   pair of W_s's n-tiles by k over two warps, each owning one n-tile's
+//   u_hat, z_u, l_u and u_base in registers in the accumulator layout and
+//   adding the other's partial sum from the u_hat buffer; a last single
+//   n-tile is shared by up to four warps, through two more slots. Phase 2
+//   gives each warp at most one pair of Su^T's n-tiles, whose z_x, l_x and
+//   free stay in its registers. Warp w runs on sub-partition w % 4, and
+//   the pieces are dealt so that the four carry nearly equal work.
+// - Three barriers an iteration: after phase 1's products (partial sums
+//   handed over, every read of s done), after u_hat and the u block, and
+//   after phase 2 (the new s complete).
+// - Registers: 16 warps leave 128 a thread, and a spill costs more than
+//   the loads it saves (on an H100 the spill-free build took 6.0 ms where
+//   one spilling 384 bytes took 7.6). So the bounds and the warp
+//   schedule sit in shared memory; without over-relaxation the old z is
+//   not read and does not stay in registers; the over-relaxed build with
+//   32 instances re-reads free each iteration and keeps one k-step in
+//   flight instead of two.
+// - The clip and dual updates use explicitly rounded f32 operations (no
+//   FMA contraction), as the plain torch version rounds them.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
-constexpr int kRows = 4;  // instances per thread
-constexpr int kCols = 4;  // columns per thread
-constexpr int kMaxThreads = 512;
+constexpr int kMaxWarps = 16;  // four a sub-partition, 128 registers a thread
+constexpr int kSched = 16;     // ints of one warp's schedule (see admm_box_kernel)
+constexpr int kSlots = 2;      // partial-sum slots besides the u_hat buffer
+constexpr int kBlock = 64;     // floats of one 8 x 8 operator block
 
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
@@ -81,298 +110,425 @@ __device__ __forceinline__ float clip(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
 }
 
-// Rows [klo, khi) of a profile-packed operator that hold the column group
-// j0..j0+3: start[k] <= j0 < stop[k]. Both tables are nondecreasing, so
-// the rows with start <= j0 are a prefix and those with stop <= j0 too.
-__device__ __forceinline__ void row_range(const int* __restrict__ start,
-                                          const int* __restrict__ stop, int rows, int j0,
-                                          int& klo, int& khi) {
-  int a = 0, b = 0;
-  for (int k = 0; k < rows; ++k) {
-    a += start[k] <= j0;
-    b += stop[k] <= j0;
-  }
-  klo = b;
-  khi = a;
+// x split for 3xTF32: hi = x rounded to TF32, to nearest with ties away
+// from zero, as `cvt.rna.tf32.f32` rounds finite values (two integer
+// operations on the bits; the carry of the rounding runs into the exponent
+// as it should); lo = x - hi, exact in f32, handed to the tensor core as
+// it is: the mma reads the top 19 bits of a TF32 operand, so lo is
+// truncated to TF32 there (ptxas drops an explicit mask of those bits).
+// |lo| <= 2^-11 |x|, so its truncation costs at most 2^-21 |x|; rounding
+// it too costs one more operation a value, which the solve shows on an
+// H100, for the same error against the f32 plain version
+// (tools/admm_box_variants.py).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(sub(x, __uint_as_float(hi)));
 }
 
-// acc[r][c] = sum_{k in [klo, khi)} s[k][b0 + r] * W[k][j0 + c], with W in
-// profile storage: W[k][j] = w[base[k] + j].
-__device__ __forceinline__ void product(float (&acc)[kRows][kCols], const float* __restrict__ s,
-                                        int T, int b0, const float* __restrict__ w,
-                                        const int* __restrict__ base, int klo, int khi,
-                                        int j0) {
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An A buffer (s or u_hat) holds T rows of 8-column groups, group-major:
+// column k of row r sits at (k / 8) T 8 + 8 r + a_pos(k % 8), with the
+// lane pair (t, t + 4) side by side, so a lane's A fragment is two 8-byte
+// loads at offsets known at compile time, and a half-warp's loads cover
+// the 32 banks once.
+__device__ __forceinline__ int a_pos(int c) { return 2 * (c & 3) + (c >> 2); }
+
+// One k-step of 3xTF32 into acc[0..NB): A columns 8 kk..8 kk + 7 of the
+// buffer at `a`; B the NB n-tiles' 8 x 8 blocks at `b`, interleaved by
+// lane. Each A fragment is split once for the NB n-tiles, each B fragment
+// once for the MT row tiles.
+template <int MT, int NB>
+__device__ __forceinline__ void k_step(float (&acc)[2][MT][4], const float* a, int kk,
+                                       const float* b, int lane, int g, int t) {
+  uint32_t b_hi[NB][2], b_lo[NB][2];
+  if constexpr (NB == 2) {
+    const float4 bv = *reinterpret_cast<const float4*>(b + 4 * lane);
+    split(bv.x, b_hi[0][0], b_lo[0][0]);
+    split(bv.y, b_hi[0][1], b_lo[0][1]);
+    split(bv.z, b_hi[NB - 1][0], b_lo[NB - 1][0]);
+    split(bv.w, b_hi[NB - 1][1], b_lo[NB - 1][1]);
+  } else {
+    const float2 bv = *reinterpret_cast<const float2*>(b + 2 * lane);
+    split(bv.x, b_hi[0][0], b_lo[0][0]);
+    split(bv.y, b_hi[0][1], b_lo[0][1]);
+  }
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
+  for (int mt = 0; mt < MT; ++mt) {
+    const float* row = a + kk * (16 * MT * 8) + (16 * mt + g) * 8 + 2 * t;
+    const float2 top = *reinterpret_cast<const float2*>(row);
+    const float2 bot = *reinterpret_cast<const float2*>(row + 64);
+    uint32_t hi[4], lo[4];
+    split(top.x, hi[0], lo[0]);  // (g, t)
+    split(bot.x, hi[1], lo[1]);  // (g + 8, t)
+    split(top.y, hi[2], lo[2]);  // (g, t + 4)
+    split(bot.y, hi[3], lo[3]);  // (g + 8, t + 4)
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.0f;
-  // the next row's offset is loaded one step ahead, so the operator load
-  // does not wait on a dependent shared load (base[khi] is still inside
-  // the block's shared memory: the tables are followed by the tile buffers)
-  const float* wj = w + j0;
-  int bk = base[klo];
-#pragma unroll 4
-  for (int k = klo; k < khi; ++k) {
-    const int b_next = base[k + 1];
-    const float4 s4 = *reinterpret_cast<const float4*>(s + k * T + b0);
-    const float4 w4 = *reinterpret_cast<const float4*>(wj + bk);
-    bk = b_next;
-    const float sv[kRows] = {s4.x, s4.y, s4.z, s4.w};
-    const float wv[kCols] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[r][c] = fmaf(sv[r], wv[c], acc[r][c]);
+    for (int n = 0; n < NB; ++n) {
+      mma(acc[n][mt], lo, b_hi[n][0], b_hi[n][1]);
+      mma(acc[n][mt], hi, b_lo[n][0], b_lo[n][1]);
+      mma(acc[n][mt], hi, b_hi[n][0], b_hi[n][1]);
+    }
   }
 }
+
+// acc[n] = A[:, 8 klo : 8 khi] B_n for the NB n-tiles whose interleaved
+// blocks for k-steps klo..khi-1 start at `b`; UNROLL k-steps in flight
+template <int MT, int NB, int UNROLL>
+__device__ __forceinline__ void product(float (&acc)[2][MT][4], const float* a,
+                                        const float* b, int klo, int khi, int lane, int g,
+                                        int t) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][mt][i] = 0.0f;
+#pragma unroll UNROLL
+  for (int kk = klo; kk < khi; ++kk, b += NB * kBlock) k_step<MT, NB>(acc, a, kk, b, lane, g, t);
+}
+
+// product<MT, nb> for a run-time nb of 0 (no work: acc = 0), 1 or 2
+template <int MT, int UNROLL>
+__device__ __forceinline__ void product_nb(float (&acc)[2][MT][4], int nb, const float* a,
+                                           const float* b, int klo, int khi, int lane, int g,
+                                           int t) {
+  if (nb == 2) product<MT, 2, UNROLL>(acc, a, b, klo, khi, lane, g, t);
+  else product<MT, 1, UNROLL>(acc, a, b, klo, nb == 1 ? khi : klo, lane, g, t);
+}
+
+// Accumulator element i of m-tile mt sits at row 16 mt + g + 8 (i / 2),
+// column 2 t + i % 2 of the n-tile.
+__device__ __forceinline__ int frag_row(int mt, int i, int g) { return 16 * mt + g + 8 * (i >> 1); }
 
 // z = clip(alpha v + (1 - alpha) z + l, lo, hi); l = (l + v) - z, with
-// lo, hi the bounds of columns j0..j0+3 (padded columns: 0, so they stay 0)
-__device__ __forceinline__ void box_update(const float (&v)[kRows][kCols],
-                                           float (&z)[kRows][kCols], float (&l)[kRows][kCols],
-                                           const float* lo, const float* hi, int j0, int width,
-                                           float alpha, float one_minus_alpha) {
+// lo[c + e], hi[c + e] the bounds of the thread's column c + e (padded
+// columns: 0, so they stay 0). Without over-relaxation (alpha = 1) the
+// old z is not read, so z need not live from one iteration to the next.
+template <int MT, bool RELAX>
+__device__ __forceinline__ void box_update(const float (&v)[MT][4], float (&z)[MT][4],
+                                           float (&l)[MT][4], const float* lo, const float* hi,
+                                           int c, float alpha, float one_minus_alpha) {
+  const float2 lo2 = *reinterpret_cast<const float2*>(lo + c);
+  const float2 hi2 = *reinterpret_cast<const float2*>(hi + c);
+  const float lo_e[2] = {lo2.x, lo2.y}, hi_e[2] = {hi2.x, hi2.y};
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const float lo_c = j0 + c < width ? lo[j0 + c] : 0.0f;
-    const float hi_c = j0 + c < width ? hi[j0 + c] : 0.0f;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
+    for (int i = 0; i < 4; ++i) {
       const float zr =
-          alpha == 1.0f ? v[r][c] : add(mul(alpha, v[r][c]), mul(one_minus_alpha, z[r][c]));
-      const float zn = clip(add(zr, l[r][c]), lo_c, hi_c);
-      l[r][c] = sub(add(l[r][c], v[r][c]), zn);
-      z[r][c] = zn;
+          RELAX ? add(mul(alpha, v[mt][i]), mul(one_minus_alpha, z[mt][i])) : v[mt][i];
+      const float zn = clip(add(zr, l[mt][i]), lo_e[i & 1], hi_e[i & 1]);
+      l[mt][i] = sub(add(l[mt][i], v[mt][i]), zn);
+      z[mt][i] = zn;
     }
-  }
 }
 
-// Column j0 + c of a thread's tile, transposed, to buf[j][b0..b0+3], for
-// the columns below `width`.
-__device__ __forceinline__ void store_tile(float* buf, const float (&v)[kRows][kCols], int T,
-                                           int b0, int j0, int width) {
+// A fragment-layout tile of a row-major (batch, width) array: rows
+// row0 + frag_row, columns c0 + 2 t + {0, 1}; columns >= width are 0.
+template <int MT>
+__device__ __forceinline__ void load_frag(const float* __restrict__ g_arr, size_t row0, int c0,
+                                          int width, int g, int t, float (&v)[MT][4]) {
+  const int c = c0 + 2 * t;
 #pragma unroll
-  for (int c = 0; c < kCols; ++c)
-    if (j0 + c < width)
-      *reinterpret_cast<float4*>(buf + (j0 + c) * T + b0) =
-          make_float4(v[0][c], v[1][c], v[2][c], v[3][c]);
-}
-
-// s = z - l, transposed into buf
-__device__ __forceinline__ void store_s(float* buf, const float (&z)[kRows][kCols],
-                                        const float (&l)[kRows][kCols], int T, int b0, int j0,
-                                        int width) {
-  float s[kRows][kCols];
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) s[r][c] = sub(z[r][c], l[r][c]);
-  store_tile(buf, s, T, b0, j0, width);
-}
-
-// Rows row0..row0+3, columns j0..j0+3 of a row-major (batch, width)
-// array; one 16-byte access a row when the width allows it
-__device__ __forceinline__ void load_global(const float* __restrict__ g, size_t row0, int j0,
-                                            int width, float (&v)[kRows][kCols]) {
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const float* p = g + (row0 + r) * width + j0;
-    if (width % kCols == 0) {
-      const float4 t = *reinterpret_cast<const float4*>(p);
-      v[r][0] = t.x;
-      v[r][1] = t.y;
-      v[r][2] = t.z;
-      v[r][3] = t.w;
-    } else {
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) v[r][c] = j0 + c < width ? p[c] : 0.0f;
+    for (int h = 0; h < 2; ++h) {
+      const float* p = g_arr + (row0 + frag_row(mt, 2 * h, g)) * width + c;
+      if (width % 2 == 0 && c < width) {
+        const float2 x = *reinterpret_cast<const float2*>(p);
+        v[mt][2 * h] = x.x;
+        v[mt][2 * h + 1] = x.y;
+      } else {
+        v[mt][2 * h] = c < width ? p[0] : 0.0f;
+        v[mt][2 * h + 1] = c + 1 < width ? p[1] : 0.0f;
+      }
     }
-  }
 }
 
-__device__ __forceinline__ void store_global(float* __restrict__ g, size_t row0, int j0,
-                                             int width, const float (&v)[kRows][kCols]) {
+template <int MT>
+__device__ __forceinline__ void store_frag(float* __restrict__ g_arr, size_t row0, int c0,
+                                           int width, int g, int t, const float (&v)[MT][4]) {
+  const int c = c0 + 2 * t;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    float* p = g + (row0 + r) * width + j0;
-    if (width % kCols == 0) {
-      *reinterpret_cast<float4*>(p) = make_float4(v[r][0], v[r][1], v[r][2], v[r][3]);
-    } else {
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int c = 0; c < kCols; ++c)
-        if (j0 + c < width) p[c] = v[r][c];
+    for (int h = 0; h < 2; ++h) {
+      float* p = g_arr + (row0 + frag_row(mt, 2 * h, g)) * width + c;
+      if (width % 2 == 0 && c < width) {
+        *reinterpret_cast<float2*>(p) = make_float2(v[mt][2 * h], v[mt][2 * h + 1]);
+      } else {
+        if (c < width) p[0] = v[mt][2 * h];
+        if (c + 1 < width) p[1] = v[mt][2 * h + 1];
+      }
     }
-  }
 }
 
-// ops_f: the packed operators W_s (Nd + Nm rows) and Su^T (Nm rows),
-// concatenated; ops_i: their row tables base (offsets into ops_f), start
-// and stop, each Nd + 2 Nm ints in the same row order.
-__global__ void __launch_bounds__(kMaxThreads)
+// v (the thread's columns 2 t + e of a tile) to an A buffer at columns
+// k0 + 2 t + e, k0 a multiple of 8, or back from it. Padded columns hold
+// zeros, and every A column has room for a whole tile, so no store is
+// masked.
+template <int MT>
+__device__ __forceinline__ void store_a(float* buf, int k0, int g, int t,
+                                        const float (&v)[MT][4]) {
+  float* p = buf + (k0 / 8) * (16 * MT * 8) + 8 * g;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) p[8 * (frag_row(mt, i, 0)) + a_pos(2 * t + (i & 1))] = v[mt][i];
+}
+
+template <int MT>
+__device__ __forceinline__ void load_a(const float* buf, int k0, int g, int t,
+                                       float (&v)[MT][4]) {
+  const float* p = buf + (k0 / 8) * (16 * MT * 8) + 8 * g;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) v[mt][i] = p[8 * (frag_row(mt, i, 0)) + a_pos(2 * t + (i & 1))];
+}
+
+// s = z - l into an A buffer
+template <int MT>
+__device__ __forceinline__ void store_s(float* buf, int k0, int g, int t,
+                                        const float (&z)[MT][4], const float (&l)[MT][4]) {
+  float s[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[mt][i] = sub(z[mt][i], l[mt][i]);
+  store_a<MT>(buf, k0, g, t, s);
+}
+
+// acc[n] for a run-time n of 0 or 1
+template <int MT>
+__device__ __forceinline__ void pick(const float (&acc)[2][MT][4], int n, float (&v)[MT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[mt][i] = n == 0 ? acc[0][mt][i] : acc[1][mt][i];
+}
+
+// ops_f: the operators' blocks in `pair_pack` storage (W_s's, then Su^T's);
+// sched: kSched ints a warp, from `box_schedule` in ops/fused_admm.py:
+//   [0..10] phase 1: float offset of its first block, k-steps [klo, khi),
+//          nb (0: no phase-1 work, 1 or 2 n-tiles), first n-tile; the
+//          n-tile (0 or 1 of its nb; -1: none) whose partial sum it hands
+//          over, and where to (-1: the u_hat buffer at that tile's
+//          columns, else a partial-sum slot); the n-tile whose u columns
+//          it owns (-1: none), whether its owner adds a partial from the
+//          u_hat buffer, and the slots [lo, hi) it adds after that;
+//   [11..15] phase 2: float offset, klo, khi, nb (0, 1 or 2), first n-tile.
+// Phase-1 items (pairs of n-tiles, or a last single one) are split by k
+// over two or more warps; each n-tile has one owner (u_hat, z_u, l_u,
+// u_base in registers), which adds the others' partial sums in a fixed
+// order.
+template <int MT, bool RELAX>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
 admm_box_kernel(const float* __restrict__ free_g, const float* __restrict__ u_base,
                 const float* __restrict__ u0, const float* __restrict__ ops_f, int n_ops_f,
-                const int* __restrict__ ops_i, const float* __restrict__ xb,
+                const int* __restrict__ sched, const float* __restrict__ xb,
                 const float* __restrict__ ub, float* __restrict__ x_out,
                 float* __restrict__ u_out, float* __restrict__ zx_out,
-                float* __restrict__ zu_out, int Nm, int Nd, int T, int n_iters, int has_u,
-                float alpha, float one_minus_alpha) {
+                float* __restrict__ zu_out, int Nm, int Nd, int n_iters,
+                int has_u, float alpha, float one_minus_alpha) {
+  constexpr int T = 16 * MT;
   extern __shared__ float4 smem_f4[];
-  const int n_rows = Nd + 2 * Nm;
-  const int o_ws = 0, o_st = Nd + Nm;
-  float* W = reinterpret_cast<float*>(smem_f4);
-  int* base = reinterpret_cast<int*>(W + n_ops_f);
-  float* s = reinterpret_cast<float*>(base + (n_rows + 3) / 4 * 4);  // (Nd + Nm) x T
-  float* s_u = s + Nd * T;                                            // its last Nm rows
-  float* uh_s = s + (Nd + Nm) * T;                                    // Nm x T
-  float* part = uh_s + Nm * T;                                        // Nm x T
-  float* xb_s = part + Nm * T;                                        // 2 x Nd
-  float* ub_s = xb_s + 2 * Nd;                                        // 2 x Nm
+  float* ops = reinterpret_cast<float*>(smem_f4);
+  const int n1 = (Nm + 7) / 8, n2 = (Nd + 7) / 8;
+  const int ku = 8 * n2;     // s_u's first column: s_x is padded to whole tiles
+  float* s = ops + n_ops_f;         // n2 + n1 groups: [s_x, s_u]
+  float* uh = s + T * 8 * (n1 + n2);  // n1 groups: u_hat (and partial sums)
+  float* xlo = uh + T * 8 * n1;       // the bounds, zero-padded to 8 n2 and 8 n1
+  float* xhi = xlo + 8 * n2;
+  float* ulo = xhi + 8 * n2;
+  float* uhi = ulo + 8 * n1;
+  float* slots = uhi + 8 * n1;  // kSlots x (32 lanes x 4 MT) partial sums
+  int* sched_s = reinterpret_cast<int*>(slots + kSlots * T * 8);  // the schedule
 
   const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+
   const float4* src = reinterpret_cast<const float4*>(ops_f);
   for (int i = tid; i < n_ops_f / 4; i += blockDim.x) smem_f4[i] = src[i];
-  for (int i = tid; i < n_rows; i += blockDim.x) base[i] = ops_i[i];
-  for (int i = tid; i < 2 * Nd; i += blockDim.x) xb_s[i] = xb[i];
-  for (int i = tid; i < 2 * Nm; i += blockDim.x) ub_s[i] = ub[i];
-  const int* start = ops_i + n_rows;
-  const int* stop = ops_i + 2 * n_rows;
+  for (int i = tid; i < T * 8 * (2 * n1 + n2) + 16 * (n1 + n2); i += blockDim.x) s[i] = 0.0f;
 
-  // phase 1: output tile (bu, j0), rows [k_lo, k_hi) of W_s; threads in
-  // the second half take the upper half of the tile's rows. phase 2:
-  // output tile (bx, c0). Row groups run fastest over the threads, so a
-  // warp covers 8 row groups x 4 column groups: its s loads are one
-  // 128-byte row and its operator loads one 64-byte row of shared memory,
-  // and its threads have nearly the same row range.
-  const int n_rg = T / kRows;
-  const int n_u_tiles = n_rg * ((Nm + kCols - 1) / kCols);
-  const bool u_owner = tid < n_u_tiles;
-  const bool u_item = tid < 2 * n_u_tiles;
-  const bool x_item = tid < n_rg * ((Nd + kCols - 1) / kCols);
-  const int ut = u_owner ? tid : tid - n_u_tiles;
-  const int j0 = (ut / n_rg) * kCols;
-  const int bu = (ut % n_rg) * kRows;
-  const int c0 = (tid / n_rg) * kCols;
-  const int bx = (tid % n_rg) * kRows;
-  const size_t row_u = static_cast<size_t>(blockIdx.x) * T + bu;
-  const size_t row_x = static_cast<size_t>(blockIdx.x) * T + bx;
+  for (int i = tid; i < kSched * (blockDim.x / 32); i += blockDim.x) sched_s[i] = sched[i];
+  // this warp's schedule, read from shared memory where it is used rather
+  // than held in registers, which the tiles' state needs
+  const volatile int* w = sched_s + kSched * warp;
 
-  int k_lo = 0, k_hi = 0, st_lo = 0, st_hi = 0;
-  if (u_item) {
-    row_range(start + o_ws, stop + o_ws, Nd + Nm, j0, k_lo, k_hi);
-    const int mid = k_lo + (k_hi > k_lo ? (k_hi - k_lo) / 2 : 0);
-    if (u_owner) k_hi = mid > k_lo ? mid : k_lo;
-    else k_lo = mid > k_lo ? mid : k_lo;
+  // Over-relaxation keeps z in registers; to stay within 128 registers
+  // that variant re-reads free from global memory (L1/L2) each iteration
+  // and keeps one k-step in flight instead of two
+  constexpr bool kFreeInRegs = !(RELAX && MT == 2);
+  constexpr int kUnroll = kFreeInRegs ? 2 : 1;
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * T;
+  float zu[MT][4], lu[MT][4], ubase[MT][4];
+  float zx[2][MT][4], lx[2][MT][4], fr[2][MT][4];
+  float acc[2][MT][4], v[MT][4];
+
+  __syncthreads();  // operators and schedule staged, buffers zeroed
+  for (int i = tid; i < Nd; i += blockDim.x) {
+    xlo[i] = xb[i];
+    xhi[i] = xb[Nd + i];
   }
-  if (x_item) row_range(start + o_st, stop + o_st, Nm, c0, st_lo, st_hi);
-
-  float zu[kRows][kCols], lu[kRows][kCols];
-  float zx[kRows][kCols], lx[kRows][kCols];
-  float acc[kRows][kCols], v[kRows][kCols];
-
-  if (u_owner) {
-    load_global(u0, row_u, j0, Nm, zu);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) lu[r][c] = 0.0f;
-    store_tile(uh_s, zu, T, bu, j0, Nm);
-    store_tile(s_u, zu, T, bu, j0, Nm);
-    if (n_iters == 0) store_global(u_out, row_u, j0, Nm, zu);
+  for (int i = tid; i < Nm; i += blockDim.x) {
+    ulo[i] = ub[i];
+    uhi[i] = ub[Nm + i];
   }
+  if (w[7] >= 0) {
+    const int cu = 8 * (w[4] + w[7]);  // the owned u columns
+    load_frag<MT>(u0, row0, cu, Nm, g, t, zu);
+    load_frag<MT>(u_base, row0, cu, Nm, g, t, ubase);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) lu[mt][i] = 0.0f;
+    store_a<MT>(uh, cu, g, t, zu);
+    store_a<MT>(s, ku + cu, g, t, zu);
+    if (n_iters == 0) store_frag<MT>(u_out, row0, cu, Nm, g, t, zu);
+    if (n_iters == 0 || !has_u) store_frag<MT>(zu_out, row0, cu, Nm, g, t, zu);
+  }
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+    if (n < w[14]) load_frag<MT>(free_g, row0, 8 * (w[15] + n), Nd, g, t, fr[n]);
   __syncthreads();
 
   // z_x = free + u0 Su^T
-  if (x_item) {
-    product(acc, uh_s, T, bx, W, base + o_st, st_lo, st_hi, c0);
-    load_global(free_g, row_x, c0, Nd, v);
+  product_nb<MT, kUnroll>(acc, w[14], uh, ops + w[11], w[12], w[13], lane, g, t);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
+  for (int n = 0; n < 2; ++n) {
+    if (n >= w[14]) continue;
+    const int n2_0 = w[15];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        zx[r][c] = add(v[r][c], acc[r][c]);
-        lx[r][c] = 0.0f;
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        zx[n][mt][i] = add(fr[n][mt][i], acc[n][mt][i]);
+        lx[n][mt][i] = 0.0f;
       }
-    store_tile(s, zx, T, bx, c0, Nd);
-    if (n_iters == 0) store_global(x_out, row_x, c0, Nd, zx);
+    store_a<MT>(s, 8 * (n2_0 + n), g, t, zx[n]);
+    if (n_iters == 0) {
+      store_frag<MT>(x_out, row0, 8 * (n2_0 + n), Nd, g, t, zx[n]);
+      store_frag<MT>(zx_out, row0, 8 * (n2_0 + n), Nd, g, t, zx[n]);
+    }
   }
   __syncthreads();
 
   for (int it = 0; it < n_iters; ++it) {
     const bool last = it == n_iters - 1;
-    // phase 1a: each half of the rows of s W_s
-    if (u_item) {
-      product(acc, s, T, bu, W, base + o_ws, k_lo, k_hi, j0);
-      if (!u_owner) store_tile(part, acc, T, bu, j0, Nm);
+    // phase 1: this warp's k-part of s W_s for its n-tiles; the partner's
+    // slot goes to the u_hat buffer
+    product_nb<MT, kUnroll>(acc, w[3], s, ops + w[0], w[1], w[2], lane, g, t);
+    if (w[5] >= 0) {
+      const int give_to = w[6];
+      pick<MT>(acc, w[5], v);
+      if (give_to < 0) {
+        store_a<MT>(uh, 8 * (w[4] + w[5]), g, t, v);
+      } else {
+        float4* slot = reinterpret_cast<float4*>(slots + (give_to * 32 + lane) * 4 * MT);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) slot[mt] = make_float4(v[mt][0], v[mt][1], v[mt][2], v[mt][3]);
+      }
     }
-    __syncthreads();
-    // phase 1b: u_hat = u_base + (s W_s), then the u block
-    if (u_owner) {
-      load_global(u_base, row_u, j0, Nm, v);
+    __syncthreads();  // partial sums handed over; every read of s done
+    // u_hat = u_base + (own part + the others' parts), then the u block
+    if (w[7] >= 0) {
+      const int cu = 8 * (w[4] + w[7]);
+      float part[MT][4];
+      pick<MT>(acc, w[7], v);
+      if (w[8]) {
+        load_a<MT>(uh, cu, g, t, part);
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        if (j0 + c < Nm) {
-          const float4 p = *reinterpret_cast<const float4*>(part + (j0 + c) * T + bu);
-          const float pv[kRows] = {p.x, p.y, p.z, p.w};
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) v[r][c] = add(v[r][c], add(acc[r][c], pv[r]));
+          for (int i = 0; i < 4; ++i) v[mt][i] = add(v[mt][i], part[mt][i]);
+      }
+      for (int j = w[9]; j < w[10]; ++j) {
+        const float4* slot = reinterpret_cast<const float4*>(slots + (j * 32 + lane) * 4 * MT);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const float4 q = slot[mt];
+          v[mt][0] = add(v[mt][0], q.x);
+          v[mt][1] = add(v[mt][1], q.y);
+          v[mt][2] = add(v[mt][2], q.z);
+          v[mt][3] = add(v[mt][3], q.w);
         }
       }
-      store_tile(uh_s, v, T, bu, j0, Nm);
-      if (last) store_global(u_out, row_u, j0, Nm, v);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[mt][i] = add(ubase[mt][i], v[mt][i]);
+      store_a<MT>(uh, cu, g, t, v);
+      if (last) store_frag<MT>(u_out, row0, cu, Nm, g, t, v);
       if (has_u) {
-        box_update(v, zu, lu, ub_s, ub_s + Nm, j0, Nm, alpha, one_minus_alpha);
-        store_s(s_u, zu, lu, T, bu, j0, Nm);
+        box_update<MT, RELAX>(v, zu, lu, ulo, uhi, cu + 2 * t, alpha, one_minus_alpha);
+        store_s<MT>(s, ku + cu, g, t, zu, lu);
+        if (last) store_frag<MT>(zu_out, row0, cu, Nm, g, t, zu);
       }
     }
-    __syncthreads();
+    __syncthreads();  // u_hat complete
     // phase 2: x_hat = free + u_hat Su^T, then the x block
-    if (x_item) {
-      product(acc, uh_s, T, bx, W, base + o_st, st_lo, st_hi, c0);
-      load_global(free_g, row_x, c0, Nd, v);
+    product_nb<MT, kUnroll>(acc, w[14], uh, ops + w[11], w[12], w[13], lane, g, t);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
+    for (int n = 0; n < 2; ++n) {
+      if (n >= w[14]) continue;
+      const int c0 = 8 * (w[15] + n);
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) v[r][c] = add(v[r][c], acc[r][c]);
-      if (last) store_global(x_out, row_x, c0, Nd, v);
-      box_update(v, zx, lx, xb_s, xb_s + Nd, c0, Nd, alpha, one_minus_alpha);
-      store_s(s, zx, lx, T, bx, c0, Nd);
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[mt][i] = acc[n][mt][i];
+      if (!kFreeInRegs) load_frag<MT>(free_g, row0, c0, Nd, g, t, fr[n]);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[mt][i] = add(fr[n][mt][i], v[mt][i]);
+      if (last) store_frag<MT>(x_out, row0, c0, Nd, g, t, v);
+      box_update<MT, RELAX>(v, zx[n], lx[n], xlo, xhi, c0 + 2 * t, alpha, one_minus_alpha);
+      store_s<MT>(s, c0, g, t, zx[n], lx[n]);
+      if (last) store_frag<MT>(zx_out, row0, c0, Nd, g, t, zx[n]);
     }
-    __syncthreads();
+    __syncthreads();  // s complete
   }
-
-  if (u_owner) store_global(zu_out, row_u, j0, Nm, zu);
-  if (x_item) store_global(zx_out, row_x, c0, Nd, zx);
 }
 
 }  // namespace
 
 extern "C" int admm_box_launch(const void* free_g, const void* u_base, const void* u0,
-                               const void* ops_f, int n_ops_f, const void* ops_i,
+                               const void* ops_f, int n_ops_f, const void* sched, int n_warps,
                                const void* xb, const void* ub, void* x_out, void* u_out,
                                void* zx_out, void* zu_out, int batch, int Nm, int Nd, int T,
                                int n_iters, int has_u, float alpha, float one_minus_alpha,
                                void* stream) {
-  if (Nm <= 0 || Nd <= 0 || T <= 0 || T % kRows != 0 || batch <= 0 || batch % T != 0 ||
-      n_ops_f < 0 || n_ops_f % 4 != 0 || n_iters < 0)
+  if (Nm <= 0 || Nd <= 0 || (T != 16 && T != 32) || batch <= 0 || batch % T != 0 ||
+      n_ops_f < 0 || n_ops_f % kBlock != 0 || n_iters < 0 || n_warps < 1 ||
+      n_warps > kMaxWarps)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles_u = 2 * (T / kRows) * ((Nm + kCols - 1) / kCols);
-  const int tiles_x = (T / kRows) * ((Nd + kCols - 1) / kCols);
-  const int threads = tiles_u > tiles_x ? tiles_u : tiles_x;
-  if (threads > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t n_rows = static_cast<size_t>(Nd) + 2 * static_cast<size_t>(Nm);
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(n_ops_f) + (n_rows + 3) / 4 * 4 +
-                       (static_cast<size_t>(Nd) + 3 * Nm) * T + 2 * (static_cast<size_t>(Nd) + Nm));
-  cudaError_t err = cudaFuncSetAttribute(
-      admm_box_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const int n1 = (Nm + 7) / 8, n2 = (Nd + 7) / 8;
+  const size_t smem = sizeof(float) * (static_cast<size_t>(n_ops_f) +
+                                       static_cast<size_t>(T) * 8 * (2 * n1 + n2 + kSlots) +
+                                       16 * (n1 + n2) + kSched * n_warps);
+  const bool relax = alpha != 1.0f;
+  auto kernel = T == 32 ? (relax ? admm_box_kernel<2, true> : admm_box_kernel<2, false>)
+                        : (relax ? admm_box_kernel<1, true> : admm_box_kernel<1, false>);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  admm_box_kernel<<<batch / T, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<batch / T, 32 * n_warps, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(free_g), static_cast<const float*>(u_base),
       static_cast<const float*>(u0), static_cast<const float*>(ops_f), n_ops_f,
-      static_cast<const int*>(ops_i), static_cast<const float*>(xb),
+      static_cast<const int*>(sched), static_cast<const float*>(xb),
       static_cast<const float*>(ub), static_cast<float*>(x_out), static_cast<float*>(u_out),
-      static_cast<float*>(zx_out), static_cast<float*>(zu_out), Nm, Nd, T, n_iters, has_u,
-      alpha, one_minus_alpha);
+      static_cast<float*>(zx_out), static_cast<float*>(zu_out), Nm, Nd, n_iters,
+      has_u, alpha, one_minus_alpha);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,11 +13,13 @@ f32; the ADMM loop itself is one hand-written CUDA kernel:
 On CPU tensors each wrapper runs its plain torch version
 (`admm_u_only_reference`, `admm_box_reference`) instead.
 
-Unlike the TPU kernels, every product is plain f32 (no bf16 splits), so
-on the u-only path `refresh_every` and `polish_iters` change only the
-iteration count: the main phase runs ceil(n_main / refresh_every) *
-refresh_every iterations and the tail min(polish_iters, n_iters) more,
-with n_main = max(n_iters - polish_iters, 0). The state-bounded path
+The u-only kernel's products are plain f32 (no bf16 splits); the
+state-bounded kernel's run on the tensor cores in 3xTF32, the
+counterpart of the TPU's bf16x3 `_dot3`. On the u-only path
+`refresh_every` and `polish_iters` change only the iteration count: the
+main phase runs ceil(n_main / refresh_every) * refresh_every iterations
+and the tail min(polish_iters, n_iters) more, with n_main =
+max(n_iters - polish_iters, 0). The state-bounded path
 ignores `refresh_every`, `polish_iters`, `stop_tol` and `check_every`,
 as the JAX factory does.
 """
@@ -32,7 +34,7 @@ from ilqr_admm_tpu_torch.problem import QuadCost, host_f64
 from ilqr_admm_tpu_torch.solvers.admm import validate_constraint_blocks
 from ilqr_admm_tpu_torch.solvers.lqt import block_diag_stacked, broadcast_rho
 from ilqr_admm_tpu_torch.utils.device import resolve_device
-from ilqr_admm_tpu_torch.utils.precision import full_f32_matmul
+from ilqr_admm_tpu_torch.utils.precision import full_f32_matmul, tf32x3_matmul
 
 # Number of times `admm_u_only` has launched its CUDA kernel in this process.
 launch_count = 0
@@ -233,78 +235,161 @@ def admm_u_only(
 box_launch_count = 0
 
 
-def profile_pack(W: torch.Tensor):
-    """Row-profile storage of a (K, C) operator for `csrc/admm_box.cu`.
+# Kernel geometry, as in csrc/admm_box.cu: operators in 8 x 8 blocks; an
+# m16n8k8 row tile is 16 instances; a warp takes up to two n-tiles at a
+# time; at most 16 warps a block; kSched ints of schedule a warp.
+_BOX_BLOCK = 8
+_BOX_TILES = (16, 32)
+_BOX_MAX_WARPS = 16
+_BOX_SCHED = 16
+_BOX_SLOTS = 2  # partial-sum slots besides the u_hat buffer
 
-    Row k keeps the columns [start[k], stop[k]) of W zero-padded to a
-    multiple of 4 columns; start and stop are multiples of 4,
-    nondecreasing in k, and every entry of a row outside its range is
-    zero. Element (k, j) of the kept range is packed[base[k] + j]. So a
-    thread that owns columns j0..j0+3 (j0 a multiple of 4) reads exactly
-    the rows with start <= j0 < stop, which are contiguous. Su is
-    strictly block lower-triangular, so Su^T's profile holds about half
-    of its entries; a dense W packs whole. Returns (packed, base, start,
-    stop), the last three int32.
+
+def pair_pack(W: torch.Tensor):
+    """8 x 8 block storage of a (K, C) operator for `csrc/admm_box.cu`.
+
+    W is zero-padded to multiples of 8 and cut into 8 x 8 (k, n) blocks;
+    its 8-column n-tiles are taken in pairs (2p, 2p + 1), the last one
+    alone when their count is odd. For each pair the k-tiles [klo, khi)
+    are kept, the smallest range that holds every nonzero block of its
+    columns (klo = khi = 0 when all are zero), so exact zeros outside it
+    are skipped and no sum changes. For each kept k-tile, the nb = 1 or 2
+    blocks are stored interleaved in the B-fragment order of a TF32
+    `mma.m16n8k8`: lane 4 g + t holds, for each n-tile of the pair, its
+    (k, n) entries (t, g) and (t + 4, g). Returns (packed, table): packed
+    the pairs' blocks end to end, table (n_pairs, 4) int32 rows (offset
+    of the first block in floats, klo, khi, nb).
     """
     K, C = W.shape
-    Cp = -(-C // 4) * 4
-    Wp = torch.nn.functional.pad(W, (0, Cp - C))
-    nz = Wp != 0
-    cols = torch.arange(Cp, device=W.device)
-    first = torch.where(nz, cols, Cp).amin(dim=1)  # Cp for an empty row
-    last = torch.where(nz, cols, -1).amax(dim=1)  # -1 for an empty row
-    start = torch.flip(torch.cummin(torch.flip(first // 4 * 4, (0,)), 0).values, (0,))
-    stop = torch.cummax((last + 4) // 4 * 4, 0).values
-    length = torch.clamp(stop - start, min=0)
-    packed = Wp[(cols >= start[:, None]) & (cols < stop[:, None])]
-    base = torch.cumsum(length, 0) - length - start
-    return packed, base.int(), start.int(), stop.int()
+    nk, nn = -(-K // _BOX_BLOCK), -(-C // _BOX_BLOCK)
+    Wp = torch.nn.functional.pad(W, (0, nn * _BOX_BLOCK - C, 0, nk * _BOX_BLOCK - K))
+    # (n-tile, k-tile, g, t, h): entry (k, n) = (t + 4 h, g) of each block
+    blocks = Wp.reshape(nk, 2, 4, nn, 8).permute(3, 0, 4, 2, 1)
+    nz = (blocks != 0).flatten(2).any(dim=2)
+    ks = torch.arange(nk, device=W.device)
+    packed, rows, offset = [], [], 0
+    for n0 in range(0, nn, 2):
+        nb = min(2, nn - n0)
+        used = ks[nz[n0:n0 + nb].any(dim=0)]
+        klo, khi = (int(used[0]), int(used[-1]) + 1) if used.numel() else (0, 0)
+        # (k-tile, g, t, n, h): lane 4 g + t reads 2 nb consecutive floats
+        packed.append(blocks[n0:n0 + nb, klo:khi].permute(1, 2, 3, 0, 4).reshape(-1))
+        rows.append((offset, klo, khi, nb))
+        offset += packed[-1].numel()
+    return torch.cat(packed), torch.tensor(rows, dtype=torch.int32, device=W.device)
+
+
+def _single_parts(n_pairs: int) -> int:
+    """Warps that share a last single n-tile of W_s: those left of the 16
+    by the pairs' two each, two to four."""
+    return max(2, min(2 + _BOX_SLOTS, _BOX_MAX_WARPS - 2 * n_pairs))
+
+
+def _box_warps(n1: int, n2: int) -> int:
+    """Warps of a block (`box_schedule`) for n1 and n2 8-column n-tiles."""
+    parts = 2 * (n1 // 2) + (_single_parts(n1 // 2) if n1 % 2 else 0)
+    return max(parts, -(-n2 // 2))
+
+
+def box_schedule(table1, table2) -> torch.Tensor:
+    """Each warp's work in `csrc/admm_box.cu`, from `pair_pack`'s tables
+    of W_s (phase 1) and Su^T (phase 2, whose offsets count from the end
+    of W_s's blocks).
+
+    Phase 1: each pair of W_s's n-tiles is split by k into two halves,
+    one warp each; the warp of the first half owns the pair's first
+    n-tile (its u_hat, z_u, l_u columns) and hands its partial sum of the
+    second to the other warp through the u_hat buffer, which owns the
+    second and hands back its partial of the first. A last single n-tile
+    is split over the warps left of the 16 (two to four): the first owns
+    it, the second hands over through the u_hat buffer, the others
+    through partial-sum slots. Phase 2: one warp a pair of Su^T's
+    n-tiles. Warp w runs on sub-partition w % 4, so within each phase the
+    pieces are dealt out longest first to the least loaded sub-partition
+    that has a warp free. Returns (warps, 16) int32 rows, in the order
+    the kernel reads them; nb = 0 for no work.
+    """
+    pairs = table1.tolist()
+    parts = []  # (cost, phase-1 row)
+    for p, (off, klo, khi, nb) in enumerate(pairs):
+        q = 2 if nb == 2 else _single_parts(len(pairs) - 1)
+        cuts = [klo + (khi - klo) * j // q for j in range(q + 1)]
+        for j, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:])):
+            row = [off + (lo - klo) * 64 * nb, lo, hi, nb, 2 * p]
+            if nb == 2:  # own tile j, hand the other over through u_hat
+                row += [1 - j, -1, j, 1, 0, 0]
+            elif j == 0:  # own the tile, add the u_hat partial and the slots
+                row += [-1, -1, 0, 1, 0, q - 2]
+            else:
+                row += [0, j - 2, -1, 0, 0, 0]
+            parts.append(((hi - lo) * nb, row))
+    items = [((khi - klo) * nb, [off, klo, khi, nb, 2 * p])
+             for p, (off, klo, khi, nb) in enumerate(table2.tolist())]
+    n_warps = max(len(parts), len(items))
+
+    def deal(pieces):
+        """Piece index -> warp: longest first, to the least loaded
+        sub-partition with a free warp."""
+        free = [[w for w in range(n_warps) if w % 4 == r] for r in range(4)]
+        load = [0] * 4
+        where = {}
+        for i in sorted(range(len(pieces)), key=lambda i: -pieces[i][0]):
+            r = min((r for r in range(4) if free[r]), key=lambda r: (load[r], r))
+            load[r] += pieces[i][0]
+            where[i] = free[r].pop(0)
+        return where
+
+    idle = [0, 0, 0, 0, 0, -1, -1, -1, 0, 0, 0]
+    sched = [idle + [0, 0, 0, 0, 0] for _ in range(n_warps)]
+    for i, w in deal(parts).items():
+        sched[w][:11] = parts[i][1]
+    for i, w in deal(items).items():
+        sched[w][11:] = items[i][1]
+    return torch.tensor(sched, dtype=torch.int32, device=table1.device)
 
 
 def pack_box_operators(W_s, SuT):
-    """(ops_f, ops_i): W_s and Su^T in `profile_pack` storage, in the
-    kernel's order; ops_f is the two packed operators end to end, ops_i
-    their row tables base (offset into ops_f), start and stop."""
-    packs = [profile_pack(W) for W in (W_s, SuT)]
-    offset, bases = 0, []
-    for packed, base, _, _ in packs:
-        bases.append(base + offset)
-        offset += packed.numel()
-    ops_f = torch.cat([p[0] for p in packs])
-    ops_i = torch.cat(bases + [p[2] for p in packs] + [p[3] for p in packs])
-    return ops_f, ops_i
+    """(ops_f, ops_i): W_s and Su^T in `pair_pack` storage, end to end,
+    and the kernel's warp schedule (`box_schedule`). W_s's rows for s_x
+    are zero-padded to whole 8-row tiles first, as the kernel pads s_x."""
+    Nm, Nd = SuT.shape
+    gap = -Nd % _BOX_BLOCK
+    W_s = torch.cat([W_s[:Nd], W_s.new_zeros(gap, Nm), W_s[Nd:]])
+    (f1, t1), (f2, t2) = pair_pack(W_s), pair_pack(SuT)
+    t2 = t2.clone()
+    t2[:, 0] += f1.numel()
+    return torch.cat([f1, f2]), box_schedule(t1, t2)
 
 
-def box_launch_geometry(batch_tile: int, Nm: int, Nd: int, operator_words: int) -> tuple[int, int]:
+def box_launch_geometry(batch_tile: int, Nm: int, Nd: int, n_blocks: int) -> tuple[int, int]:
     """(threads, dynamic shared-memory bytes) of one `admm_box` block.
 
-    As in csrc/admm_box.cu, a thread owns a 4 x 4 (instances x columns)
-    tile and each control tile is split over two threads; the block stages
-    the packed operators (operator_words floats, the sum of
-    `profile_pack`'s lengths), their row tables, the tile buffers (s,
-    u_hat and a partial sum) and the bounds in shared memory. Raises
-    ValueError when the tile cannot be launched: batch_tile must be a
-    multiple of 4, the block must fit in 512 threads, and all of that in
-    shared memory.
+    As in csrc/admm_box.cu: a block owns batch_tile = 16 or 32 instances
+    (one or two m16n8k8 row tiles) and has the warps of `box_schedule`,
+    at most 16; it stages the packed operators (n_blocks 8 x 8 blocks of
+    `pair_pack`), the s and u_hat tiles, the bounds, two partial-sum
+    slots and the schedule in shared memory. Raises ValueError when the tile cannot be
+    launched.
     """
-    if batch_tile < _ROWS or batch_tile % _ROWS:
-        raise ValueError(f"batch_tile={batch_tile} must be a positive multiple of {_ROWS}")
-    per_row_group = max(2 * -(-Nm // _COLS), -(-Nd // _COLS))
-    threads = (batch_tile // _ROWS) * per_row_group
-    if threads > _MAX_THREADS:
+    if batch_tile not in _BOX_TILES:
+        raise ValueError(f"batch_tile={batch_tile}: the state-bounded kernel takes "
+                         f"{' or '.join(map(str, _BOX_TILES))} instances a block")
+    n1, n2 = -(-Nm // _BOX_BLOCK), -(-Nd // _BOX_BLOCK)
+    warps = _box_warps(n1, n2)
+    if warps > _BOX_MAX_WARPS:
         raise ValueError(
-            f"batch_tile={batch_tile} at Nm={Nm}, Nd={Nd} needs {threads} threads per block; "
-            f"the kernel takes at most {_MAX_THREADS}, so batch_tile <= "
-            f"{_ROWS * (_MAX_THREADS // per_row_group)}"
+            f"Nm={Nm}, Nd={Nd} needs {warps} warps per block; the kernel takes at most "
+            f"{_BOX_MAX_WARPS} (Nm <= {_BOX_BLOCK * _BOX_MAX_WARPS}, "
+            f"Nd <= {2 * _BOX_BLOCK * _BOX_MAX_WARPS})"
         )
-    table_words = -(-(Nd + 2 * Nm) // 4) * 4
-    smem = 4 * (operator_words + table_words + (Nd + 3 * Nm) * batch_tile + 2 * (Nd + Nm))
+    smem = 4 * (64 * n_blocks + 8 * batch_tile * (2 * n1 + n2 + _BOX_SLOTS) + 16 * (n1 + n2)
+                + _BOX_SCHED * warps)
     if smem > _MAX_SMEM:
         raise ValueError(
             f"Nm={Nm}, Nd={Nd} with batch_tile={batch_tile} needs {smem} bytes of shared memory "
-            f"({4 * operator_words} of them packed operators); the limit is {_MAX_SMEM} bytes"
+            f"({256 * n_blocks} of them packed operators); the limit is {_MAX_SMEM} bytes"
         )
-    return threads, smem
+    return 32 * warps, smem
 
 
 def _check_box_inputs(free, u_base, u0, W_s, SuT, xb, ub, n_iters, batch_tile):
@@ -343,6 +428,7 @@ def _box_update(v_hat, z, lam, bounds, alpha):
 
 def admm_box_reference(
     free, u_base, u0, W_s, SuT, xb, ub, *, n_iters, alpha=1.0, has_u=True, batch_tile=32,
+    products="f32",
 ):
     """Plain torch version of the kernel, in f32 or f64, on any device.
 
@@ -356,15 +442,28 @@ def admm_box_reference(
     (l_inv Rr)^T], whose last Nm rows are zero without control bounds.
     Returns (x_hat, u_hat, z_x, z_u) of the last iteration ((z_x, z_u)
     after none). batch_tile does not change the result.
+
+    products: "f32" (full f32 matmuls, the version the kernel is held
+    to) or "tf32x3" (each product as the kernel's tensor cores take it,
+    `tf32x3_matmul`; float32 only), which separates the kernel's split
+    from its order of summation.
     """
+    if products == "f32":
+        matmul = torch.matmul
+    elif products == "tf32x3":
+        if free.dtype != torch.float32:
+            raise TypeError(f'products="tf32x3" takes float32, got {free.dtype}')
+        matmul = tf32x3_matmul
+    else:
+        raise ValueError(f'products must be "f32" or "tf32x3", got {products!r}')
     with full_f32_matmul():
         z_u = u0
-        z_x = free + u0 @ SuT
+        z_x = free + matmul(u0, SuT)
         l_x, l_u = torch.zeros_like(z_x), torch.zeros_like(z_u)
         x, u = z_x, z_u
         for _ in range(n_iters):
-            u = u_base + torch.cat([z_x - l_x, z_u - l_u], dim=1) @ W_s
-            x = free + u @ SuT
+            u = u_base + matmul(torch.cat([z_x - l_x, z_u - l_u], dim=1), W_s)
+            x = free + matmul(u, SuT)
             z_x, l_x = _box_update(x, z_x, l_x, xb, alpha)
             if has_u:
                 z_u, l_u = _box_update(u, z_u, l_u, ub, alpha)
@@ -381,7 +480,9 @@ def _check_packed(packed, free, Nm, Nd):
     if ops_f.dtype != free.dtype or ops_i.dtype != torch.int32:
         raise TypeError(f"packed must be ({free.dtype}, torch.int32), got "
                         f"({ops_f.dtype}, {ops_i.dtype})")
-    if ops_f.ndim != 1 or ops_f.numel() % 4 or tuple(ops_i.shape) != (3 * (Nd + 2 * Nm),):
+    n1, n2 = -(-Nm // _BOX_BLOCK), -(-Nd // _BOX_BLOCK)
+    warps = _box_warps(n1, n2)
+    if ops_f.ndim != 1 or ops_f.numel() % 64 or tuple(ops_i.shape) != (warps, _BOX_SCHED):
         raise ValueError("packed does not have the shapes of pack_box_operators(W_s, SuT) at "
                          f"Nm={Nm}, Nd={Nd}")
     if not (ops_f.is_contiguous() and ops_i.is_contiguous()):
@@ -404,9 +505,11 @@ def admm_box(
     multiple of batch_tile. See `admm_box_reference` for the iteration.
 
     CUDA tensors (float32) go to the kernel in `csrc/admm_box.cu`, which
-    reads only the packed operators; CPU tensors go to
-    `admm_box_reference`, which reads only the dense ones. Any other
-    device raises.
+    reads only the packed operators and takes batch_tile 16 or 32 (see
+    `box_launch_geometry`); its products run on the tensor cores in
+    3xTF32, held to the f32 plain version. CPU tensors go to
+    `admm_box_reference` with f32 products, which reads only the dense
+    operators. Any other device raises.
     """
     global box_launch_count
     _check_box_inputs(free, u_base, u0, W_s, SuT, xb, ub, n_iters, batch_tile)
@@ -422,7 +525,7 @@ def admm_box(
     if free.dtype != torch.float32:
         raise TypeError(f"the CUDA kernel takes float32, got {free.dtype}")
     ops_f, ops_i = packed
-    box_launch_geometry(batch_tile, Nm, Nd, ops_f.numel())
+    box_launch_geometry(batch_tile, Nm, Nd, ops_f.numel() // 64)
 
     from ilqr_admm_tpu_torch._build import load_library
 
@@ -433,7 +536,7 @@ def admm_box(
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.admm_box_launch(
             free.data_ptr(), u_base.data_ptr(), u0.data_ptr(), ops_f.data_ptr(), ops_f.numel(),
-            ops_i.data_ptr(), xb.data_ptr(), ub.data_ptr(),
+            ops_i.data_ptr(), ops_i.shape[0], xb.data_ptr(), ub.data_ptr(),
             x.data_ptr(), u.data_ptr(), z_x.data_ptr(), z_u.data_ptr(),
             batch, Nm, Nd, batch_tile, n_iters, int(has_u),
             float(alpha), float(1.0 - alpha), stream,
@@ -556,7 +659,8 @@ def make_fused_lqt_admm(
     the u-only path, which fills an H100 with 256 blocks at the bench
     width (the largest tile it takes there is 80, see `launch_geometry`),
     and 32 on the state-bounded path, whose block stages its packed
-    operators in shared memory (see `box_launch_geometry`). On a CUDA
+    operators in shared memory and takes 16 or 32 (see
+    `box_launch_geometry`). On a CUDA
     device dtype must be float32.
 
     The problem data are rounded to `dtype` (as the JAX factory rounds

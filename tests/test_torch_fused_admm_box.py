@@ -13,6 +13,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import chip_smoke
+
 from ilqr_admm_tpu.models.double_integrator import DoubleIntegrator
 from ilqr_admm_tpu.ops.lifted import build_Su, build_Sx
 from ilqr_admm_tpu.ops.pallas_admm import make_pallas_lqt_admm
@@ -26,9 +28,10 @@ from ilqr_admm_tpu_torch.ops.fused_admm import (
     admm_box,
     admm_box_reference,
     box_launch_geometry,
+    box_schedule,
     make_fused_lqt_admm,
     pack_box_operators,
-    profile_pack,
+    pair_pack,
 )
 
 torch.set_num_threads(2)
@@ -314,27 +317,63 @@ def test_state_bounds_without_rho_x_raise():
                             device="cpu")
 
 
-def _emulate_kernel_product(s, packed, base, start, stop, width, halves):
-    """The kernel's product s W over a profile-packed (K, width) W, in f64
-    with numpy: each column group j0 reads rows [klo, khi) as `row_range`
-    finds them, split into `halves` contiguous parts as phase 1 splits them."""
-    Cp = -(-width // 4) * 4
-    out = np.zeros((s.shape[0], Cp))
-    for j0 in range(0, Cp, 4):
-        khi = int((start <= j0).sum())
-        klo = int((stop <= j0).sum())
-        bounds = [klo, khi] if halves == 1 else [klo, klo + max(khi - klo, 0) // 2, max(khi, klo)]
-        for a, b in zip(bounds[:-1], bounds[1:]):
-            for k in range(a, b):
-                out[:, j0:j0 + 4] += s[:, k:k + 1] * packed[base[k] + j0:base[k] + j0 + 4]
-    return out
+def _block(ops, off, nb, n):
+    """B_n (8 x 8, (k, n)) of the nb interleaved blocks at float offset
+    off: lane 4 g + t holds (t + 4 h, g) of each n-tile."""
+    lanes = ops[off:off + 64 * nb].reshape(8, 4, nb, 2)  # g, t, n, h
+    B = np.zeros((8, 8))
+    for h in range(2):
+        B[np.arange(4)[:, None] + 4 * h, np.arange(8)[None]] = lanes[:, :, n, h].T
+    return B
+
+
+def _emulate_kernel_product(ops, sched, s, C, phase):
+    """The kernel's product s @ W (C columns) as its warps compute it from
+    `pair_pack` storage and a `box_schedule`, in f64 with numpy: each warp
+    takes its k-steps of its n-tiles; in phase 1 each n-tile's owner adds
+    the partial sums handed to it (through the u_hat buffer and the
+    slots it lists), each exactly once."""
+    K = s.shape[1]
+    sp = np.zeros((s.shape[0], -(-K // 8) * 8))
+    sp[:, :K] = s
+    owned, handed = {}, {}
+    for w in sched:
+        off, klo, khi, nb, n0 = w[0:5] if phase == 1 else w[11:16]
+        acc = [np.zeros((s.shape[0], 8)) for _ in range(2)]
+        for kk in range(klo, khi):
+            for n in range(nb):
+                acc[n] += sp[:, 8 * kk:8 * kk + 8] @ _block(ops, off + (kk - klo) * 64 * nb, nb, n)
+        if phase == 2:
+            for n in range(nb):
+                assert n0 + n not in owned
+                owned[n0 + n] = acc[n]
+            continue
+        give, give_to, own, own_uh, slo, shi = w[5:11]
+        if give >= 0:
+            assert give_to not in handed.setdefault(n0 + give, {})
+            handed[n0 + give][give_to] = acc[give]
+        if own >= 0:
+            assert n0 + own not in owned
+            owned[n0 + own] = (acc[own], own_uh, slo, shi)
+    nn = -(-C // 8)
+    assert sorted(owned) == list(range(nn))
+    out = np.zeros((s.shape[0], nn * 8))
+    for j, a in owned.items():
+        if phase == 1:
+            a, own_uh, slo, shi = a
+            parts = handed.get(j, {})
+            assert set(parts) == ({-1} if own_uh else set()) | set(range(slo, shi))
+            a = a + sum(parts.values())
+        out[:, 8 * j:8 * j + 8] = a
+    return out[:, :C]
 
 
 @pytest.mark.parametrize("kind", ["SuT", "W_s", "diagonal", "banded", "zeros", "ragged"])
-def test_profile_pack_matches_the_dense_product(kind):
-    """profile_pack's storage, read by the kernel's row-range rule (and the
-    phase-1 half split), gives the dense product exactly; Su^T packs to
-    about half."""
+def test_pair_pack_matches_the_dense_product(kind):
+    """pair_pack's storage, read by the kernel's warp schedule in either
+    phase (k-split pairs and the shared last single n-tile in phase 1,
+    whole pairs in phase 2), gives the dense product exactly; Su^T keeps
+    its nonzero blocks only, and an all-zero operator packs to nothing."""
     N = 30
     rng = np.random.default_rng(0)
     if kind in ("SuT", "W_s"):
@@ -350,33 +389,65 @@ def test_profile_pack_matches_the_dense_product(kind):
         W = torch.tensor(np.triu(np.tril(rng.normal(size=(40, 40)), 3), -5))
     elif kind == "zeros":
         W = torch.zeros(12, 10, dtype=F64)
-    else:  # a width that is not a multiple of 4, zero rows inside
+    else:  # a width that is not a multiple of 8, zero rows inside
         W = torch.tensor(rng.normal(size=(17, 98)) * (rng.random((17, 1)) > 0.3))
-    packed, base, start, stop = (t.numpy() for t in profile_pack(W))
-    assert base.dtype == start.dtype == stop.dtype == np.int32
-    assert np.all(np.diff(start) >= 0) and np.all(np.diff(stop) >= 0)
-    assert np.all(start % 4 == 0) and np.all(stop % 4 == 0)
+    packed, table = pair_pack(W)
+    assert table.dtype == torch.int32 and table.shape == (-(-W.shape[1] // 16), 4)
+    sched = box_schedule(table, table).numpy()
+    assert sched.dtype == np.int32 and sched.shape[1] == 16
     s = rng.normal(size=(5, W.shape[0]))
-    want = s @ W.numpy()
-    for halves in (1, 2):
-        got = _emulate_kernel_product(s, packed, base, start, stop, W.shape[1], halves)
-        np.testing.assert_allclose(got[:, :W.shape[1]], want, rtol=0, atol=1e-12)
-    if kind == "SuT":
-        assert packed.size < 0.55 * W.numel()
+    for phase in (1, 2):
+        got = _emulate_kernel_product(packed.numpy(), sched, s, W.shape[1], phase)
+        np.testing.assert_allclose(got, s @ W.numpy(), rtol=0, atol=1e-12)
+    if kind == "SuT":  # 20 of the 32 blocks of the padded 32 x 64 at N = 30
+        assert packed.numel() == 20 * 64
     if kind == "zeros":
-        assert packed.size == 0
+        assert packed.numel() == 0
+
+
+def test_box_schedule_balances_the_sub_partitions():
+    """At the full width, 16 warps: 12 take half a pair of W_s's n-tiles,
+    4 share the last single one (two through slots), and each of the four
+    sub-partitions (warp % 4) carries a near-equal share of either phase;
+    odd widths pad s_x and W_s to whole 8-row tiles."""
+    (_, _, _), box = chip_smoke.box_solver("cpu")
+    ops, sched = box.packed
+    assert ops.numel() == 663 * 64 and tuple(sched.shape) == (16, 16)
+    sched = sched.numpy()
+    for phase, cols in ((1, slice(1, 4)), (2, slice(12, 15))):
+        load = np.zeros(4)
+        for w, row in enumerate(sched):
+            klo, khi, nb = row[cols]
+            load[w % 4] += (khi - klo) * nb
+        assert load.max() - load.min() <= (2 if phase == 1 else 3), (phase, load)
+    assert sorted(sched[:, 6].tolist()) == [-1] * 14 + [0, 1]  # two slot handovers
+    rng = np.random.default_rng(1)
+    s = rng.normal(size=(3, 300))
+    W_s = box.W_s.double().numpy()
+    np.testing.assert_allclose(_emulate_kernel_product(ops.double().numpy(), sched, s, 100, 1),
+                               s @ W_s, rtol=0, atol=1e-9)
+    # Nd = 196: W_s gains 4 zero rows between its x and u parts
+    W_s, SuT = torch.randn(294, 98, dtype=F64), torch.randn(98, 196, dtype=F64)
+    ops, sched = pack_box_operators(W_s, SuT)
+    s = rng.normal(size=(3, 294))
+    s_pad = np.concatenate([s[:, :196], np.zeros((3, 4)), s[:, 196:]], axis=1)
+    np.testing.assert_allclose(_emulate_kernel_product(ops.numpy(), sched.numpy(), s_pad, 98, 1),
+                               s @ W_s.numpy(), rtol=0, atol=1e-9)
 
 
 def test_box_launch_geometry_limits():
-    # the full-width configuration: Nm = 100, Nd = 200, 39,704 packed floats
-    assert box_launch_geometry(32, 100, 200, 39704) == (400, 226816)
-    assert box_launch_geometry(8, 98, 196, 30000)[0] == 100
-    with pytest.raises(ValueError, match="multiple of 4"):
-        box_launch_geometry(6, 100, 200, 39704)
-    with pytest.raises(ValueError, match="batch_tile <= 40"):
-        box_launch_geometry(64, 100, 200, 39704)
+    # the full-width configuration: Nm = 100, Nd = 200, 663 blocks, 16 warps
+    assert box_launch_geometry(32, 100, 200, 663) == (512, 227456)
+    assert box_launch_geometry(16, 98, 196, 600)[0] == 512
+    # 2 warps; blocks, s and u_hat (2 n1 + n2 tiles) and two slots, bounds, schedule
+    assert box_launch_geometry(32, 12, 24, 10) == (
+        64, 4 * (640 + 8 * 32 * (4 + 3 + 2) + 16 * 5 + 16 * 2))
+    with pytest.raises(ValueError, match="16 or 32"):
+        box_launch_geometry(8, 100, 200, 663)
+    with pytest.raises(ValueError, match="warps per block"):
+        box_launch_geometry(32, 140, 280, 663)
     with pytest.raises(ValueError, match="shared memory"):
-        box_launch_geometry(40, 100, 200, 39704)
+        box_launch_geometry(32, 104, 208, 700)
 
 
 def _box_inputs(batch=16, Nm=12, Nd=24, dtype=F32):
