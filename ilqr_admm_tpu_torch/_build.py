@@ -4,9 +4,11 @@ The sources under `csrc/` have plain `extern "C"` entry points. At first
 use each is compiled with `nvcc` for `sm_90a` into an object, all at
 once in parallel, and the objects are linked into one shared library,
 `build/torch_kernels/<hash of sources and flags>/libilqr_admm_torch.so`
-under the repository root, which is loaded with `ctypes`. Nothing is built
-or loaded when the package is imported. A failed build raises with
-`nvcc`'s output; there is no fallback.
+under the repository root, which is loaded with `ctypes`. The hash
+covers the flags and every file under `csrc/` (`*.cu` and the `*.cuh`
+headers they include), so an edited header builds a new library. Nothing
+is built or loaded when the package is imported. A failed build raises
+with `nvcc`'s output; there is no fallback.
 """
 
 from __future__ import annotations
@@ -33,11 +35,12 @@ _F = ctypes.c_float
 
 
 def build_dir() -> Path:
-    """Directory of the library for the current sources and flags."""
+    """Directory of the library for the current sources, headers and flags."""
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for name in _SOURCES:
-        h.update(name.encode())
-        h.update((_PKG / "csrc" / name).read_bytes())
+    csrc = _PKG / "csrc"
+    for path in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return _PKG.parent / "build" / "torch_kernels" / h.hexdigest()[:16]
 
 
@@ -104,7 +107,7 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare every signature."""
     lib = ctypes.CDLL(str(build()))
     lib.admm_u_only_launch.argtypes = [
-        _P, _P, _P, _P, _P, _P,  # u_base, x_base, W_u, W_x, lo, hi
+        _P, _P, _P, _P, _P, _P,  # u_base, x_base, ops_f, ops_i (packed W_u, W_x), lo, hi
         _P, _P, _P,  # x_out, u_out, zu_out
         _I, _I, _I, _I,  # batch, Nm, Nd, batch_tile
         _I, _I, _I,  # chunk_len, n_chunks, n_tail

@@ -8,33 +8,48 @@
 //
 // written to xs (A, N, D); the final state x_N is not stored, as on the TPU.
 //
-// The plant is compiled in: a device functor passed by value in the
-// kernel's parameters (`CarFrontWheelStep`, the step of
-// ilqr_admm_tpu/models/car.py:37-44), where the TPU kernel traced a Python
-// `step_cols`. Its arithmetic is IEEE f32 in the order the plain torch step
-// runs it: sinf/cosf/sqrtf/asinf (no fast math), and every product and sum
-// through __fmul_rn/__fadd_rn/__fsub_rn/__fdiv_rn, so that nvcc does not
-// contract them into FMAs, which torch's separate elementwise launches
-// never do. NaNs propagate as in torch: a candidate whose sqrt argument
+// The plant is compiled in: the step of CarFrontWheel
+// (ilqr_admm_tpu/models/car.py:37-44), where the TPU kernel traced a
+// Python `step_cols`. Its arithmetic is IEEE f32 in the order the plain
+// torch step runs it: sinf/cosf/sqrtf/asinf (no fast math), and every
+// product and sum through __fmul_rn/__fadd_rn/__fsub_rn/__fdiv_rn, so that
+// nvcc does not contract them into FMAs, which torch's separate elementwise
+// launches never do. The result is bit-identical to the plain version on
+// the card. NaNs propagate as in torch: a candidate whose sqrt argument
 // goes negative, or whose asin argument leaves [-1, 1], gives NaN states.
-//
-// Design: one thread a candidate, the state in registers, a loop over t;
-// blocks of one warp (A <= 128 gives at most four), so each warp has an SM
-// to itself. The controls of step t + 1 are loaded during step t, so the
-// chain of transcendentals never waits on a load. xs is stored in its
-// (A, N, D) layout directly: the D floats of a step are contiguous in one
-// thread, and a transpose from a lanes-fastest buffer would cost a launch
-// more than the scattered stores of 20-128 threads.
 //
 // What bounds it on an H100: not bytes (x0, u and xs are 240 KB at N =
 // 500, A = 20: 0.07 us at 3.35 TB/s) nor operations (~22 a step a
-// candidate: 0.003 us at the f32 peak), but the dependency chain of N
-// steps in each thread: each step waits on the previous state, and its
-// sinf/cosf (of the heading), asinf and sqrtf with their range reductions
-// are some 150-300 cycles in a row, about 40-90 us at N = 500. Only A
-// threads run, so the card is almost idle; the design keeps the chain free
-// of memory stalls and lets the compiler overlap the parts of a step that
-// do not depend on the state (sinf/cosf of the wheel angle).
+// candidate), but dependency chains. Run step by step, each step waits on
+// the whole previous state through sinf, cosf, asinf and sqrtf, some 500
+// cycles a step. But the car's step is triangular in the state
+// [x, y, o, v], u = [w, a]:
+//
+//     v[t+1] = v[t] + a[t] dt                       (reads v only)
+//     b[t], do[t] = f(w[t], v[t])                   (back-wheel distance, turn)
+//     o[t+1] = o[t] + do[t]
+//     x[t+1] = x[t] + b[t] cos(o[t]),  y[t+1] = y[t] + b[t] sin(o[t])
+//
+// so the only true chains are sequential f32 additions; every
+// transcendental is independent across t once its chain input is known.
+// The least time is then (N - 1) dependent adds (tools/rollout_variants.py
+// measures the add's latency and the clock).
+//
+// Design: one block a candidate, 256 threads, the horizon in chunks of
+// kChunk steps staged in shared memory, with (x, y, o, v) carried from one
+// chunk to the next. In each chunk:
+//   1. all threads: w[t] and a[t] dt from the candidate's controls;
+//   2. thread 0 runs the v chain, while warps 1-7 take sin and cos of w;
+//   3. all threads: b[t] and do[t] from (w[t], v[t]);
+//   4. thread 0 runs the o chain;
+//   5. all threads: b[t] cos(o[t]) and b[t] sin(o[t]);
+//   6. thread 0 runs the x chain and thread 32 (another warp) the y chain;
+//   7. all threads: the chunk's rows of xs, (x, y, o, v) a step, coalesced.
+// Each chain is one dependent FADD a step: its thread loads its addends
+// from shared memory kGroup steps ahead (a group in registers while the
+// next group's loads are in flight), so a link waits on the add and not
+// on a load. The operations and their order are those of the plain
+// version, so the bits are too.
 
 #include <cuda_runtime.h>
 
@@ -42,69 +57,102 @@
 
 namespace {
 
-constexpr int kThreads = 32;  // one warp a block
+constexpr int kThreads = 256;  // one block a candidate
+constexpr int kChunk = 1024;   // steps staged in shared memory at a time
+constexpr int kGroup = 32;     // steps a chain thread holds in registers
+constexpr int kRow = kChunk + kGroup;  // a staged array, with room for one group's read-ahead
 
-struct CarFrontWheelStep {
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+
+struct CarFrontWheel {
   float dt, dist;
   float dist_sq;  // dist**2 rounded from double, as torch rounds the Python scalar
-
-  // s <- step(s, u): s = [x, y, heading, v], u = [wheel angle, acceleration]
-  __device__ __forceinline__ void operator()(float* s, const float* u) const {
-    const float w = u[0], a = u[1];
-    const float x = s[0], y = s[1], o = s[2], v = s[3];
-    const float sw = sinf(w);
-    const float f = __fmul_rn(dt, v);  // front-wheel rolling distance
-    const float sf = __fmul_rn(sw, f);
-    const float ins = __fsub_rn(dist_sq, __fmul_rn(sf, sf));
-    // back-wheel rolling distance: (f cos w + dist) - sqrt(ins)
-    const float b = __fsub_rn(__fadd_rn(__fmul_rn(f, cosf(w)), dist), sqrtf(ins));
-    const float d_o = asinf(__fdiv_rn(sf, dist));
-    s[0] = __fadd_rn(x, __fmul_rn(b, cosf(o)));
-    s[1] = __fadd_rn(y, __fmul_rn(b, sinf(o)));
-    s[2] = __fadd_rn(o, d_o);
-    s[3] = __fadd_rn(v, __fmul_rn(a, dt));
-  }
 };
 
-template <class Plant, int D, int M>
-__global__ void __launch_bounds__(kThreads)
-    linesearch_rollout_kernel(const float* __restrict__ x0, const float* __restrict__ u,
-                              float* __restrict__ xs, int A, int N, Plant plant) {
-  const int a = blockIdx.x * blockDim.x + threadIdx.x;
-  if (a >= A) return;
-  const float* ua = u + static_cast<size_t>(a) * N * M;
-  float* xa = xs + static_cast<size_t>(a) * N * D;
-
-  float s[D];
+// out[t] = c + d[0] + ... + d[t - 1] for t < len, summed in order; returns
+// the sum of all len addends (exact when len is a multiple of kGroup, as
+// every chunk but the last is). Reads up to kGroup past the last group.
+__device__ __forceinline__ float chain(const float* __restrict__ d, float* __restrict__ out, int len,
+                                       float c) {
+  const float4* d4 = reinterpret_cast<const float4*>(d);
+  float4* out4 = reinterpret_cast<float4*>(out);
+  float4 q[kGroup / 4], next[kGroup / 4];
 #pragma unroll
-  for (int i = 0; i < D; ++i) s[i] = x0[i];
-  float next[M];
+  for (int j = 0; j < kGroup / 4; ++j) q[j] = d4[j];
+  for (int t4 = 0; 4 * t4 < len; t4 += kGroup / 4) {
 #pragma unroll
-  for (int j = 0; j < M; ++j) next[j] = ua[j];
-
-  for (int t = 0; t < N; ++t) {
-    float ut[M];
+    for (int j = 0; j < kGroup / 4; ++j) next[j] = d4[t4 + kGroup / 4 + j];
 #pragma unroll
-    for (int j = 0; j < M; ++j) ut[j] = next[j];
-    if (t + 1 < N) {
-#pragma unroll
-      for (int j = 0; j < M; ++j) next[j] = ua[(t + 1) * M + j];
+    for (int j = 0; j < kGroup / 4; ++j) {
+      float4 r;
+      r.x = c;
+      c = add(c, q[j].x);
+      r.y = c;
+      c = add(c, q[j].y);
+      r.z = c;
+      c = add(c, q[j].z);
+      r.w = c;
+      c = add(c, q[j].w);
+      out4[t4 + j] = r;
+      q[j] = next[j];
     }
-#pragma unroll
-    for (int i = 0; i < D; ++i) xa[t * D + i] = s[i];
-    plant(s, ut);  // x_N is computed and dropped, as on the TPU
   }
+  return c;
 }
 
-template <class Plant, int D, int M>
-int launch(const void* x0, const void* u, void* xs, int A, int N, Plant plant,
-           cudaStream_t stream) {
-  if (A < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (A + kThreads - 1) / kThreads;
-  linesearch_rollout_kernel<Plant, D, M><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const float*>(x0), static_cast<const float*>(u), static_cast<float*>(xs), A,
-      N, plant);
-  return static_cast<int>(cudaGetLastError());
+__global__ void __launch_bounds__(kThreads)
+    car_front_wheel_rollout_kernel(const float* __restrict__ x0, const float* __restrict__ u,
+                                   float* __restrict__ xs, int N, CarFrontWheel car) {
+  __shared__ __align__(16) float staged[10][kRow];
+  float *W = staged[0], *ADT = staged[1], *SW = staged[2], *CW = staged[3], *V = staged[4];
+  float *B = staged[5], *DO = staged[6], *O = staged[7], *X = staged[8], *Y = staged[9];
+  const int tid = threadIdx.x;
+  const float2* ua = reinterpret_cast<const float2*>(u) + static_cast<size_t>(blockIdx.x) * N;
+  float4* xa = reinterpret_cast<float4*>(xs) + static_cast<size_t>(blockIdx.x) * N;
+  // the carries: thread 0 holds x, o and v, thread 32 holds y
+  float x = x0[0], y = x0[1], o = x0[2], v = x0[3];
+
+  for (int c0 = 0; c0 < N; c0 += kChunk) {
+    const int len = min(kChunk, N - c0);
+    for (int t = tid; t < len; t += kThreads) {
+      const float2 ut = ua[c0 + t];
+      W[t] = ut.x;
+      ADT[t] = mul(ut.y, car.dt);
+    }
+    __syncthreads();
+    if (tid == 0) {
+      v = chain(ADT, V, len, v);
+    } else if (tid >= 32) {
+      for (int t = tid - 32; t < len; t += kThreads - 32) {
+        SW[t] = sinf(W[t]);
+        CW[t] = cosf(W[t]);
+      }
+    }
+    __syncthreads();
+    for (int t = tid; t < len; t += kThreads) {
+      const float f = mul(car.dt, V[t]);  // front-wheel rolling distance
+      const float sf = mul(SW[t], f);
+      const float ins = sub(car.dist_sq, mul(sf, sf));
+      // back-wheel rolling distance: (f cos w + dist) - sqrt(ins)
+      B[t] = sub(add(mul(f, CW[t]), car.dist), sqrtf(ins));
+      DO[t] = asinf(__fdiv_rn(sf, car.dist));
+    }
+    __syncthreads();
+    if (tid == 0) o = chain(DO, O, len, o);
+    __syncthreads();
+    for (int t = tid; t < len; t += kThreads) {
+      const float ot = O[t];
+      ADT[t] = mul(B[t], cosf(ot));
+      SW[t] = mul(B[t], sinf(ot));
+    }
+    __syncthreads();
+    if (tid == 0) x = chain(ADT, X, len, x);
+    else if (tid == 32) y = chain(SW, Y, len, y);
+    __syncthreads();
+    for (int t = tid; t < len; t += kThreads) xa[c0 + t] = make_float4(X[t], Y[t], O[t], V[t]);
+  }
 }
 
 }  // namespace
@@ -112,8 +160,11 @@ int launch(const void* x0, const void* u, void* xs, int A, int N, Plant plant,
 extern "C" int linesearch_rollout_car_front_wheel_launch(const void* x0, const void* u, void* xs,
                                                          int A, int N, float dt, float dist,
                                                          float dist_sq, void* stream) {
-  return launch<CarFrontWheelStep, 4, 2>(x0, u, xs, A, N, CarFrontWheelStep{dt, dist, dist_sq},
-                                         static_cast<cudaStream_t>(stream));
+  if (A < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  car_front_wheel_rollout_kernel<<<A, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x0), static_cast<const float*>(u), static_cast<float*>(xs), N,
+      CarFrontWheel{dt, dist, dist_sq});
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* linesearch_rollout_error_string(int code) {

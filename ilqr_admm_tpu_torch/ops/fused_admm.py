@@ -13,15 +13,18 @@ f32; the ADMM loop itself is one hand-written CUDA kernel:
 On CPU tensors each wrapper runs its plain torch version
 (`admm_u_only_reference`, `admm_box_reference`) instead.
 
-The u-only kernel's products are plain f32 (no bf16 splits); the
-state-bounded kernel's run on the tensor cores in 3xTF32, the
-counterpart of the TPU's bf16x3 `_dot3`. On the u-only path
-`refresh_every` and `polish_iters` change only the iteration count: the
+Both kernels take their products on the tensor cores in 3xTF32, the
+counterpart of the TPU's bf16x3 `_dot3` (`utils/precision.py` emulates
+it). The u-only kernel schedules its products as the TPU kernel does:
+the main iterations in 3xTF32, the `polish_iters` tail and, with
+`stop_tol > 0`, the last iteration of each chunk (whose residual is the
+exit test) in 6xTF32, the counterpart of the bf16x6 `_dot6`. It runs
+no delta products: `refresh_every` changes only the iteration count. The
 main phase runs ceil(n_main / refresh_every) * refresh_every iterations
 and the tail min(polish_iters, n_iters) more, with n_main =
-max(n_iters - polish_iters, 0). The state-bounded path
-ignores `refresh_every`, `polish_iters`, `stop_tol` and `check_every`,
-as the JAX factory does.
+max(n_iters - polish_iters, 0). The state-bounded path ignores
+`refresh_every`, `polish_iters`, `stop_tol` and `check_every`, as the
+JAX factory does.
 """
 
 from __future__ import annotations
@@ -34,44 +37,66 @@ from ilqr_admm_tpu_torch.problem import QuadCost, host_f64
 from ilqr_admm_tpu_torch.solvers.admm import validate_constraint_blocks
 from ilqr_admm_tpu_torch.solvers.lqt import block_diag_stacked, broadcast_rho
 from ilqr_admm_tpu_torch.utils.device import resolve_device
-from ilqr_admm_tpu_torch.utils.precision import full_f32_matmul, tf32x3_matmul
+from ilqr_admm_tpu_torch.utils.precision import full_f32_matmul, tf32x3_matmul, tf32x6_matmul
 
 # Number of times `admm_u_only` has launched its CUDA kernel in this process.
 launch_count = 0
 
-# Kernel geometry, as in csrc/admm_u_only.cu: each thread owns a 4 x 4
-# (instances x controls) register tile; a block holds at most 512 threads
-# and stages W_u plus two s buffers in shared memory.
-_ROWS = 4
-_COLS = 4
-_MAX_THREADS = 512
-_MAX_SMEM = 232448 - 16  # an H100 block's 227 KB, less the kernel's static word
+# Kernel geometry, as in csrc/admm_u_only.cu: a block owns 16, 32 or 64
+# instances (one, two or four m16n8k8 row tiles) and has one warp a piece
+# (a pair of 8-column n-tiles over two row tiles, or the last single
+# n-tile over one), at most 16; it stages W_u (room for all its 8 x 8
+# blocks), two s buffers and the bounds in shared memory.
+_U_TILES = (16, 32, 64)
+_U_MAX_WARPS = 16
+_MAX_SMEM = 232448 - 16  # an H100 block's 227 KB, less the kernels' static words
 
 
-def launch_geometry(batch_tile: int, Nm: int) -> tuple[int, int]:
-    """(threads, dynamic shared-memory bytes) of one kernel block.
+def u_only_pieces(batch_tile: int, Nm: int) -> list[tuple[int, int, int]]:
+    """Each warp's piece of the loop's product in `csrc/admm_u_only.cu`,
+    in warp order: (row of W_u's pair table, first m-tile, m-tiles).
+
+    W_u's pairs of 8-column n-tiles are cut into pieces of two m16 row
+    tiles (one at batch_tile 16), then the last single n-tile (when Nm / 8
+    rounds up to an odd count) into pieces of one; the kernel derives the
+    same list from its warp index. Warp w runs on sub-partition w % 4, so
+    at batch_tile 64 and Nm = 100 each of the four carries three pair
+    pieces and one single piece.
+    """
+    mt = batch_tile // 16
+    mw = min(mt, 2)
+    n1 = -(-Nm // 8)
+    pieces = [(p, m0, mw) for p in range(n1 // 2) for m0 in range(0, mt, mw)]
+    return pieces + [(n1 // 2, m0, 1) for m0 in range(mt if n1 % 2 else 0)]
+
+
+def launch_geometry(batch_tile: int, Nm: int, alpha: float = 1.0) -> tuple[int, int]:
+    """(threads, dynamic shared-memory bytes) of one `admm_u_only` block.
 
     Raises ValueError when the tile cannot be launched: batch_tile must
-    be a multiple of 4, the block must fit in 512 threads, and W_u with
-    two copies of the tile's s must fit in shared memory.
+    be 16, 32 or 64, the block's pieces must fit in 16 warps, and W_u
+    with two copies of the tile's s (and, with over-relaxation, 16 floats
+    of z a thread) must fit in shared memory.
     """
-    if batch_tile < _ROWS or batch_tile % _ROWS:
-        raise ValueError(f"batch_tile={batch_tile} must be a positive multiple of {_ROWS}")
-    col_groups = -(-Nm // _COLS)
-    threads = (batch_tile // _ROWS) * col_groups
-    if threads > _MAX_THREADS:
+    if batch_tile not in _U_TILES:
+        raise ValueError(f"batch_tile={batch_tile}: the u-only kernel takes "
+                         f"{', '.join(map(str, _U_TILES[:-1]))} or {_U_TILES[-1]} instances a block")
+    warps = len(u_only_pieces(batch_tile, Nm))
+    if warps > _U_MAX_WARPS:
+        fits = [tile for tile in _U_TILES if len(u_only_pieces(tile, Nm)) <= _U_MAX_WARPS]
         raise ValueError(
-            f"batch_tile={batch_tile} at Nm={Nm} needs {threads} threads per block; "
-            f"the kernel takes at most {_MAX_THREADS}, so batch_tile <= "
-            f"{_ROWS * (_MAX_THREADS // col_groups)}"
+            f"batch_tile={batch_tile} at Nm={Nm} needs {warps} warps per block; the kernel "
+            f"takes at most {_U_MAX_WARPS}, so batch_tile <= {max(fits, default=0)}"
         )
-    smem = 4 * (Nm * col_groups * _COLS + 2 * Nm * batch_tile)
+    n1 = -(-Nm // 8)
+    smem = 4 * (64 * n1 * n1 + 2 * 8 * batch_tile * n1 + 16 * n1
+                + (16 * 32 * warps if alpha != 1.0 else 0))
     if smem > _MAX_SMEM:
         raise ValueError(
             f"Nm={Nm} with batch_tile={batch_tile} needs {smem} bytes of shared memory "
             f"to stage W_u and the tile's iterate; the limit is {_MAX_SMEM} bytes"
         )
-    return threads, smem
+    return 32 * warps, smem
 
 
 def _schedule(n_iters, refresh_every, polish_iters, stop_tol, check_every):
@@ -123,14 +148,27 @@ def _check_inputs(u_base, x_base, W_u, W_x, lo, hi, batch_tile):
 
 def admm_u_only_reference(
     u_base, x_base, W_u, W_x, lo, hi, *, n_iters, refresh_every=1, alpha=1.0,
-    polish_iters=8, stop_tol=0.0, check_every=8, batch_tile=64,
+    polish_iters=8, stop_tol=0.0, check_every=8, batch_tile=64, products="f32",
 ):
     """Plain torch version of the kernel, in f32 or f64, on any device.
 
     Works on (n_tiles, batch_tile, Nm) views so that early exit is per
     tile, as in the kernel: a tile that has exited keeps its iterates
     until the tail. Returns (x (B, Nd), u (B, Nm), z_u (B, Nm)).
+
+    products: "f32" (full f32 matmuls) or "tf32x3", the kernel's
+    schedule of tensor-core products (float32 only): `tf32x3_matmul` in
+    the main iterations and for x, `tf32x6_matmul` in the tail and, with
+    stop_tol > 0, in the last iteration of each chunk.
     """
+    if products == "f32":
+        main = six = torch.matmul
+    elif products == "tf32x3":
+        if u_base.dtype != torch.float32:
+            raise TypeError(f'products="tf32x3" takes float32, got {u_base.dtype}')
+        main, six = tf32x3_matmul, tf32x6_matmul
+    else:
+        raise ValueError(f'products must be "f32" or "tf32x3", got {products!r}')
     chunk_len, n_chunks, n_tail = _schedule(
         n_iters, refresh_every, polish_iters, stop_tol, check_every
     )
@@ -139,9 +177,9 @@ def admm_u_only_reference(
     ub = u_base.reshape(n_tiles, batch_tile, Nm)
     one_minus_alpha = 1.0 - alpha
 
-    def step(z, lam):
+    def step(z, lam, matmul):
         s = z - lam
-        u = ub + s @ W_u
+        u = ub + matmul(s, W_u)
         if alpha == 1.0:
             v = u + lam
             z_new = torch.minimum(torch.maximum(v, lo), hi)
@@ -154,8 +192,9 @@ def admm_u_only_reference(
         z, lam, s, u = ub, torch.zeros_like(ub), ub, ub
         active = None  # per-tile mask, once early exit has been tested
         for _ in range(n_chunks):
-            for _ in range(chunk_len):
-                new = step(z, lam)
+            for i in range(chunk_len):
+                test = stop_tol > 0.0 and i == chunk_len - 1
+                new = step(z, lam, six if test else main)
                 if active is None:
                     z, lam, s, u = new
                 else:
@@ -169,26 +208,47 @@ def admm_u_only_reference(
                 if not bool(active.any()):
                     break
         for _ in range(n_tail):
-            z, lam, s, u = step(z, lam)
-        x = x_base.reshape(n_tiles, batch_tile, -1) + s @ W_x
+            z, lam, s, u = step(z, lam, six)
+        x = x_base.reshape(n_tiles, batch_tile, -1) + main(s, W_x)
     return x.reshape(batch, -1), u.reshape(batch, Nm), z.reshape(batch, Nm)
 
 
+def pack_u_only_operators(W_u, W_x):
+    """(ops_f, ops_i): W_u and W_x in `pair_pack` storage, end to end,
+    and their pair tables, W_u's rows first (W_x's offsets count from the
+    start of ops_f)."""
+    (f1, t1), (f2, t2) = pair_pack(W_u), pair_pack(W_x)
+    t2 = t2.clone()
+    t2[:, 0] += f1.numel()
+    return torch.cat([f1, f2]), torch.cat([t1, t2])
+
+
 def admm_u_only(
-    u_base, x_base, W_u, W_x, lo, hi, *, n_iters, refresh_every=1, alpha=1.0,
+    u_base, x_base, W_u, W_x, lo, hi, packed, *, n_iters, refresh_every=1, alpha=1.0,
     polish_iters=8, stop_tol=0.0, check_every=8, batch_tile=64,
 ):
     """Run the u-only ADMM loop on a fleet; returns (x, u, z_u).
 
     u_base (B, Nm), x_base (B, Nd): unconstrained iterates; W_u (Nm, Nm)
     and W_x (Nm, Nd): control and state responses to s = z - lambda;
-    lo, hi (Nm,): the box. B must be a multiple of batch_tile.
+    lo, hi (Nm,): the box; packed: (ops_f, ops_i) =
+    `pack_u_only_operators(W_u, W_x)`, the same two operators in the
+    kernel's storage (the solver packs them once, at setup). B must be a
+    multiple of batch_tile.
 
-    CUDA tensors (float32) go to the kernel in `csrc/admm_u_only.cu`; CPU
-    tensors go to `admm_u_only_reference`. Any other device raises.
+    CUDA tensors (float32) go to the kernel in `csrc/admm_u_only.cu`,
+    which reads only the packed operators, takes batch_tile 16, 32 or 64
+    (see `launch_geometry`) and runs its products on the tensor cores
+    (3xTF32, 6xTF32 in the tail), held to
+    `admm_u_only_reference(..., products="tf32x3")`. CPU tensors go to
+    `admm_u_only_reference` with f32 products, which reads only the dense
+    operators. Any other device raises.
     """
     global launch_count
     _check_inputs(u_base, x_base, W_u, W_x, lo, hi, batch_tile)
+    Nm, Nd = W_x.shape
+    _check_packed(packed, u_base, (-(-Nm // 16) + -(-Nd // 16), 4),
+                  "pack_u_only_operators(W_u, W_x)", Nm=Nm, Nd=Nd)
     kw = dict(
         n_iters=n_iters, refresh_every=refresh_every, alpha=alpha,
         polish_iters=polish_iters, stop_tol=stop_tol, check_every=check_every,
@@ -204,20 +264,20 @@ def admm_u_only(
     chunk_len, n_chunks, n_tail = _schedule(
         n_iters, refresh_every, polish_iters, stop_tol, check_every
     )
-    batch, Nm = u_base.shape
-    Nd = x_base.shape[1]
-    launch_geometry(batch_tile, Nm)
+    batch = u_base.shape[0]
+    launch_geometry(batch_tile, Nm, alpha)
 
     from ilqr_admm_tpu_torch._build import load_library
 
     lib = load_library()
+    ops_f, ops_i = packed
     x = torch.empty_like(x_base)
     u = torch.empty_like(u_base)
     z_u = torch.empty_like(u_base)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.admm_u_only_launch(
-            u_base.data_ptr(), x_base.data_ptr(), W_u.data_ptr(), W_x.data_ptr(),
+            u_base.data_ptr(), x_base.data_ptr(), ops_f.data_ptr(), ops_i.data_ptr(),
             lo.data_ptr(), hi.data_ptr(), x.data_ptr(), u.data_ptr(), z_u.data_ptr(),
             batch, Nm, Nd, batch_tile, chunk_len, n_chunks, n_tail,
             float(alpha), float(1.0 - alpha), float(stop_tol), stream,
@@ -470,21 +530,21 @@ def admm_box_reference(
     return x, u, z_x, z_u
 
 
-def _check_packed(packed, free, Nm, Nd):
+def _check_packed(packed, ref, ints_shape, origin, Nm, Nd):
+    """packed: the pair (ops_f, ops_i) of `origin`, on ref's device, in
+    (ref's dtype, int32), ops_i of ints_shape."""
     if not (isinstance(packed, tuple) and len(packed) == 2
             and all(isinstance(t, torch.Tensor) for t in packed)):
-        raise TypeError("packed must be the pair (ops_f, ops_i) of pack_box_operators(W_s, SuT)")
+        raise TypeError(f"packed must be the pair (ops_f, ops_i) of {origin}")
     ops_f, ops_i = packed
-    if ops_f.device != free.device or ops_i.device != free.device:
-        raise ValueError(f"packed is on {ops_f.device}/{ops_i.device} but free is on {free.device}")
-    if ops_f.dtype != free.dtype or ops_i.dtype != torch.int32:
-        raise TypeError(f"packed must be ({free.dtype}, torch.int32), got "
+    if ops_f.device != ref.device or ops_i.device != ref.device:
+        raise ValueError(f"packed is on {ops_f.device}/{ops_i.device} but the iterates are on "
+                         f"{ref.device}")
+    if ops_f.dtype != ref.dtype or ops_i.dtype != torch.int32:
+        raise TypeError(f"packed must be ({ref.dtype}, torch.int32), got "
                         f"({ops_f.dtype}, {ops_i.dtype})")
-    n1, n2 = -(-Nm // _BOX_BLOCK), -(-Nd // _BOX_BLOCK)
-    warps = _box_warps(n1, n2)
-    if ops_f.ndim != 1 or ops_f.numel() % 64 or tuple(ops_i.shape) != (warps, _BOX_SCHED):
-        raise ValueError("packed does not have the shapes of pack_box_operators(W_s, SuT) at "
-                         f"Nm={Nm}, Nd={Nd}")
+    if ops_f.ndim != 1 or ops_f.numel() % 64 or tuple(ops_i.shape) != ints_shape:
+        raise ValueError(f"packed does not have the shapes of {origin} at Nm={Nm}, Nd={Nd}")
     if not (ops_f.is_contiguous() and ops_i.is_contiguous()):
         raise ValueError("packed must be contiguous")
 
@@ -515,7 +575,8 @@ def admm_box(
     _check_box_inputs(free, u_base, u0, W_s, SuT, xb, ub, n_iters, batch_tile)
     batch, Nd = free.shape
     Nm = u_base.shape[1]
-    _check_packed(packed, free, Nm, Nd)
+    warps = _box_warps(-(-Nm // _BOX_BLOCK), -(-Nd // _BOX_BLOCK))
+    _check_packed(packed, free, (warps, _BOX_SCHED), "pack_box_operators(W_s, SuT)", Nm, Nd)
     kw = dict(n_iters=n_iters, alpha=alpha, has_u=has_u, batch_tile=batch_tile)
     device = free.device
     if device.type == "cpu":
@@ -573,11 +634,18 @@ class FusedLQTADMM(nn.Module):
             x_base = free + u_base @ self.Su.T
         return u_base, x_base
 
+    @property
+    def packed(self):
+        """(ops_f, ops_i): the loop's operators in the kernel's storage."""
+        return self.ops_f, self.ops_i
+
+    def kernel_inputs(self, x0s):
+        """`admm_u_only_reference`'s positional arguments for a batch of
+        initial states (`admm_u_only` takes `packed` after them)."""
+        return (*self.bases(x0s), self.W_u, self.W_x, self.lo, self.hi)
+
     def forward(self, x0s):
-        u_base, x_base = self.bases(x0s)
-        x, u, z_u = admm_u_only(
-            u_base, x_base, self.W_u, self.W_x, self.lo, self.hi, **self.kernel_options
-        )
+        x, u, z_u = admm_u_only(*self.kernel_inputs(x0s), self.packed, **self.kernel_options)
         return x, u, x, z_u
 
 
@@ -597,11 +665,6 @@ class FusedBoxLQTADMM(FusedLQTADMM):
             # warm start through the regularized inverse, as the TPU path does
             u0 = r0 @ self.l_invT
         return free, r_base, u0
-
-    @property
-    def packed(self):
-        """(ops_f, ops_i): W_s and Su^T in the kernel's storage."""
-        return self.ops_f, self.ops_i
 
     def kernel_inputs(self, x0s):
         """`admm_box_reference`'s positional arguments for a batch of
@@ -656,12 +719,11 @@ def make_fused_lqt_admm(
 
     batch_tile is the number of instances one CUDA block owns (and, on
     the u-only path, the early-exit group). The default (None) is 64 on
-    the u-only path, which fills an H100 with 256 blocks at the bench
-    width (the largest tile it takes there is 80, see `launch_geometry`),
-    and 32 on the state-bounded path, whose block stages its packed
-    operators in shared memory and takes 16 or 32 (see
-    `box_launch_geometry`). On a CUDA
-    device dtype must be float32.
+    the u-only path, whose kernel takes 16, 32 or 64 (see
+    `launch_geometry`; 64 gives 256 blocks of 16 warps at the bench
+    width), and 32 on the state-bounded path, whose block stages its
+    packed operators in shared memory and takes 16 or 32 (see
+    `box_launch_geometry`). On a CUDA device dtype must be float32.
 
     The problem data are rounded to `dtype` (as the JAX factory rounds
     them to f32), then the setup (Su, the lifted normal matrix, its
@@ -737,12 +799,16 @@ def make_fused_lqt_admm(
     W_u = Rr_l.T @ l_inv.T  # (Nm, Nm) in-loop control response
     W_x = W_u @ Su.T  # (Nm, Nd) state recovery
     lo, hi = bounds(u_lower, u_upper, N * m)
-    operators = dict(
+    operators = cast(dict(
         Su=Su, Sx=Sx, SuTQ=SuTQ, l_side=l_side, l_inv=l_inv, r_const=r_const,
         W_u=W_u, W_x=W_x, lo=lo, hi=hi,
+    ))
+    # the kernel's storage of its two operators, packed once
+    operators["ops_f"], operators["ops_i"] = pack_u_only_operators(
+        operators["W_u"], operators["W_x"]
     )
     return FusedLQTADMM(
-        cast(operators), n_iters=n_iters, alpha=alpha, batch_tile=batch_tile,
+        operators, n_iters=n_iters, alpha=alpha, batch_tile=batch_tile,
         refresh_every=refresh_every, polish_iters=polish_iters,
         stop_tol=float(stop_tol), check_every=int(check_every),
     )

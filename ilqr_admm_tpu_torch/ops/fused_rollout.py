@@ -4,9 +4,12 @@ Counterpart of `ilqr_admm_tpu/ops/pallas_rollout.py`. The Pallas kernel
 (`make_pallas_linesearch_rollout`, its inner `kernel` at
 `pallas_rollout.py:90`) rolls the whole alpha grid of a line search out
 at once, candidates on the TPU's lanes; here it is the hand-written
-kernel of `csrc/linesearch_rollout.cu`, one thread a candidate, with the
-plant's step compiled in. The plants with a compiled step are listed in
-`_CUDA_STEPS` (so far `CarFrontWheel`).
+kernel of `csrc/linesearch_rollout.cu`, one block a candidate, with the
+plant's step compiled in and staged: the car's step is triangular in its
+state, so the kernel runs its few chains of f32 additions one thread
+each and every transcendental in parallel over the horizon, in the
+plain version's order, bit for bit. The plants with a compiled step are
+listed in `_CUDA_STEPS` (so far `CarFrontWheel`).
 
 - `linesearch_rollout(plant, x0, u_cands)`: the wrapper. On a CUDA tensor
   it launches the kernel or raises; on a CPU tensor it runs the plain

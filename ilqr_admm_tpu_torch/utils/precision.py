@@ -11,7 +11,10 @@ wraps and restores the caller's settings on exit.
 A kernel that wants the tensor cores' rate at f32 accuracy splits each
 operand into two TF32 parts and takes three products (3xTF32, the
 counterpart of the TPU kernels' bf16x3 `_dot3`); `tf32_round` and
-`tf32x3_matmul` emulate that in plain torch, on any device.
+`tf32x3_matmul` emulate that in plain torch, on any device. Three parts
+an operand and six products (6xTF32, `tf32x6_matmul`) are the
+counterpart of the TPU's bf16x6 `_dot6`: the f32 class without the
+3xTF32 split's own error.
 """
 
 from __future__ import annotations
@@ -62,6 +65,20 @@ def _tf32_truncate(x: torch.Tensor) -> torch.Tensor:
     return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
 
 
+def tf32_split(x: torch.Tensor, parts: int) -> list[torch.Tensor]:
+    """x as the sum of `parts` (2 or 3) TF32 values, as the kernels split
+    an operand: each part but the last rounds what is left to TF32
+    (`tf32_round`), and the last is the rest, exact in f32, truncated to
+    TF32 as a tensor core reads it. float32 only."""
+    if parts not in (2, 3):
+        raise ValueError(f"parts must be 2 or 3, got {parts}")
+    out, rest = [], x
+    for _ in range(parts - 1):
+        out.append(tf32_round(rest))
+        rest = rest - out[-1]
+    return out + [_tf32_truncate(rest)]
+
+
 def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b as the 3xTF32 tensor-core route computes it: each operand x
     split into hi = `tf32_round(x)` and lo = x - hi (exact in f32), which
@@ -69,7 +86,19 @@ def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     + a_hi b_hi, in f32 (a product of two TF32 values is exact in f32).
     float32 only.
     """
-    a_hi, b_hi = tf32_round(a), tf32_round(b)
-    a_lo, b_lo = _tf32_truncate(a - a_hi), _tf32_truncate(b - b_hi)
+    (a_hi, a_lo), (b_hi, b_lo) = tf32_split(a, 2), tf32_split(b, 2)
     with full_f32_matmul():
         return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def tf32x6_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the 6xTF32 route computes it: each operand split into
+    three TF32 parts (`tf32_split(x, 3)`: hi, mid, lo), then the six
+    products above the f32 rounding, smallest first, into f32:
+    (a_lo b_hi + a_mid b_mid + a_hi b_lo) + (a_mid b_hi + a_hi b_mid)
+    + a_hi b_hi. The Hopper counterpart of the TPU's bf16x6 `_dot6`.
+    float32 only.
+    """
+    (a0, a1, a2), (b0, b1, b2) = tf32_split(a, 3), tf32_split(b, 3)
+    with full_f32_matmul():
+        return ((a2 @ b0 + a1 @ b1 + a0 @ b2) + (a1 @ b0 + a0 @ b1)) + a0 @ b0

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import chip_smoke
 from ilqr_admm_tpu.models.double_integrator import DoubleIntegrator
 from ilqr_admm_tpu.ops.lifted import build_Su, build_Sx
 from ilqr_admm_tpu.ops.pallas_admm import make_pallas_lqt_admm
@@ -27,7 +28,11 @@ from ilqr_admm_tpu_torch.ops.fused_admm import (
     admm_u_only_reference,
     launch_geometry,
     make_fused_lqt_admm,
+    pack_u_only_operators,
+    u_only_pieces,
 )
+from ilqr_admm_tpu_torch.utils.certify import certify, gate_failures
+from test_torch_fused_admm_box import _block
 
 torch.set_num_threads(2)
 
@@ -305,31 +310,142 @@ def _kernel_inputs(batch=16, Nm=12, Nd=24, dtype=F32):
 
 def test_wrapper_checks_its_inputs():
     u_base, x_base, W_u, W_x, lo, hi = _kernel_inputs()
+    packed = pack_u_only_operators(W_u, W_x)
     kw = dict(n_iters=5, batch_tile=8)
-    x, u, z = admm_u_only(u_base, x_base, W_u, W_x, lo, hi, **kw)
+    x, u, z = admm_u_only(u_base, x_base, W_u, W_x, lo, hi, packed, **kw)
     rx, ru, rz = admm_u_only_reference(u_base, x_base, W_u, W_x, lo, hi, **kw)
     assert torch.equal(x, rx) and torch.equal(u, ru) and torch.equal(z, rz)
     with pytest.raises(ValueError, match="multiple of batch_tile"):
-        admm_u_only(u_base, x_base, W_u, W_x, lo, hi, n_iters=5, batch_tile=6)
+        admm_u_only(u_base, x_base, W_u, W_x, lo, hi, packed, n_iters=5, batch_tile=6)
     with pytest.raises(ValueError, match="contiguous"):
-        admm_u_only(u_base, x_base, W_u.T, W_x, lo, hi, **kw)
+        admm_u_only(u_base, x_base, W_u.T, W_x, lo, hi, packed, **kw)
     with pytest.raises(TypeError, match="float64"):
-        admm_u_only(u_base, x_base, W_u.double(), W_x, lo, hi, **kw)
+        admm_u_only(u_base, x_base, W_u.double(), W_x, lo, hi, packed, **kw)
     with pytest.raises(ValueError, match="shape"):
-        admm_u_only(u_base, x_base, W_u, W_x[:, :-1].contiguous(), lo, hi, **kw)
+        admm_u_only(u_base, x_base, W_u, W_x[:, :-1].contiguous(), lo, hi, packed, **kw)
     with pytest.raises(ValueError, match="refresh_every"):
-        admm_u_only(u_base, x_base, W_u, W_x, lo, hi, n_iters=5, batch_tile=8, refresh_every=0)
-    meta = [t.to("meta") for t in (u_base, x_base, W_u, W_x, lo, hi)]
+        admm_u_only(u_base, x_base, W_u, W_x, lo, hi, packed, n_iters=5, batch_tile=8,
+                    refresh_every=0)
+    with pytest.raises(TypeError, match="pack_u_only_operators"):
+        admm_u_only(u_base, x_base, W_u, W_x, lo, hi, packed[0], **kw)
+    with pytest.raises(ValueError, match="shapes of pack_u_only_operators"):
+        admm_u_only(u_base, x_base, W_u, W_x, lo, hi, (packed[0], packed[1][:-1]), **kw)
+    with pytest.raises(ValueError, match="products"):
+        admm_u_only_reference(u_base, x_base, W_u, W_x, lo, hi, **kw, products="tf32")
+    with pytest.raises(TypeError, match="float32"):
+        admm_u_only_reference(*(t.double() for t in (u_base, x_base, W_u, W_x, lo, hi)), **kw,
+                              products="tf32x3")
+    meta = [t.to("meta") for t in (u_base, x_base, W_u, W_x, lo, hi, *packed)]
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        admm_u_only(*meta, **kw)
+        admm_u_only(*meta[:6], tuple(meta[6:]), **kw)
 
 
 def test_launch_geometry_limits():
-    assert launch_geometry(64, 100) == (400, 4 * (100 * 100 + 2 * 100 * 64))
-    assert launch_geometry(8, 40)[0] == 20
-    with pytest.raises(ValueError, match="multiple of 4"):
-        launch_geometry(6, 100)
-    with pytest.raises(ValueError, match="batch_tile <= 80"):
-        launch_geometry(256, 100)
+    assert launch_geometry(64, 100) == (512, 4 * (64 * 13 * 13 + 2 * 8 * 64 * 13 + 16 * 13))
+    assert launch_geometry(16, 40)[0] == 96
+    with pytest.raises(ValueError, match="16, 32 or 64"):
+        launch_geometry(8, 100)
+    with pytest.raises(ValueError, match="batch_tile <= 32"):
+        launch_geometry(64, 120)
     with pytest.raises(ValueError, match="shared memory"):
-        launch_geometry(4, 240)
+        launch_geometry(16, 240)
+
+
+@pytest.mark.parametrize("batch_tile,Nm", [(64, 100), (32, 98), (16, 40)])
+def test_pieces_cover_the_products(batch_tile, Nm):
+    """The kernel's two products replayed in f64 from `pack_u_only_operators`'
+    storage, piece by piece as its warps take them (`u_only_pieces` for
+    s W_u, W_x's pairs over m-groups for x), cover every output once and
+    give s W_u and s W_x."""
+    rng = np.random.default_rng(Nm)
+    Nd = 2 * Nm
+    W_u, W_x = rng.normal(size=(Nm, Nm)), rng.normal(size=(Nm, Nd))
+    ops, table = (t.numpy() for t in pack_u_only_operators(torch.tensor(W_u), torch.tensor(W_x)))
+    s = np.zeros((batch_tile, -(-Nm // 8) * 8))
+    s[:, :Nm] = rng.normal(size=(batch_tile, Nm))
+    n_pairs_u = -(-Nm // 16)
+    mx = min(batch_tile // 16, 2)
+    x_pieces = [(n_pairs_u + px, m0, mx) for px in range(-(-Nd // 16))
+                for m0 in range(0, batch_tile // 16, mx)]
+    pieces = u_only_pieces(batch_tile, Nm)
+    assert len(pieces) == launch_geometry(batch_tile, Nm)[0] // 32
+    for cols, W, plan in ((Nm, W_u, pieces), (Nd, W_x, x_pieces)):
+        out = np.zeros((batch_tile, -(-cols // 8) * 8))
+        seen = np.zeros(out.shape, dtype=int)
+        for row, m0, mw in plan:
+            off, klo, khi, nb = table[row]
+            rows = slice(16 * m0, 16 * (m0 + mw))
+            n0 = 2 * (row - (n_pairs_u if W is W_x else 0))
+            for kk in range(klo, khi):
+                for n in range(nb):
+                    block = _block(ops, off + (kk - klo) * 64 * nb, nb, n)
+                    out[rows, 8 * (n0 + n):8 * (n0 + n + 1)] += s[rows, 8 * kk:8 * kk + 8] @ block
+            for n in range(nb):
+                seen[rows, 8 * (n0 + n):8 * (n0 + n + 1)] += 1
+        assert (seen == 1).all()
+        np.testing.assert_allclose(out[:, :cols], s[:, :Nm] @ W, rtol=0, atol=1e-12)
+
+
+def _bench_fleet(batch=256, **overrides):
+    """chip_smoke's u-only bench solver on the CPU and its kernel inputs."""
+    A, B, cost, x0s = chip_smoke.bench_problem("cpu", batch=batch)
+    kw = dict(u_lower=-chip_smoke.U_MAX, u_upper=chip_smoke.U_MAX, rho_u=chip_smoke.RHO_U,
+              n_iters=chip_smoke.ADMM_ITERS, batch_tile=chip_smoke.BATCH_TILE, device="cpu")
+    solver = make_fused_lqt_admm(A, B, cost, **dict(kw, **overrides))
+    return (A, B, cost, x0s), solver, solver.kernel_inputs(x0s)
+
+
+def test_tf32x3_schedule_passes_the_bench_gates():
+    """The plain version with the kernel's tensor-core products (3xTF32
+    main iterations, 6xTF32 tail and x from 3xTF32) passes the bench
+    certificates at batch 256 and stays within the kernel tolerance of
+    the f32 plain version."""
+    (A, B, cost, x0s), solver, inputs = _bench_fleet()
+    x, u, z_u = admm_u_only_reference(*inputs, **solver.kernel_options, products="tf32x3")
+    cert = certify(A, B, cost, x0s, u, z_u, -chip_smoke.U_MAX, chip_smoke.U_MAX)
+    assert gate_failures(cert) == []
+    assert cert["converged_frac"] == 1.0
+    want = admm_u_only_reference(*inputs, **solver.kernel_options)
+    err = max(float((g - w).abs().max()) for g, w in zip((x, u, z_u), want))
+    assert 0.0 < err <= chip_smoke.KERNEL_TOL
+
+
+def test_tf32x3_schedule_matches_interpret_pallas():
+    """As test_fused_u_only_matches_interpret_pallas runs it: the 3xTF32
+    plain version stays within 1e-4 of the f32 one, and so sits where the
+    f32 one sits against the interpret-mode Pallas kernel (8.4e-4 on u:
+    the f32 setup of the JAX factory moves the fixed point, not the
+    products)."""
+    A, B, cost = _problem()
+    kw = dict(u_lower=-5.0, u_upper=5.0, rho_u=1e-2, n_iters=50, batch_tile=8, refresh_every=1)
+    x0s = _x0s(0, 16)
+    pallas = make_pallas_lqt_admm(A, B, cost, interpret=True, **kw)(jnp.asarray(x0s))
+    solver = make_fused_lqt_admm(*_port(A, B, cost), **kw, device="cpu")
+    inputs = solver.kernel_inputs(torch.tensor(x0s))
+    f32 = admm_u_only_reference(*inputs, **solver.kernel_options)
+    tf32 = admm_u_only_reference(*inputs, **solver.kernel_options, products="tf32x3")
+    for got, plain, want in zip(tf32, f32, (pallas[0], pallas[1], pallas[3])):
+        assert float((got - plain).abs().max()) <= 1e-4
+        assert np.abs(_np(got) - np.asarray(want)).max() < 2e-3
+
+
+def test_tf32x3_early_exit_leaves_before_the_fixed_schedule():
+    """chip_smoke's early-exit mode (stop_tol 1e-5, check_every 4) with
+    the kernel's products, the exit tested on the 6xTF32 chunk end: the
+    tiles leave the main phase after as many chunks as with f32 products
+    (convergence sets them, not the products' error), some before the
+    fixed schedule's 23, and the result passes the bench gates."""
+    mode = chip_smoke.MODES["stop_tol=1e-5, check_every=4"]
+    (A, B, cost, x0s), solver, inputs = _bench_fleet(**mode)
+    kw = solver.kernel_options
+    chunk_len, n_chunks, n_tail = _schedule(kw["n_iters"], kw["refresh_every"],
+                                            kw["polish_iters"], kw["stop_tol"], kw["check_every"])
+    assert (chunk_len, n_chunks, n_tail) == (4, 23, 8)
+    iters = {products: chip_smoke.u_only_tile_iterations(
+        lambda **o: admm_u_only_reference(*inputs, **o, products=products), kw, x0s.shape[0])
+        for products in ("tf32x3", "f32")}
+    assert iters["tf32x3"].shape == (x0s.shape[0] // kw["batch_tile"],)
+    assert torch.equal(iters["tf32x3"], iters["f32"])
+    assert int(iters["tf32x3"].min()) < chunk_len * n_chunks + n_tail
+    _, u, z_u = admm_u_only_reference(*inputs, **kw, products="tf32x3")
+    assert gate_failures(certify(A, B, cost, x0s, u, z_u, -5.0, 5.0)) == []

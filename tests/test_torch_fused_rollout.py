@@ -90,6 +90,63 @@ def test_nan_candidates_stay_nan():
     assert bool(torch.isnan(xs[1, -1, :3]).all()) and not bool(torch.isnan(xs[0]).any())
 
 
+# csrc/linesearch_rollout.cu stages the horizon in chunks of kChunk steps
+CHUNK = 1024
+
+
+def _staged(car, x0, u, chunk=CHUNK):
+    """The CUDA kernel's order of operations, in torch: for each chunk of
+    the horizon, the v chain, then b and do for every step at once, the o
+    chain, the two products for every step at once, and the x and y
+    chains, with (x, y, o, v) carried into the next chunk. The step's
+    operations are those of `CarFrontWheel.step`, in its order."""
+    n_cands, N, _ = u.shape
+    dt, dist = car.dt, car.dist
+
+    def chain(c, d):
+        out = []
+        for t in range(d.shape[1]):
+            out.append(c)
+            c = c + d[:, t]
+        return torch.stack(out, 1), c
+
+    x, y, o, v = (x0[i].expand(n_cands) for i in range(4))
+    rows = []
+    for c0 in range(0, N, chunk):
+        w, a = u[:, c0:c0 + chunk, 0], u[:, c0:c0 + chunk, 1]
+        V, v = chain(v, a * dt)
+        f = dt * V
+        ins = dist**2 - (torch.sin(w) * f) ** 2
+        b = f * torch.cos(w) + dist - torch.sqrt(ins)
+        O, o = chain(o, torch.asin(torch.sin(w) * f / dist))
+        X, x = chain(x, b * torch.cos(O))
+        Y, y = chain(y, b * torch.sin(O))
+        rows.append(torch.stack([X, Y, O, V], dim=2))
+    return torch.cat(rows, dim=1)
+
+
+@pytest.mark.parametrize("N,A,nan", [(60, 20, False), (500, 20, False), (500, 20, True),
+                                     (37, 1, False), (5000, 8, False)])
+def test_staged_order_replays_the_plain_version(N, A, nan):
+    """The kernel's staged order equals the plain version in f64 (to
+    1e-12: the CPU's vectorised sin and cos may take another path over a
+    row than over a column), NaN positions exactly, also over a horizon
+    of five chunks."""
+    u = _cands(N, A, scale=0.05 if N > 1000 else 0.2)
+    if nan:
+        u[:3, :, 0], u[:3, :, 1] = 1.5, 40.0
+    car = CarFrontWheel(dt=15.0 / N)
+    x0, u = torch.tensor(X0), torch.tensor(u)
+    want = fr.linesearch_rollout_reference(car.step_cols, x0, u)
+    got = _staged(car, x0, u)
+    assert got.shape == want.shape == (A, N, 4)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isnan(want).any()) == nan
+    fin = torch.isfinite(want)
+    assert float((got - want)[fin].abs().max()) <= 1e-12
+    assert torch.equal(got[:, 0], x0.expand(A, 4))
+
+
 def test_errors():
     car = CarFrontWheel()
     with pytest.raises(ValueError, match="has no CUDA step"):

@@ -1,9 +1,10 @@
-"""The plain emulation of the 3xTF32 products of `csrc/admm_box.cu`.
+"""The plain emulation of the 3xTF32 and 6xTF32 products of
+`csrc/admm_box.cu` and `csrc/admm_u_only.cu`.
 
-`utils/precision.py::tf32_round` and `tf32x3_matmul` model, on the CPU,
-how the state-bounded kernel takes its products on the tensor cores;
-`admm_box_reference(..., products="tf32x3")` runs the whole loop with
-them. These tests hold the rounding to its definition, the products to
+`utils/precision.py::tf32_round`, `tf32x3_matmul` and `tf32x6_matmul`
+model, on the CPU, how the kernels take their products on the tensor
+cores; `admm_box_reference(..., products="tf32x3")` runs the whole loop
+with them (the u-only loop's are held in `test_torch_fused_admm.py`). These tests hold the rounding to its definition, the products to
 an error bound against f64, and the emulated loop to the state-bounded
 fleet's certificates and to the f32 plain version the kernel is gated
 against. The JAX package's own split, bf16x3 `_dot3`, is another route
@@ -17,7 +18,13 @@ import torch
 import chip_smoke
 from ilqr_admm_tpu_torch.ops.fused_admm import admm_box_reference
 from ilqr_admm_tpu_torch.utils.certify import certify_state_box, state_box_gate_failures
-from ilqr_admm_tpu_torch.utils.precision import full_f32_matmul, tf32_round, tf32x3_matmul
+from ilqr_admm_tpu_torch.utils.precision import (
+    full_f32_matmul,
+    tf32_round,
+    tf32_split,
+    tf32x3_matmul,
+    tf32x6_matmul,
+)
 
 torch.set_num_threads(2)
 
@@ -56,6 +63,50 @@ def test_tf32x3_matmul_is_within_the_f32_class_bound(K):
     with full_f32_matmul():
         plain_tf32 = (tf32_round(a) @ tf32_round(b)).double()
     assert bool(((plain_tf32 - exact).abs() > bound).any())
+
+
+def _operands(K):
+    rng = np.random.default_rng(K)
+    a = torch.tensor(rng.normal(size=(32, K)) * np.exp(rng.normal(size=(32, K))), dtype=F32)
+    b = torch.tensor(rng.normal(size=(K, 40)) * np.exp(rng.normal(size=(K, 40))), dtype=F32)
+    return a, b
+
+
+def test_tf32_split_sums_back():
+    """Two TF32 parts hold x to 2^-21 (the last one truncated), three
+    exactly; every part has its low 13 mantissa bits clear."""
+    x = _operands(100)[0]
+    for parts, tol in ((2, 2.0**-21), (3, 0.0)):
+        pieces = tf32_split(x, parts)
+        assert len(pieces) == parts
+        assert all(int((p.view(torch.int32) & 0x1FFF).abs().sum()) == 0 for p in pieces)
+        err = (sum(p.double() for p in pieces) - x.double()).abs()
+        assert bool((err <= tol * x.double().abs()).all())
+    with pytest.raises(ValueError, match="2 or 3"):
+        tf32_split(x, 4)
+
+
+@pytest.mark.parametrize("K", [8, 100, 304])
+def test_tf32x6_matmul_is_at_the_f32_level(K):
+    """6xTF32 in f32 sits where a plain f32 product sits against f64
+    (within 2^-20 (|a| @ |b|), and at most twice the f32 product's worst
+    error); its split alone, the six products summed in f64, is within
+    2^-30 (|a| @ |b|) and at least 50x below the 3xTF32 split's."""
+    a, b = _operands(K)
+    exact = a.double() @ b.double()
+    scale = a.abs().double() @ b.abs().double()
+    with full_f32_matmul():
+        f32_err = float(((a @ b).double() - exact).abs().max())
+    err6 = (tf32x6_matmul(a, b).double() - exact).abs()
+    assert bool((err6 <= 2.0**-20 * scale).all())
+    assert float(err6.max()) <= 2.0 * f32_err
+    (a0, a1), (b0, b1) = ([p.double() for p in tf32_split(t, 2)] for t in (a, b))
+    split3 = ((a1 @ b0 + a0 @ b1 + a0 @ b0 - exact).abs() / scale).max()
+    (a0, a1, a2), (b0, b1, b2) = ([p.double() for p in tf32_split(t, 3)] for t in (a, b))
+    six = a2 @ b0 + a1 @ b1 + a0 @ b2 + a1 @ b0 + a0 @ b1 + a0 @ b0
+    split6 = ((six - exact).abs() / scale).max()
+    assert float(split6) <= 2.0**-30
+    assert float(split6) * 50.0 <= float(split3)
 
 
 def test_emulated_loop_passes_the_state_box_gates():
