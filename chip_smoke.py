@@ -37,9 +37,15 @@ Phases:
    early-exit tiles ran; `admm_box` at the full width, with a
    state box only, and at an odd width, also against the plain version
    with its 3xTF32 products; `sls_admm` in the diamond,
-   early-exit and consensus modes and at an odd width; the three Riccati
-   kernels at N = 10,000 with d = 4, N = 1,001 with nb = 8, d = 3 and
-   the ADMM regularizers, d = 2, d = 1, and N = 100 < nb;
+   early-exit and consensus modes, at an odd width and with 16-instance
+   tiles, against the plain version with its 3xTF32 products and
+   against the f32 one, and the iterations its early-exit tiles ran; the
+   three Riccati kernels (the scan against the plain version in its
+   chunked order, and beside it the sequential one) at N = 10,000 with
+   d = 4, N = 1,001 with nb = 8, d = 3 and the ADMM regularizers, d = 2,
+   d = 1, N = 100 < nb, and N = 10,000 with nb = 32 and 16 (a lane the
+   scan kernel stages in more than 48 KB of shared memory, and one too
+   long to stage);
    `linesearch_rollout` at N = 500 with 20, 1 and 128 candidates, N = 60,
    N = 37, N = 10,000, and a candidate set with NaN states, bit for bit);
 4. for each path: main path, one fleet solve (one backward pass, one car
@@ -49,7 +55,8 @@ Phases:
    f64 solve on the host, and an inner-line-search solve);
 5. for each path: time, the kernel and the plain version with CUDA
    events (for the u-only path also 100 f32 cuBLAS products of the
-   loop's shape as a yardstick; for the state-bounded path also the whole forward and the
+   loop's shape as a yardstick, for the SLS path 200; for the
+   state-bounded path also the whole forward and the
    plain fleet `make_batched_lqt_admm`; for the Riccati path, at N =
    100, 1,000 and 10,000, each kernel's device time from a CUDA graph of
    its launches and its wrapper's time a call, the whole backward pass,
@@ -94,6 +101,7 @@ from ilqr_admm_tpu_torch.ops.fused_admm import (
     make_fused_lqt_admm,
 )
 from ilqr_admm_tpu_torch.ops.fused_riccati import (
+    SCAN_CHUNKS,
     lqt_backward_parallel_fused,
     pack_elements,
     riccati_join,
@@ -187,8 +195,9 @@ RICCATI_NB = 128
 RICCATI_HORIZONS = (100, 1_000, 10_000)
 RICCATI_NB_SWEEP = (128, 256, 512, 1024)
 # kernel and plain version differ only in the order of f32 operations and
-# FMA contraction; times max(1, max|ref|), per component. The card showed
-# at most 1.6e-6 at these shapes, so 1e-5 keeps a margin of six.
+# FMA contraction; times max(1, max|ref|), per component. An H100 showed
+# at most 4.1e-6 at these shapes (the scan at L = 625; 1.6e-6 before the
+# scan was chunked), so 1e-5 keeps a margin of two.
 RICCATI_KERNEL_TOL = 1e-5
 RICCATI_PROFILED_CALLS = 20
 # (windows, calls a window) of the plain versions' timings, cut from the
@@ -197,9 +206,12 @@ RICCATI_PROFILED_CALLS = 20
 RICCATI_PLAIN = (3, 1)
 # (N, nb, state dim, with regularizers): the main width, a non-divisible N
 # with L > nb and the ADMM regularizers on the triple integrator, d = 2 and
-# d = 1, and N < nb (L = 1, most lanes identity padding)
+# d = 1, N < nb (L = 1, most lanes identity padding), L = 313, whose lane's
+# elements the scan kernel stages in more than 48 KB of shared memory, and
+# L = 625, too many to stage
 RICCATI_CASES = ((10_000, 128, 4, False), (1_001, 8, 3, True), (500, 16, 2, False),
-                 (300, 32, 1, False), (100, 128, 4, False))
+                 (300, 32, 1, False), (100, 128, 4, False), (10_000, 32, 4, False),
+                 (10_000, 16, 4, False))
 RICCATI_KERNELS = ("riccati_scan", "riccati_level2", "riccati_join")
 
 # The control-limited car of benchmarks/run_all.py:274-329 through ilqr_admm
@@ -707,34 +719,75 @@ def phase_box_time(device, card):
     return result
 
 
-def phase_sls_compare(device):
-    """`sls_admm` against `sls_admm_reference` on the same card inputs."""
+def sls_cases(device):
+    """(label, solver, bounds) of the SLS kernel-vs-plain cases: the three
+    modes at the bench's width and tile; Nm = 98 (13 n-tiles, the last
+    single with four padded columns) with over-relaxation; 16-instance
+    tiles (two m-tiles a block) in both z-updates; and 2,048 instances,
+    more blocks than SMs, so that the pieces are not split over two warps
+    (`fused_sls.k_split`): every build of the kernel is checked."""
     cases = [(f"{mode} (batch {SLS_BATCH}, tile {SLS_TILE}"
               f"{', sorted' if mode == 'diamond_ee' else ''})",
               sls_solver(device, mode)[1],
               sls_bounds(device, batch=SLS_BATCH, sort=mode == "diamond_ee"))
              for mode in SLS_MODES]
-    # Nm = 98 is not a multiple of the kernel's 4-control thread tile;
-    # over-relaxation exercises the alpha != 1 branch of the z-update
-    cases.append(("diamond, Nm=98, alpha=1.6 (batch 64, tile 8)",
-                  sls_solver(device, "diamond", horizon=98, alpha=1.6)[1],
-                  sls_bounds(device, batch=64, seed=1)))
+    cases += [
+        ("diamond, Nm=98, alpha=1.6 (batch 64, tile 8)",
+         sls_solver(device, "diamond", horizon=98, alpha=1.6)[1], sls_bounds(device, 64, seed=1)),
+        (f"diamond_ee (batch {SLS_BATCH}, tile 16, sorted)",
+         sls_solver(device, "diamond_ee", batch_tile=16)[1],
+         sls_bounds(device, batch=SLS_BATCH, sort=True)),
+        ("consensus, Nm=98 (batch 64, tile 16)",
+         sls_solver(device, "consensus", horizon=98, batch_tile=16)[1],
+         sls_bounds(device, 64, seed=2)),
+        ("diamond (batch 2048, tile 8, unsplit)", sls_solver(device, "diamond")[1],
+         sls_bounds(device, 2048, seed=3)),
+        ("consensus (batch 2048, tile 8, unsplit)", sls_solver(device, "consensus")[1],
+         sls_bounds(device, 2048, seed=4)),
+    ]
+    return cases
+
+
+def phase_sls_compare(device):
+    """`sls_admm` against `sls_admm_reference` on the same card inputs: the
+    gate is the plain version with the kernel's 3xTF32 products
+    (SLS_FIXED_TOL x max(1, max|U|) on a fixed schedule, SLS_EARLY_EXIT_TOL
+    with early exit), the f32 plain version beside it. With early exit,
+    also the iterations each tile ran in the kernel and in the 3xTF32
+    plain version; some tiles must leave before the fixed schedule."""
     worst = 0.0
-    for label, solver, bounds in cases:
+    for label, solver, bounds in sls_cases(device):
         kw = solver.kernel_options
-        got = sls_admm(bounds, solver.U_base, solver.W, **kw)
+        ops = (bounds, solver.U_base, solver.W)
+        runs = {"kernel": lambda **o: sls_admm(*ops, solver.packed, **o),
+                "3xTF32 plain": lambda **o: sls_admm_reference(*ops, **o, products="tf32x3")}
+        got = runs["kernel"](**kw)
         torch.cuda.synchronize()
-        want = sls_admm_reference(bounds, solver.U_base, solver.W, **kw)
+        emulated = runs["3xTF32 plain"](**kw)
+        want = sls_admm_reference(*ops, **kw)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"sls {label}: kernel U has non-finite values")
-        err = float((got - want).abs().max())
+        err = float((got - emulated).abs().max())
         if kw["stop_tol"] > 0.0:
             tol = SLS_EARLY_EXIT_TOL
         else:
-            tol = SLS_FIXED_TOL * max(1.0, float(want.abs().max()))
+            tol = SLS_FIXED_TOL * max(1.0, float(emulated.abs().max()))
         worst = max(worst, err)
-        print(f"[sls kernel vs plain] {label}: max|dU| {err:.3e} (tolerance {tol:.3g})")
-        check(err <= tol, f"sls {label}: kernel disagrees with plain version")
+        print(f"[sls kernel vs plain] {label}: against the 3xTF32 plain version max|dU| {err:.3e} "
+              f"(tolerance {tol:.3g}); against the f32 plain version "
+              f"{float((got - want).abs().max()):.3e}; 3xTF32 plain vs f32 plain "
+              f"{float((emulated - want).abs().max()):.3e}")
+        if kw["stop_tol"] > 0.0:
+            full = -(-kw["n_iters"] // kw["check_every"]) * kw["check_every"]
+            iters = {name: sls_tile_iterations(run, kw, bounds.shape[0])
+                     for name, run in runs.items()}
+            for name, it in iters.items():
+                print(f"[sls kernel vs plain] {label}: the {name}'s {it.numel()} tiles ran "
+                      f"{int(it.min())}-{int(it.max())} iterations, {float(it.float().mean()):.2f} "
+                      f"on average, against {full} in the fixed schedule; "
+                      f"{int((it != iters['kernel']).sum())} tiles apart from the kernel's")
+            check(int(iters["kernel"].min()) < full, f"sls {label}: no tile left early")
+        check(err <= tol, f"sls {label}: kernel disagrees with the 3xTF32 plain version")
     return worst
 
 
@@ -796,9 +849,25 @@ def _graph_ms(fn, windows=TIMING_WINDOWS, calls=CALLS_PER_WINDOW):
     return _median_iqr([_event_ms(graph.replay, 1) / calls for _ in range(windows)])
 
 
+def sls_cublas_products(solver, batch=SLS_BATCH, n=SLS_ITERS):
+    """n f32 cuBLAS products of the SLS loop's shape, (2 batch x Nm) @
+    (Nm x Nm) with TF32 off: a yardstick of the loop's products, used
+    nowhere in the port."""
+    s = solver.U_base.repeat(batch, 1)
+
+    def run():
+        with full_f32_matmul():
+            for _ in range(n):
+                torch.matmul(s, solver.W)
+
+    return run
+
+
 def phase_sls_time(device, card):
     """Kernel alone, whole forward (kernel + phi_u) and the plain version,
-    per mode and batch; windows alternate between the three."""
+    per mode and batch; windows alternate between the three. Then, as a
+    yardstick the port never calls, 200 f32 cuBLAS products of the loop's
+    shape at 1,024 instances."""
     result = {}
     for mode in SLS_MODES:
         # the plain consensus loop issues ~4e5 small launches a solve
@@ -809,7 +878,8 @@ def phase_sls_time(device, card):
             kw = solver.kernel_options
             ops = (bounds, solver.U_base, solver.W)
             paths = {
-                "kernel": (lambda: sls_admm(*ops, **kw), TIMING_WINDOWS, CALLS_PER_WINDOW),
+                "kernel": (lambda: sls_admm(*ops, solver.packed, **kw), TIMING_WINDOWS,
+                           CALLS_PER_WINDOW),
                 "forward": (lambda: solver(bounds), TIMING_WINDOWS, CALLS_PER_WINDOW),
                 "plain": (lambda: sls_admm_reference(*ops, **kw), plain_windows, plain_calls),
             }
@@ -827,6 +897,13 @@ def phase_sls_time(device, card):
                 print(f"[sls time] {mode}, batch {batch}, {name}: {med:.4f} ms per solve "
                       f"(IQR {q1:.4f}-{q3:.4f}, {len(samples)} windows) = "
                       f"{batch / (med * 1e-3):.6g} syntheses/s; card: {card}")
+    _, solver = sls_solver(device, "diamond")
+    Nm = solver.W.shape[0]
+    yardstick = f"{SLS_ITERS} f32 cuBLAS products ({2 * SLS_BATCH} x {Nm}) @ ({Nm} x {Nm})"
+    med, q1, q3, n = _timed({yardstick: (sls_cublas_products(solver), TIMING_WINDOWS,
+                                         CALLS_PER_WINDOW)})[yardstick]
+    print(f"[sls time] {yardstick}: {med:.4f} ms (IQR {q1:.4f}-{q3:.4f}, {n} windows); "
+          f"card: {card}")
     return result
 
 
@@ -889,14 +966,16 @@ def phase_riccati_compare(device):
         for t in (*r, *S, *out):
             check(bool(torch.isfinite(t).all()), f"riccati N={horizon}: non-finite kernel output")
         errs = {
-            "riccati_scan": _max_errs(r, riccati_scan_reference(*slabs)),
+            "riccati_scan": _max_errs(r, riccati_scan_reference(*slabs, chunks=SCAN_CHUNKS)),
             "riccati_level2": _max_errs(S, riccati_level2_reference(*r)),
             "riccati_join": _max_errs(out, riccati_join_reference(*r, *S)),
         }
+        sequential = _max_errs(r, riccati_scan_reference(*slabs))
         label = (f"N={horizon}, nb={nb}, d={d}" + (", Qr/xr/Rr/ur" if regularized else ""))
         print(f"[riccati kernel vs plain] {label}: " + ", ".join(
             f"{k} max abs {a:.3e} (scaled {s:.3e})" for k, (a, s) in errs.items())
-            + f"; tolerance {RICCATI_KERNEL_TOL:g} x max(1, max|ref|)")
+            + f"; tolerance {RICCATI_KERNEL_TOL:g} x max(1, max|ref|); riccati_scan against the "
+            f"sequential plain version max abs {sequential[0]:.3e} (scaled {sequential[1]:.3e})")
         for k, (abs_err, scaled) in errs.items():
             worst[k] = max(worst[k], abs_err)
             check(scaled <= RICCATI_KERNEL_TOL, f"{k} at {label}: kernel disagrees with plain")
@@ -991,7 +1070,8 @@ def riccati_kernel_calls(slabs):
     r = riccati_scan(*slabs)
     S = riccati_level2(*r)
     out = riccati_join(*r, *S)
-    calls = {"riccati_scan": (lambda: riccati_scan(*slabs), lambda: riccati_scan_reference(*slabs)),
+    calls = {"riccati_scan": (lambda: riccati_scan(*slabs),
+                              lambda: riccati_scan_reference(*slabs, chunks=SCAN_CHUNKS)),
              "riccati_level2": (lambda: riccati_level2(*r), lambda: riccati_level2_reference(*r)),
              "riccati_join": (lambda: riccati_join(*r, *S),
                               lambda: riccati_join_reference(*r, *S))}
@@ -1117,17 +1197,16 @@ def phase_riccati_profile(device, card):
     return {"busy_share": busy_us / wall_us, "kernel_ms": kernel_us / 1e3}
 
 
-def sls_tile_iterations(solver, bounds):
-    """Iterations each tile of the early-exit `sls_admm` ran on these
-    bounds (`chunks_run`)."""
-    kw = solver.kernel_options
+def sls_tile_iterations(run, kw, batch):
+    """Iterations each tile of an early-exit SLS solve ran (`chunks_run`).
+    run(**options) -> U: the kernel or its plain version on fixed bounds;
+    kw: the solve's options."""
     every, tile = kw["check_every"], kw["batch_tile"]
     max_chunks = -(-kw["n_iters"] // every)
 
     def solve(k):
         n_iters = kw["n_iters"] if k == max_chunks else k * every
-        U = sls_admm(bounds, solver.U_base, solver.W, **dict(kw, n_iters=n_iters))
-        return U.reshape(bounds.shape[0] // tile, -1)
+        return run(**dict(kw, n_iters=n_iters)).reshape(batch // tile, -1)
 
     return chunks_run(solve, max_chunks) * every
 
@@ -1153,14 +1232,26 @@ def existing_bounds(solver, inputs, box, x0s, sls, sls_fleet):
     box_bound = bound(2 * BATCH * (BOX_ITERS * nnz + int(torch.count_nonzero(SuT))),
                       nbytes(free, bu, u0, *box.packed, xb, ub) + 2 * nbytes(free, bu),
                       products=True)
-    tile_iters = sls_tile_iterations(sls, sls_fleet)
-    instance_iters = int(tile_iters.sum()) * sls.kernel_options["batch_tile"]
+    kw = sls.kernel_options
+    tile_iters = sls_tile_iterations(
+        lambda **o: sls_admm(sls_fleet, sls.U_base, sls.W, sls.packed, **o), kw, SLS_BATCH)
+    instance_iters = int(tile_iters.sum()) * kw["batch_tile"]
     print(f"[sls bound] diamond_ee tiles ran {int(tile_iters.min())}-{int(tile_iters.max())} "
           f"iterations, {instance_iters / SLS_BATCH:.2f} an instance on average")
     p1, sNm = sls.U_base.shape
     sls_bound = bound(instance_iters * 2 * p1 * sNm * sNm,
                       nbytes(sls_fleet, sls.U_base, sls.W) + 4 * SLS_BATCH * sNm * p1,
                       products=True)
+    # one tile's iterations run on one SM: the slowest tile's, as 3xTF32
+    # on the kernel's padded tile, at one SM's share of the TF32 peak
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_pad = 8 * -(-sNm // 8)
+    tile_flop = 3 * 2 * (p1 * kw["batch_tile"]) * n_pad * n_pad
+    floor_ms = 1e3 * int(tile_iters.max()) * tile_flop / (PEAK_TF32_FLOPS / sms)
+    print(f"[sls bound] per-SM floor of the tiling: the slowest tile's {int(tile_iters.max())} "
+          f"iterations x {tile_flop:.4g} TF32 FLOP (3 x 2 x {p1 * kw['batch_tile']} x {n_pad} x "
+          f"{n_pad}) at 1/{sms} of {PEAK_TF32_FLOPS / 1e12:g} TFLOP/s: {floor_ms:.4f} ms; the "
+          f"card-wide bound {sls_bound['bound_ms']:.4f} ms")
     return {"admm_u_only": u_only, "admm_box": box_bound, "sls_admm": sls_bound}
 
 

@@ -118,11 +118,14 @@ def load_library() -> ctypes.CDLL:
     lib.admm_u_only_error_string.argtypes = [_I]
     lib.admm_u_only_error_string.restype = ctypes.c_char_p
     lib.sls_admm_launch.argtypes = [
-        _P, _P, _P, _P,  # bounds, U_base, W, U_out
+        _P, _P,  # bounds, U_base
+        _P, _I, _P,  # ops_f (W packed), its length, ops_i (its pair table)
+        _P,  # U_out
         _I, _I, _I, _I,  # batch, Nm, batch_tile, p1
         _I, _I,  # chunk_len, n_chunks
         _F, _F, _F,  # alpha, 1 - alpha, stop_tol
         _I, _P, _I, _I, _I,  # z_update, coeffs (host f32), n_sets, q, n_cons_iters
+        _I,  # k_split
         _P,  # stream
     ]
     lib.sls_admm_launch.restype = _I

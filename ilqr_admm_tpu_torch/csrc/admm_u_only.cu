@@ -80,20 +80,6 @@ struct Problem {
   float alpha, one_minus_alpha, stop_tol;
 };
 
-// s = z - l of the thread's accumulator tile into an A buffer at columns
-// c0 + 2 t + e (c0 a multiple of 8); `buf` points at the piece's first
-// row, and the buffer's 8-column groups are LDA floats apart
-template <int LDA, int MW>
-__device__ __forceinline__ void store_s(float* buf, int c0, int g, int t,
-                                        const float (&z)[MW][4], const float (&l)[MW][4]) {
-  float* p = buf + (c0 / 8) * LDA + 8 * g;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int mt = 0; mt < MW; ++mt)
-      p[8 * frag_row(mt, i, 0) + a_pos(2 * t + (i & 1))] = sub(z[mt][i], l[mt][i]);
-}
-
 // The whole solve of one warp's piece: m-tiles m0..m0 + MW - 1 of the
 // block's T = 16 MT instances, the nb n-tiles of pair row `pr` of W_u's
 // table. Every warp runs the same sequence of barriers. `residual` has
@@ -140,7 +126,7 @@ __device__ __forceinline__ void solve(const Problem P, const float* ops, float* 
         if constexpr (kSlots) zslot[32 * (4 * (MW * n + mt) + i)] = z[n][mt][i];
       }
     if (n < nb) {
-      store_s<LDA, MW>(s0 + a_off, 8 * (n0 + n), g, t, z[n], lam[n]);
+      store_piece_s<LDA, MW>(s0 + a_off, 8 * (n0 + n), g, t, z[n], lam[n]);
       if (P.chunk_len * P.n_chunks + P.n_tail == 0) {  // no iterations: u = z = u_base
         store_frag<MW>(P.u_out, row0, 8 * (n0 + n), P.Nm, g, t, ub[n]);
         store_frag<MW>(P.zu_out, row0, 8 * (n0 + n), P.Nm, g, t, ub[n]);
@@ -183,7 +169,7 @@ __device__ __forceinline__ void solve(const Problem P, const float* ops, float* 
 #pragma unroll
           for (int i = 0; i < 4; ++i) zslot[32 * (4 * (MW * n + mt) + i)] = z[n][mt][i];
       }
-      store_s<LDA, MW>(s_out + a_off, c0, g, t, z[n], lam[n]);
+      store_piece_s<LDA, MW>(s_out + a_off, c0, g, t, z[n], lam[n]);
       if (out) {
         store_frag<MW>(P.u_out, row0, c0, P.Nm, g, t, v);
         store_frag<MW>(P.zu_out, row0, c0, P.Nm, g, t, z[n]);

@@ -17,22 +17,30 @@
 // consecutive steps; element t = b * L + j sits in lane b at step j of
 // component slabs laid out (L, rows, nb), so lanes are the fastest axis.
 //
+// Both scans below are one pattern, `chunked_suffix`: the T threads of a
+// group each own a chunk of ceil(n / T) consecutive elements; a thread
+// folds its chunk (carry = e_i o carry, the earlier interval on the left,
+// as the JAX package folds), the T chunk totals are scanned in log2(T)
+// Hillis-Steele rounds into the suffix of the later chunks, and the
+// thread walks its chunk again from that suffix, emitting each suffix.
+// Its depth is 2 ceil(n / T) + log2(T) + 1 combines instead of n.
+//
 // Three kernels:
-// - riccati_scan_kernel<D>: one thread a lane runs the reverse loop over j,
-//   carry = e_j o carry, with the 3 d^2 + 2 d floats of the carry and the
-//   combine in registers, and writes every local suffix r[j] (all five
-//   components). The next element is loaded one step ahead.
+// - riccati_scan_kernel<D>: one warp a lane (a block each), the lane's L
+//   steps in 32 chunks, the chunk totals scanned by warp shuffles; writes
+//   every local suffix r[j] (all five components). At L = 79: chunks of
+//   3, 11 combines deep instead of 79. Each thread first copies its
+//   chunk's elements to shared memory with cp.async (where a lane's
+//   elements fit in 96 KB), all its loads in flight at once.
 // - riccati_level2_kernel<D>: one block of 128 threads turns the nb block
 //   totals r[0] into their exclusive suffixes S_b = r_{b+1}[0] o ... o
-//   r_{nb-1}[0]. Each thread owns ceil(nb / 128) consecutive totals: it
-//   folds its chunk, the chunk totals are scanned in log depth through
-//   shared memory (Hillis-Steele), and the thread walks its chunk again
-//   from the suffix of the later chunks, writing each S_b. Only (eta, J) of
-//   S_b are written: the join reads nothing else of it. A kernel of its
-//   own, rather than a prologue of the join: done in plain torch it is
-//   about log2(nb) rounds of a combine of some 40 launches each, and as a
-//   prologue every join block would have to repeat it or wait for one
-//   block; as its own launch the join stays one thread an element.
+//   r_{nb-1}[0], the chunk totals scanned through shared memory. Only
+//   (eta, J) of S_b are written: the join reads nothing else of it. A
+//   kernel of its own, rather than a prologue of the join: done in plain
+//   torch it is about log2(nb) rounds of a combine of some 40 launches
+//   each, and as a prologue every join block would have to repeat it or
+//   wait for one block; as its own launch the join stays one thread an
+//   element.
 // - riccati_join_kernel<D>: one thread an element (j, b), no loop:
 //   (eta, J) of r[j] o S_b. The TPU kernel loops over j in each lane; on
 //   this card the L * nb joins are independent, so they are spread over
@@ -49,10 +57,11 @@
 // reads them again and writes 0.81 MB: a few microseconds of HBM time,
 // and about 14 MFLOP of combines, a fraction of a microsecond at the f32
 // CUDA-core peak. What the scan takes instead is its dependency chain:
-// L sequential combines in each thread, with only nb threads (nb / 32
-// warps) in flight. The design keeps that chain free of memory stalls
-// (registers only, the next load issued one step early) and leaves the
-// rest to the choice of nb: more lanes mean more threads and a shorter L.
+// a combine is ~1 us of dependent arithmetic (the adjugate inverse and a
+// dozen d x d products), and one thread a lane ran L = 79 of them in a
+// row, with only nb / 32 = 4 warps on the card. The chunked warp scan cuts
+// the chain to 2 ceil(L / 32) + 6 combines and spreads the lanes over nb
+// warps; the combine itself stays in one thread's registers.
 
 #include <cuda_runtime.h>
 
@@ -60,9 +69,10 @@
 
 namespace {
 
-constexpr int kScanThreads = 32;    // one warp a block, so the warps spread over SMs
+constexpr int kScanThreads = 32;    // one warp a lane and a block, so the warps spread over SMs
 constexpr int kJoinThreads = 128;
 constexpr int kLevel2Threads = 128;
+constexpr size_t kScanStageBytes = 96 * 1024;  // a lane's elements, staged up to this size
 
 template <int D>
 struct Elem {
@@ -74,7 +84,7 @@ struct Elem {
 };
 
 template <int D>
-constexpr int elem_floats() {
+__host__ __device__ constexpr int elem_floats() {
   return 3 * D * D + 2 * D;
 }
 
@@ -318,19 +328,125 @@ __device__ __forceinline__ void store(const OutSlabs& s, const Elem<D>& e, int j
   }
 }
 
+// Suffixes of e_0 .. e_{n-1} by the T threads of a group, thread t owning
+// chunk t (empty past the end: it holds the identity). load(i) gives e_i;
+// later(c), called by every thread of the group with its chunk total c,
+// returns the suffix of the chunks after t (the identity for the last);
+// emit(i, x) takes x = e_i o ... o e_{n-1} (INCLUSIVE) or e_{i+1} o ...
+// o e_{n-1}.
+template <int D, bool INCLUSIVE, class Load, class Later, class Emit>
+__device__ __forceinline__ void chunked_suffix(int n, int t, int T, const Load& load,
+                                               const Later& later, const Emit& emit) {
+  const int chunk = (n + T - 1) / T;
+  const int lo = min(t * chunk, n);
+  const int hi = min(lo + chunk, n);
+  // 1. this thread's chunk total e_lo o ... o e_{hi-1}
+  Elem<D> c = identity<D>();
+  for (int i = hi - 1; i >= lo; --i) c = combine<D>(load(i), c);
+  // 2. the suffix of the later chunks' totals
+  Elem<D> x = later(c);
+  // 3. from there, walk the chunk backwards
+  for (int i = hi - 1; i >= lo; --i) {
+    if constexpr (INCLUSIVE) {
+      x = combine<D>(load(i), x);
+      emit(i, x);
+    } else {
+      emit(i, x);
+      if (i > lo) x = combine<D>(load(i), x);
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ Elem<D> shfl_down(const Elem<D>& e, int o) {
+  Elem<D> out;
+#pragma unroll
+  for (int i = 0; i < D * D; ++i) {
+    out.A[i] = __shfl_down_sync(0xFFFFFFFFu, e.A[i], o);
+    out.C[i] = __shfl_down_sync(0xFFFFFFFFu, e.C[i], o);
+    out.J[i] = __shfl_down_sync(0xFFFFFFFFu, e.J[i], o);
+  }
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    out.b[i] = __shfl_down_sync(0xFFFFFFFFu, e.b[i], o);
+    out.eta[i] = __shfl_down_sync(0xFFFFFFFFu, e.eta[i], o);
+  }
+  return out;
+}
+
+// cp.async: a float from global to shared memory without passing through
+// registers; the thread waits for its copies with cp_async_wait_all
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Element at step j of lane `lane` copied to dst, component-major (A, b, C,
+// eta, J) as `unstage` reads it
+template <int D>
+__device__ __forceinline__ void stage(const Slabs& s, int j, int lane, int nb, float* dst) {
+  const size_t m0 = static_cast<size_t>(j) * D * D * nb + lane;
+  const size_t v0 = static_cast<size_t>(j) * D * nb + lane;
+  const float* comps[5] = {s.A + m0, s.b + v0, s.C + m0, s.eta + v0, s.J + m0};
+  const int rows[5] = {D * D, D, D * D, D, D * D};
+#pragma unroll
+  for (int c = 0; c < 5; ++c)
+#pragma unroll
+    for (int i = 0; i < rows[c]; ++i) cp_async_f32(dst++, comps[c] + static_cast<size_t>(i) * nb);
+}
+
+template <int D>
+__device__ __forceinline__ Elem<D> unstage(const float* src) {
+  Elem<D> e;
+#pragma unroll
+  for (int i = 0; i < D * D; ++i) e.A[i] = *src++;
+#pragma unroll
+  for (int i = 0; i < D; ++i) e.b[i] = *src++;
+#pragma unroll
+  for (int i = 0; i < D * D; ++i) e.C[i] = *src++;
+#pragma unroll
+  for (int i = 0; i < D; ++i) e.eta[i] = *src++;
+#pragma unroll
+  for (int i = 0; i < D * D; ++i) e.J[i] = *src++;
+  return e;
+}
+
+// One warp a lane: the lane's L steps in 32 chunks, the chunk totals
+// scanned in five rounds of shuffles (after the round with offset o, a
+// thread's total covers chunks t .. t + 2o - 1). With `staged`, each
+// thread first copies its chunk's elements to shared memory with cp.async,
+// all in flight at once, so the fold and the walk read them there rather
+// than waiting on a scattered load from L2 before each combine.
 template <int D>
 __global__ void __launch_bounds__(kScanThreads)
-riccati_scan_kernel(Slabs in, OutSlabs out, int L, int nb) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= nb) return;
-  Elem<D> carry = identity<D>();
-  Elem<D> next = load<D>(in, L - 1, lane, nb);
-  for (int j = L - 1; j >= 0; --j) {
-    const Elem<D> e = next;
-    if (j > 0) next = load<D>(in, j - 1, lane, nb);
-    carry = combine<D>(e, carry);
-    store<D>(out, carry, j, lane, nb);
+riccati_scan_kernel(Slabs in, OutSlabs out, int L, int nb, int staged) {
+  extern __shared__ float sh[];
+  constexpr int F = elem_floats<D>();
+  const int lane = blockIdx.x;
+  const int t = threadIdx.x;
+  if (staged) {
+    const int chunk = (L + kScanThreads - 1) / kScanThreads;
+    const int lo = min(t * chunk, L), hi = min(lo + chunk, L);
+    for (int j = lo; j < hi; ++j) stage<D>(in, j, lane, nb, sh + j * F);
+    cp_async_wait_all();  // a thread reads only the elements it copied
   }
+  auto later = [&](Elem<D> c) {
+#pragma unroll
+    for (int o = 1; o < kScanThreads; o <<= 1) {
+      const Elem<D> other = shfl_down<D>(c, o);
+      if (t + o < kScanThreads) c = combine<D>(c, other);
+    }
+    const Elem<D> next = shfl_down<D>(c, 1);
+    return t + 1 < kScanThreads ? next : identity<D>();
+  };
+  chunked_suffix<D, true>(
+      L, t, kScanThreads,
+      [&](int j) { return staged ? unstage<D>(sh + j * F) : load<D>(in, j, lane, nb); }, later,
+      [&](int j, const Elem<D>& x) { store<D>(out, x, j, lane, nb); });
 }
 
 // Shared memory holds one element a thread, component-major (f * T + t),
@@ -368,38 +484,33 @@ __device__ __forceinline__ Elem<D> from_shared(const float* sh, int t, int T) {
 }
 
 // in: the level-1 suffix slabs; their step-0 rows are the block totals.
+// The chunk totals are scanned through shared memory (after the round
+// with offset o, a thread's total covers chunks t .. t + 2o - 1).
 template <int D>
 __global__ void __launch_bounds__(kLevel2Threads)
 riccati_level2_kernel(Slabs in, float* S_eta, float* S_J, int nb) {
   extern __shared__ float sh[];
   const int t = threadIdx.x;
   const int T = blockDim.x;
-  const int chunk = (nb + T - 1) / T;
-  const int lo = min(t * chunk, nb);
-  const int hi = min(lo + chunk, nb);
-
-  // 1. this thread's chunk total r_lo o ... o r_{hi-1}
-  Elem<D> c = identity<D>();
-  for (int i = hi - 1; i >= lo; --i) c = combine<D>(load<D>(in, 0, i, nb), c);
-  // 2. inclusive suffix over the chunk totals: after the round with offset
-  //    o, c covers chunks t .. t + 2o - 1
-  for (int o = 1; o < T; o <<= 1) {
+  auto later = [&](Elem<D> c) {
+    for (int o = 1; o < T; o <<= 1) {
+      to_shared<D>(sh, c, t, T);
+      __syncthreads();
+      if (t + o < T) c = combine<D>(c, from_shared<D>(sh, t + o, T));
+      __syncthreads();
+    }
     to_shared<D>(sh, c, t, T);
     __syncthreads();
-    if (t + o < T) c = combine<D>(c, from_shared<D>(sh, t + o, T));
-    __syncthreads();
-  }
-  to_shared<D>(sh, c, t, T);
-  __syncthreads();
-  // 3. from the suffix of the later chunks, walk the chunk backwards
-  Elem<D> x = (t + 1 < T) ? from_shared<D>(sh, t + 1, T) : identity<D>();
-  for (int i = hi - 1; i >= lo; --i) {
+    return (t + 1 < T) ? from_shared<D>(sh, t + 1, T) : identity<D>();
+  };
+  chunked_suffix<D, false>(
+      nb, t, T, [&](int i) { return load<D>(in, 0, i, nb); }, later,
+      [&](int i, const Elem<D>& x) {
 #pragma unroll
-    for (int k = 0; k < D; ++k) S_eta[static_cast<size_t>(k) * nb + i] = x.eta[k];
+        for (int k = 0; k < D; ++k) S_eta[static_cast<size_t>(k) * nb + i] = x.eta[k];
 #pragma unroll
-    for (int k = 0; k < D * D; ++k) S_J[static_cast<size_t>(k) * nb + i] = x.J[k];
-    if (i > lo) x = combine<D>(load<D>(in, 0, i, nb), x);
-  }
+        for (int k = 0; k < D * D; ++k) S_J[static_cast<size_t>(k) * nb + i] = x.J[k];
+      });
 }
 
 template <int D>
@@ -437,8 +548,16 @@ bool bad_shape(int d, int L, int nb) { return d < 1 || d > 4 || L < 1 || nb < 1;
 
 template <int D>
 int launch_scan(Slabs in, OutSlabs out, int L, int nb, cudaStream_t stream) {
-  const int blocks = (nb + kScanThreads - 1) / kScanThreads;
-  riccati_scan_kernel<D><<<blocks, kScanThreads, 0, stream>>>(in, out, L, nb);
+  // a lane's elements staged in shared memory where they fit
+  const size_t smem = sizeof(float) * elem_floats<D>() * static_cast<size_t>(L);
+  const int staged = smem <= kScanStageBytes;
+  if (staged && smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(riccati_scan_kernel<D>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  riccati_scan_kernel<D><<<nb, kScanThreads, staged ? smem : 0, stream>>>(in, out, L, nb, staged);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,12 +1,12 @@
-// Fused robust SLS-ADMM scenario fleet, for sm_90a.
+// Fused robust SLS-ADMM scenario fleet on Hopper's tensor cores, for sm_90a.
 //
 // Replaces the Pallas TPU kernel `_sls_admm_kernel`
 // (ilqr_admm_tpu/ops/pallas_sls.py:99). The decision matrix of each
-// instance is P1 column slabs of Nm rows ([du | Phi_u columns]). Each CUDA
-// block owns one tile of `T` instances and runs the whole ADMM loop on it
+// instance is two column slabs of Nm rows ([du | phi_u column]). Each CUDA
+// block owns one tile of T instances and runs the whole ADMM loop on it
 // without leaving the SM:
 //
-//     s_k = Z_k - L_k                         (k = 0..P1-1)
+//     s_k = Z_k - L_k                         (k = 0, 1)
 //     U_k = U_base_k + s_k @ W                (W = (l_inv Rr)^T, Nm x Nm)
 //     Z   = P(alpha U + (1 - alpha) Z + L)    (row by row, coupling the slabs)
 //     L   = L + U - Z
@@ -14,53 +14,87 @@
 // from Z = U_base, L = 0. P is the exact projection of each row onto the
 // diamond w0 |du| + w1 |phi| <= bound (`Diamond`), or a fixed-count
 // consensus ADMM onto an intersection of second-order cones
-// (`Consensus<P1, NSETS, Q>`, the TPU kernel's trace-time constants passed
-// by value in the kernel's parameters). After the loop, U is recomputed
-// once from the s that produced the last iterate and written as
-// (batch, Nm, P1).
+// (`Consensus<2, NSETS, Q>`, the TPU kernel's trace-time constants passed
+// by value in the kernel's parameters). U is written as (batch, Nm, 2).
 //
-// What bounds it on an H100: one bench solve (B = 1024, Nm = 100, P1 = 2,
-// 200 iterations) is 2 P1 Nm^2 B iters = 8.2e9 f32 FLOP of products
-// against ~1 MB of traffic (bounds in, U out; W and U_base are shared),
-// so it is compute bound: 0.12 ms at the 67 TFLOP/s f32 CUDA-core peak.
-// The diamond z-update adds ~30 flops a row; the consensus z-update adds
-// ~60 flops a row per inner iteration, 30 inner iterations: about four
-// times the product, so that mode is bound by the z-update's FP32 issue.
-// At the bench batch there are only 1024 instances: a block of tile T has
-// 12.5 T threads, so the card is filled by many small blocks, not by
-// large ones.
+// What bounds it on an H100: the bench's serving solve (B = 1024, Nm =
+// 100, diamond z-update, early exit) runs 64-208 iterations a tile, each
+// 2 x 2 Nm^2 FLOP an instance of f32-accurate products: 7.6e9 FLOP, as
+// three TF32 products 0.046 ms at the 495 TFLOP/s dense TF32 peak. The
+// z-update adds ~30 flops a row (the consensus one ~60 a row per inner
+// iteration, 30 inner iterations). But a tile's iterations cannot leave
+// its SM, and at 1,024 instances there is one tile of 8 instances an SM:
+// each iteration is a chain (the product, the z-update, the store of s and
+// a barrier) that one block runs alone, so the slowest tile's 208
+// iterations at one SM's share of the TF32 peak, 0.058 ms, are this
+// tiling's floor, and the chain's latency sets the time above it.
 //
 // What the design does about it:
-// - W (40 KB at Nm = 100) and U_base (P1 x Nm; it is instance-invariant)
-//   are staged in shared memory once per block; the tile's s lives in
-//   shared memory as s[k][b * P1 + p], double buffered, so each iteration
-//   needs one barrier. Z and L live in registers for the whole solve.
-// - A thread owns a 2 x 4 (instances x controls) tile in all P1 slabs, so
-//   the z-update, which couples the slabs of one row, stays in the thread;
-//   each k step of the product is two 16-byte shared loads feeding 16 FMAs.
+// - The product runs on the tensor cores as warp-level 3xTF32
+//   `mma.sync.m16n8k8` (helpers in csrc/tf32x3.cuh, shared with the LQT
+//   kernels), instances x slabs as M, the Nm output columns as N, the
+//   reduction as K: in f32 on the CUDA cores (this kernel's first design)
+//   a block's iteration was ~3.5 us of dependent shared loads and FMAs.
+//   Each k-step splits its operands as it loads them: splitting W at
+//   setup and s where it is stored, then loading both parts, measured no
+//   faster on an H100, for twice the shared memory (the loads cost what
+//   the splits did).
+// - The tile's 2 T rows are slab-major in each 16-row m-tile: rows 0-7 are
+//   slab 0 (du) of instances 0-7, rows 8-15 slab 1 (phi) of the same
+//   instances. An accumulator holds rows g and g + 8 of columns 2 t and
+//   2 t + 1, so both slabs of instance g at a column sit in one thread,
+//   and the z-update, which couples them, runs in the accumulator layout:
+//   U = U_base + acc, the projection and the dual update in registers, Z
+//   and L in registers for the whole solve. The consensus z-update takes a
+//   thread's rows two at a time, their inner iterations two independent
+//   chains side by side.
+// - W lives in shared memory as 8 x 8 blocks in B-fragment order
+//   (`pair_pack` in ops/fused_admm.py, packed once at setup); s goes to
+//   shared memory group-major (`a_pos`), double buffered, so an iteration
+//   has one barrier.
+// - Work: a warp owns one piece, a pair of W's n-tiles (16 columns) or the
+//   last single n-tile, for one m-tile (`sls_pieces` in ops/fused_sls.py):
+//   at T = 8 and Nm = 100, 6 pairs and 1 single, 7 warps (14 at T = 16).
+//   So each thread's rows are all of one instance, and the consensus
+//   z-update keeps one set of cone offsets for them. With k_split = 2 each
+//   piece's k range is split over two warps, which hand their partial sums
+//   over through shared memory: half the chain of dependent mma, for a
+//   second barrier an iteration. The wrapper takes it where the fleet has
+//   at most one block an SM (`k_split` in ops/fused_sls.py), as at the
+//   bench's 1,024 instances; with more blocks an SM they hide each other's
+//   latency and the split only costs (tools/sls_admm_variants.py times
+//   both).
+// - U_base is instance-invariant: a thread loads its columns' values once,
+//   and its instance's bound once. U is stored from the registers at the
+//   last iteration of every chunk, so the last iterate's U is written
+//   without a product after the loop.
+// - Padded columns (Nm up to a multiple of 8) have zero rows and columns
+//   of W and U_base = 0; their Z, L and s are held at 0 (a consensus
+//   projection would move them: its cone offsets are nonzero) and they
+//   enter neither the residual nor the output.
+// - Per-tile early exit: at the last iteration of each chunk each warp
+//   reduces max(|U - Z|, |Z - Z_prev|) over its valid elements by
+//   shuffles and folds it with atomicMax on the float bits (non-negative,
+//   so bit order is value order; a NaN stops the tile, as the JAX
+//   while_loop test does) into one of three rotating words, so the test
+//   costs no barrier of its own.
 // - The z-update and dual update use explicitly rounded f32 operations
 //   (no FMA contraction), so they round as the plain torch version does;
-//   only the products' summation order differs from it.
-// - Per-tile early exit: at the last iteration of each chunk the block
-//   reduces max(|U - Z|, |Z - Z_prev|) with an atomicMax on the float bits
-//   (non-negative, so bit order is value order; a NaN stops the tile, as
-//   the JAX while_loop test does).
-// Tensor cores (3xTF32 wgmma) are left for later work.
+//   only the products differ from it (their split and order of sums).
+//   Every build is spill-free: a spill cost admm_box 28% on the card.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int kRows = 2;  // instances per thread
-constexpr int kCols = 4;  // control rows (of W) per thread
-constexpr int kMaxThreads = 512;
+constexpr int kMaxWarps = 16;
 constexpr float kEps = 1e-30f;
 
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b); }
 
 // jnp.sign: 0 for +-0, NaN for NaN
@@ -68,27 +102,30 @@ __device__ __forceinline__ float sign_of(float x) {
   return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
 }
 
-// Exact projection of a row (a, b) onto {w0 |a| + w1 |b| <= r}.
+// Exact projection of rows (a, b) onto {w0 |a| + w1 |b| <= r}.
 struct Diamond {
   float w0, w1, den;  // den = w0^2 + w1^2, rounded from f64
 
-  template <int P1>
-  __device__ __forceinline__ void project(const float (&y)[P1], float r,
-                                          float (&out)[P1]) const {
-    static_assert(P1 == 2, "the diamond z-update couples exactly two slabs");
-    const float aa = fabsf(y[0]);
-    const float ab = fabsf(y[1]);
-    const float s = add(mul(w0, aa), mul(w1, ab));
-    const bool inside = s <= r;
-    const float lam = dvd(sub(s, r), den);
-    const float xa = sub(aa, mul(lam, w0));
-    const float xb = sub(ab, mul(lam, w1));
-    // if one soft-thresholded coordinate would go negative, it is clamped
-    // to 0 and the other goes to the diamond's vertex
-    const float na = xb < 0.0f ? dvd(r, w0) : (xa < 0.0f ? 0.0f : xa);
-    const float nb = xb < 0.0f ? 0.0f : (xa < 0.0f ? dvd(r, w1) : xb);
-    out[0] = inside ? y[0] : mul(sign_of(y[0]), na);
-    out[1] = inside ? y[1] : mul(sign_of(y[1]), nb);
+  // R rows of one instance, whose bound is r
+  template <int R>
+  __device__ __forceinline__ void project(const float (&y)[R][2], float r,
+                                          float (&out)[R][2]) const {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const float aa = fabsf(y[k][0]);
+      const float ab = fabsf(y[k][1]);
+      const float s = add(mul(w0, aa), mul(w1, ab));
+      const bool inside = s <= r;
+      const float lam = dvd(sub(s, r), den);
+      const float xa = sub(aa, mul(lam, w0));
+      const float xb = sub(ab, mul(lam, w1));
+      // if one soft-thresholded coordinate would go negative, it is
+      // clamped to 0 and the other goes to the diamond's vertex
+      const float na = xb < 0.0f ? dvd(r, w0) : (xa < 0.0f ? 0.0f : xa);
+      const float nb = xb < 0.0f ? 0.0f : (xa < 0.0f ? dvd(r, w1) : xb);
+      out[k][0] = inside ? y[k][0] : mul(sign_of(y[k][0]), na);
+      out[k][1] = inside ? y[k][1] : mul(sign_of(y[k][1]), nb);
+    }
   }
 };
 
@@ -131,289 +168,318 @@ struct Consensus {
     }
   }
 
-  __device__ __forceinline__ void project(const float (&y)[P1], float bound,
-                                          float (&out)[P1]) const {
-    float b[NSETS][Q], z[NSETS][Q], lmb[NSETS][Q];
+  // One inner iteration of one row: the x-update, then each set's SOC
+  // projection and dual update.
+  __device__ __forceinline__ void inner(const float (&y)[P1], const float (&b)[NSETS][Q],
+                                        float (&z)[NSETS][Q], float (&lmb)[NSETS][Q]) const {
+    float x[P1];
+    x_update(y, b, z, lmb, x);
 #pragma unroll
     for (int i = 0; i < NSETS; ++i) {
+      float axb[Q], w[Q];
 #pragma unroll
       for (int r = 0; r < Q; ++r) {
-        b[i][r] = b_bound[i][r] != 0.0f ? add(b_fixed[i][r], mul(b_bound[i][r], bound))
-                                        : b_fixed[i][r];
-        float acc = 0.0f;
+        float acc = b[i][r];
 #pragma unroll
         for (int k = 0; k < P1; ++k)
-          if (a[i][r][k] != 0.0f) acc = add(acc, mul(a[i][r][k], y[k]));
-        z[i][r] = add(acc, b[i][r]);
-        lmb[i][r] = 0.0f;
+          if (a[i][r][k] != 0.0f) acc = add(acc, mul(a[i][r][k], x[k]));
+        axb[r] = acc;
+        w[r] = add(acc, lmb[i][r]);
+      }
+      // SOC projection of [w_0..w_{Q-2} | t] onto ||w|| <= t
+      float n2 = mul(w[0], w[0]);
+#pragma unroll
+      for (int r = 1; r < Q - 1; ++r) n2 = add(n2, mul(w[r], w[r]));
+      const float n = sqrtf(n2);
+      const float t = w[Q - 1];
+      const bool inside = n <= t;
+      const bool polar = n <= -t;
+      const float scale = dvd(mul(0.5f, add(n, t)), add(n, kEps));
+#pragma unroll
+      for (int r = 0; r < Q; ++r) {
+        float zn;
+        if (r < Q - 1)
+          zn = inside ? w[r] : (polar ? 0.0f : mul(scale, w[r]));
+        else
+          zn = inside ? t : (polar ? 0.0f : mul(0.5f, add(n, t)));
+        lmb[i][r] = sub(add(lmb[i][r], axb[r]), zn);
+        z[i][r] = zn;
       }
     }
-    for (int it = 0; it < n_iters; ++it) {
-      float x[P1];
-      x_update(y, b, z, lmb, x);
+  }
+
+  // R rows of one instance (bound `bound`, so one set of cone offsets b),
+  // two at a time: a pair's inner iterations run side by side in each pass
+  // of the loop, two independent chains (four spill on the 128 registers
+  // a thread has)
+  template <int R>
+  __device__ __forceinline__ void project(const float (&y)[R][P1], float bound,
+                                          float (&out)[R][P1]) const {
+    static_assert(R % 2 == 0, "rows come in (column 2 t, column 2 t + 1) pairs");
 #pragma unroll
-      for (int i = 0; i < NSETS; ++i) {
-        float axb[Q], w[Q];
+    for (int k0 = 0; k0 < R; k0 += 2) {
+      float yp[2][P1], op[2][P1];
 #pragma unroll
-        for (int r = 0; r < Q; ++r) {
-          float acc = b[i][r];
-#pragma unroll
-          for (int k = 0; k < P1; ++k)
-            if (a[i][r][k] != 0.0f) acc = add(acc, mul(a[i][r][k], x[k]));
-          axb[r] = acc;
-          w[r] = add(acc, lmb[i][r]);
-        }
-        // SOC projection of [w_0..w_{Q-2} | t] onto ||w|| <= t
-        float n2 = mul(w[0], w[0]);
-#pragma unroll
-        for (int r = 1; r < Q - 1; ++r) n2 = add(n2, mul(w[r], w[r]));
-        const float n = sqrtf(n2);
-        const float t = w[Q - 1];
-        const bool inside = n <= t;
-        const bool polar = n <= -t;
-        const float scale = dvd(mul(0.5f, add(n, t)), add(n, kEps));
-#pragma unroll
-        for (int r = 0; r < Q; ++r) {
-          float zn;
-          if (r < Q - 1)
-            zn = inside ? w[r] : (polar ? 0.0f : mul(scale, w[r]));
-          else
-            zn = inside ? t : (polar ? 0.0f : mul(0.5f, add(n, t)));
-          lmb[i][r] = sub(add(lmb[i][r], axb[r]), zn);
-          z[i][r] = zn;
-        }
+      for (int j = 0; j < P1; ++j) {
+        yp[0][j] = y[k0][j];
+        yp[1][j] = y[k0 + 1][j];
       }
+      project_rows<2>(yp, bound, op);
+#pragma unroll
+      for (int j = 0; j < P1; ++j) {
+        out[k0][j] = op[0][j];
+        out[k0 + 1][j] = op[1][j];
+      }
+    }
+  }
+
+  template <int R>
+  __device__ __forceinline__ void project_rows(const float (&y)[R][P1], float bound,
+                                               float (&out)[R][P1]) const {
+    float b[NSETS][Q], z[R][NSETS][Q], lmb[R][NSETS][Q];
+#pragma unroll
+    for (int i = 0; i < NSETS; ++i)
+#pragma unroll
+      for (int r = 0; r < Q; ++r)
+        b[i][r] = b_bound[i][r] != 0.0f ? add(b_fixed[i][r], mul(b_bound[i][r], bound))
+                                        : b_fixed[i][r];
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+#pragma unroll
+      for (int i = 0; i < NSETS; ++i)
+#pragma unroll
+        for (int r = 0; r < Q; ++r) {
+          float acc = 0.0f;
+#pragma unroll
+          for (int j = 0; j < P1; ++j)
+            if (a[i][r][j] != 0.0f) acc = add(acc, mul(a[i][r][j], y[k][j]));
+          z[k][i][r] = add(acc, b[i][r]);
+          lmb[k][i][r] = 0.0f;
+        }
+    for (int it = 0; it < n_iters; ++it) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) inner(y[k], b, z[k], lmb[k]);
     }
     // one final x-update, so the result reflects the last duals
-    x_update(y, b, z, lmb, out);
+#pragma unroll
+    for (int k = 0; k < R; ++k) x_update(y[k], b, z[k], lmb[k], out[k]);
   }
 };
 
-template <int P1>
-struct Tile {
-  float z[P1][kRows][kCols];    // projected iterate
-  float lam[P1][kRows][kCols];  // scaled dual
-  float bound[kRows];
+struct Problem {
+  const float* bounds;  // (batch,)
+  const float* U_base;  // (2, Nm)
+  const float* ops_f;   // W's blocks (pair_pack storage)
+  const int* ops_i;     // its pair table: (offset, klo, khi, nb) rows
+  float* U_out;         // (batch, Nm, 2)
+  int Nm, n_ops, chunk_len, n_chunks;
+  float alpha, one_minus_alpha, stop_tol;
 };
 
-// acc[p][r][c] = sum_k s[k][(b0 + r) P1 + p] W[k][j0 + c]
-template <int P1>
-__device__ __forceinline__ void product(float (&acc)[P1][kRows][kCols],
-                                        const float* __restrict__ Ws,
-                                        const float* __restrict__ s, int Nm, int ldw,
-                                        int ldsp, int b0, int j0) {
-  static_assert((kRows * P1) % 4 == 0, "a thread's s values are read as float4");
-#pragma unroll
-  for (int p = 0; p < P1; ++p)
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[p][r][c] = 0.0f;
+// The whole solve of one warp's piece: m-tile m0 of the block's T = 8 MT
+// instances, the NB n-tiles of pair row `pr` of W's table, k-steps
+// [klo, khi) of it, or half `half` of them when the piece is split over
+// KS = 2 warps. A piece is one m-tile, so a thread's rows are all of one
+// instance (row g of the m-tile). The warp owns NO n-tiles in the
+// epilogue: all NB, or with a split tile `half` of a pair (the single
+// tile: half 0). Every warp runs the same sequence of barriers.
+// `residual` has three words: chunk ch folds its max into word ch % 3 and
+// clears word (ch + 1) % 3, whose last readers have passed a barrier
+// since.
+template <int MT, int KS, int NB, class ZU>
+__device__ __forceinline__ void solve(const Problem& P, const ZU& zu, const float* ops, float* s0,
+                                      float* s1, float* slots, unsigned int* residual, int pr,
+                                      int m0, int half) {
+  constexpr int LDA = 16 * MT * 8;
+  constexpr int NO = KS == 1 ? NB : 1;  // n-tiles the warp owns
+  constexpr int R = NO * 2;                  // (du, phi) rows a thread projects
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int* row = P.ops_i + 4 * pr;
+  const int off = row[0], klo = row[1], khi = row[2];
+  const int kmid = klo + (khi - klo) / 2;
+  const int k0 = KS == 2 && half ? kmid : klo;
+  const int k1 = KS == 2 && !half ? kmid : khi;
+  const float* b = ops + off + (k0 - klo) * NB * kBlock;
+  const int a_off = 16 * m0 * 8;  // the piece's first row in an A buffer
+  // the first owned n-tile, as a column offset, and whether any is owned
+  const int own = KS == 2 && NB == 2 ? half : 0;
+  const bool owns = KS == 1 || NB == 2 || half == 0;
+  const int c_own = 8 * (2 * pr + own);
+  const size_t inst = static_cast<size_t>(blockIdx.x) * 8 * MT + 8 * m0 + g;
+  const float bound = P.bounds[inst];
+  float* u_out = P.U_out + inst * P.Nm * 2;
 
-#pragma unroll 4
-  for (int k = 0; k < Nm; ++k) {
-    float sv[kRows * P1];
-    const float4* s4 = reinterpret_cast<const float4*>(s + k * ldsp + b0 * P1);
+  // ub[o][i]: U_base of slab i / 2 at column c_own + 8 o + 2 t + i % 2;
+  // z and lam in the accumulator layout of the owned tiles
+  float ub[NO][4], z[NO][1][4], lam[NO][1][4];
 #pragma unroll
-    for (int v = 0; v < kRows * P1 / 4; ++v) {
-      const float4 x = s4[v];
-      sv[4 * v] = x.x;
-      sv[4 * v + 1] = x.y;
-      sv[4 * v + 2] = x.z;
-      sv[4 * v + 3] = x.w;
+  for (int o = 0; o < NO; ++o) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = c_own + 8 * o + 2 * t + (i & 1);
+      ub[o][i] = c < P.Nm ? P.U_base[(i >> 1) * P.Nm + c] : 0.0f;
+      z[o][0][i] = ub[o][i];
+      lam[o][0][i] = 0.0f;
     }
-    const float4 w4 = *reinterpret_cast<const float4*>(Ws + k * ldw + j0);
-    const float w[kCols] = {w4.x, w4.y, w4.z, w4.w};
+    if (owns) {
+      store_piece_s<LDA, 1>(s0 + a_off, c_own + 8 * o, g, t, z[o], lam[o]);
+      if (P.chunk_len * P.n_chunks == 0) {  // no iterations: U = U_base
 #pragma unroll
-    for (int p = 0; p < P1; ++p)
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c)
-          acc[p][r][c] = fmaf(sv[r * P1 + p], w[c], acc[p][r][c]);
-  }
-}
-
-// One ADMM iteration for this thread's elements: reads s from s_in, writes
-// the next s = Z - L to s_out. With `track`, returns the bits of this
-// thread's max(|U - Z|, |Z - Z_prev|) over its valid elements.
-template <int P1, class ZUpdate>
-__device__ __forceinline__ unsigned int admm_step(Tile<P1>& t, const ZUpdate& zu,
-                                                  const float* __restrict__ Ws,
-                                                  const float* __restrict__ Ub,
-                                                  const float* __restrict__ s_in,
-                                                  float* __restrict__ s_out, int Nm, int ldw,
-                                                  int ldsp, int b0, int j0, float alpha,
-                                                  float one_minus_alpha, bool track) {
-  float acc[P1][kRows][kCols];
-  product<P1>(acc, Ws, s_in, Nm, ldw, ldsp, b0, j0);
-
-  unsigned int m = 0u;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      float u[P1], y[P1], zn[P1];
-#pragma unroll
-      for (int p = 0; p < P1; ++p) {
-        u[p] = add(Ub[p * ldw + j0 + c], acc[p][r][c]);
-        y[p] = add(add(mul(alpha, u[p]), mul(one_minus_alpha, t.z[p][r][c])), t.lam[p][r][c]);
-      }
-      zu.project(y, t.bound[r], zn);
-#pragma unroll
-      for (int p = 0; p < P1; ++p) {
-        if (track && j0 + c < Nm) {
-          m = max(m, __float_as_uint(fabsf(sub(u[p], zn[p]))));
-          m = max(m, __float_as_uint(fabsf(sub(zn[p], t.z[p][r][c]))));
+        for (int e = 0; e < 2; ++e) {
+          const int c = c_own + 8 * o + 2 * t + e;
+          if (c < P.Nm)
+            *reinterpret_cast<float2*>(u_out + 2 * c) = make_float2(ub[o][e], ub[o][2 + e]);
         }
-        t.lam[p][r][c] = sub(add(t.lam[p][r][c], u[p]), zn[p]);
-        t.z[p][r][c] = zn[p];
       }
     }
   }
+  __syncthreads();  // W and s0 staged
 
+  // One iteration from s_in into s_out. out: store U; test: fold the
+  // residual into word `test - 1`
+  auto iterate = [&](const float* s_in, float* s_out, bool out, int test) {
+    float acc[2][1][4];
+    product<1, NB, 2, LDA>(acc, s_in + a_off, b, k0, k1, lane, g, t);
+    float v[NO][4];  // the owned tiles' sums
+    if constexpr (KS == 1) {
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    if (j0 + c < Nm) {
-      float v[kRows * P1];
+      for (int o = 0; o < NO; ++o)
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
+        for (int i = 0; i < 4; ++i) v[o][i] = acc[o][0][i];
+    } else {
+      // hand the partial of the partner's tile over; element e of a
+      // warp's slot at slot[32 e]
+      const int warp = threadIdx.x / 32;
+      float* mine = slots + warp * 32 * 4 + lane;
+      const float* theirs = slots + (warp ^ 1) * 32 * 4 + lane;
+      if (NB == 2 || half == 1) {
 #pragma unroll
-        for (int p = 0; p < P1; ++p) v[r * P1 + p] = sub(t.z[p][r][c], t.lam[p][r][c]);
-      float4* out = reinterpret_cast<float4*>(s_out + (j0 + c) * ldsp + b0 * P1);
-#pragma unroll
-      for (int q = 0; q < kRows * P1 / 4; ++q)
-        out[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-    }
-  }
-  return m;
-}
-
-template <int P1, class ZUpdate>
-__global__ void __launch_bounds__(kMaxThreads)
-sls_admm_kernel(const float* __restrict__ bounds, const float* __restrict__ U_base,
-                const float* __restrict__ W, float* __restrict__ U_out, int Nm, int T,
-                int chunk_len, int n_chunks, float alpha, float one_minus_alpha,
-                float stop_tol, ZUpdate zu) {
-  extern __shared__ float4 smem_f4[];
-  __shared__ unsigned int residual_bits;
-
-  const int ldw = (Nm + kCols - 1) / kCols * kCols;
-  const int ldsp = T * P1;
-  float* Ws = reinterpret_cast<float*>(smem_f4);  // Nm x ldw, zero-padded columns
-  float* Ub = Ws + Nm * ldw;                       // P1 x ldw, zero-padded
-  float* s0 = Ub + P1 * ldw;                       // Nm x (T P1): s[k][b P1 + p]
-  float* s1 = s0 + Nm * ldsp;
-
-  const int tid = threadIdx.x;
-  const int n_cg = ldw / kCols;
-  const int j0 = (tid % n_cg) * kCols;
-  const int b0 = (tid / n_cg) * kRows;
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * T + b0;
-
-  for (int i = tid; i < Nm * ldw; i += blockDim.x) {
-    const int k = i / ldw;
-    const int j = i - k * ldw;
-    Ws[i] = j < Nm ? W[static_cast<size_t>(k) * Nm + j] : 0.0f;
-  }
-  for (int i = tid; i < P1 * ldw; i += blockDim.x) {
-    const int p = i / ldw;
-    const int j = i - p * ldw;
-    Ub[i] = j < Nm ? U_base[p * Nm + j] : 0.0f;
-  }
-  if (tid == 0) residual_bits = 0u;
-
-  // Z = U_base, L = 0, s = U_base; padded columns stay at 0 in s
-  Tile<P1> t;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) t.bound[r] = bounds[row0 + r];
-#pragma unroll
-  for (int p = 0; p < P1; ++p) {
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int j = j0 + c;
-      const float v = j < Nm ? U_base[p * Nm + j] : 0.0f;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        t.z[p][r][c] = v;
-        t.lam[p][r][c] = 0.0f;
+        for (int i = 0; i < 4; ++i)
+          mine[32 * i] = NB == 2 && half == 0 ? acc[NB - 1][0][i] : acc[0][0][i];
       }
-      if (j < Nm) {
+      __syncthreads();
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) s0[j * ldsp + (b0 + r) * P1 + p] = v;
+      for (int i = 0; i < 4; ++i) {
+        const float mine_sum = NB == 2 && half == 1 ? acc[NB - 1][0][i] : acc[0][0][i];
+        v[0][i] = owns ? add(mine_sum, theirs[32 * i]) : 0.0f;
       }
     }
-  }
-  __syncthreads();
-
-  int p = 0;      // buffer the next step reads
-  int last = -1;  // buffer holding the s that produced the last U
-  for (int ch = 0; ch < n_chunks; ++ch) {
     unsigned int m = 0u;
-    for (int it = 0; it < chunk_len; ++it) {
-      const bool track = stop_tol > 0.0f && it == chunk_len - 1;
-      m = admm_step<P1>(t, zu, Ws, Ub, p ? s1 : s0, p ? s0 : s1, Nm, ldw, ldsp, b0, j0,
-                        alpha, one_minus_alpha, track);
-      last = p;
+    if (owns) {
+      // row k = 2 o + e: column c_own + 8 o + 2 t + e; slab p is
+      // accumulator element 2 p + e
+      float u[R][2], y[R][2], zn[R][2];
+#pragma unroll
+      for (int o = 0; o < NO; ++o)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            const int i = 2 * p + e;
+            u[2 * o + e][p] = add(ub[o][i], v[o][i]);
+            y[2 * o + e][p] = add(add(mul(P.alpha, u[2 * o + e][p]),
+                                      mul(P.one_minus_alpha, z[o][0][i])), lam[o][0][i]);
+          }
+      zu.template project<R>(y, bound, zn);
+#pragma unroll
+      for (int o = 0; o < NO; ++o) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = 2 * o + e;
+          const int c = c_own + 8 * o + 2 * t + e;
+          const bool valid = c < P.Nm;
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            const int i = 2 * p + e;
+            const float znp = valid ? zn[k][p] : 0.0f;
+            if (test && valid) {
+              m = max(m, __float_as_uint(fabsf(sub(u[k][p], znp))));
+              m = max(m, __float_as_uint(fabsf(sub(znp, z[o][0][i]))));
+            }
+            lam[o][0][i] = sub(add(lam[o][0][i], u[k][p]), znp);
+            z[o][0][i] = znp;
+          }
+          if (out && valid)
+            *reinterpret_cast<float2*>(u_out + 2 * c) = make_float2(u[k][0], u[k][1]);
+        }
+        store_piece_s<LDA, 1>(s_out + a_off, c_own + 8 * o, g, t, z[o], lam[o]);
+      }
+    }
+    if (test) {
+      // max over non-negative floats as unsigned bits; a NaN residual
+      // sorts above +inf and, like the JAX while_loop test, stops the tile
+#pragma unroll
+      for (int d = 16; d > 0; d /= 2) m = max(m, __shfl_xor_sync(0xFFFFFFFFu, m, d));
+      if (lane == 0) atomicMax(residual + test - 1, m);
+      if (threadIdx.x == 0) residual[test % 3] = 0u;
+    }
+  };
+
+  const bool early_exit = P.stop_tol > 0.0f;
+  int p = 0;  // buffer the next iteration reads
+  for (int ch = 0; ch < P.n_chunks; ++ch) {
+    for (int it = 0; it < P.chunk_len; ++it) {
+      const bool chunk_end = it == P.chunk_len - 1;
+      iterate(p ? s1 : s0, p ? s0 : s1, chunk_end, early_exit && chunk_end ? ch % 3 + 1 : 0);
       p ^= 1;
       __syncthreads();
     }
-    if (stop_tol > 0.0f) {
-      atomicMax(&residual_bits, m);
-      __syncthreads();
-      const float res = __uint_as_float(residual_bits);
-      __syncthreads();
-      if (tid == 0) residual_bits = 0u;
-      if (!(res >= stop_tol)) break;
-    }
-  }
-
-  // U from the s that produced the last iterate (U_base if none ran)
-  float acc[P1][kRows][kCols];
-  if (last >= 0) {
-    product<P1>(acc, Ws, last ? s1 : s0, Nm, ldw, ldsp, b0, j0);
-  } else {
-#pragma unroll
-    for (int q = 0; q < P1; ++q)
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[q][r][c] = 0.0f;
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int j = j0 + c;
-      if (j < Nm) {
-#pragma unroll
-        for (int q = 0; q < P1; ++q) {
-          const float u = last >= 0 ? add(Ub[q * ldw + j], acc[q][r][c]) : Ub[q * ldw + j];
-          U_out[((row0 + r) * Nm + j) * P1 + q] = u;
-        }
-      }
-    }
+    if (early_exit && !(__uint_as_float(residual[ch % 3]) >= P.stop_tol)) break;
   }
 }
 
-template <int P1, class ZUpdate>
-int launch(const void* bounds, const void* U_base, const void* W, void* U_out, int batch,
-           int Nm, int T, int chunk_len, int n_chunks, float alpha, float one_minus_alpha,
-           float stop_tol, const ZUpdate& zu, cudaStream_t stream) {
-  const int ldw = (Nm + kCols - 1) / kCols * kCols;
-  const int threads = (T / kRows) * (ldw / kCols);
-  if (threads > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (static_cast<size_t>(Nm) * ldw + P1 * ldw +
-                                       2 * static_cast<size_t>(Nm) * T * P1);
-  cudaError_t err = cudaFuncSetAttribute(sls_admm_kernel<P1, ZUpdate>,
+// Pieces: W's pairs of n-tiles, each cut into MT pieces of one m-tile, in
+// order, then the last single n-tile (when Nm / 8 rounds up to an odd
+// count) cut likewise. Warp w takes piece w / KS (half w % KS of it).
+template <int MT, int KS, class ZU>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1) sls_admm_kernel(Problem P, ZU zu) {
+  extern __shared__ float4 smem_f4[];
+  __shared__ unsigned int residual[3];
+  const int n1 = (P.Nm + 7) / 8;
+  float* ops = reinterpret_cast<float*>(smem_f4);  // room for a dense W
+  float* s0 = ops + kBlock * n1 * n1;              // two s buffers, group-major
+  float* s1 = s0 + 16 * MT * 8 * n1;
+  float* slots = s1 + 16 * MT * 8 * n1;            // with a k split: 4 floats a thread
+
+  const int tid = threadIdx.x;
+  const float4* src = reinterpret_cast<const float4*>(P.ops_f);
+  for (int i = tid; i < P.n_ops / 4; i += blockDim.x) smem_f4[i] = src[i];
+  if (tid < 3) residual[tid] = 0u;
+
+  const int piece = tid / 32 / KS, half = tid / 32 % KS;
+  const int pair_pieces = (n1 / 2) * MT;
+  if (piece < pair_pieces) {
+    solve<MT, KS, 2>(P, zu, ops, s0, s1, slots, residual, piece / MT, piece % MT, half);
+  } else {
+    solve<MT, KS, 1>(P, zu, ops, s0, s1, slots, residual, n1 / 2, piece - pair_pieces, half);
+  }
+}
+
+template <int MT, int KS, class ZU>
+int launch(const Problem& P, int batch, const ZU& zu, cudaStream_t stream) {
+  const int n1 = (P.Nm + 7) / 8;
+  const int warps = KS * (n1 / 2 + n1 % 2) * MT;
+  if (warps > kMaxWarps || P.n_ops > kBlock * n1 * n1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * (static_cast<size_t>(kBlock) * n1 * n1 +
+                                       2 * static_cast<size_t>(16) * MT * 8 * n1 +
+                                       (KS == 2 ? static_cast<size_t>(warps) * 32 * 4 : 0));
+  cudaError_t err = cudaFuncSetAttribute(sls_admm_kernel<MT, KS, ZU>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  sls_admm_kernel<P1, ZUpdate><<<batch / T, threads, smem, stream>>>(
-      static_cast<const float*>(bounds), static_cast<const float*>(U_base),
-      static_cast<const float*>(W), static_cast<float*>(U_out), Nm, T, chunk_len, n_chunks,
-      alpha, one_minus_alpha, stop_tol, zu);
+  sls_admm_kernel<MT, KS, ZU><<<batch / (8 * MT), 32 * warps, smem, stream>>>(P, zu);
   return static_cast<int>(cudaGetLastError());
+}
+
+// T = 16 has 14 warps at Nm = 100, so its pieces are never split
+template <class ZU>
+int launch(const Problem& P, int batch, int T, int k_split, const ZU& zu, cudaStream_t stream) {
+  if (T == 16)
+    return k_split == 1 ? launch<2, 1>(P, batch, zu, stream)
+                        : static_cast<int>(cudaErrorInvalidValue);
+  return k_split == 2 ? launch<1, 2>(P, batch, zu, stream) : launch<1, 1>(P, batch, zu, stream);
 }
 
 template <int P1, int NSETS, int Q>
@@ -438,28 +504,30 @@ Consensus<P1, NSETS, Q> unpack_consensus(const float* c, int n_iters) {
 
 }  // namespace
 
-// z_update: 0 = diamond (coeffs = w0, w1, w0^2 + w1^2; p1 = 2), 1 = consensus
-// (coeffs packed as in unpack_consensus). The instantiated consensus shapes
-// (p1, n_sets, q) are listed in ops/fused_sls.py as CONSENSUS_SHAPES.
-extern "C" int sls_admm_launch(const void* bounds, const void* U_base, const void* W,
-                               void* U_out, int batch, int Nm, int T, int p1, int chunk_len,
-                               int n_chunks, float alpha, float one_minus_alpha,
-                               float stop_tol, int z_update, const void* coeffs, int n_sets,
-                               int q, int n_cons_iters, void* stream) {
-  if (Nm <= 0 || T <= 0 || T % kRows != 0 || batch <= 0 || batch % T != 0 ||
-      chunk_len < 0 || n_chunks < 0 || n_cons_iters < 0)
+// W arrives packed (ops_f, n_ops floats; ops_i, its pair table). z_update:
+// 0 = diamond (coeffs = w0, w1, w0^2 + w1^2), 1 = consensus (coeffs
+// packed as in unpack_consensus). p1 must be 2, T 8 or 16, k_split (warps a piece) 1
+// or 2. The instantiated consensus shapes (p1, n_sets, q) are listed in
+// ops/fused_sls.py as CONSENSUS_SHAPES.
+extern "C" int sls_admm_launch(const void* bounds, const void* U_base, const void* ops_f,
+                               int n_ops, const void* ops_i, void* U_out, int batch, int Nm,
+                               int T, int p1, int chunk_len, int n_chunks, float alpha,
+                               float one_minus_alpha, float stop_tol, int z_update,
+                               const void* coeffs, int n_sets, int q, int n_cons_iters,
+                               int k_split, void* stream) {
+  if (Nm <= 0 || p1 != 2 || (T != 8 && T != 16) || batch <= 0 || batch % T != 0 ||
+      n_ops < 0 || n_ops % kBlock != 0 || chunk_len < 0 || n_chunks < 0 ||
+      n_cons_iters < 0 || (k_split != 1 && k_split != 2))
     return static_cast<int>(cudaErrorInvalidValue);
+  const Problem P{static_cast<const float*>(bounds), static_cast<const float*>(U_base),
+                  static_cast<const float*>(ops_f), static_cast<const int*>(ops_i),
+                  static_cast<float*>(U_out), Nm, n_ops, chunk_len, n_chunks, alpha,
+                  one_minus_alpha, stop_tol};
   const float* c = static_cast<const float*>(coeffs);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (z_update == 0 && p1 == 2) {
-    const Diamond zu{c[0], c[1], c[2]};
-    return launch<2>(bounds, U_base, W, U_out, batch, Nm, T, chunk_len, n_chunks, alpha,
-                     one_minus_alpha, stop_tol, zu, s);
-  }
-  if (z_update == 1 && p1 == 2 && n_sets == 2 && q == 3) {
-    return launch<2>(bounds, U_base, W, U_out, batch, Nm, T, chunk_len, n_chunks, alpha,
-                     one_minus_alpha, stop_tol, unpack_consensus<2, 2, 3>(c, n_cons_iters), s);
-  }
+  if (z_update == 0) return launch(P, batch, T, k_split, Diamond{c[0], c[1], c[2]}, s);
+  if (z_update == 1 && n_sets == 2 && q == 3)
+    return launch(P, batch, T, k_split, unpack_consensus<2, 2, 3>(c, n_cons_iters), s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,6 +1,6 @@
 // Warp-level 3xTF32 (and 6xTF32) products on Hopper's tensor cores, and
-// the fragment-layout helpers around them, shared by csrc/admm_box.cu and
-// csrc/admm_u_only.cu.
+// the fragment-layout helpers around them, shared by csrc/admm_box.cu,
+// csrc/admm_u_only.cu and csrc/sls_admm.cu.
 //
 // Products are `mma.sync.m16n8k8` in TF32 with instances as M, output
 // columns as N and the reduction as K. TF32 keeps 11 bits of an f32
@@ -188,6 +188,21 @@ __device__ __forceinline__ void product_nb(float (&acc)[2][MT][4], int nb, const
 // Accumulator element i of m-tile mt sits at row 16 mt + g + 8 (i / 2),
 // column 2 t + i % 2 of the n-tile.
 __device__ __forceinline__ int frag_row(int mt, int i, int g) { return 16 * mt + g + 8 * (i >> 1); }
+
+// s = z - l of the thread's accumulator tile into an A buffer at columns
+// c0 + 2 t + e (c0 a multiple of 8); `buf` points at the piece's first
+// row, and the buffer's 8-column groups are LDA floats apart
+template <int LDA, int MW>
+__device__ __forceinline__ void store_piece_s(float* buf, int c0, int g, int t,
+                                              const float (&z)[MW][4],
+                                              const float (&l)[MW][4]) {
+  float* p = buf + (c0 / 8) * LDA + 8 * g;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int mt = 0; mt < MW; ++mt)
+      p[8 * frag_row(mt, i, 0) + a_pos(2 * t + (i & 1))] = sub(z[mt][i], l[mt][i]);
+}
 
 // z = clip(alpha v + (1 - alpha) z + l, lo, hi); l = (l + v) - z, with
 // lo[c + e], hi[c + e] the bounds of the thread's column c + e (padded

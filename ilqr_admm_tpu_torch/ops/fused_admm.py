@@ -248,7 +248,7 @@ def admm_u_only(
     _check_inputs(u_base, x_base, W_u, W_x, lo, hi, batch_tile)
     Nm, Nd = W_x.shape
     _check_packed(packed, u_base, (-(-Nm // 16) + -(-Nd // 16), 4),
-                  "pack_u_only_operators(W_u, W_x)", Nm=Nm, Nd=Nd)
+                  "pack_u_only_operators(W_u, W_x)", f"Nm={Nm}, Nd={Nd}")
     kw = dict(
         n_iters=n_iters, refresh_every=refresh_every, alpha=alpha,
         polish_iters=polish_iters, stop_tol=stop_tol, check_every=check_every,
@@ -530,9 +530,10 @@ def admm_box_reference(
     return x, u, z_x, z_u
 
 
-def _check_packed(packed, ref, ints_shape, origin, Nm, Nd):
+def _check_packed(packed, ref, ints_shape, origin, shapes):
     """packed: the pair (ops_f, ops_i) of `origin`, on ref's device, in
-    (ref's dtype, int32), ops_i of ints_shape."""
+    (ref's dtype, int32), ops_i of ints_shape; shapes names the operators'
+    shapes in the message."""
     if not (isinstance(packed, tuple) and len(packed) == 2
             and all(isinstance(t, torch.Tensor) for t in packed)):
         raise TypeError(f"packed must be the pair (ops_f, ops_i) of {origin}")
@@ -544,7 +545,7 @@ def _check_packed(packed, ref, ints_shape, origin, Nm, Nd):
         raise TypeError(f"packed must be ({ref.dtype}, torch.int32), got "
                         f"({ops_f.dtype}, {ops_i.dtype})")
     if ops_f.ndim != 1 or ops_f.numel() % 64 or tuple(ops_i.shape) != ints_shape:
-        raise ValueError(f"packed does not have the shapes of {origin} at Nm={Nm}, Nd={Nd}")
+        raise ValueError(f"packed does not have the shapes of {origin} at {shapes}")
     if not (ops_f.is_contiguous() and ops_i.is_contiguous()):
         raise ValueError("packed must be contiguous")
 
@@ -576,7 +577,8 @@ def admm_box(
     batch, Nd = free.shape
     Nm = u_base.shape[1]
     warps = _box_warps(-(-Nm // _BOX_BLOCK), -(-Nd // _BOX_BLOCK))
-    _check_packed(packed, free, (warps, _BOX_SCHED), "pack_box_operators(W_s, SuT)", Nm, Nd)
+    _check_packed(packed, free, (warps, _BOX_SCHED), "pack_box_operators(W_s, SuT)",
+                  f"Nm={Nm}, Nd={Nd}")
     kw = dict(n_iters=n_iters, alpha=alpha, has_u=has_u, batch_tile=batch_tile)
     device = free.device
     if device.type == "cpu":

@@ -10,7 +10,8 @@ them is three hand-written CUDA kernels in `csrc/riccati_scan.cu`:
    nb * L, into (L, rows, nb) slabs: element t = b * L + j sits in lane b
    at step j, so lanes are the fastest axis;
 2. `riccati_scan`: the reverse suffix scan inside each of the nb blocks,
-   r[j] = e_j o ... o e_{L-1} (replaces `_scan_kernel`);
+   r[j] = e_j o ... o e_{L-1} (replaces `_scan_kernel`), a chunked warp
+   scan on the card (one warp a lane, `SCAN_CHUNKS` chunks of its steps);
 3. `riccati_level2`: the exclusive suffixes S_b of the nb block totals
    r[0], as (eta, J) slabs (replaces the XLA scan between the kernels);
 4. `riccati_join`: (eta, J) of r[j] o S_b for every element (replaces
@@ -43,6 +44,11 @@ level2_launch_count = 0
 join_launch_count = 0
 
 _F32 = torch.float32
+
+# Chunks of a lane's L steps in `riccati_scan_kernel`: one a thread of the
+# lane's warp. `riccati_scan_reference(..., chunks=SCAN_CHUNKS)` replays
+# the kernel's order of combines.
+SCAN_CHUNKS = 32
 
 
 def comp_rows(d: int) -> tuple[int, ...]:
@@ -115,19 +121,69 @@ def _ptrs(tensors):
 # ---- level 1: csrc/riccati_scan.cu, riccati_scan_kernel ---------------------
 
 
-def riccati_scan_reference(A, b, C, eta, J):
-    """Plain torch version of the level-1 scan: the reverse loop over the
-    L steps, each one combine batched over the nb lanes. Returns the five
-    local-suffix slabs r[j] = e_j o ... o e_{L-1}, shaped as the inputs."""
+def _where(mask, new, old):
+    """Element tuples: new where mask (leading dims), else old."""
+    return tuple(torch.where(mask.reshape(mask.shape + (1,) * (n.ndim - mask.ndim)), n, o)
+                 for n, o in zip(new, old))
+
+
+def riccati_scan_reference(A, b, C, eta, J, chunks=None):
+    """Plain torch version of the level-1 scan. Returns the five
+    local-suffix slabs r[j] = e_j o ... o e_{L-1}, shaped as the inputs.
+
+    chunks=None: the reverse loop over the L steps, each one combine
+    batched over the nb lanes. chunks=k: the kernel's order (k =
+    `SCAN_CHUNKS` a warp): each lane's steps cut into k chunks of
+    ceil(L / k), each chunk folded with its latest element innermost,
+    an inclusive suffix over the k chunk totals in Hillis-Steele rounds
+    (after the round with offset o, total c covers chunks c .. c + 2o -
+    1), then each chunk walked backwards from the suffix of the later
+    chunks; every step is batched over lanes and chunks.
+    """
     slabs = (A, b, C, eta, J)
     L, d, nb = A.shape[0], b.shape[1], A.shape[2]
-    carry = _identity_elems((nb,), d, A.dtype, A.device)
     out = [torch.empty_like(x) for x in slabs]
+
+    def emit(j, x):
+        for o, c in zip(out, x):
+            o[j] = c.reshape(x[0].shape[0], -1).T
+
     with full_f32_matmul():
-        for j in range(L - 1, -1, -1):
-            carry = _combine(_lanes(tuple(x[j] for x in slabs), d), carry, fast_inverse=True)
-            for o, c in zip(out, carry):
-                o[j] = c.reshape(nb, -1).T
+        if chunks is None:
+            carry = _identity_elems((nb,), d, A.dtype, A.device)
+            for j in range(L - 1, -1, -1):
+                carry = _combine(_lanes(tuple(x[j] for x in slabs), d), carry,
+                                 fast_inverse=True)
+                emit(j, carry)
+            return tuple(out)
+        if isinstance(chunks, bool) or not isinstance(chunks, int) or chunks < 1:
+            raise ValueError(f"chunks must be None or a positive int, got {chunks!r}")
+        size = -(-L // chunks)
+        ident = _identity_elems((chunks, nb), d, A.dtype, A.device)
+        starts = torch.arange(chunks, device=A.device) * size
+        # element k of every chunk, (chunks, nb, ...), and where it exists
+        def step(k):
+            j = torch.clamp(starts + k, max=L - 1)
+            return _lanes(tuple(x[j] for x in slabs), d), starts + k < L
+
+        total = ident
+        for k in range(size - 1, -1, -1):
+            e, valid = step(k)
+            total = _where(valid, _combine(e, total, fast_inverse=True), total)
+        o = 1
+        while o < chunks:
+            later = tuple(torch.cat([x[o:], ix[:o]]) for x, ix in zip(total, ident))
+            comb = _combine(total, later, fast_inverse=True)
+            total = _where(torch.arange(chunks, device=A.device) + o < chunks, comb, total)
+            o *= 2
+        x = tuple(torch.cat([t[1:], ix[:1]]) for t, ix in zip(total, ident))
+        for k in range(size - 1, -1, -1):
+            e, valid = step(k)
+            x = _where(valid, _combine(e, x, fast_inverse=True), x)
+            for c in range(chunks):
+                j = c * size + k
+                if j < L:
+                    emit(j, tuple(v[c] for v in x))
     return tuple(out)
 
 
@@ -135,8 +191,9 @@ def riccati_scan(A, b, C, eta, J):
     """Level-1 reverse suffix scan within each lane of (L, rows, nb) f32
     slabs; returns the five local-suffix slabs.
 
-    CUDA tensors go to the kernel in `csrc/riccati_scan.cu`; CPU tensors
-    to `riccati_scan_reference`.
+    CUDA tensors go to the kernel in `csrc/riccati_scan.cu`, one warp a
+    lane, held to `riccati_scan_reference(..., chunks=SCAN_CHUNKS)`; CPU
+    tensors to `riccati_scan_reference` (the sequential loop).
     """
     global scan_launch_count
     slabs = (A, b, C, eta, J)

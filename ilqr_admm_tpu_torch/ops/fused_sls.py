@@ -20,9 +20,12 @@ from Z = U_base, L = 0. P is either the exact projection of each row
 intersection of second-order cones {phi : A_i phi + b_i in SOC}, with
 b_i = b_fixed_i + bound * b_bound_i (z_update="consensus").
 
-Every product is plain f32. The TPU kernel's `gemm_precision="bf16x3"`
-is a workaround for Mosaic, which rejects `Precision.HIGH`, and was
-measured insufficient at N = 100; it is not carried.
+The kernel takes (Z - L) @ W on the tensor cores in 3xTF32, f32-accurate
+products (`utils/precision.py::tf32x3_matmul` emulates them, and
+`sls_admm_reference(..., products="tf32x3")` replays the loop with
+them). The TPU kernel's `gemm_precision="bf16x3"` is a workaround for
+Mosaic, which rejects `Precision.HIGH`, and was measured insufficient at
+N = 100; it is not carried.
 """
 
 from __future__ import annotations
@@ -31,25 +34,25 @@ import numpy as np
 import torch
 from torch import nn
 
+from ilqr_admm_tpu_torch.ops.fused_admm import _check_packed, pair_pack
 from ilqr_admm_tpu_torch.ops.lifted import build_Su, build_Sx
 from ilqr_admm_tpu_torch.problem import QuadCost, host_f64
 from ilqr_admm_tpu_torch.solvers.lqt import block_diag_stacked, broadcast_rho, lqt_solve_sls
 from ilqr_admm_tpu_torch.utils.device import resolve_device
-from ilqr_admm_tpu_torch.utils.precision import full_f32_matmul
+from ilqr_admm_tpu_torch.utils.precision import full_f32_matmul, tf32x3_matmul
 
 # Number of times `sls_admm` has launched its CUDA kernel in this process.
 launch_count = 0
 
 _EPS = 1e-30
 
-# Kernel geometry, as in csrc/sls_admm.cu: each thread owns a 2 x 4
-# (instances x controls) tile in every slab; a block holds at most 512
-# threads and stages W, U_base and two copies of the tile's s in shared
-# memory.
-_ROWS = 2
-_COLS = 4
-_MAX_THREADS = 512
-_MAX_SMEM = 232448 - 16  # an H100 block's 227 KB, less the kernel's static word
+# Kernel geometry, as in csrc/sls_admm.cu: a block owns 8 or 16
+# instances, whose 2 slabs make one or two m16n8k8 row tiles; one warp a
+# piece of W's 8-column n-tiles (`sls_pieces`), at most 16; it stages W
+# (room for all its 8 x 8 blocks) and two s buffers in shared memory.
+_TILES = (8, 16)
+_MAX_WARPS = 16
+_MAX_SMEM = 232448 - 16  # an H100 block's 227 KB, less the kernel's static words
 
 # The (p1, n_sets, q) of the consensus z-updates that csrc/sls_admm.cu
 # instantiates; the diamond z-update is built for p1 = 2.
@@ -57,31 +60,69 @@ CONSENSUS_SHAPES = ((2, 2, 3),)
 Z_UPDATES = ("consensus", "diamond")
 
 
-def launch_geometry(batch_tile: int, Nm: int, p1: int) -> tuple[int, int]:
+def sls_row(b: int, p: int) -> int:
+    """Row of (instance b, slab p) in a tile's s and in its accumulators,
+    in `csrc/sls_admm.cu`: slab-major inside each 16-row m-tile, so rows
+    0-7 of m-tile b // 8 are slab 0 of its eight instances and rows 8-15
+    slab 1 of the same eight."""
+    return 16 * (b // 8) + 8 * p + b % 8
+
+
+def sls_pieces(batch_tile: int, Nm: int) -> list[tuple[int, int, int]]:
+    """Each warp's piece of the loop's product in `csrc/sls_admm.cu`, in
+    warp order: (row of W's pair table, m-tile, m-tiles = 1). The 2
+    batch_tile rows are batch_tile / 8 m-tiles; each pair of W's 8-column
+    n-tiles is cut into one piece an m-tile, then the last single n-tile
+    (when Nm / 8 rounds up to an odd count) likewise: at batch_tile 8 and
+    Nm = 100, six pairs and the single, 7 warps (14 at 16). A piece is one
+    m-tile, so each thread's rows belong to one instance."""
+    mt, n1 = batch_tile // 8, -(-Nm // 8)
+    pieces = [(p, m, 1) for p in range(n1 // 2) for m in range(mt)]
+    return pieces + [(n1 // 2, m, 1) for m in range(mt if n1 % 2 else 0)]
+
+
+def k_split(batch: int, batch_tile: int, Nm: int, sms: int) -> int:
+    """Warps a piece of the product in `csrc/sls_admm.cu`: 2 (each piece's
+    k range on two warps, which hand their partial sums over through
+    shared memory) when the fleet has at most one block an SM, where one
+    block's chain of dependent mma sets the time, and the doubled block
+    fits in 16 warps (the kernel splits only 8-instance tiles); else 1,
+    where blocks sharing an SM hide each other's latency and the split's
+    second barrier and sums only cost (tools/sls_admm_variants.py times
+    both)."""
+    fits = batch_tile == 8 and 2 * len(sls_pieces(batch_tile, Nm)) <= _MAX_WARPS
+    return 2 if fits and batch // batch_tile <= sms else 1
+
+
+def launch_geometry(batch_tile: int, Nm: int, p1: int, k_split: int = 1) -> tuple[int, int]:
     """(threads, dynamic shared-memory bytes) of one kernel block.
 
-    Raises ValueError when the tile cannot be launched: batch_tile must
-    be a multiple of 2, the block must fit in 512 threads, and W, U_base
-    and two copies of the tile's s must fit in shared memory.
+    Raises ValueError when the tile cannot be launched: p1 must be 2
+    (the slab-major rows pair du with phi in a thread), batch_tile 8 or
+    16 (whole m16n8k8 row tiles), the block's pieces (each on k_split
+    warps) must fit in 16 warps, and W with two copies of the tile's s
+    must fit in shared memory.
     """
-    if batch_tile < _ROWS or batch_tile % _ROWS:
-        raise ValueError(f"batch_tile={batch_tile} must be a positive multiple of {_ROWS}")
-    col_groups = -(-Nm // _COLS)
-    threads = (batch_tile // _ROWS) * col_groups
-    if threads > _MAX_THREADS:
-        raise ValueError(
-            f"batch_tile={batch_tile} at Nm={Nm} needs {threads} threads per block; "
-            f"the kernel takes at most {_MAX_THREADS}, so batch_tile <= "
-            f"{_ROWS * (_MAX_THREADS // col_groups)}"
-        )
-    ldw = col_groups * _COLS
-    smem = 4 * (Nm * ldw + p1 * ldw + 2 * Nm * batch_tile * p1)
+    if p1 != 2:
+        raise ValueError(f"the kernel takes p1 = 2 slabs (robust_dim 1), got p1 = {p1}")
+    if batch_tile not in _TILES:
+        raise ValueError(f"batch_tile={batch_tile}: the kernel takes "
+                         f"{' or '.join(map(str, _TILES))} instances a block")
+    warps = len(sls_pieces(batch_tile, Nm)) * k_split
+    if k_split == 2 and batch_tile != 8:
+        raise ValueError(f"the kernel splits the pieces of 8-instance tiles only, got {batch_tile}")
+    if warps > _MAX_WARPS:
+        raise ValueError(f"Nm={Nm} with batch_tile={batch_tile} needs {warps} warps per block; "
+                         f"the kernel takes at most {_MAX_WARPS}")
+    n1 = -(-Nm // 8)
+    smem = 4 * (64 * n1 * n1 + 2 * (p1 * batch_tile) * 8 * n1
+                + (32 * 4 * warps if k_split == 2 else 0))
     if smem > _MAX_SMEM:
         raise ValueError(
-            f"Nm={Nm} with batch_tile={batch_tile} and p1={p1} needs {smem} bytes of shared "
-            f"memory to stage W, U_base and the tile's iterate; the limit is {_MAX_SMEM} bytes"
+            f"Nm={Nm} with batch_tile={batch_tile} needs {smem} bytes of shared memory to "
+            f"stage W and the tile's iterate; the limit is {_MAX_SMEM} bytes"
         )
-    return threads, smem
+    return 32 * warps, smem
 
 
 def _schedule(n_iters: int, stop_tol: float, check_every: int) -> tuple[int, int]:
@@ -224,7 +265,7 @@ def _check_inputs(bounds, U_base, W, batch_tile):
 def sls_admm_reference(
     bounds, U_base, W, *, n_iters, n_cons_iters=20, alpha=1.0, cons_rho=10.0, stop_tol=0.0,
     check_every=8, batch_tile=8, z_update="consensus", diamond_w=None, soc_A=(),
-    soc_b_fixed=(), soc_b_bound=(), l_inv_cons=None,
+    soc_b_fixed=(), soc_b_bound=(), l_inv_cons=None, products="f32",
 ):
     """Plain torch version of the kernel, in f32 or f64, on any device.
 
@@ -233,7 +274,19 @@ def sls_admm_reference(
     With stop_tol > 0 the residual of a chunk is the max over the tile
     of |U - Z| and |Z - Z_prev| at the chunk's last iteration; a NaN
     residual stops the tile. Returns U (batch, Nm, p1).
+
+    products: "f32" (full f32 matmuls) or "tf32x3", the product
+    (Z - L) @ W as the kernel's tensor cores take it (`tf32x3_matmul`;
+    float32 only). The z-update and the dual update are the same in both.
     """
+    if products == "f32":
+        matmul = torch.matmul
+    elif products == "tf32x3":
+        if W.dtype != torch.float32:
+            raise TypeError(f'products="tf32x3" takes float32, got {W.dtype}')
+        matmul = tf32x3_matmul
+    else:
+        raise ValueError(f'products must be "f32" or "tf32x3", got {products!r}')
     chunk_len, n_chunks = _schedule(n_iters, stop_tol, check_every)
     batch = bounds.shape[0]
     p1, Nm = U_base.shape
@@ -253,7 +306,7 @@ def sls_admm_reference(
             return torch.stack(_consensus_project(list(Y), bound, **cons))
 
     def step(Z, L):
-        U = ub + (Z - L) @ W
+        U = ub + matmul(Z - L, W)
         Z_new = project(alpha * U + (1.0 - alpha) * Z + L)
         return Z_new, L + U - Z_new, U
 
@@ -309,23 +362,31 @@ def kernel_z_update(p1, z_update, diamond_w, soc_A, soc_b_fixed, soc_b_bound, l_
 
 
 def sls_admm(
-    bounds, U_base, W, *, n_iters, n_cons_iters=20, alpha=1.0, cons_rho=10.0, stop_tol=0.0,
-    check_every=8, batch_tile=8, z_update="consensus", diamond_w=None, soc_A=(),
+    bounds, U_base, W, packed, *, n_iters, n_cons_iters=20, alpha=1.0, cons_rho=10.0,
+    stop_tol=0.0, check_every=8, batch_tile=8, z_update="consensus", diamond_w=None, soc_A=(),
     soc_b_fixed=(), soc_b_bound=(), l_inv_cons=None,
 ):
     """Run the robust SLS-ADMM loop on a fleet; returns U (batch, Nm, p1).
 
     bounds (batch,): the per-instance scenario bound; U_base (p1, Nm):
     the unconstrained x-update, shared by every instance; W (Nm, Nm):
-    the response to s = Z - L. batch must be a multiple of batch_tile.
-    The z-update options are those of `make_fused_sls_admm`; soc_* and
-    l_inv_cons are float64 numpy arrays.
+    the response to s = Z - L; packed: (ops_f, ops_i) = `pair_pack(W)`,
+    W in the kernel's storage (the solver packs it once, at setup).
+    batch must be a multiple of batch_tile. The z-update options are
+    those of `make_fused_sls_admm`; soc_* and l_inv_cons are float64
+    numpy arrays.
 
-    CUDA tensors (float32) go to the kernel in `csrc/sls_admm.cu`; CPU
-    tensors go to `sls_admm_reference`. Any other device raises.
+    CUDA tensors (float32) go to the kernel in `csrc/sls_admm.cu`, which
+    reads only the packed W, takes batch_tile 8 or 16 (see
+    `launch_geometry`; `k_split` chooses its warps) and runs its products
+    on the tensor cores in 3xTF32, held to `sls_admm_reference(...,
+    products="tf32x3")`. CPU tensors go to `sls_admm_reference` with f32
+    products, which reads only the dense W. Any other device raises.
     """
     global launch_count
     _check_inputs(bounds, U_base, W, batch_tile)
+    Nm = W.shape[0]
+    _check_packed(packed, W, (-(-Nm // 16), 4), "pair_pack(W)", f"Nm={Nm}")
     kw = dict(
         n_iters=n_iters, n_cons_iters=n_cons_iters, alpha=alpha, cons_rho=cons_rho,
         stop_tol=stop_tol, check_every=check_every, batch_tile=batch_tile, z_update=z_update,
@@ -342,7 +403,9 @@ def sls_admm(
     chunk_len, n_chunks = _schedule(n_iters, stop_tol, check_every)
     batch = bounds.shape[0]
     p1, Nm = U_base.shape
-    launch_geometry(batch_tile, Nm, p1)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    split = k_split(batch, batch_tile, Nm, sms)
+    launch_geometry(batch_tile, Nm, p1, split)
     mode, coeffs, n_sets, q = kernel_z_update(
         p1, z_update, diamond_w, soc_A, soc_b_fixed, soc_b_bound, l_inv_cons, cons_rho
     )
@@ -350,14 +413,15 @@ def sls_admm(
     from ilqr_admm_tpu_torch._build import load_library
 
     lib = load_library()
+    ops_f, ops_i = packed
     U = torch.empty((batch, Nm, p1), dtype=W.dtype, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.sls_admm_launch(
-            bounds.data_ptr(), U_base.data_ptr(), W.data_ptr(), U.data_ptr(),
-            batch, Nm, batch_tile, p1, chunk_len, n_chunks,
+            bounds.data_ptr(), U_base.data_ptr(), ops_f.data_ptr(), ops_f.numel(),
+            ops_i.data_ptr(), U.data_ptr(), batch, Nm, batch_tile, p1, chunk_len, n_chunks,
             float(alpha), float(1.0 - alpha), float(stop_tol),
-            mode, coeffs.ctypes.data, n_sets, q, int(n_cons_iters), stream,
+            mode, coeffs.ctypes.data, n_sets, q, int(n_cons_iters), split, stream,
         )
     if err != 0:
         msg = lib.sls_admm_error_string(err).decode()
@@ -370,8 +434,9 @@ class FusedSLSADMM(nn.Module):
     """Batched robust SLS-ADMM solver for one problem and z-update.
 
     Holds the one-time operators as buffers (PHI_unc (Nm, Nd), U_base
-    (p1, Nm), W (Nm, Nm)); `forward(bounds (batch,))` returns (du (batch,
-    Nm), phi_u (batch, Nm, Nd), U (batch, Nm, p1)) like the JAX `solve`.
+    (p1, Nm), W (Nm, Nm) and W packed for the kernel, ops_f and ops_i);
+    `forward(bounds (batch,))` returns (du (batch, Nm), phi_u (batch, Nm,
+    Nd), U (batch, Nm, p1)) like the JAX `solve`.
     """
 
     def __init__(self, operators: dict, robust_dim: int, **kernel_options):
@@ -381,9 +446,14 @@ class FusedSLSADMM(nn.Module):
         self.robust_dim = robust_dim
         self.kernel_options = kernel_options
 
+    @property
+    def packed(self):
+        """(ops_f, ops_i): W in the kernel's storage (`pair_pack`)."""
+        return self.ops_f, self.ops_i
+
     def forward(self, bounds):
         bounds = torch.as_tensor(bounds).to(self.W.device, self.W.dtype).contiguous()
-        U = sls_admm(bounds, self.U_base, self.W, **self.kernel_options)
+        U = sls_admm(bounds, self.U_base, self.W, self.packed, **self.kernel_options)
         p = self.robust_dim
         phi_u = torch.cat(
             [U[:, :, 1:], self.PHI_unc[:, p:].expand(U.shape[0], -1, -1)], dim=-1
@@ -431,10 +501,9 @@ def make_fused_sls_admm(
     early exit, tested every check_every iterations.
 
     batch_tile is the number of instances one CUDA block owns (and the
-    early-exit group). The default 8 gives the bench batch of 1024 128
-    blocks, about one for each of an H100's 132 SMs; at Nm = 100 the
-    kernel takes at most 40 (see `launch_geometry`). On a CUDA device
-    dtype must be float32.
+    early-exit group). The kernel takes 8 or 16 (see `launch_geometry`);
+    the default 8 gives the bench batch of 1024 128 blocks, about one for
+    each of an H100's 132 SMs. On a CUDA device dtype must be float32.
 
     The problem data are rounded to `dtype`, then the setup (PHI_unc
     from `lqt_solve_sls`, U_base = (l_inv r_base)^T and W = (l_inv Rr)^T)
@@ -507,6 +576,8 @@ def make_fused_sls_admm(
             W=(l_inv @ Rr_l).T,  # (Nm, Nm); U += (Z - L) @ W
         )
     operators = {k: v.to(device=device, dtype=dtype).contiguous() for k, v in operators.items()}
+    # the kernel's storage of W, packed once
+    operators["ops_f"], operators["ops_i"] = pair_pack(operators["W"])
     return FusedSLSADMM(
         operators, robust_dim, n_iters=n_iters, n_cons_iters=n_cons_iters, alpha=alpha,
         cons_rho=cons_rho, stop_tol=float(stop_tol), check_every=int(check_every),

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import chip_smoke
 from ilqr_admm_tpu.ops import parallel_riccati as jp
 from ilqr_admm_tpu.ops.pallas_riccati import lqt_backward_parallel_pallas
 from ilqr_admm_tpu_torch.ops import fused_riccati as tf
@@ -106,6 +107,54 @@ def test_wrappers_match_jax_blocked_suffix_scan():
     for got, w in ((got_eta, want[3]), (got_J, want[4])):
         w = np.asarray(w)
         assert np.abs(got - w).max() / max(1.0, np.abs(w).max()) < 1e-5
+
+
+@pytest.mark.parametrize("N,nb,d,regularized", chip_smoke.RICCATI_CASES)
+def test_chunked_scan_reference_matches_sequential_f64(N, nb, d, regularized):
+    """The kernel's order (32 chunks a lane, a Hillis-Steele suffix over
+    their totals, the walk) is the sequential suffix in another order of
+    combines: in f64 the two agree to rounding, at chip_smoke's shapes
+    (L = 79, a non-divisible N with the regularizers, d = 1-4, L = 1)."""
+    data, reg, _ = chip_smoke.riccati_problem("cpu", N, d, regularized)
+    f64 = lambda x: x.to(torch.float64)  # noqa: E731
+    elems, _, _ = value_elements(*map(f64, data), **{k: f64(v) for k, v in reg.items()},
+                                 fast_inverse=True)
+    slabs = tf.pack_elements(elems, N, d, nb)
+    want = tf.riccati_scan_reference(*slabs)
+    got = tf.riccati_scan_reference(*slabs, chunks=tf.SCAN_CHUNKS)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64 and g.shape == w.shape
+        assert float((g - w).abs().max()) <= 1e-12 * max(1.0, float(w.abs().max()))
+
+
+def test_chunked_scan_in_the_pass_matches_jax_blocked_scan(monkeypatch):
+    """`lqt_backward_parallel_fused` on the CPU with the scan's plain
+    version in the kernel's chunked order: (eta, J) of the three wrappers
+    within test_wrappers_match_jax_blocked_suffix_scan's 1e-5 of the JAX
+    blocked scan (L = 12 in 32 chunks: most are empty), and the gains
+    within the tolerances of the XLA blocked scan."""
+    sequential = tf.riccati_scan_reference
+    monkeypatch.setattr(tf, "riccati_scan_reference",
+                        lambda *slabs: sequential(*slabs, chunks=tf.SCAN_CHUNKS))
+    N, d, nb = 45, 4, 4
+    elems, slabs = _elements(N, d, nb)
+    L = -(-N // nb)
+    comb = lambda a, b: jp._combine(a, b, fast_inverse=True)  # noqa: E731
+    want = jp._blocked_suffix_scan(
+        comb, lambda p: jp._identity_elems(p, d, jnp.float32),
+        tuple(jnp.asarray(x.numpy()) for x in elems), N, L)
+    r = tf.riccati_scan(*slabs)
+    eta, J = tf.riccati_join(*r, *tf.riccati_level2(*r))
+    got_eta = tf._unpack(eta, N, d).numpy()
+    got_J = tf._unpack(J, N, d * d).reshape(N, d, d).numpy()
+    for got, w in ((got_eta, want[3]), (got_J, want[4])):
+        w = np.asarray(w)
+        assert np.abs(got - w).max() / max(1.0, np.abs(w).max()) < 1e-5
+    data, reg = _problem(7, 150, d=3, regularized=True)
+    gains = _port(data, reg, nb=4)
+    _assert_gains_close(gains, jp.lqt_backward_parallel(
+        *map(jnp.asarray, data), **{k: jnp.asarray(v) for k, v in reg.items()},
+        block_size=-(-150 // 4), fast_inverse=True))
 
 
 def test_pack_unpack_round_trip_and_identity_padding():

@@ -12,7 +12,9 @@ import jax.numpy as jnp
 import pytest
 import torch
 from scipy.stats import norm
+from threadpoolctl import threadpool_limits
 
+import chip_smoke
 from ilqr_admm_tpu.models.double_integrator import DoubleIntegrator
 from ilqr_admm_tpu.ops.lifted import build_Su, build_Sx
 from ilqr_admm_tpu.ops.pallas_sls import make_pallas_sls_admm
@@ -23,11 +25,16 @@ from ilqr_admm_tpu_torch.ops import fused_sls
 from ilqr_admm_tpu_torch.ops.fused_sls import (
     _schedule,
     kernel_z_update,
+    k_split,
     launch_geometry,
     make_fused_sls_admm,
     sls_admm,
     sls_admm_reference,
+    sls_pieces,
+    sls_row,
 )
+from ilqr_admm_tpu_torch.ops.fused_admm import pair_pack
+from ilqr_admm_tpu_torch.utils.certify import certify_sls, sls_gate_failures
 
 torch.set_num_threads(2)
 
@@ -231,7 +238,8 @@ def test_nonconvergent_early_exit_stops_on_nan():
 
 def test_zero_iterations_return_u_base():
     U_base = torch.arange(12.0).reshape(2, 6)
-    U = sls_admm(torch.full((4,), 2.0), U_base, torch.eye(6), n_iters=0, batch_tile=2, **DIAMOND)
+    U = sls_admm(torch.full((4,), 2.0), U_base, torch.eye(6), pair_pack(torch.eye(6)), n_iters=0,
+                 batch_tile=2, **DIAMOND)
     assert torch.equal(U, U_base.T.expand(4, 6, 2))
 
 
@@ -290,17 +298,21 @@ def test_kernel_z_update_packing():
 
 def test_wrapper_checks_its_inputs():
     bounds, U_base, W = torch.full((4,), 2.0), torch.ones(2, 6), torch.eye(6)
+    packed = pair_pack(W)
     kw = dict(n_iters=5, batch_tile=2, **DIAMOND)
-    assert torch.equal(sls_admm(bounds, U_base, W, **kw),
+    assert torch.equal(sls_admm(bounds, U_base, W, packed, **kw),
                        sls_admm_reference(bounds, U_base, W, **kw))
     with pytest.raises(ValueError, match="contiguous"):
-        sls_admm(bounds, U_base, torch.eye(6)[:, ::1].T.contiguous().T, **kw)
+        sls_admm(bounds, U_base, torch.eye(6)[:, ::1].T.contiguous().T, packed, **kw)
     with pytest.raises(TypeError, match="float64"):
-        sls_admm(bounds, U_base.double(), W, **kw)
+        sls_admm(bounds, U_base.double(), W, packed, **kw)
     with pytest.raises(ValueError, match="shape"):
-        sls_admm(bounds, U_base, torch.eye(5), **kw)
+        sls_admm(bounds, U_base, torch.eye(5), packed, **kw)
+    with pytest.raises(ValueError, match="pair_pack"):
+        sls_admm(bounds, U_base, W, (packed[0], packed[1][:, :3]), **kw)
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        sls_admm(*(t.to("meta") for t in (bounds, U_base, W)), **kw)
+        sls_admm(*(t.to("meta") for t in (bounds, U_base, W)),
+                 tuple(t.to("meta") for t in packed), **kw)
 
 
 def test_cpu_tensors_do_not_launch_the_kernel():
@@ -313,11 +325,135 @@ def test_cpu_tensors_do_not_launch_the_kernel():
 
 
 def test_launch_geometry_limits():
-    assert launch_geometry(8, 100, 2) == (100, 4 * (100 * 100 + 2 * 100 + 2 * 100 * 8 * 2))
-    assert launch_geometry(32, 100, 2)[0] == 400
-    with pytest.raises(ValueError, match="multiple of 2"):
-        launch_geometry(5, 100, 2)
-    with pytest.raises(ValueError, match="batch_tile <= 40"):
-        launch_geometry(64, 100, 2)
+    """Seven warps (six pairs of n-tiles and the single) at the bench's
+    tile of 8, fourteen at 16 or with the k range split; W's 13 x 13
+    blocks, two s buffers of 2 batch_tile rows and, with the split, a
+    slot of 4 floats a thread, in shared memory."""
+    assert launch_geometry(8, 100, 2) == (224, 4 * (64 * 13 * 13 + 2 * 16 * 8 * 13))
+    assert launch_geometry(16, 100, 2)[0] == 448
+    assert launch_geometry(8, 100, 2, k_split=2) == (
+        448, 4 * (64 * 13 * 13 + 2 * 16 * 8 * 13 + 4 * 448))
+    with pytest.raises(ValueError, match="8-instance tiles only"):
+        launch_geometry(16, 100, 2, k_split=2)
+    with pytest.raises(ValueError, match="8 or 16"):
+        launch_geometry(4, 100, 2)
+    with pytest.raises(ValueError, match="p1 = 2"):
+        launch_geometry(8, 100, 3)
+    with pytest.raises(ValueError, match="17 warps"):
+        launch_geometry(8, 264, 2)
     with pytest.raises(ValueError, match="shared memory"):
-        launch_geometry(2, 240, 2)
+        launch_geometry(8, 240, 2)
+
+
+@pytest.mark.parametrize("batch_tile", [8, 16])
+def test_kernel_rows_pair_both_slabs_in_a_thread(batch_tile):
+    """The kernel's tile layout: `sls_row` puts the 2 batch_tile (instance,
+    slab) rows slab-major in each 16-row m-tile, once each, and in the
+    m16n8k8 accumulator layout (element i of m-tile mt at row 16 mt + g +
+    8 (i // 2), column 2 t + i % 2, tf32x3.cuh's frag_row) every lane
+    holds both slabs of each instance and column it holds; the warps'
+    pieces (`sls_pieces`) cover every (m-tile, n-tile) once."""
+    rows = {sls_row(b, p): (b, p) for b in range(batch_tile) for p in range(2)}
+    assert sorted(rows) == list(range(2 * batch_tile))
+    for mt in range(batch_tile // 8):
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            held = {}
+            for i in range(4):
+                b, p = rows[16 * mt + g + 8 * (i // 2)]
+                held.setdefault((b, 2 * t + i % 2), set()).add(p)
+            assert all(slabs == {0, 1} for slabs in held.values())
+            assert {b for b, _ in held} == {8 * mt + g}
+    Nm = 100
+    seen = np.zeros((batch_tile // 8, -(-Nm // 8)), dtype=int)
+    for pr, m0, mw in sls_pieces(batch_tile, Nm):
+        n_tiles = min(2, seen.shape[1] - 2 * pr)
+        seen[m0:m0 + mw, 2 * pr:2 * pr + n_tiles] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("batch,batch_tile,Nm,want", [
+    (1024, 8, 100, 2),  # the bench: 128 blocks on 132 SMs, 14 warps
+    (1056, 8, 100, 2),  # one block an SM
+    (1064, 8, 100, 1),  # more blocks than SMs
+    (16384, 8, 100, 1),
+    (64, 16, 100, 1),  # 16-instance tiles are not split
+    (64, 8, 136, 1),  # 18 warps would not fit in 16
+])
+def test_k_split_takes_two_warps_a_piece_at_one_block_an_sm(batch, batch_tile, Nm, want):
+    """The wrapper's choice of warps a piece: the k split where the fleet
+    leaves at most one block on each of an H100's 132 SMs and the doubled
+    block fits; the launch geometry then takes it."""
+    assert k_split(batch, batch_tile, Nm, 132) == want
+    threads, _ = launch_geometry(batch_tile, Nm, 2, want)
+    assert threads == 32 * want * len(sls_pieces(batch_tile, Nm))
+
+
+def _serving_solver(mode, batch=16):
+    """chip_smoke's SLS solver on the CPU in one of its modes, at the
+    bench's width, and its sorted fleet of `batch` bounds."""
+    (A, B, cost), solver = chip_smoke.sls_solver("cpu", mode)
+    return (A, B, cost), solver, chip_smoke.sls_bounds("cpu", batch=batch, sort=True)
+
+
+@pytest.mark.parametrize("mode", chip_smoke.SLS_MODES)
+def test_tf32x3_products_pass_the_sls_certificates(mode):
+    """The plain version with the kernel's 3xTF32 products at the bench's
+    width (N = 100, 16 instances, 2 oracle instances): the diamond modes
+    pass the gates of bench_pallas_sls.py:194-197, and the iterate stays
+    within the kernel's tolerance of the f32 plain version. The bench
+    gates only the diamond paths: the consensus iterate's 30-iteration
+    inner projection holds its median oracle gap at 3.0e-4 in f32 and f64
+    too, so there it must meet the other two gates. The oracle runs on
+    one BLAS thread: the workers of a parallel test run share the cores."""
+    (A, B, cost), solver, bounds = _serving_solver(mode)
+    kw = solver.kernel_options
+    U3 = sls_admm_reference(bounds, solver.U_base, solver.W, **kw, products="tf32x3")
+    U = sls_admm_reference(bounds, solver.U_base, solver.W, **kw)
+    err = float((U3 - U).abs().max())
+    assert 0.0 < err <= chip_smoke.SLS_FIXED_TOL * max(1.0, float(U.abs().max()))
+    with threadpool_limits(1):
+        cert = certify_sls(A, B, cost, bounds, U3, C_COEF, n_oracle=2)
+    assert cert["converged_frac"] == 1.0
+    failures = sls_gate_failures(cert)
+    if mode == "consensus":
+        assert [f.split()[0] for f in failures] == ["cost_gap_median"]
+        assert cert["cost_gap_max"] <= 1e-3
+    else:
+        assert failures == []
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_tf32x3_products_match_interpret_pallas(case):
+    """As test_fused_sls_matches_interpret_pallas runs it: the plain
+    version with the kernel's 3xTF32 products stays within 1e-4 x
+    max(1, max|U|) of the f32 one, and within CASES' tolerance of the
+    interpret-mode Pallas kernel, as the f32 one is held."""
+    z_kw, it_kw, (lo, hi), tol = CASES[case]
+    soc = NO_SOC if z_kw else _soc()
+    kw = dict(rho_u=1.0, robust_dim=1, batch_tile=4, **z_kw, **it_kw)
+    A, B, cost = _problem()
+    bounds = _bounds(0, lo=lo, hi=hi, sort="early" in case)
+    _, _, U_p = make_pallas_sls_admm(A, B, cost, *soc, interpret=True, **kw)(jnp.asarray(bounds))
+    solver = make_fused_sls_admm(*_port(A, B, cost), *soc, **kw, device="cpu")
+    ops = (torch.tensor(bounds), solver.U_base, solver.W)
+    U3 = sls_admm_reference(*ops, **solver.kernel_options, products="tf32x3")
+    U = sls_admm_reference(*ops, **solver.kernel_options)
+    assert float((U3 - U).abs().max()) <= 1e-4 * max(1.0, float(U.abs().max()))
+    assert _rel_err(_np(U3), U_p) < tol
+
+
+def test_tf32x3_early_exit_leaves_before_the_fixed_schedule():
+    """The serving configuration (early exit at 3e-3 every 16 iterations,
+    sorted fleet) with the kernel's products: some tiles leave before the
+    fixed schedule's 208 iterations, after as many iterations as with f32
+    products or one chunk apart."""
+    _, solver, bounds = _serving_solver("diamond_ee", batch=32)
+    kw = solver.kernel_options
+    ops = (bounds, solver.U_base, solver.W)
+    iters = {products: chip_smoke.sls_tile_iterations(
+        lambda **o: sls_admm_reference(*ops, **o, products=products), kw, bounds.shape[0])
+        for products in ("tf32x3", "f32")}
+    assert iters["tf32x3"].shape == (4,)
+    assert int(iters["tf32x3"].min()) < 208
+    assert int((iters["tf32x3"] - iters["f32"]).abs().max()) <= kw["check_every"]
