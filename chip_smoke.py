@@ -17,9 +17,10 @@ Drives the port's four paths on the card:
 - the blocked time-parallel LQT Riccati backward pass of
   `benchmarks/bench_parallel_riccati.py` (2-D double integrator, dt =
   0.01, Q = 100 I, R = 0.01 I, N = 10,000, nb = 128 blocks) through
-  `lqt_backward_parallel_fused`, whose scan is the `riccati_scan`,
-  `riccati_level2` and `riccati_join` kernels, then the closed loop from
-  x0 through `rollout_closed_loop_parallel`;
+  `lqt_backward_parallel_fused`, whose scan is the `riccati_scan` and
+  `riccati_join` kernels (the level-2 suffix as the join's prologue, one
+  launch), then the closed loop from x0 through
+  `rollout_closed_loop_parallel`;
 - the control-limited car of `benchmarks/run_all.py:274-329` through the
   nonlinear constrained solver `ilqr_admm` (CarFrontWheel, N = 500, the
   parking cost, |w| <= 0.5, |a| <= 2, rho_u = diag(1e-2, 1e-3), 60 outer
@@ -40,12 +41,14 @@ Phases:
    early-exit and consensus modes, at an odd width and with 16-instance
    tiles, against the plain version with its 3xTF32 products and
    against the f32 one, and the iterations its early-exit tiles ran; the
-   three Riccati kernels (the scan against the plain version in its
-   chunked order, and beside it the sequential one) at N = 10,000 with
-   d = 4, N = 1,001 with nb = 8, d = 3 and the ADMM regularizers, d = 2,
-   d = 1, N = 100 < nb, and N = 10,000 with nb = 32 and 16 (a lane the
-   scan kernel stages in more than 48 KB of shared memory, and one too
-   long to stage);
+   two Riccati kernels (each against the plain version in its order:
+   the scan's chunks, the join's level 2 for 16 lanes a block; beside
+   them the sequential scan and the JAX package's level-2 order) at N =
+   10,000 with d = 4, N = 1,001 with nb = 8, d = 3 and the ADMM
+   regularizers, d = 2, d = 1, N = 100 < nb, N = 10,000 with nb = 32 and
+   16 (a lane the scan kernel stages in more than 48 KB of shared memory,
+   and one too long to stage) and with nb = 1,024 (the join's longest
+   prologue);
    `linesearch_rollout` at N = 500 with 20, 1 and 128 candidates, N = 60,
    N = 37, N = 10,000, and a candidate set with NaN states, bit for bit);
 4. for each path: main path, one fleet solve (one backward pass, one car
@@ -101,13 +104,12 @@ from ilqr_admm_tpu_torch.ops.fused_admm import (
     make_fused_lqt_admm,
 )
 from ilqr_admm_tpu_torch.ops.fused_riccati import (
+    JOIN_GROUP,
     SCAN_CHUNKS,
     lqt_backward_parallel_fused,
     pack_elements,
     riccati_join,
     riccati_join_reference,
-    riccati_level2,
-    riccati_level2_reference,
     riccati_scan,
     riccati_scan_reference,
 )
@@ -207,12 +209,13 @@ RICCATI_PLAIN = (3, 1)
 # (N, nb, state dim, with regularizers): the main width, a non-divisible N
 # with L > nb and the ADMM regularizers on the triple integrator, d = 2 and
 # d = 1, N < nb (L = 1, most lanes identity padding), L = 313, whose lane's
-# elements the scan kernel stages in more than 48 KB of shared memory, and
-# L = 625, too many to stage
+# elements the scan kernel stages in more than 48 KB of shared memory,
+# L = 625, too many to stage, and nb = 1,024 (L = 10), the join's longest
+# level-2 prologue (63 totals a chunk)
 RICCATI_CASES = ((10_000, 128, 4, False), (1_001, 8, 3, True), (500, 16, 2, False),
                  (300, 32, 1, False), (100, 128, 4, False), (10_000, 32, 4, False),
-                 (10_000, 16, 4, False))
-RICCATI_KERNELS = ("riccati_scan", "riccati_level2", "riccati_join")
+                 (10_000, 16, 4, False), (10_000, 1024, 4, False))
+RICCATI_KERNELS = ("riccati_scan", "riccati_join")
 
 # The control-limited car of benchmarks/run_all.py:274-329 through ilqr_admm
 CAR_N = 500
@@ -339,7 +342,6 @@ def reset_launch_counts():
     fused_admm.box_launch_count = 0
     fused_sls.launch_count = 0
     fused_riccati.scan_launch_count = 0
-    fused_riccati.level2_launch_count = 0
     fused_riccati.join_launch_count = 0
     fused_rollout.launch_count = 0
 
@@ -953,29 +955,31 @@ def _max_errs(got, want):
 
 
 def phase_riccati_compare(device):
-    """Each Riccati kernel against its plain version on the same card inputs."""
-    worst = {"riccati_scan": 0.0, "riccati_level2": 0.0, "riccati_join": 0.0}
+    """Each Riccati kernel against its plain version in the kernel's order
+    on the same card inputs; beside it the distance to the plain version
+    in the other order (the sequential scan, the JAX package's level 2)."""
+    worst = {k: 0.0 for k in RICCATI_KERNELS}
     for horizon, nb, d, regularized in RICCATI_CASES:
         slabs = riccati_slabs(device, horizon, nb, d, regularized)
         r = riccati_scan(*slabs)
         torch.cuda.synchronize()
-        S = riccati_level2(*r)
+        out = riccati_join(*r, horizon)
         torch.cuda.synchronize()
-        out = riccati_join(*r, *S)
-        torch.cuda.synchronize()
-        for t in (*r, *S, *out):
+        for t in (*r, *out):
             check(bool(torch.isfinite(t).all()), f"riccati N={horizon}: non-finite kernel output")
         errs = {
             "riccati_scan": _max_errs(r, riccati_scan_reference(*slabs, chunks=SCAN_CHUNKS)),
-            "riccati_level2": _max_errs(S, riccati_level2_reference(*r)),
-            "riccati_join": _max_errs(out, riccati_join_reference(*r, *S)),
+            "riccati_join": _max_errs(out, riccati_join_reference(*r, horizon, order=JOIN_GROUP)),
         }
         sequential = _max_errs(r, riccati_scan_reference(*slabs))
+        jax_order = _max_errs(out, riccati_join_reference(*r, horizon))
         label = (f"N={horizon}, nb={nb}, d={d}" + (", Qr/xr/Rr/ur" if regularized else ""))
         print(f"[riccati kernel vs plain] {label}: " + ", ".join(
             f"{k} max abs {a:.3e} (scaled {s:.3e})" for k, (a, s) in errs.items())
             + f"; tolerance {RICCATI_KERNEL_TOL:g} x max(1, max|ref|); riccati_scan against the "
-            f"sequential plain version max abs {sequential[0]:.3e} (scaled {sequential[1]:.3e})")
+            f"sequential plain version max abs {sequential[0]:.3e} (scaled {sequential[1]:.3e}), "
+            f"riccati_join against the JAX-order level 2 max abs {jax_order[0]:.3e} (scaled "
+            f"{jax_order[1]:.3e})")
         for k, (abs_err, scaled) in errs.items():
             worst[k] = max(worst[k], abs_err)
             check(scaled <= RICCATI_KERNEL_TOL, f"{k} at {label}: kernel disagrees with plain")
@@ -994,7 +998,6 @@ def phase_riccati_main_path(device):
         gains = lqt_backward_parallel_fused(*data, nb=RICCATI_NB, device=device)
         torch.cuda.synchronize()
     launches = {"riccati_scan": fused_riccati.scan_launch_count,
-                "riccati_level2": fused_riccati.level2_launch_count,
                 "riccati_join": fused_riccati.join_launch_count}
     print(f"[riccati main path] N={RICCATI_N}, nb={RICCATI_NB}: kernel launches {launches}")
     check(all(v == 1 for v in launches.values()),
@@ -1026,16 +1029,16 @@ def combine_flops(d: int, join: bool = False) -> int:
     return 8 * mm + 4 * mv + 2 * d * d + 5 * d + inv
 
 
-def riccati_bounds(slabs, r, S, out):
-    """Bounds of the three kernels on these inputs. The level-2 work is the
-    nb - 1 combines a sequential suffix needs."""
+def riccati_bounds(slabs, r, out):
+    """Bounds of the two kernels on these inputs. The join's work is the
+    nb - 1 combines a sequential level-2 suffix needs and one join an
+    element; the prologue its blocks repeat is not counted."""
     d, nb = slabs[1].shape[1], slabs[0].shape[2]
     n_elems = slabs[0].shape[0] * nb
-    totals = sum(x[0].numel() * 4 for x in r)
     return {
         "riccati_scan": bound(n_elems * combine_flops(d), nbytes(*slabs, *r)),
-        "riccati_level2": bound((nb - 1) * combine_flops(d), totals + nbytes(*S)),
-        "riccati_join": bound(n_elems * combine_flops(d, join=True), nbytes(*r, *S, *out)),
+        "riccati_join": bound((nb - 1) * combine_flops(d)
+                              + n_elems * combine_flops(d, join=True), nbytes(*r, *out)),
     }
 
 
@@ -1057,25 +1060,24 @@ def _timed(paths, windows=TIMING_WINDOWS):
 
 
 def plain_backward(*data, nb, device):
-    """`lqt_backward_parallel_fused` with its three wrappers swapped for
+    """`lqt_backward_parallel_fused` with its two wrappers swapped for
     their plain versions: the yardstick of the kernels on the card."""
     with _swapped(fused_riccati, **{k: getattr(fused_riccati, f"{k}_reference")
                                     for k in RICCATI_KERNELS}):
         return lqt_backward_parallel_fused(*data, nb=nb, device=device)
 
 
-def riccati_kernel_calls(slabs):
-    """name -> (kernel call, plain call) of the three kernels on these
-    slabs, and the outputs (r, S, out) of one kernel pass."""
+def riccati_kernel_calls(slabs, horizon):
+    """name -> (kernel call, plain call) of the two kernels on these slabs
+    (the plain versions in the kernels' orders), and the outputs (r, out)
+    of one kernel pass."""
     r = riccati_scan(*slabs)
-    S = riccati_level2(*r)
-    out = riccati_join(*r, *S)
+    out = riccati_join(*r, horizon)
     calls = {"riccati_scan": (lambda: riccati_scan(*slabs),
                               lambda: riccati_scan_reference(*slabs, chunks=SCAN_CHUNKS)),
-             "riccati_level2": (lambda: riccati_level2(*r), lambda: riccati_level2_reference(*r)),
-             "riccati_join": (lambda: riccati_join(*r, *S),
-                              lambda: riccati_join_reference(*r, *S))}
-    return calls, (r, S, out)
+             "riccati_join": (lambda: riccati_join(*r, horizon),
+                              lambda: riccati_join_reference(*r, horizon, order=JOIN_GROUP))}
+    return calls, (r, out)
 
 
 def phase_riccati_time(device, card):
@@ -1087,7 +1089,7 @@ def phase_riccati_time(device, card):
     for horizon in RICCATI_HORIZONS:
         data, _, _ = riccati_problem(device, horizon)
         slabs = riccati_slabs(device, horizon, RICCATI_NB)
-        calls, (r, S, out) = riccati_kernel_calls(slabs)
+        calls, (r, out) = riccati_kernel_calls(slabs, horizon)
         long = horizon >= 10_000
         paths = {}
         for kname, (kernel, plain) in calls.items():
@@ -1116,16 +1118,16 @@ def phase_riccati_time(device, card):
             print(f"[riccati time] N={horizon}, nb={RICCATI_NB}, {name}: {med:.4f} ms "
                   f"(IQR {q1:.4f}-{q3:.4f}, {n} windows, {how}); card: {card}")
         if long:
-            result["bounds"] = riccati_bounds(slabs, r, S, out)
+            result["bounds"] = riccati_bounds(slabs, r, out)
             device_ms = sum(result[(horizon, f"{k} kernel")] for k in calls)
             wrapper_ms = sum(result[(horizon, f"{k} wrapper")] for k in calls)
             print(f"[riccati split] N={horizon}, nb={RICCATI_NB}: of a "
-                  f"{result[(horizon, 'fused forward')]:.4f} ms pass, the three wrapper calls "
+                  f"{result[(horizon, 'fused forward')]:.4f} ms pass, the two wrapper calls "
                   f"take {wrapper_ms:.4f} ms back to back (host-bound: checks, allocations, "
                   f"ctypes), their kernels {device_ms:.4f} ms of device time; card: {card}")
     for nb in RICCATI_NB_SWEEP:
         data, _, _ = riccati_problem(device)
-        calls, _ = riccati_kernel_calls(riccati_slabs(device, RICCATI_N, nb))
+        calls, _ = riccati_kernel_calls(riccati_slabs(device, RICCATI_N, nb), RICCATI_N)
         timed = {f"{kname} device": _graph_ms(kernel)[0] for kname, (kernel, _) in calls.items()}
         timed["fused forward"] = _timed({"fused forward": (
             lambda: lqt_backward_parallel_fused(*data, nb=nb, device=device),
@@ -1189,7 +1191,7 @@ def phase_riccati_profile(device, card):
     kernel_us = sum(ours.values())
     print(f"[riccati profile] {n} backward passes, N={RICCATI_N}, nb={RICCATI_NB}: wall "
           f"{wall_us / n / 1e3:.4f} ms a pass; device busy {busy_us / n / 1e3:.4f} ms "
-          f"({100 * busy_us / wall_us:.2f}% of wall), of which the three kernels "
+          f"({100 * busy_us / wall_us:.2f}% of wall), of which the two kernels "
           f"{kernel_us / 1e3:.4f} ms and {len(on_device) - len(ours)} other kernels "
           f"{(busy_us / n - kernel_us) / 1e3:.4f} ms; card: {card}")
     for key, us in sorted(ours.items()):
@@ -1591,9 +1593,9 @@ def main() -> int:
     }]
     riccati_replaces = {
         "riccati_scan": "ilqr_admm_tpu/ops/pallas_riccati.py:145",
-        # the XLA scan over the block totals between the two Pallas kernels
-        "riccati_level2": "ilqr_admm_tpu/ops/pallas_riccati.py:275",
-        "riccati_join": "ilqr_admm_tpu/ops/pallas_riccati.py:171",
+        # the join and, as its prologue, the XLA scan over the block totals
+        # between the two Pallas kernels
+        "riccati_join": "ilqr_admm_tpu/ops/pallas_riccati.py:171, :267-283",
     }
     for kname, replaces in riccati_replaces.items():
         kernels.append({

@@ -150,18 +150,10 @@ def load_library() -> ctypes.CDLL:
         _P,  # stream
     ]
     lib.riccati_scan_launch.restype = _I
-    lib.riccati_level2_launch.argtypes = [
-        _P, _P, _P, _P, _P,  # the local suffix slabs (step 0: block totals)
-        _P, _P,  # S_eta, S_J
-        _I, _I,  # nb, d
-        _P,  # stream
-    ]
-    lib.riccati_level2_launch.restype = _I
     lib.riccati_join_launch.argtypes = [
-        _P, _P, _P, _P, _P,  # the local suffix slabs
-        _P, _P,  # S_eta, S_J
-        _P, _P,  # eta_out, J_out
-        _I, _I, _I,  # L, nb, d
+        _P, _P, _P, _P, _P,  # the local suffix slabs (step 0: the block totals)
+        _P, _P,  # eta_out (N, d), J_out (N, d, d)
+        _I, _I, _I, _I, _I, _I,  # L, nb, N, d, steps a block, lanes a block
         _P,  # stream
     ]
     lib.riccati_join_launch.restype = _I

@@ -17,51 +17,67 @@
 // consecutive steps; element t = b * L + j sits in lane b at step j of
 // component slabs laid out (L, rows, nb), so lanes are the fastest axis.
 //
-// Both scans below are one pattern, `chunked_suffix`: the T threads of a
-// group each own a chunk of ceil(n / T) consecutive elements; a thread
-// folds its chunk (carry = e_i o carry, the earlier interval on the left,
-// as the JAX package folds), the T chunk totals are scanned in log2(T)
-// Hillis-Steele rounds into the suffix of the later chunks, and the
-// thread walks its chunk again from that suffix, emitting each suffix.
-// Its depth is 2 ceil(n / T) + log2(T) + 1 combines instead of n.
-//
-// Three kernels:
+// Two kernels, two launches a pass:
 // - riccati_scan_kernel<D>: one warp a lane (a block each), the lane's L
-//   steps in 32 chunks, the chunk totals scanned by warp shuffles; writes
-//   every local suffix r[j] (all five components). At L = 79: chunks of
-//   3, 11 combines deep instead of 79. Each thread first copies its
-//   chunk's elements to shared memory with cp.async (where a lane's
-//   elements fit in 96 KB), all its loads in flight at once.
-// - riccati_level2_kernel<D>: one block of 128 threads turns the nb block
-//   totals r[0] into their exclusive suffixes S_b = r_{b+1}[0] o ... o
-//   r_{nb-1}[0], the chunk totals scanned through shared memory. Only
-//   (eta, J) of S_b are written: the join reads nothing else of it. A
-//   kernel of its own, rather than a prologue of the join: done in plain
-//   torch it is about log2(nb) rounds of a combine of some 40 launches
-//   each, and as a prologue every join block would have to repeat it or
-//   wait for one block; as its own launch the join stays one thread an
-//   element.
-// - riccati_join_kernel<D>: one thread an element (j, b), no loop:
-//   (eta, J) of r[j] o S_b. The TPU kernel loops over j in each lane; on
-//   this card the L * nb joins are independent, so they are spread over
-//   threads.
+//   steps in 32 chunks (`chunked_suffix`: a thread folds its chunk, the
+//   chunk totals are scanned by warp shuffles into the suffix of the later
+//   chunks, the thread walks its chunk again from there); writes every
+//   local suffix r[j] (all five components). At L = 79: chunks of 3, 11
+//   combines deep instead of 79. Each thread first copies its chunk's
+//   elements to shared memory with cp.async (where a lane's elements fit
+//   in 96 KB), all its loads in flight at once.
+// - riccati_join_kernel<D, Cb>: (eta, J) of r[j] o S_b for every step j
+//   and lane b, S_b = r_{b+1}[0] o ... o r_{nb-1}[0] the exclusive suffix
+//   of the block totals, written time-major as the gains read them: eta
+//   (N, d) and J (N, d, d), rows t = b * L + j < N only. A block owns a
+//   group of kJoinGroup = 16 consecutive lanes and a tile of jt steps. It
+//   copies the tile's r to shared memory with cp.async (a warp's copies of
+//   one slab row are consecutive lanes) and, while they fly, computes the
+//   S_b of its own lanes as a prologue: (1) the totals of the lanes after
+//   the group, each of the 16 combine groups folding a chunk of them,
+//   then an ordered pairwise tree over the chunk totals; (2) beside it, in
+//   the same four rounds through shared memory, an inclusive
+//   Hillis-Steele suffix over the group's own 16 totals; (3) S_b = (the
+//   group's suffix after b) o (the later lanes' total). Lanes past nb hold
+//   the identity. Every block repeats the level-2 work of its group
+//   (O(nb^2 / 16) combines in all), so nothing goes through global memory
+//   or a second launch. The outputs are staged in shared memory and
+//   written as each lane's contiguous run of rows.
+//
+// A combine in the join kernel is spread over a group of Dp^2 threads
+// (Dp = D rounded up to a power of two: a half-warp at d = 4,
+// `GroupCombine`): thread (i, j) holds entry (i, j) of A, C and J and
+// entry i of b and eta, and the d x d products exchange operands through
+// the group's scratch in shared memory; in the adjugate inverse each
+// thread reads the whole matrix and forms its own cofactor. Every entry
+// is the same chain of f32 operations as the one-thread `combine` forms
+// for it, but for the inverse's two reciprocals: approximate (2 ulp)
+// divisions, as IEEE division's slow-path call spilled in this kernel.
+// -DRICCATI_JOIN_ONE_THREAD builds the join with one thread a combine
+// (`WholeCombine`) instead, and -DRICCATI_JOIN_GROUP=n with n lanes a
+// block, for comparison (tools/riccati_join_variants.py).
 //
 // The inverse is the adjugate of the max-abs-scaled matrix, as
 // `_inv_slab` / `inv_small` compute it (the same cancellation structure,
 // so the same accuracy envelope, relative error ~ eps * cond(I + C1 J2)),
 // with 1/(det s) formed once; every d x d product is unrolled at compile
-// time (D is a template parameter).
+// time (D is a template parameter). A combine with the identity on
+// either side is exact in f32, so identity padding changes no bit.
 //
 // What bounds it on an H100: at N = 10,000, nb = 128 (L = 79) the scan
 // reads and writes 10,112 x 56 floats (2.26 MB each way) and the join
 // reads them again and writes 0.81 MB: a few microseconds of HBM time,
 // and about 14 MFLOP of combines, a fraction of a microsecond at the f32
-// CUDA-core peak. What the scan takes instead is its dependency chain:
-// a combine is ~1 us of dependent arithmetic (the adjugate inverse and a
-// dozen d x d products), and one thread a lane ran L = 79 of them in a
-// row, with only nb / 32 = 4 warps on the card. The chunked warp scan cuts
-// the chain to 2 ceil(L / 32) + 6 combines and spreads the lanes over nb
-// warps; the combine itself stays in one thread's registers.
+// CUDA-core peak. What the kernels take instead is their dependency
+// chains: a combine in one thread is ~1 us of dependent arithmetic (the
+// adjugate inverse and a dozen d x d products), with few warps on the
+// card. The scan cuts the chain to 2 ceil(L / 32) + 6 combines and spreads
+// the lanes over nb warps. The join's prologue is ceil((nb - 16) / 16) +
+// 2 log2(16) + 1 combines deep and its loop jt joins; a combine spread
+// over 16 threads is ~300 instructions a thread, and with a block's 8
+// warps issuing them at once the SM's issue rate, not one thread's chain,
+// sets its time: fewer lanes a block make a combine cheaper and the
+// prologue deeper, and 16 measured fastest.
 
 #include <cuda_runtime.h>
 
@@ -70,8 +86,12 @@
 namespace {
 
 constexpr int kScanThreads = 32;    // one warp a lane and a block, so the warps spread over SMs
-constexpr int kJoinThreads = 128;
-constexpr int kLevel2Threads = 128;
+// lanes a join block: a warp's copies of a slab row coalesce
+#ifdef RICCATI_JOIN_GROUP
+constexpr int kJoinGroup = RICCATI_JOIN_GROUP;
+#else
+constexpr int kJoinGroup = 16;
+#endif
 constexpr size_t kScanStageBytes = 96 * 1024;  // a lane's elements, staged up to this size
 
 template <int D>
@@ -171,11 +191,9 @@ __device__ __forceinline__ void mtv(const float* P, const float* v, float* out) 
   }
 }
 
-// Determinant of the (D-1) x (D-1) minor of M without row r and column c.
-// r and c are compile-time constants once the callers' loops unroll.
-template <int D>
-__device__ __forceinline__ float minor_det(const float* M, int r, int c) {
-  auto e = [&](int i, int j) { return M[(i + (i >= r)) * D + (j + (j >= c))]; };
+// Determinant of a (D-1) x (D-1) minor, its entries e(i, j).
+template <int D, class Entry>
+__device__ __forceinline__ float det_minor(const Entry& e) {
   if constexpr (D == 2) {
     return e(0, 0);
   } else if constexpr (D == 3) {
@@ -185,6 +203,24 @@ __device__ __forceinline__ float minor_det(const float* M, int r, int c) {
            e(0, 1) * (e(1, 0) * e(2, 2) - e(1, 2) * e(2, 0)) +
            e(0, 2) * (e(1, 0) * e(2, 1) - e(1, 1) * e(2, 0));
   }
+}
+
+// Determinant of the minor of M without row r and column c. r and c are
+// compile-time constants once the callers' loops unroll.
+template <int D>
+__device__ __forceinline__ float minor_det(const float* M, int r, int c) {
+  return det_minor<D>([&](int i, int j) { return M[(i + (i >= r)) * D + (j + (j >= c))]; });
+}
+
+// The same for r and c known only at run time: each entry is selected
+// from the four it can be, so M stays in registers.
+template <int D>
+__device__ __forceinline__ float minor_det_at(const float* M, int r, int c) {
+  return det_minor<D>([&](int i, int j) {
+    const float top = j >= c ? M[i * D + j + 1] : M[i * D + j];
+    const float below = j >= c ? M[(i + 1) * D + j + 1] : M[(i + 1) * D + j];
+    return i >= r ? below : top;
+  });
 }
 
 // out = M^{-1} by the adjugate of M / max|M|, as `inv_small` computes it.
@@ -332,9 +368,8 @@ __device__ __forceinline__ void store(const OutSlabs& s, const Elem<D>& e, int j
 // chunk t (empty past the end: it holds the identity). load(i) gives e_i;
 // later(c), called by every thread of the group with its chunk total c,
 // returns the suffix of the chunks after t (the identity for the last);
-// emit(i, x) takes x = e_i o ... o e_{n-1} (INCLUSIVE) or e_{i+1} o ...
-// o e_{n-1}.
-template <int D, bool INCLUSIVE, class Load, class Later, class Emit>
+// emit(i, x) takes x = e_i o ... o e_{n-1}.
+template <int D, class Load, class Later, class Emit>
 __device__ __forceinline__ void chunked_suffix(int n, int t, int T, const Load& load,
                                                const Later& later, const Emit& emit) {
   const int chunk = (n + T - 1) / T;
@@ -347,13 +382,8 @@ __device__ __forceinline__ void chunked_suffix(int n, int t, int T, const Load& 
   Elem<D> x = later(c);
   // 3. from there, walk the chunk backwards
   for (int i = hi - 1; i >= lo; --i) {
-    if constexpr (INCLUSIVE) {
-      x = combine<D>(load(i), x);
-      emit(i, x);
-    } else {
-      emit(i, x);
-      if (i > lo) x = combine<D>(load(i), x);
-    }
+    x = combine<D>(load(i), x);
+    emit(i, x);
   }
 }
 
@@ -384,6 +414,7 @@ __device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
+
 
 // Element at step j of lane `lane` copied to dst, component-major (A, b, C,
 // eta, J) as `unstage` reads it
@@ -443,7 +474,7 @@ riccati_scan_kernel(Slabs in, OutSlabs out, int L, int nb, int staged) {
     const Elem<D> next = shfl_down<D>(c, 1);
     return t + 1 < kScanThreads ? next : identity<D>();
   };
-  chunked_suffix<D, true>(
+  chunked_suffix<D>(
       L, t, kScanThreads,
       [&](int j) { return staged ? unstage<D>(sh + j * F) : load<D>(in, j, lane, nb); }, later,
       [&](int j, const Elem<D>& x) { store<D>(out, x, j, lane, nb); });
@@ -483,59 +514,419 @@ __device__ __forceinline__ Elem<D> from_shared(const float* sh, int t, int T) {
   return e;
 }
 
-// in: the level-1 suffix slabs; their step-0 rows are the block totals.
-// The chunk totals are scanned through shared memory (after the round
-// with offset o, a thread's total covers chunks t .. t + 2o - 1).
+// Offsets of the five components in an element's F floats (A, b, C, eta, J)
 template <int D>
-__global__ void __launch_bounds__(kLevel2Threads)
-riccati_level2_kernel(Slabs in, float* S_eta, float* S_J, int nb) {
-  extern __shared__ float sh[];
-  const int t = threadIdx.x;
-  const int T = blockDim.x;
-  auto later = [&](Elem<D> c) {
-    for (int o = 1; o < T; o <<= 1) {
-      to_shared<D>(sh, c, t, T);
-      __syncthreads();
-      if (t + o < T) c = combine<D>(c, from_shared<D>(sh, t + o, T));
-      __syncthreads();
-    }
-    to_shared<D>(sh, c, t, T);
-    __syncthreads();
-    return (t + 1 < T) ? from_shared<D>(sh, t + 1, T) : identity<D>();
-  };
-  chunked_suffix<D, false>(
-      nb, t, T, [&](int i) { return load<D>(in, 0, i, nb); }, later,
-      [&](int i, const Elem<D>& x) {
-#pragma unroll
-        for (int k = 0; k < D; ++k) S_eta[static_cast<size_t>(k) * nb + i] = x.eta[k];
-#pragma unroll
-        for (int k = 0; k < D * D; ++k) S_J[static_cast<size_t>(k) * nb + i] = x.J[k];
-      });
+struct Fields {
+  static constexpr int A = 0, b = D * D, C = D * D + D, eta = 2 * D * D + D, J = 2 * D * D + 2 * D;
+};
+
+// The slab row of field f (0 .. F-1, component-major) at step j: nb lanes.
+template <int D>
+__device__ __forceinline__ const float* field_row(const Slabs& s, int f, int j, int nb) {
+  constexpr int DD = D * D;
+  using Fd = Fields<D>;
+  const float* base;
+  int row, rows;
+  if (f < Fd::b) base = s.A, row = f, rows = DD;
+  else if (f < Fd::C) base = s.b, row = f - Fd::b, rows = D;
+  else if (f < Fd::eta) base = s.C, row = f - Fd::C, rows = DD;
+  else if (f < Fd::J) base = s.eta, row = f - Fd::eta, rows = D;
+  else base = s.J, row = f - Fd::J, rows = DD;
+  return base + (static_cast<size_t>(j) * rows + row) * nb;
 }
 
+// One thread a combine: the element in one thread's registers, the
+// arithmetic of `combine`. Exchange slots in shared memory are
+// component-major (f * kJoinGroup + q), so a warp's accesses to one field
+// are consecutive words.
 template <int D>
-__global__ void __launch_bounds__(kJoinThreads)
-riccati_join_kernel(Slabs r, const float* __restrict__ S_eta, const float* __restrict__ S_J,
-                    float* __restrict__ eta_out, float* __restrict__ J_out, int L, int nb) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= L * nb) return;
-  const int j = idx / nb;
-  const int lane = idx - j * nb;
-  const Elem<D> e1 = load<D>(r, j, lane, nb);
-  float eta2[D], J2[D * D];
+struct WholeCombine {
+  static constexpr int P = 1;  // threads a combine
+  static constexpr int kScratch = 0;
+  using E = Elem<D>;
+  struct V {  // (eta, J) of an element
+    float eta[D];
+    float J[D * D];
+  };
+
+  __device__ WholeCombine(int, float*) {}
+  __device__ E unit() const { return identity<D>(); }
+  __device__ E read(const Slabs& s, int j, int lane, int nb) const {
+    return load<D>(s, j, lane, nb);
+  }
+  __device__ void put(float* sh, const E& e, int q) const { to_shared<D>(sh, e, q, kJoinGroup); }
+  __device__ E get(const float* sh, int q) const { return from_shared<D>(sh, q, kJoinGroup); }
+  __device__ V get_value(const float* sh, int q) const {
+    V v;
 #pragma unroll
-  for (int i = 0; i < D; ++i) eta2[i] = S_eta[static_cast<size_t>(i) * nb + lane];
+    for (int i = 0; i < D; ++i) v.eta[i] = sh[(Fields<D>::eta + i) * kJoinGroup + q];
 #pragma unroll
-  for (int i = 0; i < D * D; ++i) J2[i] = S_J[static_cast<size_t>(i) * nb + lane];
-  float M[D * D], MA1[D * D], eta[D], J[D * D];
-  combine_head<D>(e1, J2, M, MA1);
-  combine_value<D>(e1, eta2, J2, MA1, eta, J);
-  const size_t m0 = static_cast<size_t>(j) * D * D * nb + lane;
-  const size_t v0 = static_cast<size_t>(j) * D * nb + lane;
+    for (int i = 0; i < D * D; ++i) v.J[i] = sh[(Fields<D>::J + i) * kJoinGroup + q];
+    return v;
+  }
+  __device__ E compose(const E& e1, const E& e2) const { return combine<D>(e1, e2); }
+  // (eta, J) of e1 o e2, from e2's (eta, J)
+  __device__ V join(const E& e1, const V& e2) const {
+    float M[D * D], MA1[D * D];
+    combine_head<D>(e1, e2.J, M, MA1);
+    V out;
+    combine_value<D>(e1, e2.eta, e2.J, MA1, out.eta, out.J);
+    return out;
+  }
+  // v to output row `row` of the staged (rows, D) and (rows, D * D) tiles
+  __device__ void put_out(float* o_eta, float* o_J, const V& v, int row) const {
 #pragma unroll
-  for (int i = 0; i < D; ++i) eta_out[v0 + static_cast<size_t>(i) * nb] = eta[i];
+    for (int i = 0; i < D; ++i) o_eta[row * D + i] = v.eta[i];
 #pragma unroll
-  for (int i = 0; i < D * D; ++i) J_out[m0 + static_cast<size_t>(i) * nb] = J[i];
+    for (int i = 0; i < D * D; ++i) o_J[row * D * D + i] = v.J[i];
+  }
+};
+
+// D rounded up to a power of two: the side of a combine group's grid
+template <int D>
+__host__ __device__ constexpr int pad_dim() {
+  return D == 3 ? 4 : D;
+}
+
+// A combine spread over Dp^2 threads of a warp: thread p = i * Dp + j
+// holds entry (i, j) of A, C and J and entry i of b and eta (the same in
+// every thread of row i). Threads with i or j >= D (d = 3) are padding:
+// they compute what they are given, and no other thread reads them.
+// Operands travel through the group's scratch in shared memory: a thread
+// stores its entry of a matrix (row-major, or transposed where columns
+// are read), the warp syncs, and each thread reads the row or column it
+// needs as one vector load (the group's threads share the addresses, so
+// a load is one broadcast). Each stage of a combine stores what the next
+// reads, behind one __syncwarp on each side. Every entry is the chain of
+// f32 operations `combine` forms for it, but for the inverse's two
+// reciprocals (see the note at the top).
+template <int D>
+struct GroupCombine {
+  static constexpr int Dp = pad_dim<D>();
+  static constexpr int P = Dp * Dp;  // threads a combine
+  // floats of a group's scratch: the most one stage stores, padded so two
+  // groups of a warp fall on different banks
+  static constexpr int kScratch = 6 * P + 2 * Dp + (48 - (6 * P + 2 * Dp) % 32) % 32;
+  struct E {
+    float A, b, C, eta, J;
+  };
+  struct V {
+    float eta, J;
+  };
+  struct Vec {
+    float v[D];
+  };
+  int i, j;
+  bool valid;
+  float* buf;
+
+  __device__ GroupCombine(int p, float* scratch)
+      : i(p / Dp), j(p % Dp), valid(i < D && j < D), buf(scratch) {}
+
+  __device__ void sync() const {
+    if constexpr (P > 1) __syncwarp();
+  }
+  // this thread's entry of a matrix at offset o, row-major or transposed;
+  // a vector's entry i
+  __device__ void store(int o, float x) const {
+    if (valid) buf[o + i * Dp + j] = x;
+  }
+  __device__ void store_t(int o, float x) const {
+    if (valid) buf[o + j * Dp + i] = x;
+  }
+  __device__ void store_v(int o, float x) const {
+    if (valid && j == 0) buf[o + i] = x;
+  }
+  // D floats at offset o (a multiple of Dp)
+  __device__ Vec load(int o) const {
+    Vec out;
+    if constexpr (Dp == 4) {
+      const float4 v = *reinterpret_cast<const float4*>(buf + o);
+      const float w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int k = 0; k < D; ++k) out.v[k] = w[k];
+    } else if constexpr (Dp == 2) {
+      const float2 v = *reinterpret_cast<const float2*>(buf + o);
+      out.v[0] = v.x;
+      out.v[1] = v.y;
+    } else {
+      out.v[0] = buf[o];
+    }
+    return out;
+  }
+  // rows and columns of a stored matrix: X[i][k], X[j][k] (row-major);
+  // X[k][j], X[k][i] (transposed)
+  __device__ Vec row(int o) const { return load(o + i * Dp); }
+  __device__ Vec row_j(int o) const { return load(o + j * Dp); }
+  __device__ Vec col(int o) const { return load(o + j * Dp); }
+  __device__ Vec col_i(int o) const { return load(o + i * Dp); }
+  // the chain of `mm`, `mtm`, `mmt`, `mv`, `mtv` for one entry
+  static __device__ float dot(const Vec& a, const Vec& b) {
+    float acc = a.v[0] * b.v[0];
+#pragma unroll
+    for (int k = 1; k < D; ++k) acc = fmaf(a.v[k], b.v[k], acc);
+    return acc;
+  }
+
+  // entry (i, j) of T^{-1}, as `inv_small`: every thread reads T, forms the
+  // scale and its own cofactor adj[i][j] = (-1)^(i+j) minor(j, i); the
+  // determinant is row 0's expansion, from the stored adjugate's column 0
+  __device__ float inv(float T) const {
+    if constexpr (D == 1) {
+      return __fdividef(1.0f, T);
+    } else {
+      sync();
+      store(0, T);
+      sync();
+      float Mh[D * D];
+#pragma unroll
+      for (int r = 0; r < D; ++r) {
+        const Vec v = load(r * Dp);
+#pragma unroll
+        for (int c = 0; c < D; ++c) Mh[r * D + c] = v.v[c];
+      }
+      float s = fabsf(Mh[0]);
+#pragma unroll
+      for (int k = 1; k < D * D; ++k) s = fmaxf(s, fabsf(Mh[k]));
+      const float rs = __fdividef(1.0f, s);
+#pragma unroll
+      for (int k = 0; k < D * D; ++k) Mh[k] *= rs;
+      const float m = minor_det_at<D>(Mh, j, i);
+      const float adj = ((i + j) & 1) ? -m : m;
+      sync();
+      store_t(0, adj);
+      sync();
+      const Vec adj_col0 = load(0);  // adj[k][0]
+      float det = Mh[0] * adj_col0.v[0];
+#pragma unroll
+      for (int k = 1; k < D; ++k) det = fmaf(Mh[k], adj_col0.v[k], det);
+      return adj * __fdividef(1.0f, det * s);
+    }
+  }
+
+  __device__ E unit() const { return E{i == j ? 1.0f : 0.0f, 0.0f, 0.0f, 0.0f, 0.0f}; }
+  __device__ E read(const Slabs& s, int step, int lane, int nb) const {
+    E e{0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    const size_t m = (static_cast<size_t>(step) * D * D + i * D + j) * nb + lane;
+    const size_t v = (static_cast<size_t>(step) * D + i) * nb + lane;
+    if (valid) e.A = s.A[m], e.C = s.C[m], e.J = s.J[m];
+    if (i < D) e.b = s.b[v], e.eta = s.eta[v];
+    return e;
+  }
+  __device__ void put(float* sh, const E& e, int q) const {
+    using Fd = Fields<D>;
+    constexpr int G = kJoinGroup;
+    if (valid) {
+      sh[(Fd::A + i * D + j) * G + q] = e.A;
+      sh[(Fd::C + i * D + j) * G + q] = e.C;
+      sh[(Fd::J + i * D + j) * G + q] = e.J;
+      if (j == 0) sh[(Fd::b + i) * G + q] = e.b, sh[(Fd::eta + i) * G + q] = e.eta;
+    }
+  }
+  __device__ E get(const float* sh, int q) const {
+    using Fd = Fields<D>;
+    constexpr int G = kJoinGroup;
+    E e{0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (valid) {
+      e.A = sh[(Fd::A + i * D + j) * G + q];
+      e.C = sh[(Fd::C + i * D + j) * G + q];
+      e.J = sh[(Fd::J + i * D + j) * G + q];
+    }
+    if (i < D) e.b = sh[(Fd::b + i) * G + q], e.eta = sh[(Fd::eta + i) * G + q];
+    return e;
+  }
+  __device__ V get_value(const float* sh, int q) const {
+    const E e = get(sh, q);
+    return V{e.eta, e.J};
+  }
+
+  // (eta, J) of e1 o e2 (combine_head, combine_value), and with full the
+  // rest of the combine (A, b, C)
+  template <bool full>
+  __device__ E combine_entries(const E& e1, float A2, float b2, float C2, float eta2,
+                               float J2) const {
+    constexpr int M0 = 0, M1 = P, M2 = 2 * P, M3 = 3 * P, M4 = 4 * P, M5 = 5 * P;
+    constexpr int V0 = 6 * P, V1 = 6 * P + Dp;
+    // stage 1: the operands
+    sync();
+    store(M0, e1.C);
+    store_t(M1, e1.C);
+    store_t(M2, e1.A);
+    store(M3, J2);
+    store_t(M4, J2);
+    store_v(V0, e1.b);
+    if constexpr (full) {
+      store(M5, A2);
+      store_v(V1, eta2);
+    }
+    sync();
+    const Vec c1_row = row(M0), a1_col = col(M2), j2_row = row(M3), b1 = load(V0);
+    const Vec j2_col = col(M4);
+    Vec c1_col, a2_row, a2_row_j, eta2_all;
+    if constexpr (full) {
+      c1_col = col(M1);
+      a2_row = row(M5);
+      a2_row_j = row_j(M5);
+      eta2_all = load(V1);
+    }
+    float T = dot(c1_row, j2_col);
+    if (i == j) T += 1.0f;
+    const float w = eta2 - dot(j2_row, b1);
+    const float J2A1 = dot(j2_row, a1_col);
+    float x = 0.0f;
+    if constexpr (full) x = dot(c1_row, eta2_all) + e1.b;
+    // stage 2: the inverse
+    const float M = inv(T);
+    // stage 3: M
+    sync();
+    store(M0, M);
+    if constexpr (full) store_t(M1, M);
+    sync();
+    const float MA1 = dot(row(M0), a1_col);
+    float A2M = 0.0f;
+    if constexpr (full) A2M = dot(a2_row, col(M1));
+    // stage 4: M A1, w, J2 A1 (and A2 M, x)
+    sync();
+    store_t(M0, MA1);
+    store_t(M1, J2A1);
+    store_v(V0, w);
+    if constexpr (full) {
+      store(M2, A2M);
+      store_v(V1, x);
+    }
+    sync();
+    const Vec ma1_col = col_i(M0);
+    E out{0.0f, 0.0f, 0.0f, dot(ma1_col, load(V0)) + e1.eta, dot(ma1_col, col(M1)) + e1.J};
+    if constexpr (full) {
+      const Vec a2m_row = row(M2);
+      out.A = dot(a2m_row, a1_col);
+      out.b = dot(a2m_row, load(V1)) + b2;
+      const float A2MC1 = dot(a2m_row, c1_col);
+      // stage 5: A2 M C1
+      sync();
+      store(M0, A2MC1);
+      sync();
+      out.C = dot(row(M0), a2_row_j) + C2;
+    }
+    return out;
+  }
+  __device__ E compose(const E& e1, const E& e2) const {
+    return combine_entries<true>(e1, e2.A, e2.b, e2.C, e2.eta, e2.J);
+  }
+  __device__ V join(const E& e1, const V& e2) const {
+    const E out = combine_entries<false>(e1, 0.0f, 0.0f, 0.0f, e2.eta, e2.J);
+    return V{out.eta, out.J};
+  }
+  __device__ void put_out(float* o_eta, float* o_J, const V& v, int out_row) const {
+    if (valid) {
+      o_J[out_row * D * D + i * D + j] = v.J;
+      if (j == 0) o_eta[out_row * D + i] = v.eta;
+    }
+  }
+};
+
+#ifdef RICCATI_JOIN_ONE_THREAD
+template <int D>
+using JoinCombine = WholeCombine<D>;
+#else
+template <int D>
+using JoinCombine = GroupCombine<D>;
+#endif
+
+// Floats of the join kernel's shared memory at jt steps a block: the
+// staged r, two exchange slots, the staged eta and J, the combine groups'
+// scratch
+template <int D, class Cb>
+__host__ __device__ constexpr size_t join_smem_floats(int jt) {
+  return static_cast<size_t>(jt + 2) * elem_floats<D>() * kJoinGroup +
+         static_cast<size_t>(jt) * kJoinGroup * (D + D * D) +
+         static_cast<size_t>(kJoinGroup) * Cb::kScratch;
+}
+
+// r: the level-1 suffix slabs (step 0: the block totals). Block
+// (blockIdx.x, blockIdx.y) takes lanes 32 x .. 32 x + 31 at steps
+// jt y .. jt y + jt - 1, one combine group (Cb::P threads) a lane.
+template <int D, class Cb>
+__global__ void __launch_bounds__(kJoinGroup * Cb::P)
+riccati_join_kernel(Slabs r, float* __restrict__ eta_out, float* __restrict__ J_out, int L,
+                    int nb, int N, int jt) {
+  using E = typename Cb::E;
+  constexpr int G = kJoinGroup, F = elem_floats<D>(), DD = D * D;
+  extern __shared__ float sh[];
+  const int q = threadIdx.x / Cb::P;
+  const int lane0 = blockIdx.x * G;
+  const int j0 = blockIdx.y * jt, nj = min(jt, L - j0);
+  float* s_in = sh;                  // the tile's r, step k at k * F * G
+  float* s_x = s_in + jt * F * G;    // exchange slots of the tree
+  float* s_t = s_x + F * G;          // and of the group's suffix
+  float* s_eta = s_t + F * G;        // outputs, row q * nj + k
+  float* s_J = s_eta + jt * G * D;
+  const Cb cb(threadIdx.x % Cb::P, s_J + jt * G * DD + q * Cb::kScratch);
+
+  // 1. the tile's local suffixes to shared memory, in flight during 2
+  for (int idx = threadIdx.x; idx < nj * F * G; idx += blockDim.x) {
+    const int qq = idx % G, kf = idx / G;
+    if (lane0 + qq < nb)
+      cp_async_f32(s_in + idx, field_row<D>(r, kf % F, j0 + kf / F, nb) + lane0 + qq);
+  }
+
+  // 2. S_b of this block's lanes. x: the fold of chunk q of the later
+  // lanes' totals (from its last, the identity past nb), then the ordered
+  // tree over the chunks (after the round with offset o, x of q = 0 mod 2o
+  // covers chunks q .. q + 2o - 1). t: lane q's total, then the group's
+  // inclusive suffix (after the round with offset o, t covers lanes q ..
+  // q + 2o - 1 of the group). A warp composes where any of its combine
+  // groups has to, all its threads together, so no __syncwarp diverges;
+  // a group with nothing to do in a round keeps its element.
+  const int later0 = lane0 + G;
+  const int chunk = (max(nb - later0, 0) + G - 1) / G;
+  const int lo = later0 + q * chunk;
+  auto total = [&](int lane) { return lane < nb ? cb.read(r, 0, lane, nb) : cb.unit(); };
+  E x = chunk > 0 ? total(lo + chunk - 1) : cb.unit();
+  for (int k = chunk - 2; k >= 0; --k) x = cb.compose(total(lo + k), x);
+  E t = total(lane0 + q);
+  for (int o = 1; o < G; o <<= 1) {
+    cb.put(s_x, x, q);
+    cb.put(s_t, t, q);
+    __syncthreads();
+    const int src = min(q + o, G - 1);
+    const E xo = cb.get(s_x, src), to = cb.get(s_t, src);
+    __syncthreads();
+    const bool tree = q % (2 * o) == 0 && q + o < G, scan = q + o < G;
+    if (__any_sync(__activemask(), tree)) {
+      const E x2 = cb.compose(x, xo);
+      if (tree) x = x2;
+    }
+    if (__any_sync(__activemask(), scan)) {
+      const E t2 = cb.compose(t, to);
+      if (scan) t = t2;
+    }
+  }
+  cb.put(s_x, x, q);
+  cb.put(s_t, t, q);
+  __syncthreads();
+  const E after = cb.get(s_t, min(q + 1, G - 1));
+  const typename Cb::V S = cb.join(q + 1 < G ? after : cb.unit(), cb.get_value(s_x, 0));
+
+  // 3. the joins, staged as each lane's run of output rows
+  cp_async_wait_all();
+  __syncthreads();
+  for (int k = 0; k < nj; ++k)
+    cb.put_out(s_eta, s_J, cb.join(cb.get(s_in + k * F * G, q), S), q * nj + k);
+  __syncthreads();
+
+  // 4. lane b's rows b * L + j0 .. b * L + j0 + nj - 1 (those < N) are
+  // consecutive in both outputs
+  for (int idx = threadIdx.x; idx < G * nj * DD; idx += blockDim.x) {
+    const int qq = idx / (nj * DD), rem = idx - qq * nj * DD;
+    const long long row0 = static_cast<long long>(lane0 + qq) * L + j0;
+    if (lane0 + qq < nb && row0 + rem / DD < N) J_out[row0 * DD + rem] = s_J[idx];
+  }
+  for (int idx = threadIdx.x; idx < G * nj * D; idx += blockDim.x) {
+    const int qq = idx / (nj * D), rem = idx - qq * nj * D;
+    const long long row0 = static_cast<long long>(lane0 + qq) * L + j0;
+    if (lane0 + qq < nb && row0 + rem / D < N) eta_out[row0 * D + rem] = s_eta[idx];
+  }
 }
 
 Slabs slabs(const void* A, const void* b, const void* C, const void* eta, const void* J) {
@@ -562,19 +953,21 @@ int launch_scan(Slabs in, OutSlabs out, int L, int nb, cudaStream_t stream) {
 }
 
 template <int D>
-int launch_level2(Slabs in, float* S_eta, float* S_J, int nb, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * elem_floats<D>() * kLevel2Threads;
-  riccati_level2_kernel<D><<<1, kLevel2Threads, smem, stream>>>(in, S_eta, S_J, nb);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
-int launch_join(Slabs r, const float* S_eta, const float* S_J, float* eta_out, float* J_out,
-                int L, int nb, cudaStream_t stream) {
-  const long long n = static_cast<long long>(L) * nb;
-  const int blocks = static_cast<int>((n + kJoinThreads - 1) / kJoinThreads);
-  riccati_join_kernel<D><<<blocks, kJoinThreads, 0, stream>>>(r, S_eta, S_J, eta_out, J_out,
-                                                              L, nb);
+int launch_join(Slabs r, float* eta_out, float* J_out, int L, int nb, int N, int jt,
+                cudaStream_t stream) {
+  using Cb = JoinCombine<D>;
+  const size_t smem = sizeof(float) * join_smem_floats<D, Cb>(jt);
+  const int tiles = (L + jt - 1) / jt;
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(riccati_join_kernel<D, Cb>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((nb + kJoinGroup - 1) / kJoinGroup, tiles);
+  riccati_join_kernel<D, Cb><<<grid, kJoinGroup * Cb::P, smem, stream>>>(r, eta_out, J_out, L,
+                                                                          nb, N, jt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -598,38 +991,24 @@ extern "C" int riccati_scan_launch(const void* A, const void* b, const void* C, 
   }
 }
 
-extern "C" int riccati_level2_launch(const void* A, const void* b, const void* C,
-                                     const void* eta, const void* J, void* S_eta, void* S_J,
-                                     int nb, int d, void* stream) {
-  if (bad_shape(d, 1, nb)) return static_cast<int>(cudaErrorInvalidValue);
-  const Slabs in = slabs(A, b, C, eta, J);
-  float* se = static_cast<float*>(S_eta);
-  float* sj = static_cast<float*>(S_J);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 1: return launch_level2<1>(in, se, sj, nb, s);
-    case 2: return launch_level2<2>(in, se, sj, nb, s);
-    case 3: return launch_level2<3>(in, se, sj, nb, s);
-    default: return launch_level2<4>(in, se, sj, nb, s);
-  }
-}
-
+// eta_out (N, d) and J_out (N, d, d): rows t = b * L + j < N of (eta, J) of
+// r[j] o S_b; (L - 1) * nb < N <= L * nb, jt steps a block; group: the
+// lanes a block the caller expects (kJoinGroup)
 extern "C" int riccati_join_launch(const void* A, const void* b, const void* C, const void* eta,
-                                   const void* J, const void* S_eta, const void* S_J,
-                                   void* eta_out, void* J_out, int L, int nb, int d,
-                                   void* stream) {
-  if (bad_shape(d, L, nb)) return static_cast<int>(cudaErrorInvalidValue);
+                                   const void* J, void* eta_out, void* J_out, int L, int nb,
+                                   int N, int d, int jt, int group, void* stream) {
+  if (bad_shape(d, L, nb) || jt < 1 || group != kJoinGroup ||
+      N <= (L - 1) * static_cast<long long>(nb) || N > L * static_cast<long long>(nb))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Slabs r = slabs(A, b, C, eta, J);
-  const float* se = static_cast<const float*>(S_eta);
-  const float* sj = static_cast<const float*>(S_J);
   float* eo = static_cast<float*>(eta_out);
   float* jo = static_cast<float*>(J_out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 1: return launch_join<1>(r, se, sj, eo, jo, L, nb, s);
-    case 2: return launch_join<2>(r, se, sj, eo, jo, L, nb, s);
-    case 3: return launch_join<3>(r, se, sj, eo, jo, L, nb, s);
-    default: return launch_join<4>(r, se, sj, eo, jo, L, nb, s);
+    case 1: return launch_join<1>(r, eo, jo, L, nb, N, jt, s);
+    case 2: return launch_join<2>(r, eo, jo, L, nb, N, jt, s);
+    case 3: return launch_join<3>(r, eo, jo, L, nb, N, jt, s);
+    default: return launch_join<4>(r, eo, jo, L, nb, N, jt, s);
   }
 }
 

@@ -4,7 +4,7 @@ Counterpart of `ilqr_admm_tpu/ops/pallas_riccati.py`
 (`lqt_backward_parallel_pallas` and its kernels `_scan_kernel` and
 `_join_kernel`). The elements and the gains are plain torch, as they are
 XLA in the JAX package (`fast_inverse=True` throughout); the scan between
-them is three hand-written CUDA kernels in `csrc/riccati_scan.cu`:
+them is two hand-written CUDA kernels in `csrc/riccati_scan.cu`:
 
 1. pack the elements (N, d, d) | (N, d), padded with identities to
    nb * L, into (L, rows, nb) slabs: element t = b * L + j sits in lane b
@@ -12,15 +12,14 @@ them is three hand-written CUDA kernels in `csrc/riccati_scan.cu`:
 2. `riccati_scan`: the reverse suffix scan inside each of the nb blocks,
    r[j] = e_j o ... o e_{L-1} (replaces `_scan_kernel`), a chunked warp
    scan on the card (one warp a lane, `SCAN_CHUNKS` chunks of its steps);
-3. `riccati_level2`: the exclusive suffixes S_b of the nb block totals
-   r[0], as (eta, J) slabs (replaces the XLA scan between the kernels);
-4. `riccati_join`: (eta, J) of r[j] o S_b for every element (replaces
-   `_join_kernel`), then unpack and extract the gains.
+3. `riccati_join`: the exclusive suffixes S_b of the nb block totals r[0]
+   (replaces the XLA scan between the kernels) and (eta, J) of r[j] o S_b
+   for every element (replaces `_join_kernel`), in one launch, written
+   time-major as (N, d) and (N, d, d); then the gains.
 
 On CPU tensors each wrapper runs its plain torch version
-(`riccati_scan_reference`, `riccati_level2_reference`,
-`riccati_join_reference`) instead; on CUDA tensors it launches its
-kernel or raises.
+(`riccati_scan_reference`, `riccati_join_reference`) instead; on CUDA
+tensors it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -40,7 +39,6 @@ from ilqr_admm_tpu_torch.utils.precision import full_f32_matmul
 
 # Number of times each wrapper has launched its CUDA kernel in this process.
 scan_launch_count = 0
-level2_launch_count = 0
 join_launch_count = 0
 
 _F32 = torch.float32
@@ -49,6 +47,12 @@ _F32 = torch.float32
 # lane's warp. `riccati_scan_reference(..., chunks=SCAN_CHUNKS)` replays
 # the kernel's order of combines.
 SCAN_CHUNKS = 32
+# Lanes a block of `riccati_join_kernel` owns: its level-2 prologue folds
+# and trees the later lanes' totals in this many chunks and scans its own
+# lanes' totals. `riccati_join_reference(..., order=JOIN_GROUP)` replays it.
+JOIN_GROUP = 16
+# The most steps a join block takes (its shared memory grows with them)
+JOIN_MAX_STEPS = 16
 
 
 def comp_rows(d: int) -> tuple[int, ...]:
@@ -209,7 +213,7 @@ def riccati_scan(A, b, C, eta, J):
     return out
 
 
-# ---- level 2: csrc/riccati_scan.cu, riccati_level2_kernel -------------------
+# ---- level 2 and the join: csrc/riccati_scan.cu, riccati_join_kernel ------
 
 
 def riccati_level2_reference(A, b, C, eta, J):
@@ -228,35 +232,62 @@ def riccati_level2_reference(A, b, C, eta, J):
     return S_eta.T.contiguous(), S_J.reshape(nb, d * d).T.contiguous()
 
 
-def riccati_level2(A, b, C, eta, J):
-    """Exclusive suffixes of the block totals from the local-suffix slabs
-    of `riccati_scan`; returns (S_eta (d, nb), S_J (d*d, nb)).
+def _level2_grouped(A, b, C, eta, J, group):
+    """The level-2 scan in the join kernel's order for `group` lanes a
+    block; returns (S_eta (d, nb), S_J (d*d, nb)).
 
-    CUDA tensors go to the kernel in `csrc/riccati_scan.cu`; CPU tensors
-    to `riccati_level2_reference`.
+    For the block of lanes g*group .. g*group + group - 1: the n lanes
+    after it in `group` chunks of ceil(n / group), each folded from the
+    identity, its latest total innermost; an ordered pairwise tree over
+    the chunk totals (after the round with offset o, chunk q = 0 mod 2o
+    covers chunks q .. q + 2o - 1) gives the later lanes' total; an
+    inclusive Hillis-Steele suffix over the block's own totals, in the
+    same rounds, gives each lane the suffix of the lanes after it in the
+    block; S_b is that suffix composed with the later lanes' total. Lanes
+    past nb hold the identity. Batched over the blocks: a combine with the
+    identity is exact, so the shorter chunks of later blocks pad with it.
     """
-    global level2_launch_count
-    slabs = (A, b, C, eta, J)
-    _, d, nb, device = _check_slabs("riccati_level2", slabs)
-    _check_device("riccati_level2", device)
-    if device.type == "cpu":
-        return riccati_level2_reference(*slabs)
-    S_eta = torch.empty((d, nb), dtype=_F32, device=device)
-    S_J = torch.empty((d * d, nb), dtype=_F32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        _launch("riccati_level2_launch", *_ptrs(slabs), S_eta.data_ptr(), S_J.data_ptr(),
-                nb, d, stream)
-    level2_launch_count += 1
-    return S_eta, S_J
+    d, nb = b.shape[1], A.shape[2]
+    dev, G = A.device, group
+    groups = -(-nb // G)
+    totals = _lanes(tuple(x[0] for x in (A, b, C, eta, J)), d)
+    # index nb: the identity
+    ext = tuple(torch.cat([t, i]) for t, i in zip(totals, _identity_elems((1,), d, A.dtype, dev)))
+    g = torch.arange(groups, device=dev)[:, None, None]
+    q = torch.arange(G, device=dev)
+    chunk = (torch.clamp(nb - (g + 1) * G, min=0) + G - 1) // G
+    size = -(-max(nb - G, 0) // G)  # the longest chunk, block 0's
+    k = torch.arange(size, device=dev)[None, None, :]
+    lane = (g + 1) * G + q[None, :, None] * chunk + k
+    idx = torch.where((k < chunk) & (lane < nb), lane, nb)  # (groups, G, size)
+
+    def combine_where(mask, x, y):
+        return _where(mask.expand(groups, G), _combine(x, y, fast_inverse=True), x)
+
+    x = _identity_elems((groups, G), d, A.dtype, dev)
+    for kk in range(size - 1, -1, -1):
+        x = _combine(tuple(e[idx[..., kk]] for e in ext), x, fast_inverse=True)
+    own = torch.arange(groups, device=dev)[:, None] * G + q[None, :]
+    t = tuple(e[torch.where(own < nb, own, nb)] for e in ext)  # (groups, G, ...)
+    o = 1
+    while o < G:
+        src = torch.clamp(q + o, max=G - 1)
+        x = combine_where(((q % (2 * o) == 0) & (q + o < G))[None, :], x,
+                          tuple(v[:, src] for v in x))
+        t = combine_where((q + o < G)[None, :], t, tuple(v[:, src] for v in t))
+        o *= 2
+    ident = _identity_elems((groups, 1), d, A.dtype, dev)
+    after = tuple(torch.cat([v[:, 1:], i], dim=1) for v, i in zip(t, ident))
+    later = tuple(v[:, :1].expand_as(w) for v, w in zip(x, after))
+    S = _combine(after, later, fast_inverse=True)
+    S_eta = S[3].reshape(groups * G, d)[:nb]
+    S_J = S[4].reshape(groups * G, d * d)[:nb]
+    return S_eta.T.contiguous(), S_J.T.contiguous()
 
 
-# ---- the join: csrc/riccati_scan.cu, riccati_join_kernel --------------------
-
-
-def riccati_join_reference(A, b, C, eta, J, S_eta, S_J):
-    """Plain torch version of the join: (eta, J) of r[j] o S_b for every
-    step j and lane b at once. Returns (eta (L, d, nb), J (L, d*d, nb))."""
+def _join_slabs(A, b, C, eta, J, S_eta, S_J):
+    """(eta, J) of r[j] o S_b for every step j and lane b at once, as
+    (eta (L, d, nb), J (L, d*d, nb)) slabs."""
     L, d, nb = A.shape[0], b.shape[1], A.shape[2]
     r = _lanes((A, b, C, eta, J), d)  # (L, nb, ...)
     # S's A, b and C do not reach (eta, J) of the combine
@@ -268,30 +299,65 @@ def riccati_join_reference(A, b, C, eta, J, S_eta, S_J):
             out[4].reshape(L, nb, d * d).transpose(-1, -2).contiguous())
 
 
-def riccati_join(A, b, C, eta, J, S_eta, S_J):
-    """(eta, J) of every local suffix joined with its block's exclusive
-    suffix: returns (L, d, nb) and (L, d*d, nb) slabs.
+def riccati_join_reference(A, b, C, eta, J, N, order=None):
+    """Plain torch version of the joined kernel: the exclusive suffixes
+    S_b of the block totals, then (eta, J) of r[j] o S_b for every element,
+    returned time-major as eta (N, d) and J (N, d, d) (rows t = b * L + j
+    < N).
 
-    CUDA tensors go to the kernel in `csrc/riccati_scan.cu`; CPU tensors
-    to `riccati_join_reference`.
+    order=None: the level-2 scan in the JAX package's order
+    (`riccati_level2_reference`), which the CPU wrapper runs; order=G: the
+    kernel's order for G lanes a block (`JOIN_GROUP` on the card).
+    """
+    slabs = (A, b, C, eta, J)
+    d = b.shape[1]
+    if order is None:
+        S = riccati_level2_reference(*slabs)
+    else:
+        if isinstance(order, bool) or not isinstance(order, int) or order < 1:
+            raise ValueError(f"order must be None or a positive int, got {order!r}")
+        with full_f32_matmul():
+            S = _level2_grouped(*slabs, order)
+    eta_s, J_s = _join_slabs(*slabs, *S)
+    return _unpack(eta_s, N, d), _unpack(J_s, N, d * d).reshape(N, d, d)
+
+
+def join_tile(L: int, nb: int, n_sms: int) -> int:
+    """Steps a block of the join kernel takes: the fewest with which the
+    blocks (a group of `JOIN_GROUP` lanes by a tile of steps) cover the
+    SMs once, so every block's prologue runs at the same time; at most
+    `JOIN_MAX_STEPS`."""
+    groups = -(-nb // JOIN_GROUP)
+    tiles = max(1, min(L, n_sms // groups))
+    return min(-(-L // tiles), JOIN_MAX_STEPS)
+
+
+def riccati_join(A, b, C, eta, J, N):
+    """(eta, J) of every local suffix r[j] of `riccati_scan` joined with
+    its block's exclusive suffix S_b: returns eta (N, d) and J (N, d, d),
+    time-major, the rows t = b * L + j < N.
+
+    CUDA tensors go to the kernel in `csrc/riccati_scan.cu` (level 2 as
+    each block's prologue, one launch), held to
+    `riccati_join_reference(..., order=JOIN_GROUP)`; CPU tensors to
+    `riccati_join_reference` (level 2 in the JAX package's order).
     """
     global join_launch_count
     slabs = (A, b, C, eta, J)
     L, d, nb, device = _check_slabs("riccati_join", slabs)
     _check_device("riccati_join", device)
-    for name, t, rows in (("S_eta", S_eta, d), ("S_J", S_J, d * d)):
-        if not isinstance(t, torch.Tensor) or tuple(t.shape) != (rows, nb):
-            raise ValueError(f"riccati_join: {name} must be a ({rows}, {nb}) tensor")
-        if t.device != device or t.dtype != _F32 or not t.is_contiguous():
-            raise ValueError(f"riccati_join: {name} must be contiguous float32 on {device}")
+    if isinstance(N, bool) or not isinstance(N, int) or not (L - 1) * nb < N <= L * nb:
+        raise ValueError(f"riccati_join: N must be an int in ({(L - 1) * nb}, {L * nb}] for "
+                         f"L = {L} steps of nb = {nb} lanes, got {N!r}")
     if device.type == "cpu":
-        return riccati_join_reference(*slabs, S_eta, S_J)
-    eta_out = torch.empty((L, d, nb), dtype=_F32, device=device)
-    J_out = torch.empty((L, d * d, nb), dtype=_F32, device=device)
+        return riccati_join_reference(*slabs, N)
+    eta_out = torch.empty((N, d), dtype=_F32, device=device)
+    J_out = torch.empty((N, d, d), dtype=_F32, device=device)
+    jt = join_tile(L, nb, torch.cuda.get_device_properties(device).multi_processor_count)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        _launch("riccati_join_launch", *_ptrs(slabs), S_eta.data_ptr(), S_J.data_ptr(),
-                eta_out.data_ptr(), J_out.data_ptr(), L, nb, d, stream)
+        _launch("riccati_join_launch", *_ptrs(slabs), eta_out.data_ptr(), J_out.data_ptr(),
+                L, nb, N, d, jt, JOIN_GROUP, stream)
     join_launch_count += 1
     return eta_out, J_out
 
@@ -341,9 +407,7 @@ def lqt_backward_parallel_fused(
             fast_inverse=True,
         )
         r = riccati_scan(*pack_elements(elems, N, d, nb))
-        eta_slab, J_slab = riccati_join(*r, *riccati_level2(*r))
-        eta_all = _unpack(eta_slab, N, d)
-        J_all = _unpack(J_slab, N, d * d).reshape(N, d, d)
+        eta_all, J_all = riccati_join(*r, N)
         return gains_from_scanned(
             A32, B32, U, s, (None, None, None, eta_all, J_all), fast_inverse=True
         )
