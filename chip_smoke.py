@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's four paths on the card:
+Drives the port's paths on the card:
 
 - the box-constrained LQT-ADMM fleet of the repository's bench (16,384
   double-integrator instances, N = 100, |u| <= 5, rho_u = 0.1, 100
@@ -25,7 +25,16 @@ Drives the port's four paths on the card:
   nonlinear constrained solver `ilqr_admm` (CarFrontWheel, N = 500, the
   parking cost, |w| <= 0.5, |a| <= 2, rho_u = diag(1e-2, 1e-3), 60 outer
   steps, 30 ADMM iterations, 20 alphas, SQP-style outer line search,
-  f32), whose line-search rollout is the `linesearch_rollout` kernel.
+  f32), whose line-search rollout is the `linesearch_rollout` kernel;
+- the 3DoF arm fleet of `benchmarks/bench_arm_admm.py:58-179` through
+  `ilqr_admm_fleet` (1,024 instances, N = 100, |u| <= 2.5, rho_u = 1e-2,
+  12 outer steps, 20 ADMM iterations, 5 alphas, f32) in both line-search
+  modes; no kernel lies on it (the arm's state dimension, 9, is past
+  what the JAX package's rollout and Riccati kernels take);
+- the robust arm of `tests/test_isls_robust.py:28-200` through
+  `isls_admm` in f64: without projections, with the per-row SOC
+  projection at Psi^-1(0.82) and with `joint_alpha` = 0.958, each
+  validated by 1,000 Monte-Carlo closed-loop rollouts.
 
 Phases:
 
@@ -68,7 +77,15 @@ Phases:
    sequential closed-loop rollout, and a `torch.profiler` split of the
    pass; for the car, the kernel, its plain version, a CUDA graph of the
    plain version, the whole solve and a `torch.profiler` split of a
-   solve).
+   solve);
+6. the arm: the fleet's main path in each mode with its host reads of
+   stop flags and the bench's certificates (`certify_arm`: converged
+   fraction, violation, an f64 L-BFGS-B oracle on 8 instances; where f32
+   misses a gate, the fleet again in f64, certified and labelled so);
+   the fleet of 8 against 8 single `ilqr_admm` solves; solves/s (median
+   and IQR of 3 windows of one solve); a `torch.profiler` split of one
+   inner-mode solve; the robust arm in f64 with the gates of
+   `tests/test_isls_robust.py`.
 
 Any failure exits non-zero before the last line. The last line is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
@@ -90,9 +107,12 @@ import time
 
 import numpy as np
 import torch
-from scipy.stats import norm
+from scipy.stats import chi, norm
+from torch.func import vmap
 
 from ilqr_admm_tpu_torch import _build
+from ilqr_admm_tpu_torch.chance import make_box_chance_projection
+from ilqr_admm_tpu_torch.models.arm import PlanarArm
 from ilqr_admm_tpu_torch.models.car import CarFrontWheel, CarParkingCost
 from ilqr_admm_tpu_torch.models.double_integrator import DoubleIntegrator
 from ilqr_admm_tpu_torch.ops import fused_admm, fused_riccati, fused_rollout, fused_sls
@@ -125,13 +145,24 @@ from ilqr_admm_tpu_torch.ops.parallel_riccati import (
     value_elements,
 )
 from ilqr_admm_tpu_torch.ops.riccati import lqt_backward
-from ilqr_admm_tpu_torch.ops.rollout import rollout_closed_loop, rollout_nonlinear
+from ilqr_admm_tpu_torch.ops.rollout import (
+    rollout_closed_loop,
+    rollout_nonlinear,
+    rollout_sls_delta,
+)
 from ilqr_admm_tpu_torch.problem import SolveStatus
 from ilqr_admm_tpu_torch.solvers import admm as admm_solver
+from ilqr_admm_tpu_torch.solvers import batched_ilqr_admm
 from ilqr_admm_tpu_torch.solvers.batched import make_batched_lqt_admm
+from ilqr_admm_tpu_torch.solvers.batched_ilqr_admm import ilqr_admm_fleet
 from ilqr_admm_tpu_torch.solvers.ilqr_admm import ilqr_admm
+from ilqr_admm_tpu_torch.solvers.isls_admm import isls_admm
+from ilqr_admm_tpu_torch.solvers.lqt import sls_controller
 from ilqr_admm_tpu_torch.utils.certify import (
+    ARM_N_ORACLE,
+    arm_gate_failures,
     certify,
+    certify_arm,
     certify_riccati,
     certify_sls,
     certify_state_box,
@@ -252,6 +283,28 @@ CAR_SOLVES_TIMED = 3
 # outer steps of the profiled solve: the profiler's post-processing of a
 # whole 44-step solve (~100,000 device ops) took 79 s on the H100's host
 CAR_PROFILED_STEPS = 10
+
+# The 3DoF arm fleet of benchmarks/bench_arm_admm.py:58-179 through
+# ilqr_admm_fleet, at its own size: N = 100, 1,024 instances, |u| <= 2.5
+ARM_N = 100
+ARM_FLEET = 1024
+ARM_U_BOUND = 2.5
+ARM_SOLVE = dict(rho_u=1e-2, max_iter=12, max_admm_iter=20, tol=1e-4)
+ARM_ALPHAS = 5
+ARM_MODES = ("inner", "outer")
+# the fleet against single ilqr_admm solves of its first instances: f32
+# batched and unbatched reductions may round apart
+ARM_COMPARE = 8
+ARM_COMPARE_REL = 1e-3
+ARM_TIMING_WINDOWS = 3
+# The robust arm of tests/test_isls_robust.py:28-200 (the reference
+# notebook `3DoF robot/State bounds and robust control bounds`) in f64
+ARM_ROBUST_VAR = 0.1
+ARM_ROBUST_U = 6.0
+ARM_ROBUST_ALPHA = 0.82
+ARM_ROBUST_JOINT = 0.958
+ARM_MC = 1000
+ARM_MC_SEED = 11
 
 # Published peaks of one H100 SXM: f32 outside the tensor cores, dense
 # TF32 on the tensor cores, and HBM3
@@ -1509,6 +1562,294 @@ def phase_car_profile(device, card):
               f"{e.key[:90]}")
     return {"busy_share": busy_us / wall_us}
 
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def arm_cost(device, dtype, x_std, ee_target, ee_weight):
+    """The via-point cost of the arm benches: at the last step zero joint
+    velocity (weight x_std) and the end effector at ee_target (x, y) with
+    weights ee_weight; u_std = 1e-4."""
+    d, n = 9, 3
+    kw = dict(dtype=dtype, device=device)
+    target = torch.tensor([0.0] * 2 * n + list(ee_target) + [0.0], **kw)
+    w = torch.tensor([0.0] * n + [x_std] * n + list(ee_weight) + [0.0], **kw)
+    seq = np.zeros(ARM_N, dtype=np.int32)
+    seq[-1] = 1
+    return viapoint_cost(torch.stack([torch.zeros(d, **kw), target]),
+                         torch.stack([torch.zeros((d, d), **kw), torch.diag(w)]), seq, 1e-4, n)
+
+
+def arm_fleet_problem(device, dtype=torch.float32, batch=ARM_FLEET):
+    """bench_arm_admm.py's fleet: the arm, its cost (x_std = 1e4, ee height
+    1.0), q0 = [pi/3, -pi/2, -pi/4] + N(0, 0.1^2) from default_rng(0), u0 =
+    ones, x_nom0 the rollout of u0, and the first 5 of 50 log-spaced
+    alphas, on `device` in `dtype`."""
+    kw = dict(dtype=dtype, device=device)
+    arm = PlanarArm((1.0, 1.0, 1.0), dt=1.0 / ARM_N)
+    cost = arm_cost(device, dtype, 1e4, (1.5, 1.0), (0.0, 1e4))
+    q0s = torch.tensor(np.array([np.pi / 3, -np.pi / 2, -np.pi / 4])
+                       + np.random.default_rng(0).normal(0.0, 0.1, (batch, 3)), **kw)
+    u0 = torch.ones((batch, ARM_N, 3), **kw)
+    x_nom0 = vmap(lambda x0, us: rollout_nonlinear(arm.step, x0, us))(arm.initial_state(q0s), u0)
+    alphas = (10.0 ** torch.linspace(0.0, -5.0, 50, **kw))[:ARM_ALPHAS]
+    return arm, cost, q0s, x_nom0, u0, alphas
+
+
+def arm_project(u):
+    return torch.clamp(u, -ARM_U_BOUND, ARM_U_BOUND)
+
+
+def arm_fleet_solve(problem, line_search, stats=None, **over):
+    arm, cost, _, x_nom0, u0, alphas = problem
+    return ilqr_admm_fleet(arm.step, arm.get_AB, cost, x_nom0, u0, quad_cost=cost,
+                           project_u=arm_project, alphas=alphas, line_search=line_search,
+                           device=x_nom0.device, stats=stats, **dict(ARM_SOLVE, **over))
+
+
+def _arm_compare(device, mode, dtype):
+    """The fleet of ARM_COMPARE instances against as many single-instance
+    ilqr_admm solves of the same instances: (max |dcost|/cost, statuses
+    equal)."""
+    problem = arm_fleet_problem(device, dtype, batch=ARM_COMPARE)
+    arm, cost, _, x_nom0, u0, alphas = problem
+    syncs0 = admm_solver.host_sync_count
+    fleet = arm_fleet_solve(problem, mode)
+    sync(device)
+    reads = admm_solver.host_sync_count - syncs0
+    singles = [ilqr_admm(arm.step, arm.get_AB, cost, x_nom0[i], u0[i], quad_cost=cost,
+                         project_u=arm_project, alphas=alphas, line_search=mode, device=device,
+                         **ARM_SOLVE) for i in range(ARM_COMPARE)]
+    cost_s = torch.stack([r.cost for r in singles])
+    rel = float(((fleet.cost - cost_s).abs() / cost_s.abs()).max())
+    du = float((fleet.u_nom - torch.stack([r.u_nom for r in singles])).abs().max())
+    status_s = [r.status for r in singles]
+    print(f"[arm compare] {mode} line search, {ARM_COMPARE} instances, "
+          f"{str(dtype).replace('torch.', '')}: max |dcost|/cost {rel:.3e} (gate "
+          f"{ARM_COMPARE_REL:g}), max |du| {du:.3e}; statuses fleet {fleet.status.tolist()}, "
+          f"single {status_s}; outer steps fleet {fleet.outer_iters.tolist()}, single "
+          f"{[r.outer_iters for r in singles]}; host reads of the fleet {reads}")
+    return rel, fleet.status.tolist() == status_s
+
+
+def phase_arm_compare(device, used):
+    """The fleet against single solves in each mode, in the dtype its main
+    path was certified in (gated); where that is f64, also in f32 (printed,
+    not gated)."""
+    for mode in ARM_MODES:
+        if used[mode] != torch.float32:
+            _arm_compare(device, mode, torch.float32)
+        rel, same_status = _arm_compare(device, mode, used[mode])
+        check(rel <= ARM_COMPARE_REL, f"arm fleet ({mode}) differs from single solves by {rel:.3e}")
+        check(same_status, f"arm fleet ({mode}) statuses differ from single solves")
+
+
+def phase_arm_main_path(device, mode, problem):
+    """One fleet solve with its host reads and the bench's certificates.
+    Returns (result, certificate, gate failures)."""
+    arm, cost, q0s, _, _, _ = problem
+    dtype = str(q0s.dtype).replace("torch.", "")
+    stats = {}
+    syncs0 = admm_solver.host_sync_count
+    t0 = time.perf_counter()
+    res = arm_fleet_solve(problem, mode, stats=stats)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    reads = admm_solver.host_sync_count - syncs0
+    n_inst = q0s.shape[0]
+    check(tuple(res.u_nom.shape) == (n_inst, ARM_N, 3), f"arm fleet: u_nom {res.u_nom.shape}")
+    check(bool(torch.isfinite(res.u_nom).all() and torch.isfinite(res.cost).all()),
+          f"arm fleet ({mode}, {dtype}): non-finite result")
+    alone = (res.outer_iters + stats["admm_iters"]).cpu()
+    most = ARM_SOLVE["max_iter"] * (1 + ARM_SOLVE["max_admm_iter"])
+    cert = certify_arm(arm, cost, q0s, res, ARM_U_BOUND)
+    failures = arm_gate_failures(cert, mode)
+    print(f"[arm fleet main path] {mode} line search, {n_inst} instances, {dtype}: "
+          f"converged_frac {cert['converged_frac']:.4f}, max violation "
+          f"{cert['max_violation']:.3e}, bounds active {cert['bounds_active_frac']:.3f}, "
+          f"mean cost {cert['mean_cost']:.6f}, outer iterations mean "
+          f"{cert['mean_outer_iters']:.2f} max {cert['max_outer_iters']}, oracle gap median "
+          f"{cert['cost_gap_median']:.3e} max {cert['cost_gap_max']:.3e} (f64 L-BFGS-B polish "
+          f"of {ARM_N_ORACLE} instances, {cert['oracle_seconds']:.1f} s on the host); "
+          f"{seconds:.2f} s; gates {'pass' if not failures else 'MISSED: ' + '; '.join(failures)}")
+    print(f"[arm fleet main path] {mode}: host reads of stop flags {reads} = "
+          f"{stats['outer_steps']} outer steps + {stats['fleet_admm_iters']} fleet ADMM "
+          f"iterations; the slowest instance alone would read {int(alone.max())} (instance "
+          f"{int(alone.argmax())}); at most {most} for any fleet size")
+    check(reads == stats["outer_steps"] + stats["fleet_admm_iters"] <= most,
+          f"arm fleet ({mode}): {reads} host reads")
+    return res, cert, failures
+
+
+def phase_arm_fleet(device, batch=ARM_FLEET):
+    """The main path in each line-search mode, in f32; where f32 misses a
+    gate, the same fleet in f64 on the card, certified and labelled so,
+    with the f32 numbers printed beside it."""
+    problems = {torch.float32: arm_fleet_problem(device, batch=batch)}
+    used = {}
+    for mode in ARM_MODES:
+        res, cert, failures = phase_arm_main_path(device, mode, problems[torch.float32])
+        used[mode] = torch.float32
+        if failures:
+            print(f"[arm fleet main path] {mode}: f32 misses the bench's gates; the certified "
+                  f"fleet runs in f64 on the card")
+            if torch.float64 not in problems:
+                problems[torch.float64] = arm_fleet_problem(device, torch.float64, batch)
+            res, cert, failures = phase_arm_main_path(device, mode, problems[torch.float64])
+            used[mode] = torch.float64
+        check(not failures, f"arm fleet ({mode}): " + "; ".join(failures))
+    return problems, used
+
+
+def phase_arm_time(device, card, problems, used):
+    """Solves/s of the fleet in each mode: a warm-up, then ARM_TIMING_WINDOWS
+    windows of one solve each on the host clock with a synchronize."""
+    rates = {}
+    for mode in ARM_MODES:
+        problem = problems[used[mode]]
+        arm_fleet_solve(problem, mode)
+        sync(device)
+        ms = []
+        for _ in range(ARM_TIMING_WINDOWS):
+            t0 = time.perf_counter()
+            arm_fleet_solve(problem, mode)
+            sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        med, q1, q3 = _median_iqr(ms)
+        n_inst = problem[2].shape[0]
+        rates[mode] = n_inst / (med / 1e3)
+        print(f"[arm fleet time] {mode} line search, {n_inst} instances, "
+              f"{str(used[mode]).replace('torch.', '')}: {med:.1f} ms a solve (IQR {q1:.1f}-"
+              f"{q3:.1f}, {len(ms)} windows: {', '.join(f'{t:.1f}' for t in ms)}) = "
+              f"{rates[mode]:.1f} solves/s; card: {card}")
+    return rates
+
+
+def phase_arm_profile(device, card, problems, used):
+    """`torch.profiler` over one inner-mode fleet solve: the device busy
+    share of the wall time, the device ops, and the device time under the
+    solver's three ranges (linearization + normal equations + Cholesky,
+    the ADMM iterations, the line-search rollouts inside them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    problem = problems[used["inner"]]
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        res = arm_fleet_solve(problem, "inner")
+        sync(device)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    names = (batched_ilqr_admm.PROFILE_LINEARIZE, batched_ilqr_admm.PROFILE_ADMM,
+             batched_ilqr_admm.PROFILE_ROLLOUT)
+    events = prof.key_averages()
+    # the solver's ranges also appear as spans on the device's timeline:
+    # they are not device work
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in names]
+    busy_us = sum(e.self_device_time_total for e in on_device)
+    print(f"[arm profile] one inner-mode fleet solve, {int(res.outer_iters.max())} outer steps: "
+          f"wall {wall_us / 1e3:.1f} ms under the profiler; card: {card}")
+    if busy_us <= 0.0:
+        print("[arm profile] the profiler saw no device time: not measured")
+        return None
+    print(f"[arm profile] device busy {busy_us / 1e3:.1f} ms = {100 * busy_us / wall_us:.2f}% of "
+          f"the wall time; {sum(e.count for e in on_device)} device ops of {len(on_device)} kinds")
+    # a host range's device time is that of the kernels launched inside it
+    ranges = {e.key: e for e in events if e.device_type == DeviceType.CPU and e.key in names}
+    for name in names:
+        e = ranges.get(name)
+        if e is not None:
+            print(f"[arm profile] {name}: {e.count} ranges, kernels {e.device_time_total / 1e3:.1f} "
+                  f"ms, host {e.cpu_time_total / 1e3:.1f} ms")
+    for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[arm profile] {e.self_device_time_total / 1e3:9.3f} ms, {e.count:6d} calls: "
+              f"{e.key[:90]}")
+    return {"busy_share": busy_us / wall_us}
+
+
+def arm_mc_success(arm, res, device):
+    """tests/test_isls_robust.py::_mc_success: the joint rate of ARM_MC
+    closed-loop rollouts (q0 ~ N(q0_nom, var), default_rng(11)) through
+    the SLS controller of res in which every control stays within the
+    bound."""
+    n, d, m = 3, 9, 3
+    A, B = arm.get_AB(res.x_nom, res.u_nom)
+    PHI_U = torch.zeros((m * ARM_N, d * ARM_N), dtype=A.dtype, device=device)
+    PHI_U[:, :n] = res.phi_u
+    K, k = sls_controller(A, B, PHI_U, res.du)
+    q0s = np.random.default_rng(ARM_MC_SEED).normal(
+        res.x_nom[0, :n].cpu().numpy(), np.sqrt(ARM_ROBUST_VAR), size=(ARM_MC, n))
+    x0s = arm.initial_state(torch.tensor(q0s, dtype=A.dtype, device=device))
+    _, us = vmap(lambda x0: rollout_sls_delta(arm.step, x0, K, k, res.x_nom, res.u_nom))(x0s)
+    return float((us.abs() <= ARM_ROBUST_U + 1e-3).all(dim=2).all(dim=1).double().mean())
+
+
+def arm_z_scores(res):
+    """Each control row's distance to the bound in spreads: (min over rows
+    of the upper side, of the lower side)."""
+    u_abs = res.u_nom.reshape(-1) + res.du
+    spread = torch.clamp(np.sqrt(ARM_ROBUST_VAR) * torch.linalg.vector_norm(res.phi_u, dim=-1),
+                         min=1e-12)
+    return (float(((ARM_ROBUST_U - u_abs) / spread).min()),
+            float(((u_abs + ARM_ROBUST_U) / spread).min()))
+
+
+def phase_arm_robust(device):
+    """Path B, the robust arm of tests/test_isls_robust.py, in f64 on the
+    card: isls_admm (i) without projections, (ii) with the per-row SOC
+    projection at Psi^-1(0.82), (iii) with joint_alpha = 0.958; each
+    validated by ARM_MC Monte-Carlo closed-loop rollouts."""
+    f64 = dict(dtype=torch.float64, device=device)
+    arm = PlanarArm((1.0, 1.0, 1.0), dt=1.0 / ARM_N)
+    cost = arm_cost(device, torch.float64, 1e3, (1.5, 2.0), (1e3, 1e3))
+    x0 = arm.initial_state(torch.tensor([np.pi / 3, -np.pi / 2, -np.pi / 4], **f64))
+    u0 = torch.zeros((ARM_N, 3), **f64)
+    x_nom0 = rollout_nonlinear(arm.step, x0, u0)
+    alphas = 10.0 ** torch.linspace(0.0, -5.0, 50, **f64)
+    psi_row = float(norm.ppf(ARM_ROBUST_ALPHA))
+    project_u, _ = make_box_chance_projection(
+        ARM_ROBUST_VAR, 3, -ARM_ROBUST_U, ARM_ROBUST_U, alpha_row=ARM_ROBUST_ALPHA, shifted=True,
+        **f64)
+    robust = dict(rho_u=1.0, k_max=50, max_admm_iter=10, alphas=alphas[:30], outer_tol=1e-4)
+    configs = {
+        "plain": dict(k_max=60, max_admm_iter=10, alphas=alphas[:10], outer_tol=1e-4),
+        "per-row SOC": dict(robust, project_u=project_u),
+        "joint": dict(robust, joint_alpha=ARM_ROBUST_JOINT,
+                      u_bounds=(-ARM_ROBUST_U, ARM_ROBUST_U), x0_var=ARM_ROBUST_VAR),
+    }
+    out = {}
+    for label, kw in configs.items():
+        t0 = time.perf_counter()
+        res = isls_admm(arm.step, arm.get_AB, cost, x_nom0, u0, 3, quad_cost=cost, device=device,
+                        **kw)
+        sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        rate = arm_mc_success(arm, res, device)
+        z_hi, z_lo = arm_z_scores(res)
+        ee_y = float(res.x_nom[-1, 7])
+        out[label] = dict(rate=rate, z=min(z_hi, z_lo), ms=ms)
+        print(f"[arm robust] {label}: MC joint rate {rate:.3f} over {ARM_MC} rollouts, min "
+              f"z-score {min(z_hi, z_lo):.4f}, x_N[ee_y] {ee_y:.4f}, {res.outer_iters} outer "
+              f"steps, status {SolveStatus(res.status).name}, {ms:.0f} ms (f64 on the card)")
+        check(bool(torch.isfinite(res.du).all() and torch.isfinite(res.phi_u).all()),
+              f"robust arm ({label}): non-finite controller")
+        check(abs(ee_y - 2.0) < 0.2, f"robust arm ({label}): x_N[ee_y] = {ee_y}")
+    plain, row, joint = out["plain"]["rate"], out["per-row SOC"]["rate"], out["joint"]["rate"]
+    psi_joint = float(chi.ppf(ARM_ROBUST_JOINT, 3))
+    print(f"[arm robust] gates: per-row {row:.3f} > plain {plain:.3f} + 0.05, >= 0.85, plain <= "
+          f"0.82; per-row min z {out['per-row SOC']['z']:.4f} >= Psi^-1(0.82) - 1e-3 = "
+          f"{psi_row - 1e-3:.4f}; joint {joint:.3f} >= 0.93, min z {out['joint']['z']:.4f} >= "
+          f"chi_3^-1(0.958) - 5e-2 = {psi_joint - 5e-2:.4f} (reference: 77.3% plain, 95.8% robust)")
+    check(row > plain + 0.05 and row >= 0.85 and plain <= 0.82,
+          f"robust arm MC rates: plain {plain}, per-row {row}")
+    check(out["per-row SOC"]["z"] >= psi_row - 1e-3, "robust arm: a row misses its SOC")
+    check(joint >= 0.93 and out["joint"]["z"] >= psi_joint - 5e-2,
+          f"robust arm joint calibration: rate {joint}, min z {out['joint']['z']}")
+    return out
+
 
 def main() -> int:
     seconds = {}
@@ -1554,6 +1895,11 @@ def main() -> int:
         run("car inner mode", phase_car_inner, "cuda")
         car_times = run("car time", phase_car_time, "cuda", card)
         run("car profile", phase_car_profile, "cuda", card)
+        arm_problems, arm_dtypes = run("arm fleet main path", phase_arm_fleet, "cuda")
+        run("arm compare", phase_arm_compare, "cuda", arm_dtypes)
+        run("arm fleet time", phase_arm_time, "cuda", card, arm_problems, arm_dtypes)
+        run("arm profile", phase_arm_profile, "cuda", card, arm_problems, arm_dtypes)
+        run("arm robust", phase_arm_robust, "cuda")
         bounds = dict(run("fleet bounds", existing_bounds, solver, inputs, box[1], x0s,
                           sls[1], sls_fleet), **riccati_times["bounds"],
                       linesearch_rollout=car_times["bound"])

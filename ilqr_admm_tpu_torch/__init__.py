@@ -32,7 +32,14 @@ Ported so far:
   `models/car.py`, the ADMM solver `solvers/admm.py`, the square-root
   Riccati pass, iLQR, the constrained LQT and robust SLS ADMM solvers,
   and `ilqr_admm`, whose line-search rollout is the CUDA kernel
-  `csrc/linesearch_rollout.cu` behind `make_fused_linesearch_rollout`.
+  `csrc/linesearch_rollout.cu` behind `make_fused_linesearch_rollout`;
+- the 3DoF arm: `models/arm.py` (`PlanarArm`, its URDF loader
+  and the asset), the fleet solver `ilqr_admm_fleet`
+  (`solvers/batched_ilqr_admm.py`, the counterpart of `jax.vmap` of
+  `ilqr_admm`), `chance.py` (joint chance-constraint calibration, also
+  behind `sls_admm(joint_alpha=...)`) and robust iLQR `isls_admm`. No
+  TPU kernel lies on these paths (the JAX package's rollout and Riccati
+  kernels refuse the arm's state dimension, 9), so they run plain torch.
 
 The kernels are built with nvcc at first use on a CUDA tensor. Importing
 the package builds and loads nothing. Entry points that take a `device`
@@ -40,6 +47,7 @@ run on the CUDA card unless the caller passes another (the CPU runs the
 plain torch versions of the kernels).
 """
 
+from ilqr_admm_tpu_torch.models.arm import PlanarArm
 from ilqr_admm_tpu_torch.models.car import CarFrontWheel, CarParkingCost
 from ilqr_admm_tpu_torch.models.double_integrator import DoubleIntegrator
 from ilqr_admm_tpu_torch.ops.fused_admm import make_fused_lqt_admm
@@ -49,8 +57,10 @@ from ilqr_admm_tpu_torch.ops.fused_sls import make_fused_sls_admm
 from ilqr_admm_tpu_torch.ops.riccati import DPGains
 from ilqr_admm_tpu_torch.problem import QuadCost
 from ilqr_admm_tpu_torch.solvers.batched import make_batched_lqt_admm
+from ilqr_admm_tpu_torch.solvers.batched_ilqr_admm import ilqr_admm_fleet
 from ilqr_admm_tpu_torch.solvers.batched_sls import make_batched_sls_admm
 from ilqr_admm_tpu_torch.solvers.ilqr_admm import ilqr_admm
+from ilqr_admm_tpu_torch.solvers.isls_admm import isls_admm
 from ilqr_admm_tpu_torch.solvers.lqt import lqt_solve_dp
 from ilqr_admm_tpu_torch.utils.cost_assembly import viapoint_cost
 
@@ -59,8 +69,11 @@ __all__ = [
     "CarParkingCost",
     "DPGains",
     "DoubleIntegrator",
+    "PlanarArm",
     "QuadCost",
     "ilqr_admm",
+    "ilqr_admm_fleet",
+    "isls_admm",
     "lqt_backward_parallel_fused",
     "lqt_solve_dp",
     "make_batched_lqt_admm",

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ilqr_admm_tpu_torch.models.arm import PlanarArm
 from ilqr_admm_tpu_torch.models.car import CarFrontWheel, CarParkingCost
 from ilqr_admm_tpu_torch.ops.riccati import DPGains
 from ilqr_admm_tpu_torch.problem import QuadCost
@@ -44,6 +45,11 @@ def dpgains_from_numpy(K, k, Quu, Quu_inv, Qux, *, device, dtype) -> DPGains:
 def car_from_numpy(dt, dist=None) -> CarFrontWheel:
     """CarFrontWheel with the JAX plant's dt and dist (default 2.0)."""
     return CarFrontWheel(dt=float(dt)) if dist is None else CarFrontWheel(float(dt), float(dist))
+
+
+def arm_from_numpy(lengths, dt) -> PlanarArm:
+    """PlanarArm with the JAX plant's link lengths (its `lengths`) and dt."""
+    return PlanarArm(tuple(float(v) for v in np.asarray(lengths).reshape(-1)), dt=float(dt))
 
 
 def car_parking_cost_from_numpy(cu, cf, pf, cx, px, *, device, dtype) -> CarParkingCost:

@@ -42,6 +42,17 @@ def read_flags(*flags: torch.Tensor) -> list[bool]:
     return [bool(v) for v in torch.stack(flags).tolist()]
 
 
+def stop_tests(prim, dual, prim_new, dual_new, cfg: ADMMConfig):
+    """The plain loop's stop rules, elementwise: (converged, stalled) for
+    the residuals before (prim, dual) and after (prim_new, dual_new) an
+    iteration. Converged: both residuals below cfg.tol; stalled: both
+    changed by less than cfg.stall relative to the iteration before."""
+    converged = (prim_new < cfg.tol) & (dual_new < cfg.tol)
+    prim_change = torch.abs(prim - prim_new) / (prim + _EPS)
+    dual_change = torch.abs(dual - dual_new) / (dual + _EPS)
+    return converged, (prim_change < cfg.stall) & (dual_change < cfg.stall)
+
+
 def _stop_status(converged, stalled) -> int:
     conv, stall = read_flags(converged, stalled)
     if conv:
@@ -452,17 +463,13 @@ def admm_solve(
 
         logs[j] = torch.stack([prim_new, dual_new])
 
-        converged = (prim_new < cfg.tol) & (dual_new < cfg.tol)
+        converged, stalled = stop_tests(prim, dual, prim_new, dual_new, cfg)
         if accel:
             # only an accepted step may converge: on a reject the returned
-            # state is the reverted previous (z, lambda)
+            # state is the reverted previous (z, lambda). Across a restart
+            # the residuals repeat exactly: a stall needs two consecutive
+            # accepted steps
             converged = converged & ok
-        prim_change = torch.abs(prim - prim_new) / (prim + _EPS)
-        dual_change = torch.abs(dual - dual_new) / (dual + _EPS)
-        stalled = (prim_change < cfg.stall) & (dual_change < cfg.stall)
-        if accel:
-            # across a restart the residuals repeat exactly: require two
-            # consecutive accepted steps before trusting a stall
             stalled = stalled & ok & ok_prev
             ok_prev = ok
 

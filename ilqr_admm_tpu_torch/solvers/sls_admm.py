@@ -4,11 +4,8 @@
 The decision variable is the matrix [du | Phi_u[:, :p]], feedforward plus
 the response-map columns of the first p initial-state coordinates, so
 the x-update is one multi-right-hand-side prefactored solve. Residual
-norms are penalty-weighted.
-
-Not ported yet: the turnkey joint chance-constraint calibration
-(`joint_alpha`, `u_bounds`, `x0_var`, `chance_method`), which needs
-`chance.py`; pass the chance-constraint projection as `project_u`.
+norms are penalty-weighted. `joint_alpha` builds the chance-constraint
+projection from a joint confidence level (`chance.py`).
 """
 
 from __future__ import annotations
@@ -17,6 +14,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ilqr_admm_tpu_torch.chance import make_box_chance_projection
 from ilqr_admm_tpu_torch.ops.lifted import build_Su, build_Sx
 from ilqr_admm_tpu_torch.problem import ADMMConfig, QuadCost
 from ilqr_admm_tpu_torch.solvers.admm import admm_solve, validate_constraint_blocks
@@ -34,15 +32,29 @@ def sls_admm(
     rho_u=None,
     robust_dim: Optional[int] = None,
     cfg: ADMMConfig = ADMMConfig(max_iter=5000, stall_tol=1e-2),
-    feasible_iterate: bool = False,
+    joint_alpha: Optional[float] = None,
+    u_bounds=None,
+    x0_var=None,
+    chance_method: str = "chi",
+    feasible_iterate: Optional[bool] = None,
 ):
     """Solve the robust SLS problem with ADMM.
 
     robust_dim: number of leading initial-state coordinates the synthesis
     is robust to (default x_dim // 2, the position block). Projections
     receive (rows, robust_dim + 1) matrices whose rows are [du_i, phi_i].
+
+    joint_alpha: the turnkey joint chance-constraint calibration (see
+    `chance.py`): with u_bounds=(lower, upper) and x0_var (the variance
+    of the robust initial-state block) the SOC tightening comes from the
+    joint level (default chance_method='chi', psi = chi_p^{-1}(joint_alpha);
+    'sidak' and 'bonferroni' correct per-row levels) and the SOC
+    `project_u` is built here; it excludes passing project_u.
+
     feasible_iterate: return the z-side (projected) u-block instead of
-    the x-update's output.
+    the x-update's output; the z-iterate lies in the constraint sets by
+    construction, the x-iterate only at convergence. Default: True with
+    joint_alpha and no x-block, else False.
 
     Returns (du (Nm,), phi_u (Nm, Nd), info); phi_u splices the optimized
     robust columns into the unconstrained response map. Runs on the
@@ -52,6 +64,21 @@ def sls_admm(
     m = B.shape[-1]
     dtype, device = A.dtype, A.device
     p = d // 2 if robust_dim is None else robust_dim
+
+    if joint_alpha is not None:
+        if project_u is not None:
+            raise ValueError("pass either joint_alpha or project_u, not both")
+        if u_bounds is None or x0_var is None:
+            raise ValueError("joint_alpha requires u_bounds=(lo, hi) and x0_var")
+        project_u, _cal = make_box_chance_projection(
+            x0_var, p, u_bounds[0], u_bounds[1], joint_alpha=joint_alpha, n_rows=N * m,
+            method=chance_method, device=device, dtype=dtype,
+        )
+    # the z-side by default only without an x-block: with a state
+    # projection the u-side z-iterate alone is not dynamics-consistent
+    # with the x-side constraints
+    if feasible_iterate is None:
+        feasible_iterate = joint_alpha is not None and project_x is None
     validate_constraint_blocks(project_x, rho_x, project_u, rho_u)
 
     # unconstrained synthesis for the non-robust columns

@@ -23,10 +23,19 @@ The time-parallel Riccati: the gates of `tests/test_pallas_riccati.py`
 f32-rounded problem) and the tracking cost of the closed loop the gains
 drive, against the f64 optimum's.
 
+The 3DoF arm iLQR-ADMM fleet: counterpart of `benchmarks/_oracles.py`
+(`arm_polish`), `benchmarks/_certify.py` (`gaps`) and the gates of
+`benchmarks/bench_arm_admm.py`: the fraction of converged instances, the
+bound violation, the fraction with an active bound, and the relative gap
+of clip(u)'s f64 cost against a bounded L-BFGS-B polish from it (a
+local-optimality certificate: the task is nonconvex).
+
 Built on the port's own `build_Su`, `build_Sx` and `sw_x0`; no jax.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -35,7 +44,8 @@ from scipy.optimize import LinearConstraint, minimize
 from ilqr_admm_tpu_torch.ops.lifted import build_Su, build_Sx, sw_x0
 from ilqr_admm_tpu_torch.ops.parallel_riccati import rollout_closed_loop_parallel
 from ilqr_admm_tpu_torch.ops.riccati import lqt_backward
-from ilqr_admm_tpu_torch.problem import QuadCost
+from ilqr_admm_tpu_torch.ops.rollout import rollout_nonlinear
+from ilqr_admm_tpu_torch.problem import QuadCost, SolveStatus
 from ilqr_admm_tpu_torch.solvers.lqt import block_diag_stacked
 
 # The gates of bench.py: every oracle-checked instance (the first 64)
@@ -458,4 +468,97 @@ def riccati_gate_failures(cert: dict) -> list[str]:
     if not cert["cost_rel"] <= RICCATI_MAX_COST_REL:
         failures.append(
             f"closed-loop cost off by {cert['cost_rel']:.3e} > {RICCATI_MAX_COST_REL:g}")
+    return failures
+
+
+# The gates of bench_arm_admm.py: 99% of the fleet CONVERGED, the
+# reported u within 1e-2 of the bound, and the oracle gap on the first 8
+# instances (median, max) at most 1e-3 and 1e-2 in the inner line-search
+# mode (:139-142), 2e-3 and 6e-3 in the outer one (:177-178).
+ARM_N_ORACLE = 8
+ARM_GATES = {
+    "inner": dict(converged_frac=0.99, max_violation=1e-2, cost_gap_median=1e-3,
+                  cost_gap_max=1e-2),
+    "outer": dict(converged_frac=0.99, max_violation=1e-2, cost_gap_median=2e-3,
+                  cost_gap_max=6e-3),
+}
+
+
+def arm_polish(arm, cost: QuadCost, q0s, us, u_lower: float, u_upper: float) -> dict:
+    """f64 host oracle of the arm fleet (`_oracles.py::arm_polish`).
+
+    For each instance: the cost of clip(u) from x0 = [q0, 0, fk(q0)], its
+    gradient by torch autograd of the rollout on the CPU in float64, and
+    a bounded L-BFGS-B polish from clip(u) with the reference's options.
+    Returns j_ours, j_star = min(polished, j_ours), and the seconds.
+    """
+    t0 = time.perf_counter()
+    q0s, us = _f64(q0s), _f64(us)
+    n_inst, N, m = us.shape
+    cost = QuadCost(_f64(cost.Q), _f64(cost.xd), _f64(cost.R))
+
+    def j_of(q0, u_flat):
+        x0 = torch.cat([q0, torch.zeros_like(q0), arm.fk(q0)])
+        u = u_flat.reshape(N, m)
+        return cost(rollout_nonlinear(arm.step, x0, u), u)
+
+    j_ours, j_star = np.zeros(n_inst), np.zeros(n_inst)
+    for i in range(n_inst):
+        u0 = torch.clamp(us[i].reshape(-1), u_lower, u_upper)
+        with torch.no_grad():
+            j_ours[i] = float(j_of(q0s[i], u0))
+
+        def f_and_g(v, q0=q0s[i]):
+            v = torch.tensor(v, requires_grad=True)
+            val = j_of(q0, v)
+            (g,) = torch.autograd.grad(val, v)
+            return float(val.detach()), g.numpy()
+
+        res = minimize(f_and_g, u0.numpy(), jac=True, method="L-BFGS-B",
+                       bounds=[(u_lower, u_upper)] * (N * m),
+                       options={"ftol": 1e-14, "gtol": 1e-10, "maxiter": 2000})
+        j_star[i] = min(res.fun, j_ours[i])
+    return {"j_ours": j_ours, "j_star": j_star, "seconds": time.perf_counter() - t0}
+
+
+def gaps(j_ours, j_star):
+    """Relative cost excess of ours over the oracle, (median, max)."""
+    j_ours, j_star = np.asarray(j_ours, np.float64), np.asarray(j_star, np.float64)
+    g = (j_ours - j_star) / np.maximum(np.abs(j_star), 1e-12)
+    return float(np.median(g)), float(np.max(g))
+
+
+def certify_arm(arm, cost: QuadCost, q0s, res, u_bound: float,
+                n_oracle: int = ARM_N_ORACLE) -> dict:
+    """The certificates of one arm fleet solve (`res`, an
+    `ilqr_admm_fleet` result) as `bench_arm_admm.py` reports them; the
+    oracle polishes the first n_oracle instances."""
+    u = _f64(res.u_nom)
+    u_max = u.abs().amax(dim=(1, 2))
+    outer = _f64(res.outer_iters)
+    orc = arm_polish(arm, cost, q0s[:n_oracle], u[:n_oracle], -u_bound, u_bound)
+    gap_med, gap_max = gaps(orc["j_ours"], orc["j_star"])
+    return {
+        "converged_frac": float((res.status.cpu() == SolveStatus.CONVERGED).double().mean()),
+        "max_violation": max(float(u_max.max()) - u_bound, 0.0),
+        "bounds_active_frac": float((u_max > 0.98 * u_bound).double().mean()),
+        "mean_cost": float(_f64(res.cost).mean()),
+        "mean_outer_iters": float(outer.mean()),
+        "max_outer_iters": int(outer.max()),
+        "cost_gap_median": gap_med,
+        "cost_gap_max": gap_max,
+        "oracle_seconds": orc["seconds"],
+    }
+
+
+def arm_gate_failures(cert: dict, mode: str) -> list[str]:
+    """The gates of bench_arm_admm.py a certificate misses in line-search
+    mode 'inner' or 'outer'; empty when it passes."""
+    gates = ARM_GATES[mode]
+    failures = []
+    if not cert["converged_frac"] >= gates["converged_frac"]:
+        failures.append(f"converged_frac {cert['converged_frac']} < {gates['converged_frac']}")
+    for key in ("max_violation", "cost_gap_median", "cost_gap_max"):
+        if not cert[key] <= gates[key]:
+            failures.append(f"{key} {cert[key]} > {gates[key]}")
     return failures

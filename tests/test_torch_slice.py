@@ -88,7 +88,8 @@ def test_port_imports_without_jax():
         for name in ("ops.riccati", "ops.parallel_riccati", "ops.scan", "ops.fused_riccati",
                      "ops.rollout", "solvers.lqt", "utils.device", "models.car",
                      "ops.fused_rollout", "ops.sqrt_riccati", "solvers.admm", "solvers.ilqr",
-                     "solvers.ilqr_admm", "solvers.lqt_admm", "solvers.sls_admm"):
+                     "solvers.ilqr_admm", "solvers.lqt_admm", "solvers.sls_admm",
+                     "models.arm", "chance", "solvers.isls_admm", "solvers.batched_ilqr_admm"):
             assert "ilqr_admm_tpu_torch." + name in names, name
         import chip_smoke
         leaked = sorted(m for m in sys.modules if m == "ilqr_admm_tpu" or m.startswith("ilqr_admm_tpu."))
