@@ -34,7 +34,15 @@ Drives the port's paths on the card:
 - the robust arm of `tests/test_isls_robust.py:28-200` through
   `isls_admm` in f64: without projections, with the per-row SOC
   projection at Psi^-1(0.82) and with `joint_alpha` = 0.958, each
-  validated by 1,000 Monte-Carlo closed-loop rollouts.
+  validated by 1,000 Monte-Carlo closed-loop rollouts;
+- the receding-horizon MPC of `benchmarks/bench_mpc.py:54-201` through
+  `solvers/mpc.py` (CarSimple(dt=0.1), H = 40, the via-point cost to
+  (2, 1), |u| <= 0.6, rho_u = 1, 2 outer x 5 ADMM iterations a tick, 10
+  alphas, x0 = (0, 0, 0.5, 0), 100 ticks, f32) in its dp and SQP ticks,
+  alone and as a fleet of 256, and the boxDDP tick of
+  `tests/test_mpc.py:117-181` (1-D double integrator, N = 50, |u| <= 3,
+  200 ticks) with each backward; no kernel lies on it (the car is
+  `CarSimple`, and the ticks pass no `linesearch_rollout`).
 
 Phases:
 
@@ -85,7 +93,18 @@ Phases:
    the fleet of 8 against 8 single `ilqr_admm` solves; solves/s (median
    and IQR of 3 windows of one solve); a `torch.profiler` split of one
    inner-mode solve; the robust arm in f64 with the gates of
-   `tests/test_isls_robust.py`.
+   `tests/test_isls_robust.py`;
+7. MPC, for each car tick alone, each tick as a fleet of 256 and each
+   boxDDP backward: 9 ticks through `run_mpc` with no host read between
+   them and the launch counters read around them, then a CUDA graph of
+   the tick replayed 100 times (200 for boxDDP) whose first 9 ticks must
+   be the eager ones; the gates on the graph's loop (max|u| <= 0.6 +
+   1e-4, the car parked within 0.05 of the target; the boxDDP gates of
+   `tests/test_mpc.py`; f64, labelled, where f32 misses); for one
+   controller the per-tick serving loop with the u readback in the timed
+   region, and the car's again with every stop flag read on the host;
+   the fleet's first 8 against 8 single ticks; a `torch.profiler` split
+   of one dp tick. Times are the median and IQR of 3 windows.
 
 Any failure exits non-zero before the last line. The last line is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
@@ -113,7 +132,7 @@ from torch.func import vmap
 from ilqr_admm_tpu_torch import _build
 from ilqr_admm_tpu_torch.chance import make_box_chance_projection
 from ilqr_admm_tpu_torch.models.arm import PlanarArm
-from ilqr_admm_tpu_torch.models.car import CarFrontWheel, CarParkingCost
+from ilqr_admm_tpu_torch.models.car import CarFrontWheel, CarParkingCost, CarSimple
 from ilqr_admm_tpu_torch.models.double_integrator import DoubleIntegrator
 from ilqr_admm_tpu_torch.ops import fused_admm, fused_riccati, fused_rollout, fused_sls
 from ilqr_admm_tpu_torch.ops.fused_admm import (
@@ -144,7 +163,7 @@ from ilqr_admm_tpu_torch.ops.parallel_riccati import (
     rollout_closed_loop_parallel,
     value_elements,
 )
-from ilqr_admm_tpu_torch.ops.riccati import lqt_backward
+from ilqr_admm_tpu_torch.ops.riccati import lqt_backward, quad_cost_model
 from ilqr_admm_tpu_torch.ops.rollout import (
     rollout_closed_loop,
     rollout_nonlinear,
@@ -153,11 +172,20 @@ from ilqr_admm_tpu_torch.ops.rollout import (
 from ilqr_admm_tpu_torch.problem import SolveStatus
 from ilqr_admm_tpu_torch.solvers import admm as admm_solver
 from ilqr_admm_tpu_torch.solvers import batched_ilqr_admm
+from ilqr_admm_tpu_torch.solvers import ilqr_admm as ilqr_admm_solver
 from ilqr_admm_tpu_torch.solvers.batched import make_batched_lqt_admm
 from ilqr_admm_tpu_torch.solvers.batched_ilqr_admm import ilqr_admm_fleet
 from ilqr_admm_tpu_torch.solvers.ilqr_admm import ilqr_admm
 from ilqr_admm_tpu_torch.solvers.isls_admm import isls_admm
 from ilqr_admm_tpu_torch.solvers.lqt import sls_controller
+from ilqr_admm_tpu_torch.solvers.mpc import (
+    make_mpc_fleet_step_constrained,
+    make_mpc_step_boxddp,
+    make_mpc_step_constrained,
+    mpc_constrained_init,
+    mpc_init,
+    run_mpc,
+)
 from ilqr_admm_tpu_torch.utils.certify import (
     ARM_N_ORACLE,
     arm_gate_failures,
@@ -306,6 +334,30 @@ ARM_ROBUST_JOINT = 0.958
 ARM_MC = 1000
 ARM_MC_SEED = 11
 
+# receding-horizon MPC, benchmarks/bench_mpc.py:54-91 (the constrained car)
+# and tests/test_mpc.py:117-181 (the boxDDP tick)
+MPC_H = 40
+MPC_TICKS = 100
+MPC_FLEET = 256
+MPC_U_MAX = 0.6
+MPC_U_TOL = 1e-4  # bench_mpc.py:206-211
+MPC_TARGET = (2.0, 1.0)
+MPC_PARK_TOL = 0.05  # bench_mpc.py:209, 212
+MPC_X0 = (0.0, 0.0, 0.5, 0.0)
+MPC_TICK_KW = {"dp": {}, "sqp": dict(method="batch", line_search="outer")}
+MPC_WINDOWS = 3
+MPC_EAGER_TICKS = 9  # the eager and served loops: 3 windows of 3 ticks
+MPC_GRAPH_TOL = 1e-6  # max |du| of a tick's CUDA graph against its eager run
+MPC_COMPARE = 8
+MPC_COMPARE_TICKS = 2
+# max |du| of the fleet against single ticks, f32: about 8x the largest
+# reading on an H100 (4.8e-7 dp, 1.3e-6 SQP)
+MPC_COMPARE_TOL = 1e-5
+MPC_BOX_N = 50
+MPC_BOX_TICKS = 200
+MPC_BOX_U = 3.0
+MPC_BOX_RICCATI = ("seq", "parallel")
+
 # Published peaks of one H100 SXM: f32 outside the tensor cores, dense
 # TF32 on the tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
@@ -397,6 +449,13 @@ def reset_launch_counts():
     fused_riccati.scan_launch_count = 0
     fused_riccati.join_launch_count = 0
     fused_rollout.launch_count = 0
+
+
+def launch_counts() -> dict:
+    return {"admm_u_only": fused_admm.launch_count, "admm_box": fused_admm.box_launch_count,
+            "sls_admm": fused_sls.launch_count, "riccati_scan": fused_riccati.scan_launch_count,
+            "riccati_join": fused_riccati.join_launch_count,
+            "linesearch_rollout": fused_rollout.launch_count}
 
 
 @contextlib.contextmanager
@@ -1851,6 +1910,388 @@ def phase_arm_robust(device):
     return out
 
 
+def mpc_problem(device, dtype=torch.float32):
+    """bench_mpc.py's build(H=40): CarSimple(dt=0.1), the via-point cost to
+    (2, 1) (diag(1, 1, 0, 0.1) on the way, diag(20, 20, 0, 1) at the end,
+    u_std 1e-2), its quadratic model, and x0 = (0, 0, 0.5, 0)."""
+    kw = dict(dtype=dtype, device=device)
+    target = torch.tensor([*MPC_TARGET, 0.0, 0.0], **kw)
+    Qs = torch.stack([torch.diag(torch.tensor([1.0, 1.0, 0.0, 0.1], **kw)),
+                      torch.diag(torch.tensor([20.0, 20.0, 0.0, 1.0], **kw))])
+    seq = np.zeros(MPC_H, dtype=np.int32)
+    seq[-1] = 1
+    quad = viapoint_cost(torch.stack([target, target]), Qs, seq, 1e-2, 2)
+    return dict(car=CarSimple(dt=0.1), quad=quad, x0=torch.tensor(MPC_X0, **kw),
+                get_Cs=lambda xs, us: quad_cost_model(quad.Q, quad.xd, quad.R, xs, us))
+
+
+def mpc_project(u):
+    return torch.clamp(u, -MPC_U_MAX, MPC_U_MAX)
+
+
+def mpc_step(problem, tick, fleet=False):
+    """bench_mpc.py's ticks: 'dp' (the default) or 'sqp' (method='batch',
+    line_search='outer'); |u| <= 0.6, rho_u = 1, 2 outer x 5 ADMM
+    iterations, 10 alphas. fleet: the fleet form."""
+    make = make_mpc_fleet_step_constrained if fleet else make_mpc_step_constrained
+    return make(problem["car"].step, problem["car"].get_AB, problem["quad"],
+                get_Cs=problem["get_Cs"], project_u=mpc_project, rho_u=1.0, n_outer_iters=2,
+                n_admm_iters=5, **MPC_TICK_KW[tick])
+
+
+def mpc_state(problem):
+    x0 = problem["x0"]
+    return mpc_constrained_init(problem["car"].step, x0, torch.zeros((MPC_H, 2), dtype=x0.dtype),
+                                device=x0.device)
+
+
+def mpc_fleet(problem, batch=MPC_FLEET):
+    """The fleet's x0 ~ N(0, 0.3^2) from default_rng(0) (bench_mpc.py:136-140)
+    and its initial states."""
+    x0 = problem["x0"]
+    x0s = torch.tensor(np.random.default_rng(0).normal(0, 0.3, size=(batch, 4)), dtype=x0.dtype,
+                       device=x0.device)
+    zeros = torch.zeros((MPC_H, 2), dtype=x0.dtype, device=x0.device)
+    states = vmap(lambda a: mpc_constrained_init(problem["car"].step, a, zeros,
+                                                 device=x0.device))(x0s)
+    return x0s, states
+
+
+def mpc_box_problem(device, dtype=torch.float32):
+    """tests/test_mpc.py:117-149: the 1-D double integrator, N = 50, position
+    1 at weight 1e3 at the end, u_std 1e-2, |u| <= 3, x0 = 0."""
+    kw = dict(dtype=dtype, device=device)
+    plant = DoubleIntegrator(1, 2, dt=1.0 / MPC_BOX_N, **kw)
+    zs = torch.stack([torch.zeros(2, **kw), torch.tensor([1.0, 0.0], **kw)])
+    Qs = torch.stack([torch.zeros((2, 2), **kw), torch.eye(2, **kw) * 1e3])
+    seq = np.zeros(MPC_BOX_N, dtype=np.int32)
+    seq[-1] = 1
+    cost = viapoint_cost(zs, Qs, seq, 1e-2, 1)
+    A, B = plant.AB(MPC_BOX_N)
+    return dict(f=plant.step, get_AB=lambda xs, us: (A, B), cost=cost, x0=torch.zeros(2, **kw),
+                get_Cs=lambda xs, us: quad_cost_model(cost.Q, cost.xd, cost.R, xs, us))
+
+
+def mpc_box_step(problem, riccati):
+    return make_mpc_step_boxddp(problem["f"], problem["get_AB"], problem["cost"],
+                                problem["get_Cs"], -MPC_BOX_U, MPC_BOX_U, n_iters=3,
+                                riccati=riccati)
+
+
+def mpc_box_state(problem):
+    x0 = problem["x0"]
+    return mpc_init(problem["f"], x0, torch.zeros((MPC_BOX_N, 1), dtype=x0.dtype),
+                    device=x0.device)
+
+
+def _window_sizes(n_ticks, windows=MPC_WINDOWS):
+    return [n_ticks // windows + (i < n_ticks % windows) for i in range(windows)]
+
+
+def mpc_closed_loop(step, plant, state, x0, n_ticks):
+    """`run_mpc` over n_ticks in MPC_WINDOWS windows, the state carried
+    across; each window on the host clock with a synchronize at its ends
+    and no host read inside. Returns (xs, us, ms a tick of each window,
+    host reads of stop flags)."""
+    device = x0.device
+    xs_all, us_all, ms = [], [], []
+    x = x0
+    reads0 = admm_solver.host_sync_count
+    for n in _window_sizes(n_ticks):
+        sync(device)
+        t0 = time.perf_counter()
+        xs, us, state = run_mpc(plant, step, state, x, n)
+        x = plant(xs[-1], us[-1])
+        sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3 / n)
+        xs_all.append(xs)
+        us_all.append(us)
+    return torch.cat(xs_all), torch.cat(us_all), ms, admm_solver.host_sync_count - reads0
+
+
+def mpc_served(step, plant, state, x, n_ticks):
+    """The per-tick serving loop of bench_mpc.py:105-116: each tick one host
+    call whose time closes on the readback of max|u|; the plant advances
+    outside the timer. Returns (ms a tick of each window, max|u|, host reads
+    a tick)."""
+    ms, u_max = [], 0.0
+    reads0 = admm_solver.host_sync_count
+    for n in _window_sizes(n_ticks):
+        t = 0.0
+        for _ in range(n):
+            t0 = time.perf_counter()
+            u, state = step(state, x)
+            u_max = max(u_max, float(u.abs().max()))
+            t += time.perf_counter() - t0
+            x = plant(x, u)
+        ms.append(t * 1e3 / n)
+    return ms, u_max, (admm_solver.host_sync_count - reads0) / n_ticks
+
+
+@contextlib.contextmanager
+def _stop_flags_read():
+    """Every stop flag read on the host, as in a tick whose tolerances are
+    not all 0 (what the port did before the zero-tolerance skip)."""
+    always = dict(can_stop=lambda cfg: True)
+    outer = dict(outer_can_stop=lambda outer_tol, osc_tol: True)
+    with _swapped(admm_solver, **always), _swapped(ilqr_admm_solver, **outer), \
+            _swapped(batched_ilqr_admm, **always, **outer):
+        yield
+
+
+def mpc_graph(step, plant, state, x0):
+    """A CUDA graph of one closed-loop tick on static buffers: each replay
+    runs the tick and the plant and writes the new state and x over the
+    old. A capture that fails raises. Returns (graph, the static x, the
+    static u of the last replay, the static state)."""
+    static = type(state)(*(t.clone() for t in state))
+    x_s = x0.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up: workspaces, caches, handles
+        step(static, x_s)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        u, new = step(static, x_s)
+        x_next = plant(x_s, u)
+        for old, t in zip(static, new):
+            old.copy_(t)
+        x_s.copy_(x_next)
+    return graph, x_s, u, static
+
+
+def mpc_graph_loop(graph, x_s, u_s, n_ticks):
+    """n_ticks replays in MPC_WINDOWS windows, each x and u copied to a log
+    on the device. Returns (xs, us, ms a tick of each window)."""
+    xs = torch.empty((n_ticks,) + tuple(x_s.shape), dtype=x_s.dtype, device=x_s.device)
+    us = torch.empty((n_ticks,) + tuple(u_s.shape), dtype=u_s.dtype, device=u_s.device)
+    ms, t = [], 0
+    for n in _window_sizes(n_ticks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            xs[t].copy_(x_s)
+            graph.replay()
+            us[t].copy_(u_s)
+            t += 1
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / n)
+    return xs, us, ms
+
+
+def _ms(label, ms):
+    med, q1, q3 = _median_iqr(ms)
+    return f"{label + ' ' if label else ''}{med:.3f} ms a tick (IQR {q1:.3f}-{q3:.3f}; {', '.join(f'{v:.3f}' for v in ms)})"
+
+
+def _park_error(xs, us, problem):
+    """The car's distance to the target after the last tick."""
+    x_end = problem["car"].step(xs[-1], us[-1])
+    target = torch.tensor(MPC_TARGET, dtype=x_end.dtype, device=x_end.device)
+    return float(torch.linalg.norm(x_end[:2] - target))
+
+
+def _mpc_car_gates(xs, us, problem):
+    u_max = float(us.abs().max())
+    park = _park_error(xs, us, problem)
+    failures = []
+    if not u_max <= MPC_U_MAX + MPC_U_TOL:
+        failures.append(f"max|u| {u_max:.6f} > {MPC_U_MAX} + {MPC_U_TOL:g}")
+    if not park <= MPC_PARK_TOL:
+        failures.append(f"parked {park:.4f} from the target > {MPC_PARK_TOL}")
+    return failures
+
+
+def mpc_loops(step, plant, state, x0, n_ticks, label):
+    """The closed loops of one tick from one start: MPC_EAGER_TICKS ticks
+    through `run_mpc` with no host read between them (the launch counters
+    set to 0 before, read after), then a CUDA graph of the tick replayed
+    n_ticks times, whose first ticks must be the eager loop's. Returns
+    (xs, us of the graph's loop, eager ms a tick by window, graph ms a
+    tick by window)."""
+    reset_launch_counts()
+    exs, eus, ems, reads = mpc_closed_loop(step, plant, state, x0, MPC_EAGER_TICKS)
+    counts = launch_counts()
+    check(reads == 0, f"mpc {label}: {reads} host reads in the closed loop")
+    graph, x_s, u_s, _ = mpc_graph(step, plant, state, x0)
+    xs, us, gms = mpc_graph_loop(graph, x_s, u_s, n_ticks)
+    du = float((us[:MPC_EAGER_TICKS] - eus).abs().max())
+    print(f"[mpc] {label}: {_ms(f'eager closed loop ({MPC_EAGER_TICKS} ticks, no host read)', ems)}"
+          f"; host reads of stop flags {reads}; kernel launches {sum(counts.values())} (no TPU "
+          f"kernel lies on this path); {_ms(f'one CUDA graph of the tick replayed {n_ticks} times', gms)}"
+          f"; max |du| of its first {MPC_EAGER_TICKS} ticks against the eager loop {du:.3e}")
+    check(du <= MPC_GRAPH_TOL, f"mpc {label}: the graph's ticks differ from the eager ones by {du}")
+    return xs, us, ems, gms
+
+
+def _f32_then_f64(run, label):
+    """run(dtype) -> (result, gate failures) in f32, and again in f64,
+    labelled, where f32 misses a gate."""
+    for dtype in (torch.float32, torch.float64):
+        out, failures = run(dtype)
+        name = f"{label}, {str(dtype).replace('torch.', '')}"
+        print(f"[mpc] {name}: gates {'pass' if not failures else 'MISSED: ' + '; '.join(failures)}")
+        if not failures:
+            return out
+        check(dtype == torch.float32, f"mpc {name}: " + "; ".join(failures))
+        print(f"[mpc] {label}: f32 misses the gates; the loops run again in f64")
+
+
+def phase_mpc_car(device, card):
+    """Each tick of bench_mpc.py on one controller, f32 (f64 where f32
+    misses a gate, labelled): `mpc_loops` over MPC_TICKS ticks, gated on
+    the graph's loop (max|u|, parking within 0.05), then the per-tick
+    serving loop with its u readback, and the same with every stop flag
+    read on the host."""
+    out = {}
+    for tick in MPC_TICK_KW:
+        def run(dtype):
+            problem = mpc_problem(device, dtype)
+            step, plant = mpc_step(problem, tick), problem["car"].step
+            label = f"car {tick} tick, {str(dtype).replace('torch.', '')}"
+            xs, us, ems, gms = mpc_loops(step, plant, mpc_state(problem), problem["x0"], MPC_TICKS,
+                                         label)
+            print(f"[mpc] {label}: max|u| {float(us.abs().max()):.6f} (bound {MPC_U_MAX}), parked "
+                  f"{_park_error(xs, us, problem):.5f} from (2, 1) after {MPC_TICKS} ticks (gate "
+                  f"{MPC_PARK_TOL}); card: {card}")
+            return (problem, step, ems, gms, str(dtype).replace("torch.", "")), \
+                _mpc_car_gates(xs, us, problem)
+
+        problem, step, ems, gms, dtype = _f32_then_f64(run, f"car {tick} tick")
+        plant, label = problem["car"].step, f"car {tick} tick, {dtype}"
+        served, served_u, served_reads = mpc_served(step, plant, mpc_state(problem), problem["x0"],
+                                                    MPC_EAGER_TICKS)
+        with _stop_flags_read():
+            read_ms, _, read_reads = mpc_served(step, plant, mpc_state(problem), problem["x0"],
+                                                MPC_EAGER_TICKS)
+        check(served_u <= MPC_U_MAX + MPC_U_TOL, f"mpc {label}: served max|u| {served_u}")
+        print(f"[mpc] {label}: {_ms('served (a host call and the u readback a tick)', served)}, "
+              f"{served_reads:g} host reads a tick; with every stop flag read on the host "
+              f"{_ms('', read_ms)}, {read_reads:g} reads a tick; card: {card}")
+        out[tick] = dict(eager=ems, graph=gms, served=served, served_reads=read_ms, dtype=dtype)
+    return out
+
+
+def phase_mpc_fleet(device, card):
+    """The fleet of MPC_FLEET controllers in each tick, f32: `mpc_loops`
+    over MPC_TICKS ticks (gated: max|u|), ms a fleet tick and
+    controller-ticks/s; then the first MPC_COMPARE controllers against as
+    many single ticks over MPC_COMPARE_TICKS ticks."""
+    problem = mpc_problem(device)
+    plant = vmap(problem["car"].step)
+    x0s, states = mpc_fleet(problem)
+    out = {}
+    for tick in MPC_TICK_KW:
+        step = mpc_step(problem, tick, fleet=True)
+        label = f"fleet of {MPC_FLEET}, {tick} tick, f32"
+        xs, us, ems, gms = mpc_loops(step, plant, states, x0s, MPC_TICKS, label)
+        u_max = float(us.abs().max())
+        rates = [MPC_FLEET / _median_iqr(v)[0] * 1e3 for v in (ems, gms)]
+        print(f"[mpc] {label}: {rates[0]:.1f} controller-ticks/s eager, {rates[1]:.1f} as a graph; "
+              f"max|u| {u_max:.6f} (bound {MPC_U_MAX}); card: {card}")
+        check(u_max <= MPC_U_MAX + MPC_U_TOL, f"mpc {label}: max|u| {u_max}")
+        check(bool(torch.isfinite(xs).all()), f"mpc {label}: non-finite states")
+        out[tick] = dict(eager=ems, graph=gms)
+        single = mpc_step(problem, tick)
+        sub = type(states)(*(t[:MPC_COMPARE] for t in states))
+        singles = [type(states)(*(t[i] for t in states)) for i in range(MPC_COMPARE)]
+        xf, xi = x0s[:MPC_COMPARE], list(x0s[:MPC_COMPARE])
+        du = 0.0
+        for _ in range(MPC_COMPARE_TICKS):
+            uf, sub = step(sub, xf)
+            for i in range(MPC_COMPARE):
+                ui, singles[i] = single(singles[i], xi[i])
+                du = max(du, float((uf[i] - ui).abs().max()))
+                xi[i] = problem["car"].step(xi[i], ui)
+            xf = plant(xf, uf)
+        print(f"[mpc] {tick} tick: the fleet of {MPC_COMPARE} against {MPC_COMPARE} single ticks "
+              f"over {MPC_COMPARE_TICKS} ticks: max |du| {du:.3e} (gate {MPC_COMPARE_TOL:g})")
+        check(du <= MPC_COMPARE_TOL, f"mpc fleet {tick}: {du:.3e} from the single ticks")
+    return out
+
+
+def _box_gates(xs, us, riccati):
+    """tests/test_mpc.py:143-149 (seq), :179-180 (parallel)."""
+    u_max = float(us.abs().max())
+    err = abs(float(xs[-1, 0]) - 1.0)
+    tail = float((xs[-20:, 0] - 1.0).abs().max())
+    failures = []
+    if not u_max <= MPC_BOX_U + 1e-12:
+        failures.append(f"max|u| {u_max} > {MPC_BOX_U}")
+    if not err < 0.05:
+        failures.append(f"final position {err:.4f} from 1")
+    if riccati == "seq" and not tail < 0.08:
+        failures.append(f"last 20 ticks up to {tail:.4f} from 1 (limit cycle)")
+    if riccati == "seq" and not u_max > 2.99:
+        failures.append(f"the bound never binds (max|u| {u_max})")
+    return failures
+
+
+def phase_mpc_boxddp(device, card):
+    """The boxDDP tick of tests/test_mpc.py:117-181 with each backward, f32
+    (f64 where f32 misses a gate, labelled): `mpc_loops` over
+    MPC_BOX_TICKS ticks with the test's gates on the graph's loop, and
+    the served loop."""
+    out = {}
+    for riccati in MPC_BOX_RICCATI:
+        def run(dtype):
+            problem = mpc_box_problem(device, dtype)
+            step = mpc_box_step(problem, riccati)
+            label = f"boxDDP tick, riccati={riccati}, {str(dtype).replace('torch.', '')}"
+            xs, us, ems, gms = mpc_loops(step, problem["f"], mpc_box_state(problem), problem["x0"],
+                                         MPC_BOX_TICKS, label)
+            print(f"[mpc] {label}: max|u| {float(us.abs().max()):.6f} (bound {MPC_BOX_U}), position "
+                  f"{float(xs[-1, 0]):.5f} after {MPC_BOX_TICKS} ticks, the last 20 within "
+                  f"{float((xs[-20:, 0] - 1.0).abs().max()):.5f} of 1; card: {card}")
+            return (problem, step, ems, gms, label), _box_gates(xs, us, riccati)
+
+        problem, step, ems, gms, label = _f32_then_f64(run, f"boxDDP tick, riccati={riccati}")
+        served, served_u, _ = mpc_served(step, problem["f"], mpc_box_state(problem), problem["x0"],
+                                         MPC_EAGER_TICKS)
+        check(served_u <= MPC_BOX_U, f"mpc {label}: served max|u| {served_u}")
+        print(f"[mpc] {label}: {_ms('served', served)}; card: {card}")
+        out[riccati] = dict(eager=ems, graph=gms, served=served)
+    return out
+
+
+def phase_mpc_profile(device, card):
+    """`torch.profiler` over one dp tick of the car (the default tick,
+    f32): device busy share of the wall time, the top device ops, and the
+    host-side sync and copy calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    problem = mpc_problem(device)
+    step, state = mpc_step(problem, "dp"), mpc_state(problem)
+    step(state, problem["x0"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, problem["x0"])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in on_device)
+    waits = {e.key: e.count for e in events
+             if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "aten::_local_scalar_dense",
+                          "aten::item", "cudaMemcpyAsync")}
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                         "cudaLaunchKernelExC"))
+    print(f"[mpc profile] one dp tick: wall {wall_us / 1e3:.1f} ms under the profiler; kernel "
+          f"launches {launches}; host-side sync and copy calls {waits}; card: {card}")
+    if busy_us <= 0.0:
+        print("[mpc profile] the profiler saw no device time: not measured")
+        return None
+    print(f"[mpc profile] device busy {busy_us / 1e3:.2f} ms = {100 * busy_us / wall_us:.2f}% of "
+          f"the wall time; {sum(e.count for e in on_device)} device ops of {len(on_device)} kinds")
+    for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[mpc profile] {e.self_device_time_total / 1e3:8.3f} ms, {e.count:6d} calls: "
+              f"{e.key[:90]}")
+    return {"busy_share": busy_us / wall_us}
+
+
 def main() -> int:
     seconds = {}
 
@@ -1900,6 +2341,10 @@ def main() -> int:
         run("arm fleet time", phase_arm_time, "cuda", card, arm_problems, arm_dtypes)
         run("arm profile", phase_arm_profile, "cuda", card, arm_problems, arm_dtypes)
         run("arm robust", phase_arm_robust, "cuda")
+        run("mpc car", phase_mpc_car, "cuda", card)
+        run("mpc fleet", phase_mpc_fleet, "cuda", card)
+        run("mpc boxddp", phase_mpc_boxddp, "cuda", card)
+        run("mpc profile", phase_mpc_profile, "cuda", card)
         bounds = dict(run("fleet bounds", existing_bounds, solver, inputs, box[1], x0s,
                           sls[1], sls_fleet), **riccati_times["bounds"],
                       linesearch_rollout=car_times["bound"])

@@ -39,7 +39,13 @@ Ported so far:
   `ilqr_admm`), `chance.py` (joint chance-constraint calibration, also
   behind `sls_admm(joint_alpha=...)`) and robust iLQR `isls_admm`. No
   TPU kernel lies on these paths (the JAX package's rollout and Riccati
-  kernels refuse the arm's state dimension, 9), so they run plain torch.
+  kernels refuse the arm's state dimension, 9), so they run plain torch;
+- receding-horizon MPC: the box QPs (`ops/boxqp.py`), the boxDDP
+  backward passes (`ops/constrained_riccati.py`), `solvers/boxddp.py`,
+  `method='dp'` and Anderson acceleration in `ilqr_admm_fleet`, and
+  `solvers/mpc.py` (the DP, constrained and boxDDP ticks, `run_mpc`,
+  and the fleet ticks), whose ticks read nothing on the host. No TPU
+  kernel lies on these paths either.
 
 The kernels are built with nvcc at first use on a CUDA tensor. Importing
 the package builds and loads nothing. Entry points that take a `device`
@@ -48,7 +54,7 @@ plain torch versions of the kernels).
 """
 
 from ilqr_admm_tpu_torch.models.arm import PlanarArm
-from ilqr_admm_tpu_torch.models.car import CarFrontWheel, CarParkingCost
+from ilqr_admm_tpu_torch.models.car import CarFrontWheel, CarParkingCost, CarSimple
 from ilqr_admm_tpu_torch.models.double_integrator import DoubleIntegrator
 from ilqr_admm_tpu_torch.ops.fused_admm import make_fused_lqt_admm
 from ilqr_admm_tpu_torch.ops.fused_riccati import lqt_backward_parallel_fused
@@ -67,6 +73,7 @@ from ilqr_admm_tpu_torch.utils.cost_assembly import viapoint_cost
 __all__ = [
     "CarFrontWheel",
     "CarParkingCost",
+    "CarSimple",
     "DPGains",
     "DoubleIntegrator",
     "PlanarArm",

@@ -14,6 +14,7 @@ from ilqr_admm_tpu_torch.models.arm import PlanarArm
 from ilqr_admm_tpu_torch.models.car import CarFrontWheel, CarParkingCost
 from ilqr_admm_tpu_torch.ops.riccati import DPGains
 from ilqr_admm_tpu_torch.problem import QuadCost
+from ilqr_admm_tpu_torch.solvers.mpc import MPCConstrainedState, MPCState
 
 
 def array_from_numpy(a, *, device, dtype) -> torch.Tensor:
@@ -64,3 +65,21 @@ def admm_warm_from_numpy(z_x, z_u, lmb_x, lmb_u, *, device, dtype):
     flattened z_x (N*x,), z_u (N*u,), lmb_x and lmb_u."""
     kw = dict(device=device, dtype=dtype)
     return tuple(array_from_numpy(a, **kw) for a in (z_x, z_u, lmb_x, lmb_u))
+
+
+def mpc_state_from_numpy(x_nom, u_nom, *, device, dtype) -> MPCState:
+    """The port's MPCState from a JAX `MPCState`'s x_nom (N, x) and u_nom
+    (N, u) (with a leading fleet axis for a fleet's state), e.g. to start
+    both packages from the same warm start partway through a run."""
+    kw = dict(device=device, dtype=dtype)
+    return MPCState(x_nom=array_from_numpy(x_nom, **kw), u_nom=array_from_numpy(u_nom, **kw))
+
+
+def mpc_constrained_state_from_numpy(x_nom, u_nom, z_x, z_u, lmb_x, lmb_u, *, device,
+                                     dtype) -> MPCConstrainedState:
+    """The port's MPCConstrainedState from the fields of a JAX
+    `MPCConstrainedState`: x_nom (N, x), u_nom (N, u) and the flattened
+    z_x, z_u, lmb_x, lmb_u (N*dim,)."""
+    kw = dict(device=device, dtype=dtype)
+    return MPCConstrainedState(*(array_from_numpy(a, **kw)
+                                 for a in (x_nom, u_nom, z_x, z_u, lmb_x, lmb_u)))

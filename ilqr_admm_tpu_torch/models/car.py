@@ -103,18 +103,21 @@ class CarSimple:
         return self.step(x, u)
 
     def get_AB(self, xs: torch.Tensor, us: torch.Tensor):
-        """Closed-form Jacobians of the unwrapped dynamics."""
-        N = xs.shape[0]
+        """Closed-form Jacobians of the unwrapped dynamics, on the last
+        axis (no in-place writes), so they batch and vmap."""
         dt = self.dt
-        A = torch.eye(4, dtype=xs.dtype, device=xs.device).repeat(N, 1, 1)
-        A[:, 0, 2] = -dt * xs[:, 3] * torch.sin(xs[:, 2])
-        A[:, 1, 2] = dt * xs[:, 3] * torch.cos(xs[:, 2])
-        A[:, 0, 3] = dt * torch.cos(xs[:, 2])
-        A[:, 1, 3] = dt * torch.sin(xs[:, 2])
-        A[:, 2, 3] = dt * us[:, 0]
-        B = torch.zeros((N, 4, 2), dtype=xs.dtype, device=xs.device)
-        B[:, 2, 0] = dt * xs[:, 3]
-        B[:, 3, 1] = dt
+        th, v = xs[..., 2], xs[..., 3]
+        one, zero = torch.ones_like(th), torch.zeros_like(th)
+        sin, cos = torch.sin(th), torch.cos(th)
+
+        def rows(*r):
+            return torch.stack([torch.stack(row, dim=-1) for row in r], dim=-2)
+
+        A = rows((one, zero, -dt * v * sin, dt * cos),
+                 (zero, one, dt * v * cos, dt * sin),
+                 (zero, zero, one, dt * us[..., 0]),
+                 (zero, zero, zero, one))
+        B = rows((zero, zero), (zero, zero), (dt * v, zero), (zero, torch.full_like(th, dt)))
         return A, B
 
     def get_AB_autodiff(self, xs, us):

@@ -49,6 +49,22 @@ def _mv(M, v):
     return (M @ v[..., None])[..., 0]
 
 
+def _cholesky(M: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor, NaN where M is not positive definite (as the
+    JAX package's `cho_factor` gives), with no host read: the error flag
+    of `torch.linalg.cholesky` is read on the host."""
+    L, info = torch.linalg.cholesky_ex(M)
+    return torch.where((info == 0)[..., None, None], L, torch.full_like(L, float("nan")))
+
+
+def _cho_solve(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """(L L^T)^{-1} rhs as two triangular solves (cuBLAS trsm on a card,
+    also when vmapped; `torch.cholesky_solve` of a batch may go through
+    MAGMA, which synchronizes with the host)."""
+    y = torch.linalg.solve_triangular(L, rhs, upper=False)
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
+
+
 def _pad_last(arr: torch.Tensor) -> torch.Tensor:
     """Append one all-zero step (the final-step gains)."""
     return torch.cat([arr, torch.zeros_like(arr[:1])], dim=0)
@@ -193,8 +209,8 @@ def ilqr_backward(
             Qux = Qux + T[d:, :d]
             Quu = Quu + T[d:, d:]
 
-        L = torch.linalg.cholesky(_sym(Quu))
-        sol = -torch.cholesky_solve(torch.cat([Qux, qu[:, None]], dim=-1), L)
+        L = _cholesky(_sym(Quu))
+        sol = -_cho_solve(L, torch.cat([Qux, qu[:, None]], dim=-1))
         Kt, kt = sol[:, :-1], sol[:, -1]
         KtT = Kt.T
         V = Qxx + KtT @ Quu @ Kt + Qux.T @ Kt + KtT @ Qux

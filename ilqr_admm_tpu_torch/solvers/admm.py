@@ -12,8 +12,9 @@ the JAX package.
 The JAX package runs each solve as one `lax.while_loop` on the device.
 Here each loop is a Python loop that stops on the same status: every
 iteration ends with one device-to-host read of its stop flags
-(`read_flags`, counted in `host_sync_count`). Everything else stays on
-the device.
+(`read_flags`, counted in `host_sync_count`), unless no stop test can
+pass (`can_stop`: tol and stall <= 0), when it runs max_iter iterations
+without a read. Everything else stays on the device.
 """
 
 from __future__ import annotations
@@ -53,7 +54,18 @@ def stop_tests(prim, dual, prim_new, dual_new, cfg: ADMMConfig):
     return converged, (prim_change < cfg.stall) & (dual_change < cfg.stall)
 
 
-def _stop_status(converged, stalled) -> int:
+def can_stop(cfg: ADMMConfig) -> bool:
+    """Whether a stop test can pass. Residual norms and their relative
+    changes are >= 0 or NaN, so with cfg.tol <= 0 and cfg.stall <= 0
+    neither `r < tol` nor `change < stall` is ever true: the loop runs
+    cfg.max_iter iterations and its flags need no read (the bounded
+    iterations of an MPC tick)."""
+    return cfg.tol > 0 or cfg.stall > 0
+
+
+def _stop_status(converged, stalled, cfg: ADMMConfig) -> int:
+    if not can_stop(cfg):
+        return SolveStatus.RUNNING
     conv, stall = read_flags(converged, stalled)
     if conv:
         return SolveStatus.CONVERGED
@@ -183,8 +195,8 @@ def _admm_solve_anderson(
         lu = v[2 * sx + su :].reshape(shape_u) if has_u else l_u_const
         return zx, zu, lx, lu
 
-    big = torch.tensor(1e6, **kw)
-    inf = torch.tensor(math.inf, **kw)
+    big = torch.full((), 1e6, **kw)
+    inf = torch.full((), math.inf, **kw)
     logs = torch.zeros((cfg.max_iter, 2), **kw)
     eye_m = torch.eye(m, **kw)
     eps = torch.finfo(dtype).eps
@@ -197,9 +209,9 @@ def _admm_solve_anderson(
     mem_dg = torch.zeros((m, D), **kw)
     prev_v = torch.zeros((D,), **kw)
     prev_g = torch.zeros((D,), **kw)
-    has_prev = torch.tensor(False, device=device)
+    has_prev = torch.zeros((), dtype=torch.bool, device=device)
     best = inf
-    flat_prev = torch.tensor(False, device=device)
+    flat_prev = torch.zeros((), dtype=torch.bool, device=device)
     j, status = 0, SolveStatus.RUNNING
     while j < cfg.max_iter and status == SolveStatus.RUNNING:
         out, zx_n, zu_n, lx_n, lu_n, prim_new, dual_new = plain_step(*unpack(v))
@@ -259,7 +271,7 @@ def _admm_solve_anderson(
         flat_prev = flat
         v = v_next
         j += 1
-        status = _stop_status(converged, stalled)
+        status = _stop_status(converged, stalled, cfg)
 
     out, z_x, z_u, lmb_x, lmb_u = ret
     if status == SolveStatus.RUNNING:
@@ -393,7 +405,7 @@ def admm_solve(
             zeros_out, dtype, device, has_x=has_x, has_u=has_u,
         )
 
-    big = torch.tensor(1e6, **kw)
+    big = torch.full((), 1e6, **kw)
     logs = torch.zeros((cfg.max_iter, 2), **kw)
     out = zeros_out
     prim, dual = big, big
@@ -495,7 +507,7 @@ def admm_solve(
 
         prim, dual = prim_new, dual_new
         j += 1
-        status = _stop_status(converged, stalled)
+        status = _stop_status(converged, stalled, cfg)
 
     if accel:  # the last *accepted* iterates
         z_x, z_u, lmb_x, lmb_u = z_x_prev, z_u_prev, lmb_x_prev, lmb_u_prev

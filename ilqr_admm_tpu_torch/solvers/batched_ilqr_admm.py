@@ -14,12 +14,21 @@ inner loops. Each instance keeps its own residual norms and stop tests
 serves the whole fleet: a solve counts one read an outer step and one an
 ADMM iteration, as many as its slowest instance alone would, whatever F.
 
-The x-update runs batched over the fleet: `get_AB` vmapped, `build_Su`
-vmapped, the normal equations with Su^T Q blockwise, one batched
-Cholesky of (F, N*m, N*m) and batched solves. The inner line search
-rolls the (F, A, N, m) candidates out as one time loop of the vmapped
-step over F*A rows. `line_search='outer'` keeps the explicit inverse a
-fleet, (F, N*m, N*m), and runs one line search an outer step.
+The batch method's x-update runs batched over the fleet: `get_AB`
+vmapped, `build_Su` vmapped, the normal equations with Su^T Q blockwise,
+one batched Cholesky of (F, N*m, N*m) and batched solves. The inner line
+search rolls the (F, A, N, m) candidates out as one time loop of the
+vmapped step over F*A rows. `line_search='outer'` keeps the explicit
+inverse a fleet, (F, N*m, N*m), and runs one line search an outer step.
+The dp method (the body of `ilqr_admm._ilqr_admm_dp`) vmaps the Riccati
+pass over the fleet on the penalty-augmented cost model and rolls the
+closed-loop candidates out for every instance and alpha. With
+anderson_m > 0 each instance's ADMM is Anderson-accelerated on its own
+memory (`admm._admm_solve_anderson`, an instance a row).
+
+With tolerances that no stop test can pass (`admm.can_stop`,
+`ilqr_admm.outer_can_stop`: all <= 0, as in an MPC tick) the loops run
+their full counts and read nothing on the host.
 
 Three `torch.profiler` ranges split a solve's time: PROFILE_LINEARIZE
 (linearization, normal equations, Cholesky and, in the outer mode, the
@@ -27,8 +36,8 @@ inverse), PROFILE_ADMM (each ADMM iteration) and PROFILE_ROLLOUT (each
 line search: rollout, costs and argmin; inside PROFILE_ADMM in the inner
 mode).
 
-Not ported to the fleet yet (ROADMAP.md, queue 1): method='dp',
-anderson_m > 0 and a fused `linesearch_rollout`.
+Not ported to the fleet yet: a fused `linesearch_rollout` (ROADMAP.md,
+queue 1, the arm fleet's item d).
 """
 
 from __future__ import annotations
@@ -41,11 +50,23 @@ from torch.func import vmap
 from torch.profiler import record_function
 
 from ilqr_admm_tpu_torch.ops.lifted import build_Su
-from ilqr_admm_tpu_torch.ops.rollout import rollout_nonlinear
+from ilqr_admm_tpu_torch.ops.riccati import ilqr_backward, quad_cost_model
+from ilqr_admm_tpu_torch.ops.rollout import rollout_closed_loop, rollout_nonlinear
+from ilqr_admm_tpu_torch.ops.sqrt_riccati import ilqr_backward_sqrt
 from ilqr_admm_tpu_torch.problem import ADMMConfig, SolveStatus
-from ilqr_admm_tpu_torch.solvers.admm import read_flags, stop_tests, validate_constraint_blocks
+from ilqr_admm_tpu_torch.solvers.admm import (
+    can_stop,
+    read_flags,
+    stop_tests,
+    validate_constraint_blocks,
+)
 from ilqr_admm_tpu_torch.solvers.ilqr import nan_to_inf
-from ilqr_admm_tpu_torch.solvers.ilqr_admm import ILQRADMMResult, _default_alphas, _to_device
+from ilqr_admm_tpu_torch.solvers.ilqr_admm import (
+    ILQRADMMResult,
+    _default_alphas,
+    _to_device,
+    outer_can_stop,
+)
 from ilqr_admm_tpu_torch.solvers.lqt import block_diag_stacked, broadcast_rho
 from ilqr_admm_tpu_torch.solvers.lqt_admm import cho_factor
 from ilqr_admm_tpu_torch.utils.device import resolve_device
@@ -90,8 +111,15 @@ def _mv(M, v):
 
 
 def _cho_solve(U, rhs):
-    """Solve with each instance's upper Cholesky factor: U (F, n, n), rhs (F, n)."""
-    return torch.cholesky_solve(rhs[..., None], U, upper=True)[..., 0]
+    """Solve with each instance's upper Cholesky factor: U (F, n, n), rhs
+    (F, n) or (F, n, k). Two triangular solves (cuBLAS batched trsm on a
+    card): `torch.cholesky_solve` of a batch goes through MAGMA, which
+    synchronizes with the host and aborts a CUDA graph capture."""
+    vec = rhs.ndim == U.ndim - 1
+    y = torch.linalg.solve_triangular(U.transpose(-1, -2), rhs[..., None] if vec else rhs,
+                                      upper=False)
+    x = torch.linalg.solve_triangular(U, y, upper=True)
+    return x[..., 0] if vec else x
 
 
 def _admm_fleet(f_argmin, project_x, project_u, shape_x, shape_u, cfg: ADMMConfig, z_x, z_u,
@@ -137,8 +165,116 @@ def _admm_fleet(f_argmin, project_x, project_u, shape_x, shape_u, cfg: ADMMConfi
             iters = iters + live.to(iters.dtype)
             live = live & ~(converged | stalled) & (iters < cfg.max_iter)
             k += 1
-            (running,) = read_flags(torch.any(live))
+            if can_stop(cfg):
+                (running,) = read_flags(torch.any(live))
     return out[0], out[1], lmb_x, lmb_u, z_x, z_u, iters, k
+
+
+def _admm_fleet_anderson(f_argmin, project_x, project_u, shape_x, shape_u, cfg: ADMMConfig,
+                         z_x, z_u, lmb_x, lmb_u, part):
+    """`admm._admm_solve_anderson` for each instance of a fleet: the same
+    safeguarded type-II Anderson mixing, with each instance's memory,
+    restarts, stop tests and returned best plain iterate its own, as
+    `jax.vmap` of the single loop keeps them. Freezing and the return
+    are those of `_admm_fleet`."""
+    has_x, has_u = project_x is not None, project_u is not None
+    F = part.shape[0]
+    kw = dict(dtype=z_u.dtype, device=z_u.device)
+    sx = math.prod(shape_x) if has_x else 0
+    su = math.prod(shape_u) if has_u else 0
+    D, m = 2 * (sx + su), cfg.anderson_m
+    consts = (z_x, z_u, lmb_x, lmb_u)
+
+    def pack(zx, zu, lx, lu):
+        parts = [t for t, on in ((zx, has_x), (zu, has_u), (lx, has_x), (lu, has_u)) if on]
+        return torch.cat(parts, dim=1)
+
+    def unpack(v):
+        zx = v[:, :sx] if has_x else consts[0]
+        zu = v[:, sx:sx + su] if has_u else consts[1]
+        lx = v[:, sx + su:2 * sx + su] if has_x else consts[2]
+        lu = v[:, 2 * sx + su:] if has_u else consts[3]
+        return zx, zu, lx, lu
+
+    def plain_step(zx, zu, lx, lu):
+        """One plain ADMM iteration, as `admm._make_plain_step`."""
+        x_x, x_u = f_argmin(zx - lx if has_x else None, zu - lu if has_u else None)
+        prim = dual = torch.zeros((F,), **kw)
+        if has_x:
+            zx_n = project_x(cfg.alpha * x_x + (1.0 - cfg.alpha) * zx + lx)
+            r = x_x - zx_n
+            lx, prim, dual = lx + r, prim + _norm(r), dual + _norm(zx_n - zx)
+            zx = zx_n
+        if has_u:
+            zu_n = project_u(cfg.alpha * x_u + (1.0 - cfg.alpha) * zu + lu)
+            r = x_u - zu_n
+            lu, prim, dual = lu + r, prim + _norm(r), dual + _norm(zu_n - zu)
+            zu = zu_n
+        return (x_x, x_u), zx, zu, lx, lu, prim, dual
+
+    inf = torch.full((F,), math.inf, **kw)
+    big = torch.full((F,), 1e6, **kw)
+    eye_m = torch.eye(m, **kw)
+    eps = torch.finfo(kw["dtype"]).eps
+    v = pack(z_x, z_u, lmb_x, lmb_u)
+    ret = ((torch.zeros((F,) + tuple(shape_x), **kw), torch.zeros((F,) + tuple(shape_u), **kw)),
+           z_x, z_u, lmb_x, lmb_u)
+    ret_score = (inf, big, big)
+    prim, dual = big, big
+    mem_dv = torch.zeros((F, m, D), **kw)
+    mem_dg = torch.zeros((F, m, D), **kw)
+    prev_v = torch.zeros((F, D), **kw)
+    prev_g = torch.zeros((F, D), **kw)
+    no = torch.zeros((F,), dtype=torch.bool, device=part.device)
+    has_prev, flat_prev, best = no, no, inf
+    iters = torch.zeros((F,), dtype=torch.int64, device=part.device)
+    live = part
+    k, running = 0, True
+    while k < cfg.max_iter and running:
+        with record_function(PROFILE_ADMM):
+            out, zx_n, zu_n, lx_n, lu_n, prim_new, dual_new = plain_step(*unpack(v))
+            v_plain = pack(zx_n, zu_n, lx_n, lu_n)
+            g = v_plain - v
+            gnorm = _norm(g)
+            restart = has_prev & (gnorm > cfg.anderson_safeguard * best)
+            push = has_prev & ~restart
+            mem_dv_p = torch.cat([mem_dv[:, 1:], (v - prev_v)[:, None]], dim=1)
+            mem_dg_p = torch.cat([mem_dg[:, 1:], (g - prev_g)[:, None]], dim=1)
+            mem_dv_n = _keep(push, mem_dv_p, _keep(restart, torch.zeros_like(mem_dv), mem_dv))
+            mem_dg_n = _keep(push, mem_dg_p, _keep(restart, torch.zeros_like(mem_dg), mem_dg))
+            # each instance's type-II least squares for its mixing weights
+            gram = mem_dg_n @ mem_dg_n.transpose(-1, -2)
+            reg = cfg.anderson_reg * torch.diagonal(gram, dim1=-2, dim2=-1).sum(-1) + 1e-30
+            gam = torch.linalg.solve(gram + reg[:, None, None] * eye_m, _mv(mem_dg_n, g))
+            v_aa = v + g - _mv((mem_dv_n + mem_dg_n).transpose(-1, -2), gam)
+            use_aa = (gnorm > 1e3 * eps * (1.0 + _norm(v_plain))) & ~restart
+            v_next = _keep(use_aa, v_aa, v_plain)
+            best_n = torch.where(restart, inf, torch.minimum(best, gnorm))
+            converged = (prim_new < cfg.tol) & (dual_new < cfg.tol)
+            prim_change = torch.abs(prim - prim_new) / (prim + 1e-30)
+            dual_change = torch.abs(dual - dual_new) / (dual + 1e-30)
+            flat = (prim_change < cfg.stall) & (dual_change < cfg.stall) & ~restart
+            stalled = flat & flat_prev
+            score_new = prim_new + dual_new
+            take = live & ((score_new < ret_score[0]) | converged)
+            ret = (tuple(_keep(take, n, o) for n, o in zip(out, ret[0])),) + tuple(
+                _keep(take, n, o) for n, o in zip((zx_n, zu_n, lx_n, lu_n), ret[1:]))
+            ret_score = tuple(torch.where(take, n, o)
+                              for n, o in zip((score_new, prim_new, dual_new), ret_score))
+            prim, dual = _keep(live, prim_new, prim), _keep(live, dual_new, dual)
+            prev_v, prev_g = _keep(live, v, prev_v), _keep(live, g, prev_g)
+            has_prev = torch.where(live, ~restart, has_prev)
+            flat_prev = torch.where(live, flat, flat_prev)
+            mem_dv, mem_dg = _keep(live, mem_dv_n, mem_dv), _keep(live, mem_dg_n, mem_dg)
+            best = torch.where(live, best_n, best)
+            v = _keep(live, v_next, v)
+            iters = iters + live.to(iters.dtype)
+            live = live & ~(converged | stalled) & (iters < cfg.max_iter)
+            k += 1
+            if can_stop(cfg):
+                (running,) = read_flags(torch.any(live))
+    (x_x, x_u), z_x, z_u, lmb_x, lmb_u = ret
+    return x_x, x_u, lmb_x, lmb_u, z_x, z_u, iters, k
 
 
 def _fleet_impl(f, get_AB, cost_fn, x_nom0, u_nom0, get_Cs=None, quad_cost=None,
@@ -151,12 +287,14 @@ def _fleet_impl(f, get_AB, cost_fn, x_nom0, u_nom0, get_Cs=None, quad_cost=None,
         raise ValueError(f"line_search must be 'inner' or 'outer', got {line_search!r}")
     if method not in ("batch", "dp"):
         raise ValueError(f"method must be 'dp' or 'batch', got {method!r}")
-    for name, unsupported in (("method='dp'", method == "dp"), ("anderson_m > 0", anderson_m > 0),
-                              ("linesearch_rollout", linesearch_rollout is not None)):
-        if unsupported:
-            raise NotImplementedError(
-                f"ilqr_admm_fleet does not run {name} yet (ROADMAP.md, queue 1); "
-                f"solve the instances one by one with ilqr_admm")
+    if method == "dp" and line_search != "inner":
+        raise ValueError("line_search='outer' is only supported with method='batch' "
+                         "(the dp x-update's line search is closed-loop by design)")
+    if linesearch_rollout is not None:
+        raise NotImplementedError(
+            "ilqr_admm_fleet does not run linesearch_rollout yet (ROADMAP.md, queue 1, the "
+            "arm fleet's item d, the fleet's linesearch_rollout); solve the instances one by "
+            "one with ilqr_admm")
     F, N, d = x_nom0.shape
     m = u_nom0.shape[-1]
     dtype, device = x_nom0.dtype, x_nom0.device
@@ -166,30 +304,45 @@ def _fleet_impl(f, get_AB, cost_fn, x_nom0, u_nom0, get_Cs=None, quad_cost=None,
     Qr = broadcast_rho(rho_x, d, N, dtype, device)
     Rr = broadcast_rho(rho_u, m, N, dtype, device)
     Qr_on = Qr is not None and project_x is not None
-    Rr_l = block_diag_stacked(Rr) if (Rr is not None and project_u is not None) else None
-    cfg = ADMMConfig(max_iter=max_admm_iter, alpha=alpha, tol=tol)
+    Rr_on = Rr is not None and project_u is not None
+    Rr_l = block_diag_stacked(Rr) if Rr_on else None
+    cfg = ADMMConfig(max_iter=max_admm_iter, alpha=alpha, tol=tol, anderson_m=anderson_m)
+    admm = _admm_fleet_anderson if anderson_m > 0 else _admm_fleet
     fleet_cost = vmap(cost_fn)
+    rows = torch.arange(F, device=device)
+    backward = ilqr_backward_sqrt if riccati == "sqrt" else ilqr_backward
+
+    def pick(xs_c, us_c, tx, tu):
+        """Each instance's candidate (F, A, ...) of least cost plus
+        penalties toward its targets tx (F, N, d) / tu (F, N, m) (either
+        None)."""
+        costs = nan_to_inf(vmap(fleet_cost)(xs_c, us_c))  # (F, A)
+        if tx is not None:
+            dx = xs_c - tx[:, None]
+            costs = costs + torch.einsum("fati,tij,fatj->fa", dx, Qr, dx)
+        if tu is not None:
+            du = us_c - tu[:, None]
+            costs = costs + torch.einsum("fati,tij,fatj->fa", du, Rr, du)
+        ind = torch.argmin(costs, dim=1)
+        return xs_c[rows, ind], us_c[rows, ind]
 
     def candidates(x_nom, u_nom, delta_u, tx, tu):
-        """Roll out u_nom + alpha delta_u for every instance and alpha, and
-        keep each instance's candidate of least cost plus penalties toward
-        its targets tx (F, N, d) / tu (F, N, m) (either None)."""
+        """Roll out u_nom + alpha delta_u for every instance and alpha and
+        `pick` each instance's best."""
         with record_function(PROFILE_ROLLOUT):
             us_c = u_nom[:, None] + alphas[None, :, None, None] * delta_u[:, None]  # (F, A, N, m)
             n_a = us_c.shape[1]
             x0s = x_nom[:, None, 0].expand(F, n_a, d).reshape(F * n_a, d)
             xs_c = vmap(lambda x0, us: rollout_nonlinear(f, x0, us))(
                 x0s, us_c.reshape(F * n_a, N, m)).reshape(F, n_a, N, d)
-            costs = nan_to_inf(vmap(fleet_cost)(xs_c, us_c))  # (F, A)
-            if tx is not None:
-                dx = xs_c - tx[:, None]
-                costs = costs + torch.einsum("fati,tij,fatj->fa", dx, Qr, dx)
-            if tu is not None:
-                du = us_c - tu[:, None]
-                costs = costs + torch.einsum("fati,tij,fatj->fa", du, Rr, du)
-            ind = torch.argmin(costs, dim=1)
-            rows = torch.arange(F, device=device)
-            return xs_c[rows, ind], us_c[rows, ind]
+            return pick(xs_c, us_c, tx, tu)
+
+    def closed_loop(x_n, u_n, K, k, a):
+        return rollout_closed_loop(f, x_n[0], K, a * k, x_n, u_n)
+
+    # over the alphas, then over the instances: (F, A, N, .) candidates
+    closed_loop_candidates = vmap(vmap(closed_loop, in_dims=(None, None, None, None, 0)),
+                                  in_dims=(0, 0, 0, 0, None))
 
     def linearize(x_nom, u_nom):
         """Each instance's lifted normal equations around its nominal:
@@ -222,11 +375,47 @@ def _fleet_impl(f, get_AB, cost_fn, x_nom0, u_nom0, get_Cs=None, quad_cost=None,
         if line_search == "outer":
             # one multi-RHS solve for each instance's explicit inverse, then
             # a batched GEMV an ADMM iteration
-            eye = torch.eye(N * m, **kw).expand(F, N * m, N * m)
-            Minv = torch.cholesky_solve(eye, cf, upper=True)
+            Minv = _cho_solve(cf, torch.eye(N * m, **kw).expand(F, N * m, N * m))
         return cf, Su, SuTQr, r_side, Minv
 
-    def body(x_nom, u_nom, z_x, z_u, l_x, l_u, active):
+    def dp_model(x_nom, u_nom):
+        """Each instance's dynamics and quadratic cost model."""
+        A, B = vmap(get_AB)(x_nom, u_nom)
+        if get_Cs is not None:
+            cts, Cts = vmap(get_Cs)(x_nom, u_nom)
+        else:
+            cts, Cts = vmap(lambda x, u: quad_cost_model(quad_cost.Q, quad_cost.xd, quad_cost.R,
+                                                         x, u))(x_nom, u_nom)
+        return A, B, cts, Cts
+
+    def body_dp(x_nom, u_nom, z_x, z_u, l_x, l_u, active):
+        """The outer step of `ilqr_admm._ilqr_admm_dp` for every instance."""
+        with record_function(PROFILE_LINEARIZE):
+            A, B, cts, Cts = dp_model(x_nom, u_nom)
+
+        def f_argmin(x, u):
+            # the quadratic model augmented with the ADMM penalties (delta
+            # coordinates around each nominal)
+            cts_a, Cts_a = cts.clone(), Cts.clone()
+            if Qr_on and x is not None:
+                cts_a[..., :d] += 2.0 * torch.einsum("tij,ftj->fti", Qr, x_nom - x.reshape(F, N, d))
+                Cts_a[..., :d, :d] += 2.0 * Qr
+            if Rr_on and u is not None:
+                cts_a[..., d:] += 2.0 * torch.einsum("tij,ftj->fti", Rr, u_nom - u.reshape(F, N, m))
+                Cts_a[..., d:, d:] += 2.0 * Rr
+            K, k = vmap(backward)(A, B, Cts_a, cts_a)
+            with record_function(PROFILE_ROLLOUT):
+                xs_c, us_c = closed_loop_candidates(x_nom, u_nom, K, k, alphas)
+                xs, us = pick(xs_c, us_c,
+                              x.reshape(F, N, d) if Qr_on and x is not None else None,
+                              u.reshape(F, N, m) if Rr_on and u is not None else None)
+            return xs.reshape(F, -1), us.reshape(F, -1)
+
+        x_x, x_u, l_x_n, l_u_n, z_x_n, z_u_n, iters, n_iter = admm(
+            f_argmin, project_x, project_u, (N * d,), (N * m,), cfg, z_x, z_u, l_x, l_u, active)
+        return x_x.reshape(F, N, d), x_u.reshape(F, N, m), z_x_n, z_u_n, l_x_n, l_u_n, iters, n_iter
+
+    def body_batch(x_nom, u_nom, z_x, z_u, l_x, l_u, active):
         with record_function(PROFILE_LINEARIZE):
             cf, Su, SuTQr, r_side, Minv = linearize(x_nom, u_nom)
         x_nom_f, u_nom_f = x_nom.reshape(F, -1), u_nom.reshape(F, -1)
@@ -252,7 +441,7 @@ def _fleet_impl(f, get_AB, cost_fn, x_nom0, u_nom0, get_Cs=None, quad_cost=None,
             delta_u = _mv(Minv, rhs(x, u))
             return x_nom_f + _mv(Su, delta_u), u_nom_f + delta_u
 
-        x_x, x_u, l_x_n, l_u_n, z_x_n, z_u_n, iters, n_iter = _admm_fleet(
+        x_x, x_u, l_x_n, l_u_n, z_x_n, z_u_n, iters, n_iter = admm(
             f_argmin if line_search == "inner" else f_argmin_lin,
             project_x, project_u, (N * d,), (N * m,), cfg, z_x, z_u, l_x, l_u, active)
         if line_search == "outer":
@@ -264,6 +453,8 @@ def _fleet_impl(f, get_AB, cost_fn, x_nom0, u_nom0, get_Cs=None, quad_cost=None,
         else:
             x_new, u_new = x_x.reshape(F, N, d), x_u.reshape(F, N, m)
         return x_new, u_new, z_x_n, z_u_n, l_x_n, l_u_n, iters, n_iter
+
+    body = body_dp if method == "dp" else body_batch
 
     # the outer loop of `ilqr_admm._outer_loop`, an instance a row
     cost = fleet_cost(x_nom0, u_nom0)
@@ -303,7 +494,8 @@ def _fleet_impl(f, get_AB, cost_fn, x_nom0, u_nom0, get_Cs=None, quad_cost=None,
         admm_iters = admm_iters + iters
         active = status == SolveStatus.RUNNING
         k += 1
-        (running,) = read_flags(torch.any(active))
+        if outer_can_stop(outer_tol, osc_tol):
+            (running,) = read_flags(torch.any(active))
     status = torch.where(active, int(SolveStatus.MAX_ITER), status)
     if stats is not None:
         stats.update(outer_steps=k, fleet_admm_iters=fleet_admm_iters, admm_iters=admm_iters)
@@ -326,10 +518,10 @@ def ilqr_admm_fleet(f: Callable, get_AB: Callable, cost_fn: Callable, x_nom0, u_
     and project each row (an elementwise clamp does).
 
     The other keyword arguments are those of `ilqr_admm`: max_iter,
-    max_admm_iter, alpha, tol, outer_tol, osc_tol, method='batch', warm
-    (z_x, z_u, lmb_x, lmb_u, each with the fleet axis) and line_search
-    ('inner' | 'outer'). method='dp', anderson_m > 0 and
-    linesearch_rollout raise NotImplementedError.
+    max_admm_iter, alpha, tol, outer_tol, osc_tol, method ('batch' or
+    'dp' with riccati='chol' | 'sqrt'), warm (z_x, z_u, lmb_x, lmb_u, each
+    with the fleet axis), line_search ('inner' | 'outer', batch method
+    only) and anderson_m. linesearch_rollout raises NotImplementedError.
 
     Per instance it computes what `ilqr_admm` computes. The result's
     fields carry the fleet axis: x_nom (F, N, d), u_nom (F, N, m), cost

@@ -16,7 +16,9 @@ when given (the CUDA kernel of `ops/fused_rollout.py` on the main path),
 else `torch.func.vmap` of `rollout_nonlinear`.
 
 Each outer iteration ends with one device-to-host read of its stop flags
-(`admm.read_flags`), as each ADMM iteration does.
+(`admm.read_flags`), as each ADMM iteration does, unless its tolerances
+make every stop test false (all <= 0, as in an MPC tick): then it reads
+nothing.
 """
 
 from __future__ import annotations
@@ -63,12 +65,22 @@ def _penalty(d, P):
     return torch.einsum("ati,tij,atj->a", d, P, d)
 
 
+def outer_can_stop(outer_tol, osc_tol) -> bool:
+    """Whether an outer stop test can pass: |cost change| and |window mean
+    change| are >= 0 or NaN, so with both tolerances <= 0 (an MPC tick's
+    bounded iterations) neither is ever below its tolerance."""
+    return outer_tol > 0 or osc_tol > 0
+
+
 def _outer_status(cost_new, cost, cost_log, it, outer_tol, osc_tol) -> int:
     """CONVERGED on a cost change below outer_tol, OSCILLATING when the
     means of the last two windows of four costs differ by less than
     osc_tol, else RUNNING. The windows are padded with +inf before the
     first cost, so |inf - inf| is NaN and NaN < tol is False, as in the
-    JAX package."""
+    JAX package. Without `outer_can_stop` the status is RUNNING, with no
+    host read."""
+    if not outer_can_stop(outer_tol, osc_tol):
+        return SolveStatus.RUNNING
     converged = torch.abs(cost_new - cost) < outer_tol
     recent = torch.cat([torch.full((8,), math.inf, dtype=cost_log.dtype,
                                    device=cost_log.device), cost_log])[it + 1 : it + 9]

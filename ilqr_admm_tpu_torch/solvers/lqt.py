@@ -27,6 +27,10 @@ def broadcast_rho(rho, dim: int, N: int, dtype: torch.dtype | None = None, devic
     """
     if rho is None:
         return None
+    if isinstance(rho, (int, float)) and dtype is not None:
+        # a Python number scales the identity made on the device: no
+        # host-to-device copy (which a CUDA graph capture refuses)
+        return (torch.eye(dim, dtype=dtype, device=device) * rho).expand(N, dim, dim)
     rho = torch.as_tensor(rho, dtype=dtype, device=device)
     if rho.ndim == 0:
         eye = torch.eye(dim, dtype=rho.dtype, device=rho.device)

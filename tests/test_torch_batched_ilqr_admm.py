@@ -11,6 +11,14 @@ Each fleet instance must equal the port's single-instance solve, bit for
 bit where it left early, and the fleet must count the host reads of its
 slowest instance, whatever its size. The fleet's certificates
 (`utils/certify.py`) hold the port's f64 oracle against the JAX one.
+
+The dp method and Anderson acceleration (`anderson_m = 3`, with either
+method) are held to `jax.vmap(ilqr_admm)` on 4 simple cars (the MPC
+tick's model and cost, N = 30, |u| <= 0.6) whose instances leave at
+different outer steps: costs and u to 1e-8, statuses and outer
+iterations equal. With every tolerance 0 no stop test can pass, and the
+fleet reads nothing on the host, bit for bit what it computes when it
+reads.
 """
 
 import importlib
@@ -22,6 +30,7 @@ import pytest
 import torch
 
 from ilqr_admm_tpu.models.arm import PlanarArm as JArm
+from ilqr_admm_tpu.models.car import CarSimple as JCarSimple
 from ilqr_admm_tpu.ops.rollout import rollout_nonlinear as j_rollout
 from ilqr_admm_tpu.utils.cost_assembly import viapoint_cost as j_viapoint_cost
 from ilqr_admm_tpu_torch.convert import arm_from_numpy, quadcost_from_numpy
@@ -29,6 +38,7 @@ from ilqr_admm_tpu_torch.models import car as tc
 from ilqr_admm_tpu_torch.ops.rollout import rollout_nonlinear
 from ilqr_admm_tpu_torch.problem import SolveStatus
 from ilqr_admm_tpu_torch.solvers import admm as tadmm
+from ilqr_admm_tpu_torch.solvers import batched_ilqr_admm as tbia
 from ilqr_admm_tpu_torch.solvers.batched_ilqr_admm import ilqr_admm_fleet
 from ilqr_admm_tpu_torch.solvers.ilqr_admm import ilqr_admm
 from ilqr_admm_tpu_torch.utils.certify import arm_gate_failures, arm_polish, certify_arm, gaps
@@ -180,8 +190,8 @@ def test_no_device_means_the_card(problem):
 
 
 @pytest.mark.parametrize("option,error", [
-    (dict(method="dp"), NotImplementedError),
-    (dict(anderson_m=3), NotImplementedError),
+    (dict(method="dp", line_search="outer"), ValueError),
+    (dict(anderson_m=3, linesearch_rollout=lambda x0, u: None), NotImplementedError),
     (dict(linesearch_rollout=lambda x0, u: None), NotImplementedError),
     (dict(method="lifted"), ValueError),
     (dict(line_search="middle"), ValueError),
@@ -278,3 +288,102 @@ def test_get_cs_and_state_box_paths_are_single_solves(line_search, state_box):
         assert fleet.outer_iters[i] == single.outer_iters and fleet.status[i] == single.status
         for name in ("x_nom", "u_nom", "cost", "z_x", "z_u", "lmb_x", "lmb_u"):
             assert _rel(getattr(fleet, name)[i], getattr(single, name)) < 1e-12, (i, name)
+
+
+CAR_N, CAR_U = 30, 0.6
+CAR_SOLVE = dict(rho_u=1.0, max_iter=10, max_admm_iter=10, tol=1e-3, outer_tol=1e-3, osc_tol=1e-6)
+CAR_ALPHAS = 10.0 ** np.linspace(0.0, -3.0, 10)
+FLEET_MODES = [("dp", 0), ("dp", 3), ("batch", 3)]
+
+
+@pytest.fixture(scope="module")
+def cars():
+    """4 simple cars with `tests/test_mpc.py`'s via-point cost (target
+    (1, 1), terminal weight 20), x0 = (0, 0, 0.5, 0) + N(0, 0.3), u0 =
+    N(0, 0.2) from default_rng(0), the nominal by the JAX rollout."""
+    jcar = JCarSimple(dt=0.1)
+    target = jnp.asarray([1.0, 1.0, 0.0, 0.0])
+    seq = np.zeros(CAR_N, dtype=np.int32)
+    seq[-1] = 1
+    quad = j_viapoint_cost(jnp.stack([target, target]),
+                           jnp.stack([jnp.diag(jnp.asarray([1.0, 1.0, 0.0, 0.1])),
+                                      jnp.diag(jnp.asarray([20.0, 20.0, 0.0, 1.0]))]), seq, 1e-2, 2)
+    rng = np.random.default_rng(0)
+    x0s = np.array([0.0, 0.0, 0.5, 0.0]) + rng.normal(0, 0.3, size=(F, 4))
+    u0 = rng.normal(0, 0.2, size=(F, CAR_N, 2))
+    x_nom0 = np.stack([np.asarray(j_rollout(jcar.step, jnp.asarray(a), jnp.asarray(u)))
+                       for a, u in zip(x0s, u0)])
+    tquad = quadcost_from_numpy(np.asarray(quad.Q), np.asarray(quad.xd), np.asarray(quad.R),
+                                device="cpu", dtype=torch.float64)
+    return jcar, quad, tc.CarSimple(dt=0.1), tquad, x_nom0, u0
+
+
+def _car_kw(tquad, **extra):
+    return dict(CAR_SOLVE, quad_cost=tquad, project_u=lambda v: torch.clamp(v, -CAR_U, CAR_U),
+                alphas=torch.tensor(CAR_ALPHAS), device="cpu", **extra)
+
+
+def _car_fleet(cars, stats=None, **extra):
+    _, _, tcar, tquad, x_nom0, u0 = cars
+    return ilqr_admm_fleet(tcar.step, tcar.get_AB, tquad, torch.tensor(x_nom0), torch.tensor(u0),
+                           stats=stats, **_car_kw(tquad, **extra))
+
+
+@pytest.mark.parametrize("method,anderson_m", FLEET_MODES)
+def test_fleet_dp_and_anderson_match_jax_vmap(cars, method, anderson_m):
+    jcar, quad, _, _, x_nom0, u0 = cars
+
+    def solve_one(x0, u):
+        res = jia.ilqr_admm(jcar.step, jcar.get_AB, quad, x0, u, quad_cost=quad,
+                            project_u=lambda v: jnp.clip(v, -CAR_U, CAR_U),
+                            alphas=jnp.asarray(CAR_ALPHAS), method=method,
+                            anderson_m=anderson_m, **CAR_SOLVE)
+        return res.cost, res.u_nom, res.status, res.outer_iters, res.lmb_u
+
+    cost_j, u_j, status_j, outer_j, lmb_j = jax.vmap(solve_one)(jnp.asarray(x_nom0), jnp.asarray(u0))
+    got = _car_fleet(cars, method=method, anderson_m=anderson_m)
+    assert got.status.tolist() == np.asarray(status_j).tolist()
+    assert got.outer_iters.tolist() == np.asarray(outer_j).tolist()
+    assert len(set(got.outer_iters.tolist())) > 1  # instances leave at different steps
+    assert _rel(got.cost, cost_j) < TOL and _rel(got.u_nom, u_j) < TOL
+    assert _rel(got.lmb_u, lmb_j) < TOL
+
+
+@pytest.mark.parametrize("method,anderson_m", FLEET_MODES)
+def test_dp_and_anderson_instances_are_single_solves(cars, method, anderson_m):
+    """Each instance of the fleet against its single `ilqr_admm` solve, to
+    1e-12 (the vmapped Riccati passes and batched solves sum as the
+    single ones do, up to the order of f64 sums), 1e-10 with Anderson:
+    its least squares for the mixing weights magnifies those sums'
+    rounding (~4e-12 seen)."""
+    tol = 1e-10 if anderson_m else 1e-12
+    _, _, tcar, tquad, x_nom0, u0 = cars
+    fleet = _car_fleet(cars, method=method, anderson_m=anderson_m)
+    for i in range(F):
+        single = ilqr_admm(tcar.step, tcar.get_AB, tquad, torch.tensor(x_nom0[i]),
+                           torch.tensor(u0[i]), **_car_kw(tquad, method=method,
+                                                          anderson_m=anderson_m))
+        assert fleet.outer_iters[i] == single.outer_iters and fleet.status[i] == single.status
+        for name in ("x_nom", "u_nom", "cost", "z_u", "lmb_u"):
+            assert _rel(getattr(fleet, name)[i], getattr(single, name)) < tol, (i, name)
+
+
+@pytest.mark.parametrize("method", ["dp", "batch"])
+def test_zero_tolerances_read_nothing(cars, method, monkeypatch):
+    """tol = outer_tol = osc_tol = 0 (the MPC tick's): no host read, and
+    the same result bit for bit as the loops that read their flags."""
+    extra = dict(method=method, tol=0.0, outer_tol=0.0, osc_tol=0.0, max_iter=3, max_admm_iter=4)
+    if method == "batch":
+        extra["line_search"] = "outer"
+    before = tadmm.host_sync_count
+    quiet = _car_fleet(cars, **extra)
+    assert tadmm.host_sync_count == before
+    monkeypatch.setattr(tbia, "can_stop", lambda cfg: True)
+    monkeypatch.setattr(tbia, "outer_can_stop", lambda outer_tol, osc_tol: True)
+    stats, before = {}, tadmm.host_sync_count
+    read = _car_fleet(cars, stats=stats, **extra)
+    assert tadmm.host_sync_count - before == 3 * (1 + 4)
+    assert stats["outer_steps"] == 3 and stats["fleet_admm_iters"] == 12
+    for name in ("x_nom", "u_nom", "cost", "z_u", "lmb_u", "status", "outer_iters"):
+        assert torch.equal(getattr(quiet, name), getattr(read, name)), name
+    assert (quiet.status == SolveStatus.MAX_ITER).all()
