@@ -42,7 +42,19 @@ Drives the port's paths on the card:
   alone and as a fleet of 256, and the boxDDP tick of
   `tests/test_mpc.py:117-181` (1-D double integrator, N = 50, |u| <= 3,
   200 ticks) with each backward; no kernel lies on it (the car is
-  `CarSimple`, and the ticks pass no `linesearch_rollout`).
+  `CarSimple`, and the ticks pass no `linesearch_rollout`);
+- single barrier, AL and primal-dual iLQR solves (the barrier problem of
+  `tests/test_boxddp.py:184-207`, `examples/al_obstacle_avoidance.py`,
+  `examples/pd_ilqr_infeasible_start.py`) in f32 against the same solves
+  in f64 on the host;
+- the boxDDP car fleet of `benchmarks/bench_boxddp.py:44-93` (256
+  CarFrontWheel instances, N = 500, |w| <= 0.5, |a| <= 2, 150 iterations,
+  f32) through `boxddp_fleet_solve`, each iteration a replayed CUDA
+  graph, and the AL arm fleet of `benchmarks/bench_al_arm.py:38-95` (512
+  arms, N = 100, state and control bounds and the terminal ee window, 7
+  AL stages of 8 iterations, f32) through `batched_al_solve`; no kernel
+  lies on them (the rollout kernel rolls out open-loop controls, the
+  boxDDP line search a clipped closed loop; the arm has d = 9).
 
 Phases:
 
@@ -104,7 +116,18 @@ Phases:
    controller the per-tick serving loop with the u readback in the timed
    region, and the car's again with every stop flag read on the host;
    the fleet's first 8 against 8 single ticks; a `torch.profiler` split
-   of one dp tick. Times are the median and IQR of 3 windows.
+   of one dp tick. Times are the median and IQR of 3 windows;
+8. slice 12: the single barrier, AL and PD solves with their gates (cost
+   within 1e-3 of the f64 host solve, the same stop, the keep-out
+   margin, the box and its boxDDP cost, the final defect); the boxDDP
+   car fleet: 3 iterations eagerly and as a CUDA graph, bit for bit, the
+   main path with its host reads and certificates (`certify_boxddp_fleet`:
+   the bound, an f64 L-BFGS-B polish of 8 instances in worker processes),
+   the fleet of 8 against 8 single `boxddp_solve` calls, solves/s (3
+   windows) and a `torch.profiler` split; the AL arm fleet: its main path
+   with its host reads and the gates against the JAX package's f32
+   numbers (`certify_al_fleet`), the fleet of 8 against 8 single
+   `al_ilqr_solve` calls, and solves/s (3 windows).
 
 Any failure exits non-zero before the last line. The last line is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
@@ -118,7 +141,10 @@ Run from the repository root: python3 chip_smoke.py
 
 from __future__ import annotations
 
+import bisect
+import concurrent.futures
 import contextlib
+import copy
 import json
 import subprocess
 import sys
@@ -169,15 +195,25 @@ from ilqr_admm_tpu_torch.ops.rollout import (
     rollout_nonlinear,
     rollout_sls_delta,
 )
-from ilqr_admm_tpu_torch.problem import SolveStatus
+from ilqr_admm_tpu_torch.parallel import batched_al_solve
+from ilqr_admm_tpu_torch.problem import ILQRConfig, SolveStatus
 from ilqr_admm_tpu_torch.solvers import admm as admm_solver
 from ilqr_admm_tpu_torch.solvers import batched_ilqr_admm
 from ilqr_admm_tpu_torch.solvers import ilqr_admm as ilqr_admm_solver
 from ilqr_admm_tpu_torch.solvers.batched import make_batched_lqt_admm
+from ilqr_admm_tpu_torch.solvers.al_ilqr import al_ilqr_solve
+from ilqr_admm_tpu_torch.solvers.barrier_ilqr import barrier_ilqr_solve, make_barrier
 from ilqr_admm_tpu_torch.solvers.batched_ilqr_admm import ilqr_admm_fleet
+from ilqr_admm_tpu_torch.solvers.boxddp import (
+    boxddp_fleet_init,
+    boxddp_fleet_solve,
+    boxddp_init,
+    boxddp_solve,
+)
 from ilqr_admm_tpu_torch.solvers.ilqr_admm import ilqr_admm
 from ilqr_admm_tpu_torch.solvers.isls_admm import isls_admm
 from ilqr_admm_tpu_torch.solvers.lqt import sls_controller
+from ilqr_admm_tpu_torch.solvers.pd_ilqr import pd_ilqr_init, pd_ilqr_solve
 from ilqr_admm_tpu_torch.solvers.mpc import (
     make_mpc_fleet_step_constrained,
     make_mpc_step_boxddp,
@@ -188,9 +224,13 @@ from ilqr_admm_tpu_torch.solvers.mpc import (
 )
 from ilqr_admm_tpu_torch.utils.certify import (
     ARM_N_ORACLE,
+    al_gate_failures,
     arm_gate_failures,
+    boxddp_gate_failures,
     certify,
+    certify_al_fleet,
     certify_arm,
+    certify_boxddp_fleet,
     certify_riccati,
     certify_sls,
     certify_state_box,
@@ -357,6 +397,59 @@ MPC_BOX_N = 50
 MPC_BOX_TICKS = 200
 MPC_BOX_U = 3.0
 MPC_BOX_RICCATI = ("seq", "parallel")
+
+# Slice 12, single solves on the card in f32 against the port's f64 solve
+# of the same problem on the host: the AL keep-out of
+# examples/al_obstacle_avoidance.py (N = 100, Gauss-Newton, n_al 12, mu0
+# 10, x5), the elementwise barrier of tests/test_boxddp.py:184-207 (N =
+# 80, |u| <= 5, n_barrier 7, mu 1 / 8^i; within 5e-3 of the card's boxDDP)
+# and the PD car of examples/pd_ilqr_infeasible_start.py (CarSimple, N =
+# 60, a straight-line state path, no controls; final defect <= 1e-5).
+# Statuses: CONVERGED and LINE_SEARCH_FAILED count as one stop (a
+# converged solve's last step is a rounding-level tie, decided apart in
+# f32 and f64); MAX_ITER must match.
+SINGLE_COST_REL = 1e-3
+BARRIER_BOX_REL = 5e-3
+AL_MARGIN_TOL = 1e-4
+PD_DEFECT_TOL = 1e-5
+STOPS = (SolveStatus.CONVERGED, SolveStatus.LINE_SEARCH_FAILED)
+# The boxDDP car fleet of benchmarks/bench_boxddp.py:44-93: 256 x
+# CarFrontWheel(dt = 15/500), CarParkingCost(), N = 500, |w| <= 0.5, |a|
+# <= 2, 150 iterations at tol_fun 1e-8, qp_iters 8, sequential backward;
+# x0 = golden + N(0, 0.05^2), u0 ~ N(0, 0.1^2) from default_rng(0). Each
+# iteration replays as a CUDA graph (graph=True), held bit for bit to the
+# eager loop over BOXDDP_GRAPH_ITERS iterations.
+BOXDDP_N = 500
+BOXDDP_FLEET = 256
+BOXDDP_SOLVE = dict(max_iter=150, tol_fun=1e-8)
+BOXDDP_QP_ITERS = 8
+BOXDDP_BOUND = (0.5, 2.0)
+BOXDDP_X0 = (1.0, 1.0, 3.0 * np.pi / 2, 0.0)
+BOXDDP_GRAPH_ITERS = 3
+# The fleet of 8 against 8 single solves (each a CUDA graph, ~20 s).
+# tol_fun 1e-8 is below the f32 resolution of a cost near 2
+# (2.4e-7), so no f32 solve ends CONVERGED: each ends LINE_SEARCH_FAILED
+# (15 rejected steps in a row at the rounding floor) or at the cap
+# (MAX_ITER), whichever comes first by rounding; the two count as one stop.
+BOXDDP_COMPARE = 8
+BOXDDP_COMPARE_REL = 1e-3
+BOXDDP_STOPS = (SolveStatus.LINE_SEARCH_FAILED, SolveStatus.MAX_ITER)
+BOXDDP_WINDOWS = 3  # the main path's solve is the first
+BOXDDP_PROFILED_ITERS = 3
+# worker processes of the f64 oracles (the boxDDP, arm and SLS polishes)
+ORACLE_WORKERS = 7
+# The AL arm fleet of benchmarks/bench_al_arm.py:38-95: 512 x
+# PlanarArm((1, 1, 1), dt = 1/100), N = 100, |q_dot| <= 1.5, |u| <= 6, the
+# terminal ee-x window [0.5, 1], x_std 1e3, u_std 1e-4, 8 iterations of 15
+# alphas a stage, n_al 7, mu0 1e2, x8, tol_con 1e-5; q0 = (pi/3, -pi/2,
+# -pi/4) + N(0, 0.05^2) from default_rng(0), u0 = 1. Gates:
+# utils/certify.py::AL_GATES against the JAX package's own f32 run.
+AL_ARM_FLEET = 512
+AL_ARM_SOLVE = dict(max_iter=8, max_line_search_iter=15)
+AL_ARM_KW = dict(n_al=7, mu0=1e2, mu_factor=8.0, tol_con=1e-5)
+AL_ARM_COMPARE = 8
+AL_ARM_COMPARE_REL = 1e-3
+AL_ARM_WINDOWS = 3
 
 # Published peaks of one H100 SXM: f32 outside the tensor cores, dense
 # TF32 on the tensor cores, and HBM3
@@ -924,7 +1017,7 @@ def phase_sls_main_path(sls, bounds):
           and torch.equal(phi_u[:, :, 1:], solver.PHI_unc[:, 1:].expand(SLS_BATCH, -1, -1)),
           "phi_u is not [U's feedback column | PHI_unc's other columns]")
     t0 = time.perf_counter()
-    cert = certify_sls(A, B, cost, bounds, U, C_COEF)
+    cert = certify_sls(A, B, cost, bounds, U, C_COEF, workers=ORACLE_WORKERS)
     print(f"[sls main path] certificates ({time.perf_counter() - t0:.1f} s): converged_frac "
           f"{cert['converged_frac']} (||U - P(U)|| < 5e-3; max {cert['prim_max']:.3e}), "
           f"oracle cost gap median {cert['cost_gap_median']:.3e} max {cert['cost_gap_max']:.3e} "
@@ -984,8 +1077,9 @@ def phase_sls_time(device, card):
     shape at 1,024 instances."""
     result = {}
     for mode in SLS_MODES:
-        # the plain consensus loop issues ~4e5 small launches a solve
-        plain_windows, plain_calls = (3, 1) if mode == "consensus" else (5, 2)
+        # the plain consensus loop issues ~4e5 small launches a solve (~4 s):
+        # one window since PR 12 (three before), for the run's length
+        plain_windows, plain_calls = (1, 1) if mode == "consensus" else (5, 2)
         _, solver = sls_solver(device, mode)
         for batch in SLS_TIME_BATCHES:
             bounds = sls_bounds(device, batch=batch, sort=mode == "diamond_ee")
@@ -1722,7 +1816,7 @@ def phase_arm_main_path(device, mode, problem):
           f"arm fleet ({mode}, {dtype}): non-finite result")
     alone = (res.outer_iters + stats["admm_iters"]).cpu()
     most = ARM_SOLVE["max_iter"] * (1 + ARM_SOLVE["max_admm_iter"])
-    cert = certify_arm(arm, cost, q0s, res, ARM_U_BOUND)
+    cert = certify_arm(arm, cost, q0s, res, ARM_U_BOUND, workers=ORACLE_WORKERS)
     failures = arm_gate_failures(cert, mode)
     print(f"[arm fleet main path] {mode} line search, {n_inst} instances, {dtype}: "
           f"converged_frac {cert['converged_frac']:.4f}, max violation "
@@ -1785,12 +1879,50 @@ def phase_arm_time(device, card, problems, used):
     return rates
 
 
+def kineto_split(prof, ranges=()):
+    """A profile's device time from its raw kineto events (the profiler's
+    `key_averages` builds an event tree that takes minutes at the ~10^6
+    events of a fleet solve): (device seconds, device ops, {kernel:
+    (seconds, calls)}, {range: (calls, host seconds, device seconds of
+    the kernels its CPU ops launched)}) for the `record_function` ranges
+    named."""
+    from torch.autograd import DeviceType
+
+    op_start, spans, device = {}, {name: [] for name in ranges}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            if not e.is_user_annotation() and e.name() not in spans:
+                device.append(e)
+        elif e.is_user_annotation():
+            if e.name() in spans:
+                spans[e.name()].append((e.start_ns(), e.end_ns()))
+        else:
+            op_start[e.correlation_id()] = e.start_ns()
+    busy, kernels = 0.0, {}
+    in_range = {name: 0.0 for name in spans}
+    starts = {name: sorted(v) for name, v in spans.items()}
+    for e in device:
+        sec = e.duration_ns() * 1e-9
+        busy += sec
+        t, c = kernels.get(e.name(), (0.0, 0))
+        kernels[e.name()] = (t + sec, c + 1)
+        launched = op_start.get(e.linked_correlation_id())
+        if launched is None:
+            continue
+        for name, v in starts.items():
+            i = bisect.bisect_right(v, (launched, float("inf"))) - 1
+            if i >= 0 and v[i][0] <= launched <= v[i][1]:
+                in_range[name] += sec
+    split = {name: (len(v), sum(b - a for a, b in v) * 1e-9, in_range[name])
+             for name, v in spans.items()}
+    return busy, len(device), kernels, split
+
+
 def phase_arm_profile(device, card, problems, used):
     """`torch.profiler` over one inner-mode fleet solve: the device busy
     share of the wall time, the device ops, and the device time under the
     solver's three ranges (linearization + normal equations + Cholesky,
     the ADMM iterations, the line-search rollouts inside them)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     problem = problems[used["inner"]]
@@ -1804,28 +1936,22 @@ def phase_arm_profile(device, card, problems, used):
         wall_us = (time.perf_counter() - t0) * 1e6
     names = (batched_ilqr_admm.PROFILE_LINEARIZE, batched_ilqr_admm.PROFILE_ADMM,
              batched_ilqr_admm.PROFILE_ROLLOUT)
-    events = prof.key_averages()
-    # the solver's ranges also appear as spans on the device's timeline:
-    # they are not device work
-    on_device = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in names]
-    busy_us = sum(e.self_device_time_total for e in on_device)
+    busy, n_ops, kernels, split = kineto_split(prof, names)
+    busy_us = busy * 1e6
     print(f"[arm profile] one inner-mode fleet solve, {int(res.outer_iters.max())} outer steps: "
           f"wall {wall_us / 1e3:.1f} ms under the profiler; card: {card}")
     if busy_us <= 0.0:
         print("[arm profile] the profiler saw no device time: not measured")
         return None
     print(f"[arm profile] device busy {busy_us / 1e3:.1f} ms = {100 * busy_us / wall_us:.2f}% of "
-          f"the wall time; {sum(e.count for e in on_device)} device ops of {len(on_device)} kinds")
-    # a host range's device time is that of the kernels launched inside it
-    ranges = {e.key: e for e in events if e.device_type == DeviceType.CPU and e.key in names}
+          f"the wall time; {n_ops} device ops of {len(kernels)} kinds")
     for name in names:
-        e = ranges.get(name)
-        if e is not None:
-            print(f"[arm profile] {name}: {e.count} ranges, kernels {e.device_time_total / 1e3:.1f} "
-                  f"ms, host {e.cpu_time_total / 1e3:.1f} ms")
-    for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"[arm profile] {e.self_device_time_total / 1e3:9.3f} ms, {e.count:6d} calls: "
-              f"{e.key[:90]}")
+        count, host, dev = split[name]
+        if count:
+            print(f"[arm profile] {name}: {count} ranges, kernels {dev * 1e3:.1f} ms, host "
+                  f"{host * 1e3:.1f} ms")
+    for name, (t, c) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"[arm profile] {t * 1e3:9.3f} ms, {c:6d} calls: {name[:90]}")
     return {"busy_share": busy_us / wall_us}
 
 
@@ -1957,17 +2083,18 @@ def mpc_fleet(problem, batch=MPC_FLEET):
     return x0s, states
 
 
-def mpc_box_problem(device, dtype=torch.float32):
+def mpc_box_problem(device, dtype=torch.float32, horizon=MPC_BOX_N):
     """tests/test_mpc.py:117-149: the 1-D double integrator, N = 50, position
-    1 at weight 1e3 at the end, u_std 1e-2, |u| <= 3, x0 = 0."""
+    1 at weight 1e3 at the end, u_std 1e-2, |u| <= 3, x0 = 0 (the horizon
+    N = 80 is the barrier test's)."""
     kw = dict(dtype=dtype, device=device)
-    plant = DoubleIntegrator(1, 2, dt=1.0 / MPC_BOX_N, **kw)
+    plant = DoubleIntegrator(1, 2, dt=1.0 / horizon, **kw)
     zs = torch.stack([torch.zeros(2, **kw), torch.tensor([1.0, 0.0], **kw)])
     Qs = torch.stack([torch.zeros((2, 2), **kw), torch.eye(2, **kw) * 1e3])
-    seq = np.zeros(MPC_BOX_N, dtype=np.int32)
+    seq = np.zeros(horizon, dtype=np.int32)
     seq[-1] = 1
     cost = viapoint_cost(zs, Qs, seq, 1e-2, 1)
-    A, B = plant.AB(MPC_BOX_N)
+    A, B = plant.AB(horizon)
     return dict(f=plant.step, get_AB=lambda xs, us: (A, B), cost=cost, x0=torch.zeros(2, **kw),
                 get_Cs=lambda xs, us: quad_cost_model(cost.Q, cost.xd, cost.R, xs, us))
 
@@ -2292,6 +2419,432 @@ def phase_mpc_profile(device, card):
     return {"busy_share": busy_us / wall_us}
 
 
+# ---- slice 12: barrier, AL and PD iLQR; the boxDDP car and AL arm fleets ----
+
+
+def _same_stop(a, b) -> bool:
+    return a == b or (a in STOPS and b in STOPS)
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def al_obstacle_problem(device, dtype=torch.float32):
+    """examples/al_obstacle_avoidance.py: a 2-D double integrator, N = 100,
+    (1, 1) at weight 1e3 at the end, u_std 1e-2, two keep-out circles."""
+    N = 100
+    kw = dict(dtype=dtype, device=device)
+    plant = DoubleIntegrator(2, 2, dt=1.0 / N, **kw)
+    A, B = plant.AB(N)
+    seq = np.zeros(N, dtype=np.int32)
+    seq[-1] = 1
+    cost = viapoint_cost(torch.stack([torch.zeros(4, **kw), torch.tensor([1.0, 1.0, 0.0, 0.0], **kw)]),
+                         torch.stack([torch.zeros((4, 4), **kw), torch.eye(4, **kw) * 1e3]), seq,
+                         1e-2, 2)
+    centers = torch.tensor([[0.32, 0.28], [0.68, 0.77]], **kw)
+    radii = torch.tensor([0.18, 0.15], **kw)
+
+    def keep_out(x, u):
+        return radii - torch.linalg.norm(x[:2][None, :] - centers, dim=-1)
+
+    return dict(f=plant.step, get_AB=lambda xs, us: (A, B), cost=cost, x0=torch.zeros(4, **kw),
+                u0=torch.zeros((N, 2), **kw), ineq=keep_out, centers=centers, radii=radii,
+                get_Cs=lambda xs, us: quad_cost_model(cost.Q, cost.xd, cost.R, xs, us))
+
+
+def al_obstacle_solve(p):
+    return al_ilqr_solve(p["f"], p["get_AB"], p["get_Cs"], p["cost"], p["x0"], p["u0"],
+                         ineq=p["ineq"], cfg=ILQRConfig(max_iter=40, tol_fun=1e-10), n_al=12,
+                         mu0=10.0, mu_factor=5.0, tol_con=1e-7, device=p["x0"].device)
+
+
+def barrier_problem(device, dtype=torch.float32):
+    """tests/test_boxddp.py::_lq_setup(m=1, N=80) (`mpc_box_problem` at N =
+    80) with the barrier of |u| <= 5, from u = 0."""
+    p = mpc_box_problem(device, dtype, horizon=80)
+    p["u0"] = torch.zeros((80, 1), dtype=dtype, device=device)
+    p["barrier"] = make_barrier(ineq=lambda x, u: torch.cat([u + 5.0, 5.0 - u]))
+    return p
+
+
+def barrier_solve(p):
+    return barrier_ilqr_solve(p["f"], p["get_AB"], p["get_Cs"], p["cost"], p["x0"], p["u0"],
+                              p["barrier"], cfg=ILQRConfig(max_iter=40, tol_fun=1e-10), mu0=1.0,
+                              mu_factor=8.0, n_barrier=7, device=p["x0"].device)
+
+
+def barrier_boxddp(p):
+    fns = (p["f"], p["get_AB"], p["get_Cs"], p["cost"])
+    st = boxddp_init(p["f"], p["cost"], p["x0"], p["u0"], -5.0, 5.0, device=p["x0"].device)
+    return boxddp_solve(*fns, st, -5.0, 5.0, cfg=ILQRConfig(max_iter=60, tol_fun=1e-10))
+
+
+def pd_problem(device, dtype=torch.float32):
+    """examples/pd_ilqr_infeasible_start.py: CarSimple(dt=0.1), N = 60, the
+    via-point cost to (1.5, 1) and the straight-line state path from x0 =
+    (0, 0, 0.3, 0) with zero controls."""
+    N = 60
+    kw = dict(dtype=dtype, device=device)
+    target = torch.tensor([1.5, 1.0, 0.0, 0.0], **kw)
+    Qs = torch.stack([torch.diag(torch.tensor([1.0, 1.0, 0.0, 0.1], **kw)) * 1e-2,
+                      torch.diag(torch.tensor([20.0, 20.0, 0.0, 1.0], **kw))])
+    seq = np.zeros(N, dtype=np.int32)
+    seq[-1] = 1
+    quad = viapoint_cost(torch.stack([target, target]), Qs, seq, 1e-2, 2)
+    x0 = torch.tensor([0.0, 0.0, 0.3, 0.0], **kw)
+    line = torch.linspace(0.0, 1.0, N, **kw)[:, None] * (target - x0)[None] + x0[None]
+    line[0] = x0
+
+    def cost_fn(xs, us):
+        dx = xs - quad.xd
+        return (torch.einsum("ti,tij,tj->", dx, quad.Q, dx)
+                + torch.einsum("ti,tij,tj->", us, quad.R, us))
+
+    car = CarSimple(dt=0.1)
+    return dict(f=car.step, get_AB=car.get_AB, cost=cost_fn, line=line,
+                u0=torch.zeros((N, 2), **kw),
+                get_Cs=lambda xs, us: quad_cost_model(quad.Q, quad.xd, quad.R, xs, us))
+
+
+def pd_solve(p):
+    st = pd_ilqr_init(p["cost"], p["f"], p["line"], p["u0"], device=p["line"].device)
+    return pd_ilqr_solve(p["f"], p["get_AB"], p["get_Cs"], p["cost"], st,
+                         ILQRConfig(max_iter=80, tol_fun=1e-9))
+
+
+def _timed_solve(fn, device):
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, time.perf_counter() - t0
+
+
+def phase_single_solves(device, card):
+    """The barrier, AL and PD single solves on the card in f32, each against
+    the port's f64 solve of the same problem on the host: cost within
+    SINGLE_COST_REL, statuses the same stop, and each problem's own gates.
+    Returns {name: seconds of the card's solve}."""
+    out = {}
+    cases = (("AL keep-out", al_obstacle_problem, al_obstacle_solve),
+             ("barrier |u| <= 5", barrier_problem, barrier_solve),
+             ("PD car from a straight line", pd_problem, pd_solve))
+    for name, problem, solve in cases:
+        p_card = problem(device)
+        res, seconds = _timed_solve(lambda: solve(p_card), device)
+        host, host_s = _timed_solve(lambda: solve(problem("cpu", torch.float64)), "cpu")
+        status = int(res.status)
+        rel = abs(float(res.cost) - float(host.cost)) / abs(float(host.cost))
+        print(f"[single] {name}: card f32 cost {float(res.cost):.7f}, status {status}, "
+              f"{seconds:.2f} s; host f64 cost {float(host.cost):.7f}, status {int(host.status)}, "
+              f"{host_s:.2f} s; |dcost|/cost {rel:.3e} (gate {SINGLE_COST_REL:g}); card: {card}")
+        check(bool(torch.isfinite(res.u_nom).all() and torch.isfinite(res.x_nom).all()),
+              f"{name}: non-finite result")
+        check(rel <= SINGLE_COST_REL, f"{name}: f32 cost {rel:.3e} from the f64 host solve")
+        check(_same_stop(status, int(host.status)),
+              f"{name}: status {status} on the card, {int(host.status)} on the host")
+        if name.startswith("AL"):
+            ps = res.x_nom[:, :2]
+            dists = torch.linalg.norm(ps[:, None, :] - p_card["centers"][None], dim=-1)
+            margin = float((dists - p_card["radii"][None]).min())
+            print(f"[single] {name}: keep-out margin {margin:.3e} (gate >= {-AL_MARGIN_TOL:g}), "
+                  f"max violation {float(res.max_violation):.3e}, final position "
+                  f"({float(ps[-1, 0]):.4f}, {float(ps[-1, 1]):.4f})")
+            check(margin >= -AL_MARGIN_TOL, f"{name}: keep-out margin {margin:.3e}")
+        elif name.startswith("barrier"):
+            box = barrier_boxddp(p_card)
+            rel_box = abs(float(res.cost) - float(box.cost)) / max(1.0, abs(float(box.cost)))
+            u_max = float(res.u_nom.abs().max())
+            print(f"[single] {name}: max|u| {u_max:.6f} (bound 5), the card's boxDDP cost "
+                  f"{float(box.cost):.7f}, |dcost| / max(1, cost) {rel_box:.3e} "
+                  f"(gate {BARRIER_BOX_REL:g})")
+            check(u_max <= 5.0, f"{name}: max|u| {u_max}")
+            check(rel_box < BARRIER_BOX_REL, f"{name}: {rel_box:.3e} from the card's boxDDP")
+        else:
+            defect = float(res.defect)
+            print(f"[single] {name}: final defect {defect:.3e} (gate {PD_DEFECT_TOL:g}), "
+                  f"{res.iteration} iterations (host {host.iteration})")
+            check(defect <= PD_DEFECT_TOL, f"{name}: defect {defect:.3e}")
+        out[name] = seconds
+    return out
+
+
+def car_fleet_problem(device, dtype=torch.float32, batch=BOXDDP_FLEET, horizon=BOXDDP_N):
+    """bench_boxddp.py's fleet: the car, its parking cost, the bounds, u0 ~
+    N(0, 0.1^2) and x0s = golden + N(0, 0.05^2), both from default_rng(0)
+    in that order, on `device` in `dtype`."""
+    kw = dict(dtype=dtype, device=device)
+    rng = np.random.default_rng(0)
+    u0 = torch.tensor(rng.normal(size=(horizon, 2)) * 0.1, **kw)
+    x0s = torch.tensor(np.array(BOXDDP_X0) + rng.normal(0, 0.05, (batch, 4)), **kw)
+    hi = torch.tensor(BOXDDP_BOUND, **kw)
+    return dict(car=CarFrontWheel(dt=15.0 / horizon), cost=CarParkingCost(**kw), x0s=x0s,
+                u0s=u0.expand(batch, horizon, 2), lo=-hi, hi=hi)
+
+
+def car_fleet_solve(p, graph=True, stats=None, **over):
+    car, cost = p["car"], p["cost"]
+    st = boxddp_fleet_init(car.step, cost, p["x0s"], p["u0s"], p["lo"], p["hi"],
+                           device=p["x0s"].device)
+    return boxddp_fleet_solve(car.step, car.get_AB, cost.get_Cs, cost, st, p["lo"], p["hi"],
+                               cfg=ILQRConfig(**dict(BOXDDP_SOLVE, **over)),
+                               qp_iters=BOXDDP_QP_ITERS, stats=stats, graph=graph)
+
+
+def phase_boxddp_graph(device):
+    """BOXDDP_GRAPH_ITERS iterations of the whole fleet eagerly and as a
+    replayed CUDA graph: the same state bit for bit."""
+    p = car_fleet_problem(device)
+    (eager, s_eager), (graphed, s_graph) = (
+        _timed_solve(lambda g=g: car_fleet_solve(p, graph=g, max_iter=BOXDDP_GRAPH_ITERS),
+                     device) for g in (False, True))
+    same = all(torch.equal(getattr(eager, k), getattr(graphed, k))
+               for k in ("x_nom", "u_nom", "cost", "prev_cost", "iteration", "status"))
+    print(f"[boxddp graph] {BOXDDP_GRAPH_ITERS} fleet iterations eager {s_eager:.2f} s, as a "
+          f"CUDA graph (capture included) {s_graph:.2f} s; bit-identical {same}")
+    check(same, "boxDDP fleet: the CUDA graph's iterations differ from the eager loop's")
+    return dict(eager_s=s_eager, graph_s=s_graph)
+
+
+def phase_boxddp_main_path(device, card):
+    """The 256-instance bench fleet: one solve (CUDA graph) with its host
+    reads; its certificate (`certify_boxddp_fleet`: the bound, an f64
+    polish of 8 instances in worker processes) starts on the host in a
+    thread beside the next phases, which run on the card. Returns (the
+    problem, the result, the certificate's future, the solve's ms)."""
+    p = car_fleet_problem(device)
+    stats = {}
+    reads0 = admm_solver.host_sync_count
+    res, seconds = _timed_solve(lambda: car_fleet_solve(p, stats=stats), device)
+    reads = admm_solver.host_sync_count - reads0
+    check(tuple(res.u_nom.shape) == (BOXDDP_FLEET, BOXDDP_N, 2), f"boxDDP fleet: {res.u_nom.shape}")
+    host = type(res)(*(t.cpu() if torch.is_tensor(t) else t for t in res))
+    status = host.status
+    print(f"[boxddp fleet main path] {BOXDDP_FLEET} instances, f32: mean cost "
+          f"{float(host.cost.double().mean()):.6f}, statuses "
+          f"{ {int(k): int((status == k).sum()) for k in torch.unique(status)} }, iterations mean "
+          f"{float(host.iteration.double().mean()):.2f} max {int(host.iteration.max())}; "
+          f"{seconds:.2f} s (CUDA graph; capture {stats['capture_seconds']:.2f} s); card: {card}")
+    print(f"[boxddp fleet main path] host reads {reads} = {stats['iterations']} fleet iterations "
+          f"- 1 (none after the cap's last)")
+    check(reads == stats["host_reads"] <= BOXDDP_SOLVE["max_iter"],
+          f"boxDDP fleet: {reads} host reads")
+    # everything the certificate reads is on the host first: its thread
+    # makes no CUDA call while the card's phases capture graphs
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(certify_boxddp_fleet, p["car"],
+                         copy.deepcopy(p["cost"]).to("cpu", torch.float64), p["x0s"].cpu(), host,
+                         p["lo"].cpu(), p["hi"].cpu(), workers=ORACLE_WORKERS)
+    pool.shutdown(wait=False)
+    return p, res, future, seconds * 1e3
+
+
+def phase_boxddp_certificate(future, card):
+    """The main path's certificate, started by `phase_boxddp_main_path`,
+    and the bench's gates."""
+    cert = future.result()
+    failures = boxddp_gate_failures(cert)
+    print(f"[boxddp certificate] {BOXDDP_FLEET} instances, f32: max |u|/bound - 1 "
+          f"{cert['max_violation']:.3e} (gate 1e-5), mean cost {cert['mean_cost']:.6f}, statuses "
+          f"{cert['statuses']}; oracle gap median {cert['cost_gap_median']:.3e} max "
+          f"{cert['cost_gap_max']:.3e} (f64 L-BFGS-B polish of {len(cert['oracle_iterations'])} "
+          f"instances, "
+          f"{cert['oracle_iterations']} iterations, {cert['oracle_seconds']:.1f} s in "
+          f"{ORACLE_WORKERS} processes beside the card's phases); gates "
+          f"{'pass' if not failures else 'MISSED: ' + '; '.join(failures)}; card: {card}")
+    check(not failures, "boxDDP fleet: " + "; ".join(failures))
+    return cert
+
+
+def phase_boxddp_compare(device):
+    """The fleet's first BOXDDP_COMPARE instances against as many single
+    boxddp_solve calls (both with graph=True): |dcost|/cost and statuses
+    (BOXDDP_STOPS as one)."""
+    p = car_fleet_problem(device, batch=BOXDDP_COMPARE)
+    car, cost = p["car"], p["cost"]
+    fleet = car_fleet_solve(p)
+
+    t0 = time.perf_counter()
+    singles = []
+    for i in range(BOXDDP_COMPARE):
+        st = boxddp_init(car.step, cost, p["x0s"][i], p["u0s"][i], p["lo"], p["hi"], device=device)
+        singles.append(boxddp_solve(car.step, car.get_AB, cost.get_Cs, cost, st, p["lo"], p["hi"],
+                                    cfg=ILQRConfig(**BOXDDP_SOLVE), qp_iters=BOXDDP_QP_ITERS,
+                                    graph=True))
+    seconds = time.perf_counter() - t0
+    cost_s = torch.stack([s.cost for s in singles])
+    rels = ((fleet.cost - cost_s).abs() / cost_s.abs()).tolist()
+    rel = max(rels)
+    status_f, status_s = fleet.status.tolist(), [s.status for s in singles]
+    same = all(a == b or (a in BOXDDP_STOPS and b in BOXDDP_STOPS)
+               for a, b in zip(status_f, status_s))
+    print(f"[boxddp compare] fleet of {BOXDDP_COMPARE} vs single solves, f32: |dcost|/cost "
+          f"{', '.join(f'{r:.3e}' for r in rels)} (gate {BOXDDP_COMPARE_REL:g}); statuses fleet "
+          f"{status_f}, single {status_s}; iterations fleet {fleet.iteration.tolist()}, single "
+          f"{[s.iteration for s in singles]}; the {BOXDDP_COMPARE} singles {seconds:.1f} s")
+    check(rel <= BOXDDP_COMPARE_REL, f"boxDDP fleet differs from single solves by {rel:.3e}")
+    check(same, "boxDDP fleet statuses differ from single solves")
+
+
+def _windows(fn, device, windows):
+    """`windows` timed calls of fn() (host clock, a synchronize at each
+    end), after a main path that warmed it up: (median, q1, q3, samples)
+    in ms."""
+    ms = [_timed_solve(fn, device)[1] * 1e3 for _ in range(windows)]
+    return (*_median_iqr(ms), ms)
+
+
+def phase_boxddp_time(device, card, p, main_ms):
+    """Solves/s of the 256-instance fleet (graph=True, capture included):
+    BOXDDP_WINDOWS windows of one solve, the main path's the first."""
+    ms = [main_ms] + [_timed_solve(lambda: car_fleet_solve(p), device)[1] * 1e3
+                      for _ in range(BOXDDP_WINDOWS - 1)]
+    med, q1, q3 = _median_iqr(ms)
+    rate = BOXDDP_FLEET / (med / 1e3)
+    print(f"[boxddp time] {BOXDDP_FLEET} instances, f32, CUDA graph: {med:.1f} ms a solve (IQR "
+          f"{q1:.1f}-{q3:.1f}; {', '.join(f'{t:.1f}' for t in ms)}) = {rate:.1f} solves/s; "
+          f"card: {card}")
+    return dict(ms=med, solves_per_s=rate)
+
+
+def _device_events(fn):
+    """fn() under `torch.profiler` with CUDA activity only: (wall seconds,
+    device seconds, device ops, {kernel: (seconds, calls)})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, n, kernels, _ = kineto_split(prof)
+    return wall, busy, n, kernels
+
+
+def phase_boxddp_profile(device, card, p, solve_ms):
+    """The card's busy share of a 150-iteration graph solve, from two
+    profiles: one eager iteration (the capture's warm-up runs one) and a
+    solve cut at BOXDDP_PROFILED_ITERS iterations (the warm-up, the
+    capture, the replays). A whole solve, ~15 million kernel events, is
+    too many to trace: its busy share is (warm-up + 150 replays' device
+    time) / the timed solve's wall."""
+    eager_wall, eager_busy, eager_n, _ = _device_events(
+        lambda: car_fleet_solve(p, graph=False, max_iter=1))
+    stats = {}
+    wall, busy, n, names = _device_events(
+        lambda: car_fleet_solve(p, stats=stats, max_iter=BOXDDP_PROFILED_ITERS))
+    replay = (busy - eager_busy) / BOXDDP_PROFILED_ITERS
+    iters = BOXDDP_SOLVE["max_iter"]
+    share = (eager_busy + iters * replay) / (solve_ms / 1e3)
+    print(f"[boxddp profile] one eager iteration: {eager_n} device ops, {eager_busy * 1e3:.1f} ms "
+          f"busy of {eager_wall * 1e3:.1f} ms ({100 * eager_busy / eager_wall:.2f}%); card: {card}")
+    print(f"[boxddp profile] {BOXDDP_PROFILED_ITERS} graph iterations: {n} device ops, "
+          f"{busy * 1e3:.1f} ms busy of {wall * 1e3:.1f} ms under the tracer, capture "
+          f"{stats['capture_seconds']:.2f} s; a replay {replay * 1e3:.1f} ms of device time, "
+          f"{(n - eager_n) / BOXDDP_PROFILED_ITERS:.0f} kernels")
+    print(f"[boxddp profile] a {iters}-iteration solve of {solve_ms:.1f} ms: busy "
+          f"{100 * share:.1f}% (warm-up + {iters} replays' device time over its wall)")
+    for name, (t, c) in sorted(names.items(), key=lambda kv: -kv[1][0])[:5]:
+        print(f"[boxddp profile] {t * 1e3:9.3f} ms, {c:7d} calls: {name[:90]}")
+    return dict(busy_share=share)
+
+
+def al_arm_problem(device, dtype=torch.float32, batch=AL_ARM_FLEET):
+    """bench_al_arm.py's fleet: the arm, its cost (x_std 1e3, u_std 1e-4, ee
+    target (1.5, 1) weighted on its height), the stagewise bounds, x0s from
+    q0 = (pi/3, -pi/2, -pi/4) + N(0, 0.05^2) (default_rng(0), the bench's
+    512 draws, the first `batch` of them) and u0 = 1."""
+    kw = dict(dtype=dtype, device=device)
+    arm = PlanarArm((1.0, 1.0, 1.0), dt=1.0 / ARM_N)
+    cost = arm_cost(device, dtype, 1e3, (1.5, 1.0), (0.0, 1e3))
+    q0s = torch.tensor(np.array([np.pi / 3, -np.pi / 2, -np.pi / 4])
+                       + np.random.default_rng(0).normal(0, 0.05, (max(batch, AL_ARM_FLEET), 3)),
+                       **kw)[:batch]
+    last = ARM_N - 1
+
+    def ineq(x, u, t):
+        dq, ee_x = x[3:6], x[6]
+        window = torch.stack([ee_x - 1.0, 0.5 - ee_x])
+        return torch.cat([dq - 1.5, -dq - 1.5, u - 6.0, -u - 6.0,
+                          torch.where(t == last, window, torch.full_like(window, -1.0))])
+
+    return dict(arm=arm, cost=cost, x0s=arm.initial_state(q0s), u0s=torch.ones((batch, ARM_N, 3), **kw),
+                ineq=ineq, get_Cs=lambda xs, us: quad_cost_model(cost.Q, cost.xd, cost.R, xs, us))
+
+
+def al_arm_solve(p, stats=None):
+    arm = p["arm"]
+    return batched_al_solve(arm.step, arm.get_AB, p["get_Cs"], p["cost"], p["x0s"], p["u0s"],
+                            ineq=p["ineq"], cfg=ILQRConfig(**AL_ARM_SOLVE), device=p["x0s"].device,
+                            stats=stats, **AL_ARM_KW)
+
+
+def _al_arm_compare(device, dtype):
+    """The fleet of AL_ARM_COMPARE arms against as many single
+    al_ilqr_solve calls in `dtype`: (max |dcost|/cost, the same stops:
+    CONVERGED and LINE_SEARCH_FAILED count as one), each instance's
+    printed."""
+    small = al_arm_problem(device, dtype, batch=AL_ARM_COMPARE)
+    fleet = al_arm_solve(small)
+    arm = small["arm"]
+    singles = [al_ilqr_solve(arm.step, arm.get_AB, small["get_Cs"], small["cost"], small["x0s"][i],
+                             small["u0s"][i], ineq=small["ineq"], cfg=ILQRConfig(**AL_ARM_SOLVE),
+                             device=device, **AL_ARM_KW) for i in range(AL_ARM_COMPARE)]
+    cost_s = torch.stack([s.cost for s in singles])
+    rels = ((fleet.cost - cost_s).abs() / cost_s.abs()).tolist()
+    status_s = [int(s.status) for s in singles]
+    print(f"[al arm compare] fleet of {AL_ARM_COMPARE} vs single solves, {_dtype_name(dtype)}: "
+          f"|dcost|/cost {', '.join(f'{r:.3e}' for r in rels)} (gate {AL_ARM_COMPARE_REL:g} in "
+          f"f64); costs fleet {', '.join(f'{c:.6f}' for c in fleet.cost.tolist())}, single "
+          f"{', '.join(f'{c:.6f}' for c in cost_s.tolist())}; statuses fleet "
+          f"{fleet.status.tolist()}, single {status_s}")
+    return max(rels), all(map(_same_stop, fleet.status.tolist(), status_s))
+
+
+def phase_al_arm(device, card):
+    """The 512-instance AL arm fleet: one solve with its host reads and the
+    gates against the JAX package's own f32 numbers, the fleet of 8 against
+    8 single al_ilqr_solve calls (f32 printed, f64 gated), and solves/s."""
+    p = al_arm_problem(device)
+    stats = {}
+    reads0 = admm_solver.host_sync_count
+    res, seconds = _timed_solve(lambda: al_arm_solve(p, stats), device)
+    reads = admm_solver.host_sync_count - reads0
+    cert = certify_al_fleet(res)
+    failures = al_gate_failures(cert)
+    ref = cert["reference"]
+    most = AL_ARM_KW["n_al"] * AL_ARM_SOLVE["max_iter"]
+    bad = (~torch.isfinite(res.cost)).nonzero().flatten().tolist()
+    print(f"[al arm main path] {AL_ARM_FLEET} instances, f32: median max_violation "
+          f"{cert['median_violation']:.3e} (first {ref['n']}: {cert['median_violation_ref']:.3e}; "
+          f"JAX f32 {ref['median_violation']:.3e}), largest {cert['max_violation']:.3e}, mean cost "
+          f"{cert['mean_cost']:.6f} (first {ref['n']}: {cert['mean_cost_ref']:.6f}; JAX f32 "
+          f"{ref['mean_cost']:.6f}), statuses {cert['statuses']}, non-finite instances {bad}, "
+          f"max|u| {float(res.u_nom.abs().max()):.4f}; {seconds:.2f} s; gates "
+          f"{'pass' if not failures else 'MISSED: ' + '; '.join(failures)}; card: {card}")
+    print(f"[al arm main path] host reads {reads} = {stats['iterations']} inner fleet iterations "
+          f"less one a stage that reached its cap; at most {most} whatever the fleet size")
+    check(reads == stats["host_reads"] <= most, f"AL arm fleet: {reads} host reads")
+    check(not failures, "AL arm fleet: " + "; ".join(failures))
+
+    for dtype in (torch.float32, torch.float64):
+        rel, same = _al_arm_compare(device, dtype)
+    # the gate in f64: in f32 the arm's weights (x_std 1e3 against u_std
+    # 1e-4) leave the Riccati pass's Cholesky ill-conditioned, and the
+    # fleet's batched kernels and the single solve's round it apart (f32
+    # printed above; ROADMAP.md section 3)
+    check(rel <= AL_ARM_COMPARE_REL, f"AL arm fleet differs from single solves by {rel:.3e} (f64)")
+    check(same, "AL arm fleet statuses differ from single solves (f64)")
+
+    med, q1, q3, ms = _windows(lambda: al_arm_solve(p), device, AL_ARM_WINDOWS)
+    rate = AL_ARM_FLEET / (med / 1e3)
+    print(f"[al arm time] {AL_ARM_FLEET} instances, f32: {med:.1f} ms a solve (IQR {q1:.1f}-"
+          f"{q3:.1f}; {', '.join(f'{t:.1f}' for t in ms)}) = {rate:.1f} solves/s, {reads} host "
+          f"reads a solve; card: {card}")
+    return dict(ms=med, solves_per_s=rate, reads=reads)
+
+
 def main() -> int:
     seconds = {}
 
@@ -2345,6 +2898,15 @@ def main() -> int:
         run("mpc fleet", phase_mpc_fleet, "cuda", card)
         run("mpc boxddp", phase_mpc_boxddp, "cuda", card)
         run("mpc profile", phase_mpc_profile, "cuda", card)
+        run("single solves", phase_single_solves, "cuda", card)
+        run("boxddp graph", phase_boxddp_graph, "cuda")
+        car_fleet, _, certificate, main_ms = run("boxddp main path", phase_boxddp_main_path,
+                                                 "cuda", card)
+        run("boxddp compare", phase_boxddp_compare, "cuda")
+        boxddp_time = run("boxddp time", phase_boxddp_time, "cuda", card, car_fleet, main_ms)
+        run("boxddp certificate", phase_boxddp_certificate, certificate, card)
+        run("boxddp profile", phase_boxddp_profile, "cuda", card, car_fleet, boxddp_time["ms"])
+        run("al arm", phase_al_arm, "cuda", card)
         bounds = dict(run("fleet bounds", existing_bounds, solver, inputs, box[1], x0s,
                           sls[1], sls_fleet), **riccati_times["bounds"],
                       linesearch_rollout=car_times["bound"])

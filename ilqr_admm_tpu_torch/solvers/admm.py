@@ -43,6 +43,14 @@ def read_flags(*flags: torch.Tensor) -> list[bool]:
     return [bool(v) for v in torch.stack(flags).tolist()]
 
 
+def read_status(status: torch.Tensor) -> int:
+    """The value of a 0-dim integer status tensor on the host, in one read
+    (counted with the flag reads)."""
+    global host_sync_count
+    host_sync_count += 1
+    return int(status)
+
+
 def stop_tests(prim, dual, prim_new, dual_new, cfg: ADMMConfig):
     """The plain loop's stop rules, elementwise: (converged, stalled) for
     the residuals before (prim, dual) and after (prim_new, dual_new) an

@@ -60,6 +60,7 @@ from ilqr_admm_tpu_torch.solvers.admm import (
     stop_tests,
     validate_constraint_blocks,
 )
+from ilqr_admm_tpu_torch.solvers.fleet import keep
 from ilqr_admm_tpu_torch.solvers.ilqr import nan_to_inf
 from ilqr_admm_tpu_torch.solvers.ilqr_admm import (
     ILQRADMMResult,
@@ -75,11 +76,6 @@ from ilqr_admm_tpu_torch.utils.precision import full_f32_matmul
 PROFILE_LINEARIZE = "ilqr_admm_fleet.linearize"
 PROFILE_ADMM = "ilqr_admm_fleet.admm_iteration"
 PROFILE_ROLLOUT = "ilqr_admm_fleet.rollout"
-
-
-def _keep(mask, new, old):
-    """new where the instance's mask is set, else old: mask (F,)."""
-    return torch.where(mask.reshape(mask.shape + (1,) * (new.ndim - 1)), new, old)
 
 
 def _norm(r):
@@ -152,16 +148,16 @@ def _admm_fleet(f_argmin, project_x, project_u, shape_x, shape_u, cfg: ADMMConfi
                 r_x = x_x - z_x_new
                 prim_new = prim_new + _norm(r_x)
                 dual_new = dual_new + _norm(z_x_new - z_x)
-                z_x, lmb_x = _keep(live, z_x_new, z_x), _keep(live, lmb_x + r_x, lmb_x)
+                z_x, lmb_x = keep(live, z_x_new, z_x), keep(live, lmb_x + r_x, lmb_x)
             if has_u:
                 z_u_new = project_u(cfg.alpha * x_u + (1.0 - cfg.alpha) * z_u + lmb_u)
                 r_u = x_u - z_u_new
                 prim_new = prim_new + _norm(r_u)
                 dual_new = dual_new + _norm(z_u_new - z_u)
-                z_u, lmb_u = _keep(live, z_u_new, z_u), _keep(live, lmb_u + r_u, lmb_u)
+                z_u, lmb_u = keep(live, z_u_new, z_u), keep(live, lmb_u + r_u, lmb_u)
             converged, stalled = stop_tests(prim, dual, prim_new, dual_new, cfg)
-            out = tuple(_keep(live, n, o) for n, o in zip(out_new, out))
-            prim, dual = _keep(live, prim_new, prim), _keep(live, dual_new, dual)
+            out = tuple(keep(live, n, o) for n, o in zip(out_new, out))
+            prim, dual = keep(live, prim_new, prim), keep(live, dual_new, dual)
             iters = iters + live.to(iters.dtype)
             live = live & ~(converged | stalled) & (iters < cfg.max_iter)
             k += 1
@@ -240,15 +236,15 @@ def _admm_fleet_anderson(f_argmin, project_x, project_u, shape_x, shape_u, cfg: 
             push = has_prev & ~restart
             mem_dv_p = torch.cat([mem_dv[:, 1:], (v - prev_v)[:, None]], dim=1)
             mem_dg_p = torch.cat([mem_dg[:, 1:], (g - prev_g)[:, None]], dim=1)
-            mem_dv_n = _keep(push, mem_dv_p, _keep(restart, torch.zeros_like(mem_dv), mem_dv))
-            mem_dg_n = _keep(push, mem_dg_p, _keep(restart, torch.zeros_like(mem_dg), mem_dg))
+            mem_dv_n = keep(push, mem_dv_p, keep(restart, torch.zeros_like(mem_dv), mem_dv))
+            mem_dg_n = keep(push, mem_dg_p, keep(restart, torch.zeros_like(mem_dg), mem_dg))
             # each instance's type-II least squares for its mixing weights
             gram = mem_dg_n @ mem_dg_n.transpose(-1, -2)
             reg = cfg.anderson_reg * torch.diagonal(gram, dim1=-2, dim2=-1).sum(-1) + 1e-30
             gam = torch.linalg.solve(gram + reg[:, None, None] * eye_m, _mv(mem_dg_n, g))
             v_aa = v + g - _mv((mem_dv_n + mem_dg_n).transpose(-1, -2), gam)
             use_aa = (gnorm > 1e3 * eps * (1.0 + _norm(v_plain))) & ~restart
-            v_next = _keep(use_aa, v_aa, v_plain)
+            v_next = keep(use_aa, v_aa, v_plain)
             best_n = torch.where(restart, inf, torch.minimum(best, gnorm))
             converged = (prim_new < cfg.tol) & (dual_new < cfg.tol)
             prim_change = torch.abs(prim - prim_new) / (prim + 1e-30)
@@ -257,17 +253,17 @@ def _admm_fleet_anderson(f_argmin, project_x, project_u, shape_x, shape_u, cfg: 
             stalled = flat & flat_prev
             score_new = prim_new + dual_new
             take = live & ((score_new < ret_score[0]) | converged)
-            ret = (tuple(_keep(take, n, o) for n, o in zip(out, ret[0])),) + tuple(
-                _keep(take, n, o) for n, o in zip((zx_n, zu_n, lx_n, lu_n), ret[1:]))
+            ret = (tuple(keep(take, n, o) for n, o in zip(out, ret[0])),) + tuple(
+                keep(take, n, o) for n, o in zip((zx_n, zu_n, lx_n, lu_n), ret[1:]))
             ret_score = tuple(torch.where(take, n, o)
                               for n, o in zip((score_new, prim_new, dual_new), ret_score))
-            prim, dual = _keep(live, prim_new, prim), _keep(live, dual_new, dual)
-            prev_v, prev_g = _keep(live, v, prev_v), _keep(live, g, prev_g)
+            prim, dual = keep(live, prim_new, prim), keep(live, dual_new, dual)
+            prev_v, prev_g = keep(live, v, prev_v), keep(live, g, prev_g)
             has_prev = torch.where(live, ~restart, has_prev)
             flat_prev = torch.where(live, flat, flat_prev)
-            mem_dv, mem_dg = _keep(live, mem_dv_n, mem_dv), _keep(live, mem_dg_n, mem_dg)
+            mem_dv, mem_dg = keep(live, mem_dv_n, mem_dv), keep(live, mem_dg_n, mem_dg)
             best = torch.where(live, best_n, best)
-            v = _keep(live, v_next, v)
+            v = keep(live, v_next, v)
             iters = iters + live.to(iters.dtype)
             live = live & ~(converged | stalled) & (iters < cfg.max_iter)
             k += 1
@@ -486,10 +482,10 @@ def _fleet_impl(f, get_AB, cost_fn, x_nom0, u_nom0, get_Cs=None, quad_cost=None,
                                  torch.where(osc, int(SolveStatus.OSCILLATING),
                                              int(SolveStatus.RUNNING)))
         status = torch.where(active, new_status, status)
-        x_nom, u_nom = _keep(active, x_new, x_nom), _keep(active, u_new, u_nom)
+        x_nom, u_nom = keep(active, x_new, x_nom), keep(active, u_new, u_nom)
         cost = torch.where(active, cost_new, cost)
-        z_x, z_u = _keep(active, z_x_n, z_x), _keep(active, z_u_n, z_u)
-        l_x, l_u = _keep(active, l_x_n, l_x), _keep(active, l_u_n, l_u)
+        z_x, z_u = keep(active, z_x_n, z_x), keep(active, z_u_n, z_u)
+        l_x, l_u = keep(active, l_x_n, l_x), keep(active, l_u_n, l_u)
         outer_iters = outer_iters + active.to(outer_iters.dtype)
         admm_iters = admm_iters + iters
         active = status == SolveStatus.RUNNING

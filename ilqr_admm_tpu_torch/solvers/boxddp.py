@@ -5,8 +5,10 @@ The bounds live inside the Riccati recursion (`ops/constrained_riccati.py`),
 iterates are feasible at every step (clipped rollouts) and there are no
 penalty parameters. The JAX package runs the solve as one
 `lax.while_loop`; here it is a Python loop over iterations that stops on
-the same statuses, with one host read of its stop flags an iteration
-(`admm.read_flags`). `boxddp_iterate` itself reads nothing.
+the same statuses, with one host read of its status an iteration
+(`solvers/fleet.py::run_single`). `boxddp_iterate` itself reads nothing.
+`boxddp_fleet_solve` runs a fleet of instances through the same
+iteration, vmapped (`run_fleet`).
 """
 
 from __future__ import annotations
@@ -24,8 +26,13 @@ from ilqr_admm_tpu_torch.ops.constrained_riccati import (
 )
 from ilqr_admm_tpu_torch.ops.rollout import rollout_nonlinear
 from ilqr_admm_tpu_torch.problem import ILQRConfig, SolveStatus, line_search_alphas
-from ilqr_admm_tpu_torch.solvers.admm import read_flags
-from ilqr_admm_tpu_torch.solvers.ilqr import ILQRState, _select_candidate
+from ilqr_admm_tpu_torch.solvers.fleet import run_fleet, run_single
+from ilqr_admm_tpu_torch.solvers.ilqr import (
+    ILQRState,
+    _select_candidate,
+    ilqr_fleet_init,
+    ilqr_status,
+)
 from ilqr_admm_tpu_torch.utils.device import resolve_device
 from ilqr_admm_tpu_torch.utils.precision import full_f32_matmul
 
@@ -90,7 +97,7 @@ def boxddp_solve(f, get_AB, get_Cs, cost_fn, state0: ILQRState, u_lower, u_upper
                  cfg: ILQRConfig = ILQRConfig(), reg: float = 0.0, qp_iters: int = 12,
                  qp_method: str = "auto", reg_min: float = 1e-6, reg_max: float = 1e8,
                  reg_factor: float = 10.0, reg_down: float | None = None,
-                 riccati: str = "seq", mask_iters: int = 1) -> ILQRState:
+                 riccati: str = "seq", mask_iters: int = 1, *, graph: bool = False) -> ILQRState:
     """Full boxDDP solve on the device of state0 (`boxddp_init`'s).
 
     Every accepted iterate satisfies the bounds exactly (clipped
@@ -102,36 +109,109 @@ def boxddp_solve(f, get_AB, get_Cs, cost_fn, state0: ILQRState, u_lower, u_upper
 
     riccati='parallel': the time-parallel backward, with the active set
     carried across iterations from an all-free start (mask_iters
-    exchange passes each).
+    exchange passes each). graph=True (CUDA) replays one iteration as a
+    CUDA graph (`fleet.run_single`).
     """
+    body, carry = _boxddp_body(f, get_AB, get_Cs, cost_fn, state0, u_lower, u_upper, cfg, reg,
+                               qp_iters, qp_method, reg_min, reg_max, reg_factor, reg_down,
+                               riccati, mask_iters)
+    (xs, us, c, pc, *_), iteration, status = run_single(body, carry, state0.iteration,
+                                                        state0.status, cfg.max_iter, graph=graph)
+    return ILQRState(x_nom=xs, u_nom=us, cost=c, prev_cost=pc, iteration=iteration,
+                     status=status)
+
+
+def _boxddp_body(f, get_AB, get_Cs, cost_fn, state0, u_lower, u_upper, cfg, reg, qp_iters,
+                 qp_method, reg_min, reg_max, reg_factor, reg_down, riccati, mask_iters):
+    """One boxDDP iteration as a function of the carry (x_nom, u_nom, cost,
+    prev_cost, lam, clamp_lo, clamp_hi) -> (new carry, status), and the
+    initial carry of state0 (lam 0, the all-free active set; state0 may
+    carry a leading fleet axis). Shared by the single and the fleet loop."""
+    if riccati not in ("seq", "parallel"):
+        raise ValueError(f"riccati must be 'seq' or 'parallel', got {riccati!r}")
     dtype, device = state0.x_nom.dtype, state0.x_nom.device
     alphas = line_search_alphas(cfg, dtype, device)
-    reg_down = reg_factor if reg_down is None else reg_down
-    N, m = state0.u_nom.shape
-    clamp = (torch.zeros((N, m), dtype=torch.bool, device=device),
-             torch.zeros((N, m), dtype=torch.bool, device=device))
-    lam = torch.zeros((), dtype=dtype, device=device)
-    state = state0
-    while state.iteration < cfg.max_iter and state.status == SolveStatus.RUNNING:
+    schedule = _RegSchedule(reg_min, reg_max, reg_factor, reg_down, cfg.tol_fun)
+    u_lower, u_upper = (b if isinstance(b, (int, float)) else
+                        torch.as_tensor(b, dtype=dtype, device=device) for b in (u_lower, u_upper))
+
+    def body(x_nom, u_nom, cost, prev_cost, lam, clamp_lo, clamp_hi):
+        st = ILQRState(x_nom, u_nom, cost, prev_cost, 0, int(SolveStatus.RUNNING))
         if riccati == "parallel":
-            new_state, accept, _, clamp = boxddp_iterate(
-                f, get_AB, get_Cs, cost_fn, state, alphas, u_lower, u_upper, reg=reg + lam,
-                riccati="parallel", mask_iters=mask_iters, clamp=clamp)
+            # the active set is carried and warm-started across iterations
+            new, accept, _, (clamp_lo, clamp_hi) = boxddp_iterate(
+                f, get_AB, get_Cs, cost_fn, st, alphas, u_lower, u_upper, reg=reg + lam,
+                riccati="parallel", mask_iters=mask_iters, clamp=(clamp_lo, clamp_hi))
         else:
-            new_state, accept, _ = boxddp_iterate(
-                f, get_AB, get_Cs, cost_fn, state, alphas, u_lower, u_upper, reg=reg + lam,
+            new, accept, _ = boxddp_iterate(
+                f, get_AB, get_Cs, cost_fn, st, alphas, u_lower, u_upper, reg=reg + lam,
                 qp_iters=qp_iters, qp_method=qp_method, riccati=riccati)
-        # the schedule: up on a reject (retry), down on an accept
-        lam_up = torch.clamp(lam * reg_factor, min=reg_min)
-        lam_dn = torch.where(lam <= reg_min * 1.01, torch.zeros_like(lam), lam / reg_down)
+        lam, status = schedule(lam, accept, new.cost, new.prev_cost)
+        return (new.x_nom, new.u_nom, new.cost, new.prev_cost, lam, clamp_lo, clamp_hi), status
+
+    lead = state0.cost.shape
+    no = torch.zeros(state0.u_nom.shape, dtype=torch.bool, device=device)
+    carry = (state0.x_nom, state0.u_nom, state0.cost, state0.prev_cost,
+             torch.zeros(lead, dtype=dtype, device=device), no, no)
+    return body, carry
+
+
+class _RegSchedule:
+    """The Levenberg-Marquardt schedule of boxDDP and an iteration's
+    status, on the device (elementwise over a fleet): lam up by reg_factor
+    from reg_min on a rejected step, down by reg_down (to 0 from reg_min)
+    on an accepted one; a rejected step is LINE_SEARCH_FAILED once lam
+    exceeds reg_max, else a retry (RUNNING); an accepted one CONVERGED
+    when the cost moved by less than tol_fun."""
+
+    def __init__(self, reg_min, reg_max, reg_factor, reg_down, tol_fun):
+        self.reg_min, self.reg_max, self.reg_factor = reg_min, reg_max, reg_factor
+        self.reg_down = reg_factor if reg_down is None else reg_down
+        self.tol_fun = tol_fun
+
+    def __call__(self, lam, accept, cost, prev_cost):
+        lam_up = torch.clamp(lam * self.reg_factor, min=self.reg_min)
+        lam_dn = torch.where(lam <= self.reg_min * 1.01, torch.zeros_like(lam), lam / self.reg_down)
         lam = torch.where(accept, lam_dn, lam_up)
-        dcost = torch.abs(new_state.cost - new_state.prev_cost)
-        accepted, exhausted, converged = read_flags(accept, lam > reg_max, dcost < cfg.tol_fun)
-        if not accepted:
-            status = SolveStatus.LINE_SEARCH_FAILED if exhausted else SolveStatus.RUNNING
-        else:
-            status = SolveStatus.CONVERGED if converged else SolveStatus.RUNNING
-        state = new_state._replace(status=int(status))
-    if state.status == SolveStatus.RUNNING:
-        state = state._replace(status=int(SolveStatus.MAX_ITER))
-    return state
+        retry = torch.where(lam > self.reg_max, int(SolveStatus.LINE_SEARCH_FAILED),
+                            int(SolveStatus.RUNNING))
+        return lam, torch.where(accept, ilqr_status(accept, cost, prev_cost, self.tol_fun), retry)
+
+
+def boxddp_fleet_init(f: Callable, cost_fn: Callable, x0s, u0s, u_lower, u_upper, *,
+                      device=None) -> ILQRState:
+    """`boxddp_init` of each instance: x0s (F, d), u0s (F, N, m) clipped
+    into the box, rolled out and costed; a fleet state (leading F axis on
+    every field). device: default the CUDA card."""
+    device = resolve_device(device)
+    u0s = torch.as_tensor(u0s, device=device)
+    lo = torch.as_tensor(u_lower, dtype=u0s.dtype, device=device)
+    hi = torch.as_tensor(u_upper, dtype=u0s.dtype, device=device)
+    return ilqr_fleet_init(f, cost_fn, x0s, torch.clamp(u0s, lo, hi), device=device)
+
+
+@full_f32_matmul()
+def boxddp_fleet_solve(f, get_AB, get_Cs, cost_fn, state0: ILQRState, u_lower, u_upper,
+                       cfg: ILQRConfig = ILQRConfig(), reg: float = 0.0, qp_iters: int = 12,
+                       qp_method: str = "auto", reg_min: float = 1e-6, reg_max: float = 1e8,
+                       reg_factor: float = 10.0, reg_down: float | None = None,
+                       riccati: str = "seq", mask_iters: int = 1, *, stats: dict | None = None,
+                       graph: bool = False) -> ILQRState:
+    """`boxddp_solve` of each instance of a fleet, the counterpart of
+    `jax.vmap(boxddp_solve)`.
+
+    state0: a fleet state (`boxddp_fleet_init`). Each iteration is
+    `boxddp_iterate` under `torch.func.vmap`, every instance with its own
+    regularization lam and, with riccati='parallel', its own carried
+    active set; an instance that stops keeps its state, status, iteration
+    count and lam, and the loop reads one flag an iteration for the whole
+    fleet (`fleet.run_fleet`, which also takes graph= and stats=). The
+    bounds are numbers or (m,) tensors shared by the fleet.
+    """
+    body, carry = _boxddp_body(f, get_AB, get_Cs, cost_fn, state0, u_lower, u_upper, cfg, reg,
+                               qp_iters, qp_method, reg_min, reg_max, reg_factor, reg_down,
+                               riccati, mask_iters)
+    step = vmap(body)
+    (xs, us, c, pc, *_), status, iters = run_fleet(step, carry, state0.status, state0.iteration,
+                                                   cfg.max_iter, graph=graph, stats=stats)
+    return ILQRState(x_nom=xs, u_nom=us, cost=c, prev_cost=pc, iteration=iters, status=status)

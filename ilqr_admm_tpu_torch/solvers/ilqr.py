@@ -4,8 +4,9 @@ solves (counterpart of `ilqr_admm_tpu/solvers/ilqr.py`).
 The whole line-search grid is rolled out at once through
 `torch.func.vmap` and the candidate is picked by an on-device argmin. The
 outer loop is a Python loop that stops on the same statuses as the JAX
-package's `lax.while_loop`, with one device-to-host read of the stop
-flags an iteration (`admm.read_flags`).
+package's `lax.while_loop`, with one device-to-host read of the status an
+iteration (`fleet.run_single`). `ilqr_fleet_solve` runs a fleet of
+instances through the same iteration, vmapped (`fleet.run_fleet`).
 
 User functions are single-instance: f(x, u) -> x_next;
 cost_fn(xs, us) -> scalar; get_AB(xs, us) -> (A (N,d,d), B (N,d,m));
@@ -31,7 +32,7 @@ from ilqr_admm_tpu_torch.ops.rollout import (
 from ilqr_admm_tpu_torch.ops.sls_synthesis import sls_synthesize
 from ilqr_admm_tpu_torch.ops.sqrt_riccati import ilqr_backward_sqrt
 from ilqr_admm_tpu_torch.problem import ILQRConfig, SolveStatus, line_search_alphas
-from ilqr_admm_tpu_torch.solvers.admm import read_flags
+from ilqr_admm_tpu_torch.solvers.fleet import bind, run_fleet, run_single
 from ilqr_admm_tpu_torch.solvers.lqt import block_diag_stacked
 from ilqr_admm_tpu_torch.utils.device import resolve_device
 from ilqr_admm_tpu_torch.utils.precision import full_f32_matmul
@@ -48,8 +49,8 @@ class ILQRState(NamedTuple):
     u_nom: torch.Tensor  # (N, m)
     cost: torch.Tensor  # scalar
     prev_cost: torch.Tensor
-    iteration: int
-    status: int  # SolveStatus
+    iteration: int  # a fleet's: (F,) int64
+    status: int  # SolveStatus; a fleet's: (F,) int64
 
 
 def ilqr_init(f: Callable, cost_fn: Callable, x0, u0, *, device=None) -> ILQRState:
@@ -172,6 +173,36 @@ def ilqr_iterate_sls(f, get_AB, get_Cs, cost_fn, state: ILQRState, alphas):
     return new_state, accept, (K, k)
 
 
+def _iterate_fn(method: str, riccati: str):
+    if riccati not in RICCATI_MODES:
+        raise ValueError(
+            "riccati must be 'chol', 'sqrt', 'parallel' or "
+            f"'parallel_fast', got {riccati!r}"
+        )
+    if method == "dp":
+        def iterate(*args):
+            return ilqr_iterate_dp(*args, riccati=riccati)
+        return iterate
+    if method == "sls":
+        return ilqr_iterate_sls
+    if method == "batch":
+        return ilqr_iterate_batch
+    raise ValueError(f"method must be 'dp', 'sls' or 'batch', got {method!r}")
+
+
+def _ilqr_body(f, get_AB, get_Cs, cost_fn, cfg: ILQRConfig, alphas, iterate):
+    """One iteration as a function of the carry (x_nom, u_nom, cost,
+    prev_cost) and optional trailing arguments for get_Cs and cost_fn:
+    -> (new carry, status). Shared by the single and the fleet loop."""
+    def body(x_nom, u_nom, cost, prev_cost, *extra):
+        st = ILQRState(x_nom, u_nom, cost, prev_cost, 0, int(SolveStatus.RUNNING))
+        new, accept, _ = iterate(f, get_AB, bind(get_Cs, extra), bind(cost_fn, extra), st, alphas)
+        status = ilqr_status(accept, new.cost, new.prev_cost, cfg.tol_fun)
+        return (new.x_nom, new.u_nom, new.cost, new.prev_cost), status
+
+    return body
+
+
 def ilqr_solve(
     f: Callable,
     get_AB: Callable,
@@ -188,32 +219,83 @@ def ilqr_solve(
     no better candidate (LINE_SEARCH_FAILED) or the iteration cap
     (MAX_ITER).
     """
-    if riccati not in RICCATI_MODES:
-        raise ValueError(
-            "riccati must be 'chol', 'sqrt', 'parallel' or "
-            f"'parallel_fast', got {riccati!r}"
-        )
-    if method == "dp":
-        def iterate(*args):
-            return ilqr_iterate_dp(*args, riccati=riccati)
-    elif method == "sls":
-        iterate = ilqr_iterate_sls
-    elif method == "batch":
-        iterate = ilqr_iterate_batch
-    else:
-        raise ValueError(f"method must be 'dp', 'sls' or 'batch', got {method!r}")
+    iterate = _iterate_fn(method, riccati)
     alphas = line_search_alphas(cfg, state0.x_nom.dtype, state0.x_nom.device)
+    body = _ilqr_body(f, get_AB, get_Cs, cost_fn, cfg, alphas, iterate)
+    carry = (state0.x_nom, state0.u_nom, state0.cost, state0.prev_cost)
+    (xs, us, c, pc), iteration, status = run_single(body, carry, state0.iteration,
+                                                    state0.status, cfg.max_iter)
+    return ILQRState(x_nom=xs, u_nom=us, cost=c, prev_cost=pc, iteration=iteration,
+                     status=status)
 
-    state = state0
-    while state.iteration < cfg.max_iter and state.status == SolveStatus.RUNNING:
-        new_state, accept, _ = iterate(f, get_AB, get_Cs, cost_fn, state, alphas)
-        dcost = torch.abs(new_state.cost - new_state.prev_cost)
-        failed, converged = read_flags(~accept, dcost < cfg.tol_fun)
-        if failed:
-            status = SolveStatus.LINE_SEARCH_FAILED
-        else:
-            status = SolveStatus.CONVERGED if converged else SolveStatus.RUNNING
-        state = new_state._replace(status=int(status))
-    if state.status == SolveStatus.RUNNING:
-        state = state._replace(status=int(SolveStatus.MAX_ITER))
-    return state
+
+def ilqr_status(accept, cost, prev_cost, tol_fun):
+    """An iteration's status on the device: LINE_SEARCH_FAILED on a
+    rejected step, CONVERGED when the cost moved by less than tol_fun,
+    else RUNNING (elementwise over a fleet)."""
+    dcost = torch.abs(cost - prev_cost)
+    return torch.where(~accept, int(SolveStatus.LINE_SEARCH_FAILED),
+                       torch.where(dcost < tol_fun, int(SolveStatus.CONVERGED),
+                                   int(SolveStatus.RUNNING)))
+
+
+def ilqr_fleet_init(f: Callable, cost_fn: Callable, x0s, u0s, *, device=None) -> ILQRState:
+    """`ilqr_init` of each instance: x0s (F, d), u0s (F, N, m). The fleet
+    state has a leading F axis on every field, iteration and status
+    included ((F,) int64). device: default the CUDA card."""
+    device = resolve_device(device)
+    x0s, u0s = torch.as_tensor(x0s, device=device), torch.as_tensor(u0s, device=device)
+    xs = vmap(rollout_nonlinear, in_dims=(None, 0, 0))(f, x0s, u0s)
+    c = vmap(cost_fn)(xs, u0s)
+    return fleet_state(xs, u0s, c)
+
+
+def fleet_state(xs, us, cost) -> ILQRState:
+    """A fresh fleet state: iteration 0, RUNNING, prev_cost +inf."""
+    F = cost.shape[0]
+    return ILQRState(x_nom=xs, u_nom=us, cost=cost, prev_cost=torch.full_like(cost, math.inf),
+                     iteration=torch.zeros((F,), dtype=torch.int64, device=cost.device),
+                     status=torch.full((F,), int(SolveStatus.RUNNING), dtype=torch.int64,
+                                       device=cost.device))
+
+
+def ilqr_fleet_solve(
+    f: Callable,
+    get_AB: Callable,
+    get_Cs: Callable,
+    cost_fn: Callable,
+    state0: ILQRState,
+    cfg: ILQRConfig = ILQRConfig(),
+    method: str = "dp",
+    riccati: str = "chol",
+    *,
+    args: tuple = (),
+    stats: dict | None = None,
+) -> ILQRState:
+    """`ilqr_solve` of each instance of a fleet, the counterpart of
+    `jax.vmap(ilqr_solve)`.
+
+    state0: a fleet state (`ilqr_fleet_init`, `fleet_state`). Each
+    iteration is `ilqr_iterate_dp` under `torch.func.vmap`; an instance
+    that stops keeps its state, status and iteration count, and the loop
+    reads one flag an iteration for the whole fleet (`fleet.run_fleet`;
+    stats= receives its counts). The user functions are
+    single-instance and must work under vmap. args: tensors with a
+    leading fleet axis; get_Cs and cost_fn receive the instance's rows as
+    trailing arguments (per-instance multipliers, for example).
+    Only method='dp' runs as a fleet.
+    """
+    if method != "dp":
+        raise NotImplementedError(
+            f"the fleet runs method='dp' only, got {method!r} (the lifted 'batch' and 'sls' "
+            "steps build block diagonals that do not run under vmap)")
+    alphas = line_search_alphas(cfg, state0.x_nom.dtype, state0.x_nom.device)
+    body = vmap(_ilqr_body(f, get_AB, get_Cs, cost_fn, cfg, alphas, _iterate_fn(method, riccati)))
+
+    def step(*carry):
+        return body(*carry, *args)
+
+    carry = (state0.x_nom, state0.u_nom, state0.cost, state0.prev_cost)
+    (xs, us, c, pc), status, iters = run_fleet(step, carry, state0.status, state0.iteration,
+                                               cfg.max_iter, stats=stats)
+    return ILQRState(x_nom=xs, u_nom=us, cost=c, prev_cost=pc, iteration=iters, status=status)

@@ -12,7 +12,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
-from torch.func import jacfwd
+from torch.func import jacfwd, vmap
 
 from ilqr_admm_tpu_torch.ops.lifted import build_Su, sw_x0
 from ilqr_admm_tpu_torch.ops.riccati import lqt_backward, lqt_backward_ff
@@ -214,6 +214,44 @@ def _closed_loop(A, B, K, k, x0):
     return torch.stack(xs).reshape(-1), torch.stack(us).reshape(-1)
 
 
+def dp_sweep(A, B, cost: QuadCost, Qr, Rr):
+    """The Riccati DP x-update of `lqt_admm_dp`: one backward pass with the
+    penalties, and sweep(x0, xr_flat, ur_flat) -> (xs, us, k), the
+    feedforward re-sweep for the ADMM targets and the closed loop from x0
+    (affine in x0 and the targets). Returns (gains, sweep)."""
+    N, d = A.shape[0], A.shape[-1]
+    m = B.shape[-1]
+    zxr = torch.zeros((N, d), dtype=A.dtype, device=A.device)
+    zur = torch.zeros((N, m), dtype=A.dtype, device=A.device)
+    gains = lqt_backward(A, B, cost.Q, cost.xd, cost.R, Qr=Qr, xr=zxr, Rr=Rr, ur=zur)
+
+    def sweep(x0, x_flat, u_flat):
+        k = lqt_backward_ff(
+            gains, A, B, cost.Q, cost.xd,
+            Qr=Qr, xr=x_flat.reshape(N, d), Rr=Rr, ur=u_flat.reshape(N, m),
+        )
+        xs, us = _closed_loop(A, B, gains.K, k, x0)
+        return xs, us, k
+
+    return gains, sweep
+
+
+def dp_operators(sweep, x0, zx_f, zu_f):
+    """`dp_sweep`'s sweep as exact affine operators of the targets: (consts,
+    jac_x, jac_u), each a tuple over (xs, us, k), with sweep(x0, x, u) =
+    consts + jac_x @ x + jac_u @ u. x0 (d,), or a fleet's (F, d): consts
+    then have a leading F axis. The Jacobians do not depend on x0."""
+    if x0.ndim == 1:
+        consts, one = sweep(x0, zx_f, zu_f), x0
+    else:
+        consts, one = vmap(sweep, in_dims=(0, None, None))(x0, zx_f, zu_f), x0[0]
+    # in the working dtype: jacfwd carries products with Python floats
+    # into the tangents as float64
+    jac_x = tuple(J.to(zx_f.dtype) for J in jacfwd(lambda x: sweep(one, x, zu_f))(zx_f))
+    jac_u = tuple(J.to(zx_f.dtype) for J in jacfwd(lambda u: sweep(one, zx_f, u))(zu_f))
+    return consts, jac_x, jac_u
+
+
 @full_f32_matmul()
 def lqt_admm_dp(
     A, B, cost: QuadCost, x0,
@@ -246,28 +284,16 @@ def lqt_admm_dp(
     if cfg.adaptive_rho:
         return _lqt_admm_dp_adaptive(A, B, cost, x0, project_x, project_u, Qr, Rr, cfg)
 
-    zxr = torch.zeros((N, d), dtype=dtype, device=device)
-    zur = torch.zeros((N, m), dtype=dtype, device=device)
-    gains = lqt_backward(A, B, cost.Q, cost.xd, cost.R, Qr=Qr, xr=zxr, Rr=Rr, ur=zur)
+    gains, sweep0 = dp_sweep(A, B, cost, Qr, Rr)
 
     def sweep(x_flat, u_flat):
-        """(xr, ur) targets -> (x, u, k): affine in its inputs."""
-        k = lqt_backward_ff(
-            gains, A, B, cost.Q, cost.xd,
-            Qr=Qr, xr=x_flat.reshape(N, d), Rr=Rr, ur=u_flat.reshape(N, m),
-        )
-        xs, us = _closed_loop(A, B, gains.K, k, x0)
-        return xs, us, k
+        return sweep0(x0, x_flat, u_flat)
 
     zx_f = torch.zeros((N * d,), dtype=dtype, device=device)
     zu_f = torch.zeros((N * m,), dtype=dtype, device=device)
 
     if operator_form:
-        consts = sweep(zx_f, zu_f)
-        # in the working dtype: jacfwd carries products with Python floats
-        # into the tangents as float64
-        jac_x = tuple(J.to(dtype) for J in jacfwd(lambda x: sweep(x, zu_f))(zx_f))
-        jac_u = tuple(J.to(dtype) for J in jacfwd(lambda u: sweep(zx_f, u))(zu_f))
+        consts, jac_x, jac_u = dp_operators(sweep0, x0, zx_f, zu_f)
 
         def f_argmin(x, u):
             xv = x if x is not None else zx_f

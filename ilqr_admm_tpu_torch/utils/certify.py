@@ -30,11 +30,28 @@ bound violation, the fraction with an active bound, and the relative gap
 of clip(u)'s f64 cost against a bounded L-BFGS-B polish from it (a
 local-optimality certificate: the task is nonconvex).
 
+The boxDDP car fleet: counterpart of `benchmarks/_oracles.py`
+(`boxddp_polish`) and the gates of `benchmarks/bench_boxddp.py`: the
+largest |u|/bound over the fleet, and the relative gap of clip(u)'s f64
+cost against a bounded L-BFGS-B polish from it, on a subsample. A polish
+still at its iteration or evaluation limit after its restarts fails the
+gates.
+
+The AL arm fleet (`benchmarks/bench_al_arm.py`): the median of each
+instance's max constraint violation and the mean cost, held to the JAX
+package's own float32 run of the same instances (`AL_ARM_REFERENCE`).
+
 Built on the port's own `build_Su`, `build_Sx` and `sw_x0`; no jax.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
+import copy
+import math
+import multiprocessing
+import os
 import time
 
 import numpy as np
@@ -59,6 +76,36 @@ N_ORACLE = 64
 
 def _f64(t) -> torch.Tensor:
     return torch.as_tensor(t).detach().to("cpu", torch.float64)
+
+
+_BLAS_THREADS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")  # torch's too
+
+
+@contextlib.contextmanager
+def _environ(**values):
+    """Set environment variables (inherited by processes started inside)."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _map(fn, jobs, workers: int):
+    """[fn(*job) for job in jobs], in this process or in `workers` spawned
+    processes with one BLAS and one torch thread each (their thread pools
+    would otherwise fight over the cores)."""
+    if workers <= 1:
+        return [fn(*job) for job in jobs]
+    ctx = multiprocessing.get_context("spawn")
+    with _environ(**{k: "1" for k in _BLAS_THREADS}), \
+            concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        return list(pool.map(fn, *zip(*jobs)))
 
 
 def max_violation(z_u, u_lower, u_upper) -> float:
@@ -304,7 +351,7 @@ def sls_primal_residuals(U, bounds, c: float) -> np.ndarray:
                           .reshape(U.shape[0], -1), axis=-1)
 
 
-def sls_qp(A, B, cost: QuadCost, bounds, U, c: float) -> dict:
+def sls_qp(A, B, cost: QuadCost, bounds, U, c: float, workers: int = 1) -> dict:
     """The exact convex oracle of the robust SLS fleet, per instance.
 
     Minimizes J(du, phi) = (Su du - xd)' Q (Su du - xd) + du' R du
@@ -313,7 +360,8 @@ def sls_qp(A, B, cost: QuadCost, bounds, U, c: float) -> dict:
     constraints a row, with scipy trust-constr from the exact diamond
     projection z of the reported U (bounds (B,), U (B, Nm, 2)). Returns
     j_z = J(z), j_star = min(J at the oracle's optimum, j_z) and
-    prim = ||U - z||.
+    prim = ||U - z||. workers > 1 solves the instances in that many
+    spawned processes.
     """
     A, B = _f64(A), _f64(B)
     Su = build_Su(A, B).numpy()
@@ -339,6 +387,14 @@ def sls_qp(A, B, cost: QuadCost, bounds, U, c: float) -> dict:
     Hfull[Nm:, Nm:] = H
     gfull = np.concatenate([g_du, g_phi])
 
+    const = (H, g_du, g_phi, const_du, const_phi, Hfull, gfull, A_con, c)
+    out = _map(_sls_qp_one, [const + (U[i], float(r)) for i, r in enumerate(bounds)], workers)
+    j_z, j_star, prim = (np.asarray(v) for v in zip(*out))
+    return {"j_z": j_z, "j_star": j_star, "prim": prim}
+
+
+def _sls_qp_one(H, g_du, g_phi, const_du, const_phi, Hfull, gfull, A_con, c, U, r):
+    """`sls_qp` for one instance: (j_z, j_star, prim)."""
     def j_of(du, phi):
         return (du @ H @ du + 2 * g_du @ du + const_du
                 + phi @ H @ phi + 2 * g_phi @ phi + const_phi)
@@ -349,19 +405,15 @@ def sls_qp(A, B, cost: QuadCost, bounds, U, c: float) -> dict:
     def jac(v):
         return 2 * (Hfull @ v + gfull)
 
-    j_z, j_star, prim = (np.zeros(len(bounds)) for _ in range(3))
-    for i, r in enumerate(bounds):
-        z = project_diamond(U[i], c, r)  # exact feasible iterate
-        prim[i] = np.linalg.norm(U[i] - z)
-        j_z[i] = j_of(z[:, 0], z[:, 1])
-        res = minimize(
-            f, z.T.reshape(-1),  # [du; phi], a feasible start
-            jac=jac, method="trust-constr", hess=lambda v: 2 * Hfull,
-            constraints=[LinearConstraint(A_con, -np.inf, float(r))],
-            options={"gtol": 1e-12, "xtol": 1e-14, "maxiter": 3000},
-        )
-        j_star[i] = min(res.fun, j_z[i])
-    return {"j_z": j_z, "j_star": j_star, "prim": prim}
+    z = project_diamond(U, c, r)  # exact feasible iterate
+    j_z = j_of(z[:, 0], z[:, 1])
+    res = minimize(
+        f, z.T.reshape(-1),  # [du; phi], a feasible start
+        jac=jac, method="trust-constr", hess=lambda v: 2 * Hfull,
+        constraints=[LinearConstraint(A_con, -np.inf, r)],
+        options={"gtol": 1e-12, "xtol": 1e-14, "maxiter": 3000},
+    )
+    return j_z, min(res.fun, j_z), np.linalg.norm(U - z)
 
 
 def oracle_indices(batch: int, n: int = SLS_N_ORACLE) -> np.ndarray:
@@ -369,7 +421,8 @@ def oracle_indices(batch: int, n: int = SLS_N_ORACLE) -> np.ndarray:
     return np.linspace(0, batch - 1, n).astype(int)
 
 
-def certify_sls(A, B, cost: QuadCost, bounds, U, c: float, n_oracle: int = SLS_N_ORACLE) -> dict:
+def certify_sls(A, B, cost: QuadCost, bounds, U, c: float, n_oracle: int = SLS_N_ORACLE,
+                workers: int = 1) -> dict:
     """All certificates of one robust SLS fleet solve (U (batch, Nm, 2)).
 
     converged_frac and prim_max cover every instance; the oracle sees
@@ -377,7 +430,7 @@ def certify_sls(A, B, cost: QuadCost, bounds, U, c: float, n_oracle: int = SLS_N
     """
     prim = sls_primal_residuals(U, bounds, c)
     idx = oracle_indices(len(prim), n_oracle)
-    orc = sls_qp(A, B, cost, _f64(bounds)[idx], _f64(U)[idx], c)
+    orc = sls_qp(A, B, cost, _f64(bounds)[idx], _f64(U)[idx], c, workers)
     gaps = (orc["j_z"] - orc["j_star"]) / np.maximum(np.abs(orc["j_star"]), 1e-12)
     return {
         "converged_frac": float(np.mean(prim < SLS_PRIMAL_TOL)),
@@ -484,41 +537,49 @@ ARM_GATES = {
 }
 
 
-def arm_polish(arm, cost: QuadCost, q0s, us, u_lower: float, u_upper: float) -> dict:
+def arm_polish(arm, cost: QuadCost, q0s, us, u_lower: float, u_upper: float,
+               workers: int = 1) -> dict:
     """f64 host oracle of the arm fleet (`_oracles.py::arm_polish`).
 
     For each instance: the cost of clip(u) from x0 = [q0, 0, fk(q0)], its
     gradient by torch autograd of the rollout on the CPU in float64, and
     a bounded L-BFGS-B polish from clip(u) with the reference's options.
+    workers > 1 polishes the instances in that many spawned processes.
     Returns j_ours, j_star = min(polished, j_ours), and the seconds.
     """
     t0 = time.perf_counter()
     q0s, us = _f64(q0s), _f64(us)
-    n_inst, N, m = us.shape
     cost = QuadCost(_f64(cost.Q), _f64(cost.xd), _f64(cost.R))
+    arm = type(arm)(arm.link_lengths, arm.dt)  # without the card's cached constants
+    jobs = [(arm, cost, q0s[i], torch.clamp(us[i].reshape(-1), u_lower, u_upper), u_lower,
+             u_upper) for i in range(us.shape[0])]
+    j_ours, j_star = zip(*_map(_arm_polish_one, jobs, workers))
+    return {"j_ours": np.asarray(j_ours), "j_star": np.asarray(j_star),
+            "seconds": time.perf_counter() - t0}
 
-    def j_of(q0, u_flat):
+
+def _arm_polish_one(arm, cost, q0, u0, u_lower, u_upper):
+    """`arm_polish` for one instance: (j_ours, j_star)."""
+    N, m = cost.R.shape[0], cost.R.shape[-1]
+
+    def j_of(u_flat):
         x0 = torch.cat([q0, torch.zeros_like(q0), arm.fk(q0)])
         u = u_flat.reshape(N, m)
         return cost(rollout_nonlinear(arm.step, x0, u), u)
 
-    j_ours, j_star = np.zeros(n_inst), np.zeros(n_inst)
-    for i in range(n_inst):
-        u0 = torch.clamp(us[i].reshape(-1), u_lower, u_upper)
-        with torch.no_grad():
-            j_ours[i] = float(j_of(q0s[i], u0))
+    with torch.no_grad():
+        j_ours = float(j_of(u0))
 
-        def f_and_g(v, q0=q0s[i]):
-            v = torch.tensor(v, requires_grad=True)
-            val = j_of(q0, v)
-            (g,) = torch.autograd.grad(val, v)
-            return float(val.detach()), g.numpy()
+    def f_and_g(v):
+        v = torch.tensor(v, requires_grad=True)
+        val = j_of(v)
+        (g,) = torch.autograd.grad(val, v)
+        return float(val.detach()), g.numpy()
 
-        res = minimize(f_and_g, u0.numpy(), jac=True, method="L-BFGS-B",
-                       bounds=[(u_lower, u_upper)] * (N * m),
-                       options={"ftol": 1e-14, "gtol": 1e-10, "maxiter": 2000})
-        j_star[i] = min(res.fun, j_ours[i])
-    return {"j_ours": j_ours, "j_star": j_star, "seconds": time.perf_counter() - t0}
+    res = minimize(f_and_g, u0.numpy(), jac=True, method="L-BFGS-B",
+                   bounds=[(u_lower, u_upper)] * (N * m),
+                   options={"ftol": 1e-14, "gtol": 1e-10, "maxiter": 2000})
+    return j_ours, min(res.fun, j_ours)
 
 
 def gaps(j_ours, j_star):
@@ -529,14 +590,14 @@ def gaps(j_ours, j_star):
 
 
 def certify_arm(arm, cost: QuadCost, q0s, res, u_bound: float,
-                n_oracle: int = ARM_N_ORACLE) -> dict:
+                n_oracle: int = ARM_N_ORACLE, workers: int = 1) -> dict:
     """The certificates of one arm fleet solve (`res`, an
     `ilqr_admm_fleet` result) as `bench_arm_admm.py` reports them; the
     oracle polishes the first n_oracle instances."""
     u = _f64(res.u_nom)
     u_max = u.abs().amax(dim=(1, 2))
     outer = _f64(res.outer_iters)
-    orc = arm_polish(arm, cost, q0s[:n_oracle], u[:n_oracle], -u_bound, u_bound)
+    orc = arm_polish(arm, cost, q0s[:n_oracle], u[:n_oracle], -u_bound, u_bound, workers)
     gap_med, gap_max = gaps(orc["j_ours"], orc["j_star"])
     return {
         "converged_frac": float((res.status.cpu() == SolveStatus.CONVERGED).double().mean()),
@@ -561,4 +622,208 @@ def arm_gate_failures(cert: dict, mode: str) -> list[str]:
     for key in ("max_violation", "cost_gap_median", "cost_gap_max"):
         if not cert[key] <= gates[key]:
             failures.append(f"{key} {cert[key]} > {gates[key]}")
+    return failures
+
+
+# The gates of bench_boxddp.py: no control past its bound by more than
+# 1e-5 of it over the whole fleet (:70-71), and the polish gap of the
+# first 8 instances at most 1e-3 (:93; here the median too).
+BOXDDP_N_ORACLE = 8
+BOXDDP_GATES = dict(max_violation=1e-5, cost_gap_median=1e-3, cost_gap_max=1e-3)
+
+
+def _car_rollout_floats(car, x0, us):
+    """`CarFrontWheel.step` rolled out in Python floats (float64): the
+    states x_0..x_{N-1} of the controls us (N rows of (w, a)). A torch op
+    on a 4-vector costs tens of microseconds of host time, a float
+    operation a tenth of one. A step out of the dynamics' domain (asin or
+    sqrt of an invalid argument) makes that state and the rest NaN, as
+    torch's step would."""
+    dt, dist = car.dt, car.dist
+    x, y, o, v = x0
+    out = [(x, y, o, v)]
+    nan = (math.nan,) * 4
+    for w, a in us[:-1]:
+        f = dt * v
+        sw = math.sin(w) * f
+        try:
+            b = f * math.cos(w) + dist - math.sqrt(dist**2 - sw**2)
+            x, y, o, v = x + b * math.cos(o), y + b * math.sin(o), o + math.asin(sw / dist), v + a * dt
+        except ValueError:
+            return out + [nan] * (len(us) - len(out))
+        out.append((x, y, o, v))
+    return out
+
+
+def car_value_and_grad(car, cost, x0, u_flat):
+    """The car-parking cost J(u) of the rollout from x0 and its gradient, in
+    float64 on the CPU: x0 (4,), u_flat (N*m,) -> (J, dJ/du).
+
+    The states come from `_car_rollout_floats`. The gradient is reverse
+    mode over the horizon: the step Jacobians (`torch.func.jacfwd`) and
+    the stage-cost gradient (`torch.func.grad`), each vmapped over all
+    steps at once, chained by the adjoint recursion lambda_t = l_x(t) +
+    A_t^T lambda_{t+1}. It equals torch autograd through the torch rollout
+    (tests), which at N = 500 costs ~0.2 s of host time an evaluation,
+    ~6 minutes a polish."""
+    m = car.u_dim
+    u = u_flat.reshape(-1, m)
+    N = u.shape[0]
+    xs = torch.tensor(_car_rollout_floats(car, x0.tolist(), u.tolist()), dtype=u.dtype)
+    (l_x, l_u), value = torch.func.grad_and_value(cost, argnums=(0, 1))(xs, u)
+    A, B = torch.func.vmap(torch.func.jacfwd(car.step, argnums=(0, 1)))(xs[:-1], u[:-1])
+    AT, BT = A.transpose(-1, -2).numpy(), B.transpose(-1, -2).numpy()
+    l_x, l_u = l_x.numpy(), l_u.numpy()
+    g = np.empty((N, m))
+    g[-1] = l_u[-1]
+    lam = l_x[-1]
+    for t in range(N - 2, -1, -1):
+        g[t] = l_u[t] + BT[t] @ lam
+        lam = l_x[t] + AT[t] @ lam
+    return value.detach(), torch.from_numpy(g.reshape(-1))
+
+
+def _polish_one(car, cost, x0, u0, lo, hi, maxiter, restarts):
+    """One bounded L-BFGS-B polish from u0 with the reference's options,
+    restarted from where it stopped while it stops at its iteration or
+    evaluation limit, at most `restarts` times. Returns (j_ours, j_star,
+    the limit message if the last run still stopped there, else None,
+    the iterations run, the polished controls)."""
+    j_ours = float(car_value_and_grad(car, cost, x0, u0)[0])
+
+    def f_and_g(v):
+        val, g = car_value_and_grad(car, cost, x0, torch.from_numpy(v))
+        return float(val), g.numpy()
+
+    bounds = [(lo[k % len(lo)], hi[k % len(hi)]) for k in range(u0.shape[0])]
+    v, j_star, nit = u0.numpy(), j_ours, 0
+    for _ in range(restarts + 1):
+        res = minimize(f_and_g, v, jac=True, method="L-BFGS-B", bounds=bounds,
+                       options={"ftol": 1e-14, "gtol": 1e-10, "maxiter": maxiter})
+        v, j_star, nit = res.x, min(j_star, res.fun), nit + res.nit
+        stopped = str(res.message) if "LIMIT" in str(res.message).upper() else None
+        if stopped is None:
+            break
+    return j_ours, j_star, stopped, nit, torch.from_numpy(v)
+
+
+def car_polish(car, cost, x0s, us, u_lower, u_upper, maxiter: int = 2000, restarts: int = 4,
+               workers: int = 1) -> dict:
+    """f64 host oracle of the boxDDP car fleet (`_oracles.py::boxddp_polish`).
+
+    For each instance: the cost of clip(u) from x0 and a bounded L-BFGS-B
+    polish from clip(u) with the reference's options, on the CPU in
+    float64, the gradient by `car_value_and_grad`. The reference polish
+    stops at 2,000 iterations, converged or not (some instances of the
+    bench fleet need more); here a polish that stops at that limit starts
+    again from where it stopped, up to `restarts` times, so that j_star
+    is never above the reference's. One still at its limit after that is
+    listed in `failures`. workers > 1 polishes the instances in that many
+    spawned processes. Returns j_ours, j_star = min(polished, j_ours),
+    failures, the iterations each polish ran, the polished controls
+    (u_star) and the seconds.
+    """
+    t0 = time.perf_counter()
+    x0s, us = _f64(x0s), _f64(us)
+    n_inst, N, m = us.shape
+    cost = copy.deepcopy(cost).to(device="cpu", dtype=torch.float64)
+    lo = tuple(np.broadcast_to(np.asarray(_f64(u_lower)), (m,)).tolist())
+    hi = tuple(np.broadcast_to(np.asarray(_f64(u_upper)), (m,)).tolist())
+    u0s = torch.clamp(us.reshape(n_inst, -1), torch.tensor(lo).repeat(N),
+                      torch.tensor(hi).repeat(N))
+    jobs = [(car, cost, x0s[i], u0s[i], lo, hi, maxiter, restarts) for i in range(n_inst)]
+    j_ours, j_star, stopped, nit, u_star = zip(*_map(_polish_one, jobs, workers))
+    return {"j_ours": np.asarray(j_ours), "j_star": np.asarray(j_star),
+            "failures": [f"instance {i}: {msg}" for i, msg in enumerate(stopped) if msg],
+            "iterations": list(nit), "u_star": torch.stack(u_star).reshape(n_inst, N, m),
+            "seconds": time.perf_counter() - t0}
+
+
+def certify_boxddp_fleet(car, cost, x0s, res, u_lower, u_upper,
+                         n_oracle: int = BOXDDP_N_ORACLE, **polish) -> dict:
+    """The certificates of one boxDDP car fleet solve (`res`, a fleet
+    ILQRState) as `bench_boxddp.py` reports them: max_violation is the
+    largest |u| / max(|lower|, |upper|) less 1 (<= 0 inside the box); the
+    oracle polishes the first n_oracle instances."""
+    u = _f64(res.u_nom)
+    bound = torch.maximum(_f64(u_lower).abs(), _f64(u_upper).abs()).expand(u.shape[-1])
+    orc = car_polish(car, cost, x0s[:n_oracle], u[:n_oracle], u_lower, u_upper, **polish)
+    gap_med, gap_max = gaps(orc["j_ours"], orc["j_star"])
+    costs = _f64(res.cost)
+    status = res.status.cpu()
+    return {
+        "max_violation": float((u.abs() / bound).max()) - 1.0,
+        "finite": bool(torch.isfinite(costs).all() and torch.isfinite(u).all()),
+        "mean_cost": float(costs.mean()),
+        "statuses": {int(s): int((status == s).sum()) for s in torch.unique(status)},
+        "mean_iterations": float(res.iteration.double().mean()),
+        "max_iterations": int(res.iteration.max()),
+        "cost_gap_median": gap_med,
+        "cost_gap_max": gap_max,
+        "oracle_failures": orc["failures"],
+        "oracle_iterations": orc["iterations"],
+        "oracle_seconds": orc["seconds"],
+    }
+
+
+def boxddp_gate_failures(cert: dict) -> list[str]:
+    """The gates of bench_boxddp.py a certificate misses; empty when it
+    passes."""
+    failures = [f"oracle failed on {f}" for f in cert["oracle_failures"]]
+    if not cert["finite"]:
+        failures.append("non-finite cost or control")
+    for key in ("max_violation", "cost_gap_median", "cost_gap_max"):
+        if not cert[key] <= BOXDDP_GATES[key]:
+            failures.append(f"{key} {cert[key]} > {BOXDDP_GATES[key]}")
+    return failures
+
+
+# bench_al_arm.py reports the fleet's median max_violation and mean cost
+# but gates nothing. These are the JAX package's own numbers for the same
+# fleet: `jax.vmap(al_ilqr_solve)` in float32 on the CPU over the first 64
+# of the bench's 512 instances (tools/al_arm_jax_reference.py; 63 of them
+# end LINE_SEARCH_FAILED, 1 CONVERGED). A fleet passes with its median
+# violation (over those 64, and over the whole fleet) at most twice the
+# reference's and at most 5e-3, the mean cost of those 64 within 1e-2 of
+# the reference's, and every cost finite.
+AL_ARM_REFERENCE = dict(n=64, median_violation=0.0028787851333618164,
+                        mean_cost=0.20572413923218846)
+AL_GATES = dict(violation_factor=2.0, max_median_violation=5e-3, cost_rel=1e-2)
+
+
+def certify_al_fleet(res, reference: dict = AL_ARM_REFERENCE) -> dict:
+    """The certificates of one AL fleet solve (`res`, a fleet ALResult):
+    the median and largest max_violation over the fleet and over its first
+    reference['n'] instances, the mean costs, finiteness and statuses."""
+    viol = _f64(res.max_violation).numpy()
+    cost = _f64(res.cost).numpy()
+    n = reference["n"]
+    status = torch.as_tensor(res.status).cpu()
+    return {
+        "median_violation": float(np.median(viol)),
+        "max_violation": float(viol.max()),
+        "median_violation_ref": float(np.median(viol[:n])),
+        "mean_cost": float(cost.mean()),
+        "mean_cost_ref": float(cost[:n].mean()),
+        "finite": bool(np.isfinite(cost).all() and torch.isfinite(res.u_nom).all()),
+        "statuses": {int(s): int((status == s).sum()) for s in torch.unique(status)},
+        "reference": reference,
+    }
+
+
+def al_gate_failures(cert: dict) -> list[str]:
+    """The AL fleet gates (`AL_GATES` against the certificate's reference)
+    a certificate misses; empty when it passes."""
+    ref, failures = cert["reference"], []
+    if not cert["finite"]:
+        failures.append("non-finite cost or control")
+    limit = min(AL_GATES["violation_factor"] * ref["median_violation"],
+                AL_GATES["max_median_violation"])
+    for key in ("median_violation_ref", "median_violation"):
+        if not cert[key] <= limit:
+            failures.append(f"{key} {cert[key]} > {limit}")
+    rel = abs(cert["mean_cost_ref"] - ref["mean_cost"]) / abs(ref["mean_cost"])
+    if not rel <= AL_GATES["cost_rel"]:
+        failures.append(f"mean cost of the first {ref['n']} {cert['mean_cost_ref']} is "
+                        f"{rel:.3e} from the reference's {ref['mean_cost']}")
     return failures
