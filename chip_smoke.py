@@ -54,7 +54,16 @@ Drives the port's paths on the card:
   arms, N = 100, state and control bounds and the terminal ee window, 7
   AL stages of 8 iterations, f32) through `batched_al_solve`; no kernel
   lies on them (the rollout kernel rolls out open-loop controls, the
-  boxDDP line search a clipped closed loop; the arm has d = 9).
+  boxDDP line search a clipped closed loop; the arm has d = 9);
+- the reference library's own API, the `SLS` / `iSLS` facade, at the
+  examples' sizes in f32: `examples/double_integrator_state_bounds.py`
+  (ADMM batch, DP and robust SLS, 10,000 Monte-Carlo rollouts),
+  `double_integrator_obstacles.py` (project_quadratic, consensus and
+  Dykstra), `tutorial_car_parking.py` (CarFrontWheel, N = 500, iLQR then
+  iLQR-ADMM), `car_state_constraints.py` (CarSimple, N = 500, consensus
+  and the exact rotated-box projection), and in f64
+  `inverse_lqt_learning.py` (the IFT gradient of `lqt_admm_implicit`
+  and its 150 Adam steps); no kernel lies on them.
 
 Phases:
 
@@ -127,7 +136,15 @@ Phases:
    windows) and a `torch.profiler` split; the AL arm fleet: its main path
    with its host reads and the gates against the JAX package's f32
    numbers (`certify_al_fleet`), the fleet of 8 against 8 single
-   `al_ilqr_solve` calls, and solves/s (3 windows).
+   `al_ilqr_solve` calls, and solves/s (3 windows);
+9. slice 13, the facade: each workflow on the card with its host reads
+   (synchronizing CUDA calls, in sync debug mode) and the median time of
+   FACADE_REPEATS runs after it (the car and the maze: that one run),
+   against the same workflow in f64 on the host (worker processes beside
+   the card's phases): costs within 1e-3 where the solve is converged or
+   deterministic, the bounds, the obstacle clearances, the exact
+   certificate, and the IFT gradient against a central difference and the
+   host's.
 
 Any failure exits non-zero before the last line. The last line is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
@@ -145,17 +162,20 @@ import bisect
 import concurrent.futures
 import contextlib
 import copy
+import io
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 from scipy.stats import chi, norm
 from torch.func import vmap
 
-from ilqr_admm_tpu_torch import _build
+from ilqr_admm_tpu_torch import SLS, _build, iSLS
 from ilqr_admm_tpu_torch.chance import make_box_chance_projection
 from ilqr_admm_tpu_torch.models.arm import PlanarArm
 from ilqr_admm_tpu_torch.models.car import CarFrontWheel, CarParkingCost, CarSimple
@@ -197,6 +217,16 @@ from ilqr_admm_tpu_torch.ops.rollout import (
 )
 from ilqr_admm_tpu_torch.parallel import batched_al_solve
 from ilqr_admm_tpu_torch.problem import ILQRConfig, SolveStatus
+from ilqr_admm_tpu_torch.projections import (
+    project_bound,
+    project_outside_rotated_boxes,
+    project_quadratic,
+    project_set_convex,
+    project_set_convex_dykstra,
+    project_soc_unit,
+    project_square,
+)
+from ilqr_admm_tpu_torch.projections import sets as projection_sets
 from ilqr_admm_tpu_torch.solvers import admm as admm_solver
 from ilqr_admm_tpu_torch.solvers import batched_ilqr_admm
 from ilqr_admm_tpu_torch.solvers import ilqr_admm as ilqr_admm_solver
@@ -211,8 +241,9 @@ from ilqr_admm_tpu_torch.solvers.boxddp import (
     boxddp_solve,
 )
 from ilqr_admm_tpu_torch.solvers.ilqr_admm import ilqr_admm
+from ilqr_admm_tpu_torch.solvers.implicit import lqt_admm_implicit
 from ilqr_admm_tpu_torch.solvers.isls_admm import isls_admm
-from ilqr_admm_tpu_torch.solvers.lqt import sls_controller
+from ilqr_admm_tpu_torch.solvers.lqt import sls_controller, sqrt_psd_stacked
 from ilqr_admm_tpu_torch.solvers.pd_ilqr import pd_ilqr_init, pd_ilqr_solve
 from ilqr_admm_tpu_torch.solvers.mpc import (
     make_mpc_fleet_step_constrained,
@@ -431,10 +462,12 @@ BOXDDP_GRAPH_ITERS = 3
 # (2.4e-7), so no f32 solve ends CONVERGED: each ends LINE_SEARCH_FAILED
 # (15 rejected steps in a row at the rounding floor) or at the cap
 # (MAX_ITER), whichever comes first by rounding; the two count as one stop.
-BOXDDP_COMPARE = 8
+# (8 instances before the facade phases; 1 since, for their time: the 8
+# singles took 201 s, PERF.md section 6)
+BOXDDP_COMPARE = 1
 BOXDDP_COMPARE_REL = 1e-3
 BOXDDP_STOPS = (SolveStatus.LINE_SEARCH_FAILED, SolveStatus.MAX_ITER)
-BOXDDP_WINDOWS = 3  # the main path's solve is the first
+BOXDDP_WINDOWS = 2  # the main path's solve is the first (3 before the facade phases)
 BOXDDP_PROFILED_ITERS = 3
 # worker processes of the f64 oracles (the boxDDP, arm and SLS polishes)
 ORACLE_WORKERS = 7
@@ -447,9 +480,53 @@ ORACLE_WORKERS = 7
 AL_ARM_FLEET = 512
 AL_ARM_SOLVE = dict(max_iter=8, max_line_search_iter=15)
 AL_ARM_KW = dict(n_al=7, mu0=1e2, mu_factor=8.0, tol_con=1e-5)
-AL_ARM_COMPARE = 8
+AL_ARM_COMPARE = 2  # 8 before the facade phases (cut for their time, as BOXDDP_COMPARE)
 AL_ARM_COMPARE_REL = 1e-3
 AL_ARM_WINDOWS = 3
+# Slice 13, the reference library's own API on the card: the SLS / iSLS
+# facade at the examples' sizes, none cut, each workflow in the examples'
+# dtype against the port's f64 run of the same workflow on the host (in a
+# worker process beside the card's phases):
+# - [facade sls] examples/double_integrator_state_bounds.py (N = 100,
+#   |u| <= 3, the end pinned to (0.5, 0), ADMM batch / DP / robust SLS,
+#   10,000 Monte-Carlo rollouts), with the three unconstrained solves on
+#   the control-bounds notebook's cost (tests/test_facade.py:18-88);
+# - [facade obstacles] examples/double_integrator_obstacles.py (2-D, N =
+#   100, two circles): ADMM batch with one project_quadratic, then with
+#   the example's project_set_convex + project_set_convex_dykstra;
+# - [facade car] examples/tutorial_car_parking.py (CarFrontWheel, N =
+#   500): iSLS.solve (dp) and iSLS.ilqr_admm with the control box;
+# - [facade maze] examples/car_state_constraints.py (CarSimple, N = 500):
+#   the batch iLQR, then ilqr_admm with the consensus projection and with
+#   the exact project_outside_rotated_boxes;
+# - [implicit] examples/inverse_lqt_learning.py (f64, N = 40): the IFT
+#   gradient against a central difference and the host's, then the
+#   example's 150 Adam steps.
+# Gates (set before the first chip run): cost within FACADE_COST_REL of
+# the host's f64 run (for the obstacles only the unconstrained solve: the
+# example's ADMM on the circles' non-convex exteriors ends at its
+# 500-iteration cap unconverged, residuals 0.07-0.75, where the iterate
+# depends on rounding: f32 and f64 costs 8% apart on the CPU, two f64 runs
+# with different thread counts 0.3%; and for the maze not the ilqr_admm
+# runs, whose 10 outer steps end mid-descent: two f64 host runs with 1 and
+# 4 threads pick different line-search steps at step 5 and end 3.9%
+# apart, and the first chip run's f32 exact-projection run ended 1.96e-2
+# from the host's); |u| <= bound + FACADE_U_TOL
+# (tests/test_facade.py:138-139); an `exact` certificate on every point
+# the exact maze projection touched; obstacle clearance >=
+# -FACADE_CLEARANCE_TOL; the IFT gradient within IFT_FD_RTOL of the
+# central difference (tests/test_implicit.py:53-54) and IFT_HOST_RTOL of
+# the host's f64 gradient. Times: the host clock around a workflow with a
+# sync, FACADE_REPEATS runs after a warm-up (the car and the maze, a minute
+# and half a minute a run: their one gated run); host reads: the card's
+# synchronizing calls in the first run (torch.cuda sync debug mode).
+FACADE_COST_REL = 1e-3
+FACADE_U_TOL = 5e-2
+FACADE_CLEARANCE_TOL = 1e-4
+IFT_FD_RTOL = 1e-3
+IFT_HOST_RTOL = 1e-8
+FACADE_REPEATS = 1  # timed runs after the counted one (cut from 3 for the run's length)
+FACADE_MC = 10_000
 
 # Published peaks of one H100 SXM: f32 outside the tensor cores, dense
 # TF32 on the tensor cores, and HBM3
@@ -1683,7 +1760,6 @@ def phase_car_profile(device, card):
     """The first CAR_PROFILED_STEPS outer steps of the main path's solve
     under `torch.profiler`: device busy share of the wall time, the top
     device ops, and the host syncs."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     config = dict(CAR_SOLVE, max_iter=CAR_PROFILED_STEPS)
@@ -1696,12 +1772,9 @@ def phase_car_profile(device, card):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     flag_reads = admm_solver.host_sync_count - syncs0
-    events = prof.key_averages()
-    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in on_device)
-    waits = {e.key: e.count for e in events
-             if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "aten::_local_scalar_dense",
-                          "aten::item", "cudaMemcpyAsync")}
+    busy, n_ops, kernels, _ = kineto_split(prof)
+    busy_us = busy * 1e6
+    waits = kineto_counts(prof, HOST_WAITS)
     print(f"[car profile] the solve's first {res.outer_iters} outer steps: wall {wall_us / 1e3:.1f} ms "
           f"under the profiler; host reads of stop flags {flag_reads}; host-side sync and copy "
           f"calls {waits}; card: {card}")
@@ -1709,10 +1782,9 @@ def phase_car_profile(device, card):
         print("[car profile] the profiler saw no device time: not measured")
         return None
     print(f"[car profile] device busy {busy_us / 1e3:.1f} ms = {100 * busy_us / wall_us:.2f}% of "
-          f"the wall time; {sum(e.count for e in on_device)} device ops of {len(on_device)} kinds")
-    for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"[car profile] {e.self_device_time_total / 1e3:9.3f} ms, {e.count:6d} calls: "
-              f"{e.key[:90]}")
+          f"the wall time; {n_ops} device ops of {len(kernels)} kinds")
+    for name, (t, c) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"[car profile] {t * 1e3:9.3f} ms, {c:6d} calls: {name[:90]}")
     return {"busy_share": busy_us / wall_us}
 
 def sync(device):
@@ -1916,6 +1988,24 @@ def kineto_split(prof, ranges=()):
     split = {name: (len(v), sum(b - a for a, b in v) * 1e-9, in_range[name])
              for name, v in spans.items()}
     return busy, len(device), kernels, split
+
+
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "aten::_local_scalar_dense",
+              "aten::item", "cudaMemcpyAsync")
+LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+
+
+def kineto_counts(prof, names):
+    """{name: calls} of the profile's host-side events with those names,
+    from the raw kineto events (as `kineto_split`, without the event tree
+    of `key_averages`)."""
+    from torch.autograd import DeviceType
+
+    counts = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA and e.name() in names:
+            counts[e.name()] = counts.get(e.name(), 0) + 1
+    return counts
 
 
 def phase_arm_profile(device, card, problems, used):
@@ -2386,7 +2476,6 @@ def phase_mpc_profile(device, card):
     """`torch.profiler` over one dp tick of the car (the default tick,
     f32): device busy share of the wall time, the top device ops, and the
     host-side sync and copy calls."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     problem = mpc_problem(device)
@@ -2398,24 +2487,19 @@ def phase_mpc_profile(device, card):
         step(state, problem["x0"])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
-    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in on_device)
-    waits = {e.key: e.count for e in events
-             if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "aten::_local_scalar_dense",
-                          "aten::item", "cudaMemcpyAsync")}
-    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                                         "cudaLaunchKernelExC"))
+    busy, n_ops, kernels, _ = kineto_split(prof)
+    busy_us = busy * 1e6
+    waits = kineto_counts(prof, HOST_WAITS)
+    launches = sum(kineto_counts(prof, LAUNCHES).values())
     print(f"[mpc profile] one dp tick: wall {wall_us / 1e3:.1f} ms under the profiler; kernel "
           f"launches {launches}; host-side sync and copy calls {waits}; card: {card}")
     if busy_us <= 0.0:
         print("[mpc profile] the profiler saw no device time: not measured")
         return None
     print(f"[mpc profile] device busy {busy_us / 1e3:.2f} ms = {100 * busy_us / wall_us:.2f}% of "
-          f"the wall time; {sum(e.count for e in on_device)} device ops of {len(on_device)} kinds")
-    for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"[mpc profile] {e.self_device_time_total / 1e3:8.3f} ms, {e.count:6d} calls: "
-              f"{e.key[:90]}")
+          f"the wall time; {n_ops} device ops of {len(kernels)} kinds")
+    for name, (t, c) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"[mpc profile] {t * 1e3:8.3f} ms, {c:6d} calls: {name[:90]}")
     return {"busy_share": busy_us / wall_us}
 
 
@@ -2845,6 +2929,544 @@ def phase_al_arm(device, card):
     return dict(ms=med, solves_per_s=rate, reads=reads)
 
 
+
+@contextlib.contextmanager
+def _working_dtype(dtype):
+    """torch's default dtype, the facade's working dtype, for the body."""
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(dtype)
+    try:
+        yield
+    finally:
+        torch.set_default_dtype(prev)
+
+
+def _viapoint(d, N, target, weight):
+    zs = np.stack([np.zeros(d), np.asarray(target, dtype=float)])
+    Qs = np.stack([np.zeros((d, d)), np.eye(d) * weight])
+    seq = np.zeros(N, dtype=np.int32)
+    seq[-1] = 1
+    return zs, Qs, seq
+
+
+def _soc_pair(Au, mu, hi, lo, psi_inv, like):
+    """The two chance-constraint SOCs of a row bounded by [lo, hi]
+    (examples/double_integrator_state_bounds.py, soc_pair)."""
+    A_hi = torch.tensor(np.concatenate([Au, (-mu / psi_inv)[None]], 0), **like)
+    A_lo = torch.tensor(np.concatenate([Au, (mu / psi_inv)[None]], 0), **like)
+    b_hi = torch.tensor(np.append(np.zeros(2), hi / psi_inv), **like)
+    b_lo = torch.tensor(np.append(np.zeros(2), -lo / psi_inv), **like)
+    return [A_hi, A_lo], [b_hi, b_lo]
+
+
+def facade_sls(device, dtype=torch.float32):
+    """[facade sls]: the three unconstrained solves of the control-bounds
+    notebook, then examples/double_integrator_state_bounds.py through SLS
+    (ADMM batch, DP and robust SLS, 10,000 Monte-Carlo rollouts). Returns
+    host numbers."""
+    out = {}
+    N, d = 100, 2
+    like = dict(dtype=dtype, device=device)
+    with _working_dtype(dtype):
+        A, B = get_double_integrator_AB(1, 2, dt=1.0 / N, **like)
+        x0 = np.zeros(d)
+        s = SLS(d, 1, N, device=device)
+        s.AB = [A, B]
+        with warnings.catch_warnings():
+            # the notebook's 1e6 / 1e-2 weights are past float32's ~1e7
+            warnings.simplefilter("ignore")
+            s.set_quadratic_cost(*_viapoint(d, N, [1.0, 0.0], 1e6), 1e-2)
+        x_b, u_b = s.solve(x0, method="batch")
+        K, k = s.solve(method="dp")
+        x_d, u_d = s.get_trajectory_dp(x0, K, k)
+        PHI_U, du = s.solve(method="sls")
+        out["unconstrained"] = [float(s.compute_cost(x_b, u_b)), float(s.compute_cost(x_d, u_d)),
+                                float(s.compute_cost(s.Su @ du, du))]
+
+        x_final, u_max = 0.5, 3.0
+        s = SLS(d, 1, N, device=device)
+        s.AB = [A, B]
+        zs = np.stack([np.zeros(d), np.array([1.0, 1.0])])
+        s.set_quadratic_cost(zs, np.zeros((2, d, d)), _viapoint(d, N, [0, 0], 0)[2], 1e-4)
+
+        def project_x(x):
+            end = torch.tensor([x_final, 0.0], dtype=x.dtype, device=x.device)
+            return torch.cat([x[:-d], end])
+
+        def project_u(u):
+            return project_bound(u, -u_max, u_max)
+
+        rho_x = np.zeros((N, d, d))
+        rho_x[-1] = np.eye(d) * 1e1
+        x_ab, u_ab = s.ADMM_LQT_Batch(x0, project_x=project_x, project_u=project_u, max_iter=500,
+                                      rho_x=rho_x, rho_u=1e-3, tol=1e-3)
+        x_ad, u_ad, K_dp, k_dp = s.ADMM_LQT_DP(x0, project_x=project_x, project_u=project_u,
+                                               max_iter=5000, rho_x=rho_x, rho_u=1e-3, tol=1e-4)
+
+        var_x0, psi_inv = 0.02, float(norm.ppf(0.9))
+        mu, Au = np.array([1.0, 0.0]), np.diag(np.sqrt([0.0, var_x0]))
+        As_u, bs_u = _soc_pair(Au, mu, u_max, -u_max, psi_inv, like)
+        As_xf, bs_xf = _soc_pair(Au, mu, x_final, x_final, psi_inv, like)
+        As_vf, bs_vf = _soc_pair(Au, mu, 0.0, 0.0, psi_inv, like)
+        projs = [project_soc_unit] * 2
+        kw = dict(rho=1e1, max_iter=20, threshold=1e-2)
+
+        def project_u_rob(y):
+            return project_set_convex(y, As_u, bs_u, projs, **kw)
+
+        def project_x_rob(y):
+            pos = project_set_convex(y[-2:-1], As_xf, bs_xf, projs, **kw)
+            vel = project_set_convex(y[-1:], As_vf, bs_vf, projs, **kw)
+            return torch.cat([y[:-2], pos, vel])
+
+        rho_x_r = np.zeros((N, d, d))
+        rho_x_r[-1] = np.eye(d) * 1e3
+        du_r, PHI_U_r = s.ADMM_SLS(project_x=project_x_rob, project_u=project_u_rob,
+                                   max_iter=100, rho_x=rho_x_r, rho_u=1e-3, tol=1e-5,
+                                   robust_dim=1)
+        x_r = s.Su @ du_r  # the nominal trajectory from x0 = 0
+        out["admm"] = [float(s.compute_cost(x_ab, u_ab)), float(s.compute_cost(x_ad, u_ad)),
+                       float(s.compute_cost(x_r, du_r))]
+        out["u_max"] = [float(u.abs().max()) for u in (u_ab, u_ad, du_r)]
+        out["end_error"] = [float((x.reshape(N, d)[-1] - torch.tensor([x_final, 0.0], **like))
+                                  .abs().max()) for x in (x_ab, x_ad, x_r)]
+
+        x0s = np.zeros((FACADE_MC, d))
+        x0s[:, 0] = np.random.default_rng(0).normal(0, np.sqrt(var_x0), FACADE_MC)
+        K_sls, k_sls = s.controller(PHI_U_r, du_r)
+        thr, rates = 1e-2, []
+        for xs, us in (s.get_trajectory_dp(x0s, K_dp, k_dp),
+                       s.get_trajectory_sls(x0s, K_sls, k_sls)):
+            ok = ((xs[:, -1, 0] - x_final).abs() <= thr) & (xs[:, -1, 1].abs() <= thr)
+            ok = ok & ((us >= -u_max - thr) & (us <= u_max + thr)).all(dim=2).all(dim=1)
+            rates.append(float(ok.double().mean()))
+        out["mc_success"] = rates
+        out["finite"] = all(bool(torch.isfinite(t).all()) for t in (x_ab, x_ad, du_r, PHI_U_r))
+    return out
+
+
+def facade_obstacles(device, dtype=torch.float32):
+    """[facade obstacles]: examples/double_integrator_obstacles.py through
+    SLS, ADMM batch with the first circle's project_quadratic alone, then
+    with both circles through project_set_convex and Dykstra. Returns host
+    numbers (costs, clearances of the x-iterate and the projected one)."""
+    out = {}
+    x_dim, u_dim, N = 2, 2, 100
+    d = 2 * x_dim
+    like = dict(dtype=dtype, device=device)
+    with _working_dtype(dtype):
+        A, B = get_double_integrator_AB(x_dim, 2, dt=1.0 / N, **like)
+        s = SLS(d, u_dim, N, device=device)
+        s.AB = [A, B]
+        s.set_quadratic_cost(*_viapoint(d, N, [1.0, 1.0, 0.0, 0.0], 1e3), 1e-4)
+        x0 = np.zeros(d)
+        x_opt, u_opt = s.solve(x0, method="batch")
+        out["unconstrained"] = float(s.compute_cost(x_opt, u_opt))
+        radii = np.array([0.1, 0.15])
+        centers = torch.tensor([[0.5, 0.5], [0.5, 0.2]], **like)
+        lowers, upper = 0.5 * (radii * 1.1) ** 2, 1e2
+        projs = [(lambda c, l: (lambda y: project_quadratic(y - c, l, upper) + c))(c, l)
+                 for c, l in zip(centers, lowers)]
+        As, bs = [torch.eye(x_dim, **like)] * 2, [torch.zeros(x_dim, **like)] * 2
+
+        def with_positions(x, place):
+            x_ = x.reshape(N, d)
+            return torch.cat([place(x_[:, :x_dim]), x_[:, x_dim:]], 1).reshape(-1)
+
+        def project_one(x):
+            return with_positions(x, projs[0])
+
+        def project_state(x):
+            def place(pos):
+                pos = project_set_convex(pos, As, bs, projs, rho=1.0, max_iter=5, threshold=1e-2)
+                return project_set_convex_dykstra(pos, projs, max_iter=50, tol=1e-5)
+            return with_positions(x, place)
+
+        rho_x = np.zeros((N, d, d))
+        rho_x[:, :x_dim, :x_dim] = np.eye(x_dim)
+        for name, proj, n_obst in (("one circle", project_one, 1),
+                                   ("two circles", project_state, 2)):
+            x_c, u_c = s.ADMM_LQT_Batch(x0, project_x=proj, max_iter=500, rho_x=rho_x, tol=1e-3)
+            clear = {}
+            for label, xv in (("x-iterate", x_c), ("projected", proj(x_c))):
+                pos = xv.reshape(N, d)[:, :x_dim]
+                clear[label] = [float(torch.linalg.norm(pos - centers[i], dim=-1).min()) - radii[i]
+                                for i in range(n_obst)]
+            out[name] = dict(cost=float(s.compute_cost(x_c, u_c)), clearance=clear,
+                             finite=bool(torch.isfinite(x_c).all() and torch.isfinite(u_c).all()))
+    return out
+
+
+def facade_car(device, dtype=torch.float32):
+    """[facade car]: examples/tutorial_car_parking.py through iSLS: the dp
+    iLQR solve, then ilqr_admm with |w| <= 0.5, |a| <= 2. Returns host
+    numbers."""
+    N = 500
+    with _working_dtype(dtype):
+        car, cost = CarFrontWheel(dt=15.0 / N), CarParkingCost(dtype=dtype, device=device)
+        s = iSLS(x_dim=4, u_dim=2, N=N, device=device)
+        s.forward_model, s.cost_function = car.step, cost
+        u0 = np.random.default_rng(0).normal(size=(N, 2)) * 0.1
+        x_nom, u_nom = s.get_trajectory_batch(np.array([1.0, 1.0, 3 * np.pi / 2, 0.0]), u0)
+        s.reset()
+        s.nominal_values = x_nom, u_nom
+        with contextlib.redirect_stdout(io.StringIO()):
+            s.solve(car.get_AB, cost.get_Cs, max_iter=100, max_line_search_iter=40, method="dp")
+        ilqr = dict(cost=s.cost, evals=len(s.cost_log), final=s.x_nom[-1].tolist())
+        lo = torch.tensor([-0.5, -2.0], dtype=dtype, device=device)
+        hi = torch.tensor([0.5, 2.0], dtype=dtype, device=device)
+
+        def project_u(u):
+            return torch.clamp(u.reshape(N, 2), lo, hi).reshape(-1)
+
+        s.reset()
+        s.nominal_values = x_nom, u_nom
+        res = s.ilqr_admm(get_AB=car.get_AB, get_Cs=cost.get_Cs, project_u=project_u,
+                          max_iter=50, max_admm_iter=5, max_line_search_iter=40,
+                          rho_u=np.diag([1e-1, 1e-2]), tol=1e-3)
+        us = s.u_nom.abs().amax(dim=0)
+        admm = dict(cost=s.cost, outer_iters=int(res.outer_iters), status=int(res.status),
+                    u_max=us.tolist(), finite=bool(torch.isfinite(s.u_nom).all()))
+    return dict(ilqr=ilqr, ilqr_admm=admm)
+
+
+def facade_maze(device, dtype=torch.float32):
+    """[facade maze]: examples/car_state_constraints.py through iSLS: the
+    batch iLQR, then ilqr_admm with the consensus projection of the two
+    rotated rectangles and with the exact project_outside_rotated_boxes.
+    Returns host numbers (costs, the inf-norm clearances, and whether every
+    point of every exact projection was certified)."""
+    N, x_dim = 500, 4
+    like = dict(dtype=dtype, device=device)
+    out = {}
+    with _working_dtype(dtype):
+        car = CarSimple(dt=15.0 / N)
+        s = iSLS(x_dim, 2, N, device=device)
+        s.forward_model = car.step
+        s.set_quadratic_cost(*_viapoint(x_dim, N, [-5.0, -5.0, np.pi / 4, 0.0], 1e2), 1e-2)
+        x0 = np.array([0.0, -2.0, np.pi / 2, 0.0])
+        x_nom, u_nom = s.rollout_batch(x0[None], np.zeros((1, N, 2)))
+        s.reset()
+        s.nominal_values = x_nom[0], u_nom[0]
+        with contextlib.redirect_stdout(io.StringIO()):
+            s.solve(car.get_AB, method="batch", max_iter=50, max_line_search_iter=40)
+        out["ilqr"] = dict(cost=s.cost, evals=len(s.cost_log))
+
+        centers = np.stack([np.array([-7.0, -3.0]), np.array([-3.0, -7.0])])
+        a_safe = np.array([[2.5, 1.5], [2.5, 1.5]])
+        alpha = -np.pi / 4
+        R = np.array([[np.cos(alpha), -np.sin(alpha)], [np.sin(alpha), np.cos(alpha)]])
+        Ws = [np.diag(a_safe[i, 0] / a_safe[i]) @ R.T for i in range(2)]
+        lower_sq = a_safe[:, 0] / 2
+        tW = [torch.tensor(W, **like) for W in Ws]
+        tW_inv = [torch.tensor(np.linalg.inv(W), **like) for W in Ws]
+        tc = [torch.tensor(c, **like) for c in centers]
+
+        def make_proj(i):
+            def proj(y):  # y: (N, x_dim) states
+                z = project_square((y[:, :2] - tc[i]) @ tW[i].T, lower_sq[i], 1e5)
+                return torch.cat([z @ tW_inv[i].T + tc[i], y[:, 2:]], 1)
+            return proj
+
+        projs = [make_proj(0), make_proj(1)]
+        As, bs = [torch.eye(x_dim, **like)] * 2, [torch.zeros(x_dim, **like)] * 2
+
+        def project_state(x):
+            return project_set_convex(x.reshape(N, x_dim), As, bs, projs, rho=1e1, max_iter=15,
+                                      threshold=1e-3).reshape(-1)
+
+        As_box = torch.tensor(np.stack([Ws[i] / lower_sq[i] for i in range(2)]), **like)
+        bs_box = torch.tensor(np.stack([-(Ws[i] / lower_sq[i]) @ centers[i] for i in range(2)]),
+                              **like)
+        certified = []  # one device flag a call: read once, after the solve
+
+        def project_state_exact(x):
+            x_ = x.reshape(N, x_dim)
+            p, exact = project_outside_rotated_boxes(x_[:, :2], As_box, bs_box, l=1.0)
+            certified.append(exact.all())
+            return torch.cat([p, x_[:, 2:]], 1).reshape(-1)
+
+        rho_x = np.zeros((N, x_dim, x_dim))
+        rho_x[:, :2, :2] = np.eye(2) * 1e-1
+        for name, proj in (("consensus", project_state), ("exact", project_state_exact)):
+            s.reset()
+            s.nominal_values = x_nom[0], u_nom[0]
+            res = s.ilqr_admm(car.get_AB, project_x=proj, max_admm_iter=10, max_line_search=50,
+                              rho_x=rho_x, k_max=10, threshold=1e-1)
+            pos = s.x_nom[:, :2]
+            clear = [float(((pos - tc[i]) @ tW[i].T).abs().amax(dim=-1).min()) - lower_sq[i]
+                     for i in range(2)]
+            out[name] = dict(cost=s.cost, clearance=clear, outer_iters=int(res.outer_iters),
+                             final=s.x_nom[-1].tolist(), finite=bool(torch.isfinite(s.x_nom).all()))
+        out["exact"]["calls"] = len(certified)
+        out["exact"]["certified"] = bool(torch.stack(certified).all())
+    return out
+
+
+def _inverse_lqt(device, dtype):
+    """examples/inverse_lqt_learning.py's problem: (solve(target, bound) ->
+    (xs, us), the demonstration's (xs, us))."""
+    N = 40
+    like = dict(dtype=dtype, device=device)
+    plant = DoubleIntegrator(1, 2, dt=1.0 / N, **like)
+    d, m = plant.x_dim, plant.u_dim
+    zs, Qs, seq = _viapoint(d, N, [1.0, 0.0], 1e3)
+    quad = viapoint_cost(torch.tensor(zs, **like), torch.tensor(Qs, **like), seq, 1e-2, m)
+    A, B = plant.AB(N)
+
+    def solve(target, bound):
+        xd = torch.cat([quad.xd[:-1], torch.stack([target, quad.xd[-1, 1]])[None]])
+        theta = dict(Q=quad.Q, R=quad.R, xd=xd, x0=torch.zeros(d, **like), pu=bound)
+        return lqt_admm_implicit(A, B, theta, project_u=lambda v, p: project_bound(v, -p, p),
+                                 rho_u=1e-1)
+
+    demo = solve(torch.tensor(0.7, **like), torch.tensor(2.5, **like))
+    return solve, demo
+
+
+def inverse_lqt_gradient(device, dtype=torch.float64, params=(0.2, 3.0)):
+    """The IFT gradient of the example's loss at (target, bound) = params:
+    (loss, [d/dtarget, d/dbound])."""
+    solve, (xs_demo, us_demo) = _inverse_lqt(device, dtype)
+    p = [torch.tensor(v, dtype=dtype, device=device, requires_grad=True) for v in params]
+    xs, us = solve(*p)
+    loss = torch.sum((xs - xs_demo) ** 2) + torch.sum((us - us_demo) ** 2)
+    return float(loss), [float(g) for g in torch.autograd.grad(loss, p)]
+
+
+IFT_POINTS = ((0.2, 3.0), (0.6, 2.0))  # the example's start (bound slack), bound active
+
+
+def facade_implicit(device, dtype=torch.float64):
+    """[implicit] on one device: the gradient at IFT_POINTS, its central
+    difference (eps 1e-6), then the example's 150 Adam steps. Returns host
+    numbers."""
+    solve, (xs_demo, us_demo) = _inverse_lqt(device, dtype)
+
+    def loss_of(target, bound):
+        xs, us = solve(target, bound)
+        return torch.sum((xs - xs_demo) ** 2) + torch.sum((us - us_demo) ** 2)
+
+    points, eps = [], 1e-6
+    for point in IFT_POINTS:
+        loss, grad = inverse_lqt_gradient(device, dtype, point)
+        fd = []
+        with torch.no_grad():
+            for i in range(2):
+                hi, lo = list(point), list(point)
+                hi[i] += eps
+                lo[i] -= eps
+                f = [float(loss_of(*(torch.tensor(v, dtype=dtype, device=device) for v in pt)))
+                     for pt in (hi, lo)]
+                fd.append((f[0] - f[1]) / (2 * eps))
+        points.append(dict(loss=loss, grad=grad, fd=fd))
+    params = [torch.tensor(v, dtype=dtype, device=device, requires_grad=True) for v in (0.2, 3.0)]
+    opt = torch.optim.Adam(params, lr=5e-2)
+    for _ in range(150):
+        opt.zero_grad()
+        loss_of(*params).backward()
+        opt.step()
+    return dict(points=points, recovered=[float(v) for v in params],
+                u_demo_max=float(us_demo.abs().max()))
+
+
+FACADE_WORKFLOWS = {"facade sls": facade_sls, "facade obstacles": facade_obstacles,
+                    "facade car": facade_car, "facade maze": facade_maze}
+
+
+def _host_f64(name):
+    """A workflow on this host in f64 (one BLAS thread: it runs in a worker
+    process beside the card's phases)."""
+    torch.set_num_threads(1)
+    if name == "implicit":
+        return [inverse_lqt_gradient("cpu", torch.float64, point) for point in IFT_POINTS]
+    return FACADE_WORKFLOWS[name]("cpu", torch.float64)
+
+
+def start_facade_host_runs():
+    """The host's f64 runs of the facade phases, in spawned worker
+    processes that work beside the card: {name: future}."""
+    ctx = multiprocessing.get_context("spawn")
+    names = list(FACADE_WORKFLOWS) + ["implicit"]
+    pool = concurrent.futures.ProcessPoolExecutor(len(names), mp_context=ctx)
+    futures = {name: pool.submit(_host_f64, name) for name in names}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def _card_syncs(fn):
+    """(fn(), the number of synchronizing CUDA calls it made, the port's own
+    stop-flag reads): torch's sync debug mode warns at each."""
+    flags0 = admm_solver.host_sync_count + projection_sets.host_sync_count
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    flags = admm_solver.host_sync_count + projection_sets.host_sync_count - flags0
+    return out, syncs, flags
+
+
+def _facade_times(fn, device, label, card, repeats=FACADE_REPEATS):
+    """A run with its host reads, then `repeats` timed runs: (the first
+    run's result, the median seconds). repeats=0 times the first run
+    itself (the car and the maze: a run is a minute, PERF.md section 6)."""
+    sync(device)
+    t0 = time.perf_counter()
+    out, syncs, flags = _card_syncs(fn)
+    sync(device)
+    seconds = [time.perf_counter() - t0]
+    if repeats:
+        seconds = [_timed_solve(fn, device)[1] for _ in range(repeats)]
+    med = float(np.median(seconds))
+    how = (f"median of {repeats} after a warm-up" if repeats else
+           "one run, the gated one, with its host reads counted")
+    print(f"[{label}] time to solve {med:.3f} s ({how}: {', '.join(f'{t:.3f}' for t in seconds)}); "
+          f"host reads a solve: {syncs} synchronizing CUDA calls, {flags} of them the solvers' "
+          f"stop-flag reads; card: {card}")
+    return out, med
+
+
+def _rel(a, b) -> float:
+    """|a - b| / |b|; 0 when they are equal (a zero gradient included)."""
+    a, b = float(a), float(b)
+    return 0.0 if a == b else abs(a - b) / abs(b)
+
+
+def _cost_gate(label, what, card_cost, host_cost):
+    rel = _rel(card_cost, host_cost)
+    print(f"[{label}] {what}: card {card_cost:.7e}, host f64 {host_cost:.7e}, |dcost|/cost "
+          f"{rel:.3e} (gate {FACADE_COST_REL:g})")
+    check(np.isfinite(card_cost) and rel <= FACADE_COST_REL,
+          f"{label}: {what} cost {rel:.3e} from the host's f64 run")
+
+
+def phase_facade_sls(device, card, host):
+    # the square roots of the QR x-update take their eigenvalues from the
+    # eigenvectors: the card's batched f32 eigh leaves a zero block's
+    # unwritten (ops/sqrt_riccati.py::eigh_rayleigh). Held here on memory
+    # that held NaN.
+    junk = torch.full((1 << 24,), float("nan"), device=device)
+    del junk
+    roots = sqrt_psd_stacked(torch.zeros((100, 2, 2), device=device))
+    check(bool((roots == 0).all()), "facade sls: the square root of a zero block is not zero")
+    out, med = _facade_times(lambda: facade_sls(device), device, "facade sls", card)
+    ref = host["facade sls"].result()
+    check(out["finite"], "facade sls: non-finite result")
+    for i, method in enumerate(("batch", "dp", "sls")):
+        _cost_gate("facade sls", f"unconstrained {method}", out["unconstrained"][i],
+                   ref["unconstrained"][i])
+        _cost_gate("facade sls", f"unconstrained {method} vs batch", out["unconstrained"][i],
+                   out["unconstrained"][0])
+    for i, method in enumerate(("ADMM_LQT_Batch", "ADMM_LQT_DP", "ADMM_SLS(robust_dim=1)")):
+        _cost_gate("facade sls", method, out["admm"][i], ref["admm"][i])
+        print(f"[facade sls] {method}: max|u| {out['u_max'][i]:.6f} (gate <= 3 + {FACADE_U_TOL:g}),"
+              f" end error {out['end_error'][i]:.3e} (host {ref['end_error'][i]:.3e})")
+        check(out["u_max"][i] <= 3.0 + FACADE_U_TOL, f"facade sls: {method} max|u| {out['u_max'][i]}")
+    print(f"[facade sls] Monte-Carlo success over {FACADE_MC} rollouts: DP "
+          f"{100 * out['mc_success'][0]:.2f} %, SLS {100 * out['mc_success'][1]:.2f} % (host f64 "
+          f"{100 * ref['mc_success'][0]:.2f} %, {100 * ref['mc_success'][1]:.2f} %; the reference "
+          f"23.44 %, 89.59 %)")
+    return med
+
+
+def phase_facade_obstacles(device, card, host):
+    out, med = _facade_times(lambda: facade_obstacles(device), device, "facade obstacles", card)
+    ref = host["facade obstacles"].result()
+    _cost_gate("facade obstacles", "unconstrained batch", out["unconstrained"], ref["unconstrained"])
+    for name in ("one circle", "two circles"):
+        got = out[name]
+        check(got["finite"], f"facade obstacles: {name}: non-finite result")
+        # not gated: the ADMM on these non-convex sets stops at its cap
+        # unconverged, where its iterate depends on rounding (PERF.md section 2)
+        print(f"[facade obstacles] ADMM_LQT_Batch, {name}: card cost {got['cost']:.7e}, host f64 "
+              f"{ref[name]['cost']:.7e} (|dcost|/cost {_rel(got['cost'], ref[name]['cost']):.3e}; "
+              f"the reference 2.680e-1 for two circles)")
+        clear = got["clearance"]
+        print(f"[facade obstacles] {name}: clearance of the x-iterate "
+              f"{', '.join(f'{c:.3e}' for c in clear['x-iterate'])}, of the projected iterate "
+              f"{', '.join(f'{c:.3e}' for c in clear['projected'])} (gate >= "
+              f"{-FACADE_CLEARANCE_TOL:g}; host f64 "
+              f"{', '.join(f'{c:.3e}' for c in ref[name]['clearance']['projected'])})")
+        check(min(clear["projected"]) >= -FACADE_CLEARANCE_TOL,
+              f"facade obstacles: {name}: clearance {min(clear['projected']):.3e}")
+    return med
+
+
+def phase_facade_car(device, card, host):
+    out, med = _facade_times(lambda: facade_car(device), device, "facade car", card, repeats=0)
+    ref = host["facade car"].result()
+    _cost_gate("facade car", f"iSLS.solve dp ({out['ilqr']['evals']} costs logged, host "
+               f"{ref['ilqr']['evals']})", out["ilqr"]["cost"], ref["ilqr"]["cost"])
+    admm = out["ilqr_admm"]
+    check(admm["finite"], "facade car: non-finite controls")
+    _cost_gate("facade car", f"iSLS.ilqr_admm ({admm['outer_iters']} outer steps, status "
+               f"{admm['status']}; host {ref['ilqr_admm']['outer_iters']}, "
+               f"{ref['ilqr_admm']['status']})", admm["cost"], ref["ilqr_admm"]["cost"])
+    print(f"[facade car] ilqr_admm max|w| {admm['u_max'][0]:.4f} (gate <= 0.5 + {FACADE_U_TOL:g}), "
+          f"max|a| {admm['u_max'][1]:.4f} (gate <= 2 + {FACADE_U_TOL:g}); the reference reaches "
+          f"0.9283 and 1.903")
+    check(admm["u_max"][0] <= 0.5 + FACADE_U_TOL and admm["u_max"][1] <= 2.0 + FACADE_U_TOL,
+          f"facade car: max|u| {admm['u_max']}")
+    return med
+
+
+def phase_facade_maze(device, card, host):
+    out, med = _facade_times(lambda: facade_maze(device), device, "facade maze", card,
+                             repeats=0)
+    ref = host["facade maze"].result()
+    _cost_gate("facade maze", "iSLS.solve batch", out["ilqr"]["cost"], ref["ilqr"]["cost"])
+    for name in ("consensus", "exact"):
+        got = out[name]
+        check(got["finite"], f"facade maze: {name}: non-finite trajectory")
+        # not gated: after the example's 10 outer steps the solve is
+        # mid-descent, and a line-search pick that rounding decides moves
+        # its end (PERF.md section 2)
+        print(f"[facade maze] ilqr_admm, {name} projection: card cost {got['cost']:.7e}, host f64 "
+              f"{ref[name]['cost']:.7e} (|dcost|/cost {_rel(got['cost'], ref[name]['cost']):.3e}; "
+              f"{got['outer_iters']} outer steps)")
+        print(f"[facade maze] {name}: inf-norm clearance of the trajectory "
+              f"{', '.join(f'{c:.3e}' for c in got['clearance'])} (gate >= "
+              f"{-FACADE_CLEARANCE_TOL:g}; host f64 "
+              f"{', '.join(f'{c:.3e}' for c in ref[name]['clearance'])}), final state "
+              f"{np.round(got['final'], 3).tolist()}")
+        check(min(got["clearance"]) >= -FACADE_CLEARANCE_TOL,
+              f"facade maze: {name}: clearance {min(got['clearance']):.3e}")
+    print(f"[facade maze] exact projection: {out['exact']['calls']} calls, every point certified: "
+          f"{out['exact']['certified']}")
+    check(out["exact"]["certified"], "facade maze: a point without the exact certificate")
+    return med
+
+
+def phase_implicit(device, card, host):
+    """[implicit] in f64 on the card: the gradient against a central
+    difference and against the host's f64 gradient, the example's descent,
+    and the time of one gradient (forward and backward)."""
+    _, med = _facade_times(lambda: inverse_lqt_gradient(device, params=IFT_POINTS[1]), device,
+                           "implicit gradient", card)
+    out = facade_implicit(device)
+    for point, got, (host_loss, host_grad) in zip(IFT_POINTS, out["points"],
+                                                  host["implicit"].result()):
+        for i, name in enumerate(("target", "bound")):
+            g, fd = got["grad"][i], got["fd"][i]
+            fd_rel, host_rel = _rel(g, fd), _rel(g, host_grad[i])
+            print(f"[implicit] at (target, bound) = {point}: d loss / d {name}: card {g:.12e}, "
+                  f"central difference {fd:.12e} (rel {fd_rel:.3e}, gate {IFT_FD_RTOL:g}), host "
+                  f"f64 {host_grad[i]:.12e} (rel {host_rel:.3e}, gate {IFT_HOST_RTOL:g}); loss "
+                  f"{got['loss']:.9e} (host {host_loss:.9e})")
+            check(fd_rel <= IFT_FD_RTOL, f"implicit: d/d{name} {fd_rel:.3e} from the difference")
+            check(host_rel <= IFT_HOST_RTOL, f"implicit: d/d{name} {host_rel:.3e} from the host")
+    target, bound = out["recovered"]
+    print(f"[implicit] 150 Adam steps: target {target:.5f} (true 0.7, gate 5e-3), bound "
+          f"{bound:.5f} (true 2.5, gate 5e-2); card: {card}")
+    check(abs(target - 0.7) < 5e-3 and abs(bound - 2.5) < 5e-2,
+          f"implicit: recovered target {target}, bound {bound}")
+    return med
+
 def main() -> int:
     seconds = {}
 
@@ -2907,6 +3529,12 @@ def main() -> int:
         run("boxddp certificate", phase_boxddp_certificate, certificate, card)
         run("boxddp profile", phase_boxddp_profile, "cuda", card, car_fleet, boxddp_time["ms"])
         run("al arm", phase_al_arm, "cuda", card)
+        facade_host = run("facade host start", start_facade_host_runs)
+        run("facade sls", phase_facade_sls, "cuda", card, facade_host)
+        run("facade obstacles", phase_facade_obstacles, "cuda", card, facade_host)
+        run("facade car", phase_facade_car, "cuda", card, facade_host)
+        run("facade maze", phase_facade_maze, "cuda", card, facade_host)
+        run("implicit", phase_implicit, "cuda", card, facade_host)
         bounds = dict(run("fleet bounds", existing_bounds, solver, inputs, box[1], x0s,
                           sls[1], sls_fleet), **riccati_times["bounds"],
                       linesearch_rollout=car_times["bound"])

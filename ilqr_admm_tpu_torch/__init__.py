@@ -53,6 +53,15 @@ run on the CUDA card unless the caller passes another (the CPU runs the
 plain torch versions of the kernels).
 """
 
+from ilqr_admm_tpu_torch.chance import (
+    ChanceCalibration,
+    calibrate,
+    count_binding_rows,
+    make_box_chance_projection,
+    make_state_box_chance_projection,
+    per_row_confidence,
+)
+from ilqr_admm_tpu_torch.facade import SLS, iSLS
 from ilqr_admm_tpu_torch.models.arm import PlanarArm
 from ilqr_admm_tpu_torch.models.car import CarFrontWheel, CarParkingCost, CarSimple
 from ilqr_admm_tpu_torch.models.double_integrator import DoubleIntegrator
@@ -61,23 +70,53 @@ from ilqr_admm_tpu_torch.ops.fused_riccati import lqt_backward_parallel_fused
 from ilqr_admm_tpu_torch.ops.fused_rollout import make_fused_linesearch_rollout
 from ilqr_admm_tpu_torch.ops.fused_sls import make_fused_sls_admm
 from ilqr_admm_tpu_torch.ops.riccati import DPGains
-from ilqr_admm_tpu_torch.problem import QuadCost
+from ilqr_admm_tpu_torch.problem import (
+    ADMMConfig,
+    ILQRConfig,
+    LQTProblem,
+    QuadCost,
+    SolveStatus,
+)
+from ilqr_admm_tpu_torch.projections import *  # noqa: F401,F403 (the JAX package's names)
+from ilqr_admm_tpu_torch.projections import __all__ as _projection_names
 from ilqr_admm_tpu_torch.solvers.batched import make_batched_lqt_admm
 from ilqr_admm_tpu_torch.solvers.batched_ilqr_admm import ilqr_admm_fleet
 from ilqr_admm_tpu_torch.solvers.batched_sls import make_batched_sls_admm
 from ilqr_admm_tpu_torch.solvers.ilqr_admm import ilqr_admm
 from ilqr_admm_tpu_torch.solvers.isls_admm import isls_admm
 from ilqr_admm_tpu_torch.solvers.lqt import lqt_solve_dp
-from ilqr_admm_tpu_torch.utils.cost_assembly import viapoint_cost
+from ilqr_admm_tpu_torch.utils.cost_assembly import (
+    find_mus,
+    find_precs,
+    get_double_integrator_AB,
+    run_once,
+    viapoint_cost,
+)
 
 __all__ = [
+    "SLS",
+    "iSLS",
+    "ChanceCalibration",
+    "calibrate",
+    "count_binding_rows",
+    "make_box_chance_projection",
+    "make_state_box_chance_projection",
+    "per_row_confidence",
+    "LQTProblem",
+    "QuadCost",
+    "ADMMConfig",
+    "ILQRConfig",
+    "SolveStatus",
+    "find_mus",
+    "find_precs",
+    "get_double_integrator_AB",
+    "run_once",
     "CarFrontWheel",
     "CarParkingCost",
     "CarSimple",
     "DPGains",
     "DoubleIntegrator",
     "PlanarArm",
-    "QuadCost",
     "ilqr_admm",
     "ilqr_admm_fleet",
     "isls_admm",
@@ -89,4 +128,4 @@ __all__ = [
     "make_fused_lqt_admm",
     "make_fused_sls_admm",
     "viapoint_cost",
-]
+] + list(_projection_names)

@@ -83,3 +83,42 @@ def mpc_constrained_state_from_numpy(x_nom, u_nom, z_x, z_u, lmb_x, lmb_u, *, de
     kw = dict(device=device, dtype=dtype)
     return MPCConstrainedState(*(array_from_numpy(a, **kw)
                                  for a in (x_nom, u_nom, z_x, z_u, lmb_x, lmb_u)))
+
+
+def facade_from_numpy(cls, x_dim: int, u_dim: int, N: int, *, A=None, B=None, viapoint=None,
+                      device, dtype):
+    """A port facade (`facade.SLS` or `facade.iSLS`) holding a JAX facade's
+    state: its dynamics A, B (2-D or stacked, e.g. `np.asarray(sls.A)`)
+    and its via-point cost viapoint = (zs, Qs, seq, u_std), the arguments
+    of `set_quadratic_cost`. The tensors are made with `dtype` on
+    `device`; `dtype` is the default dtype while they are made."""
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(dtype)
+    try:
+        obj = cls(x_dim, u_dim, N, device=device)
+        if A is not None:
+            obj.AB = [np.asarray(A), np.asarray(B)]
+        if viapoint is not None:
+            zs, Qs, seq, u_std = viapoint
+            obj.set_quadratic_cost(np.asarray(zs), np.asarray(Qs), np.asarray(seq), float(u_std))
+    finally:
+        torch.set_default_dtype(prev)
+    return obj
+
+
+def nominal_from_numpy(x_nom, u_nom, *, device, dtype):
+    """(x_nom (N, x), u_nom (N, u)) tensors from a JAX facade's
+    `nominal_values`, for the port facade's `nominal_values` setter."""
+    kw = dict(device=device, dtype=dtype)
+    return array_from_numpy(x_nom, **kw), array_from_numpy(u_nom, **kw)
+
+
+def implicit_theta_from_numpy(theta: dict, *, device, dtype, requires_grad=()) -> dict:
+    """The `theta` dict of `solvers/implicit.py::lqt_admm_implicit` from
+    numpy arrays or floats (Q, R, xd, x0, and px / pu when present); the
+    keys named in requires_grad become leaves that require grad."""
+    out = {}
+    for key, value in theta.items():
+        t = array_from_numpy(value, device=device, dtype=dtype)
+        out[key] = t.requires_grad_() if key in requires_grad else t
+    return out

@@ -27,10 +27,25 @@ import torch
 from ilqr_admm_tpu_torch.utils.precision import full_f32_matmul
 
 
+def eigh_rayleigh(M):
+    """(w, V): eigenvectors V of symmetric (..., n, n) blocks and their
+    eigenvalues w, taken as the Rayleigh quotients diag(V^T M V).
+
+    On a CUDA card, torch's batched float32 `eigh` (cuSOLVER) leaves the
+    eigenvalues of an all-zero block unwritten: they hold whatever the
+    memory held, NaN included (seen on an H100 with torch 2.11 and CUDA
+    12.8: a (100, n, n) float32 batch, n = 2 to 9, with zero blocks, after
+    NaN tensors were freed; float64 and single blocks were right). Its
+    eigenvectors are right, so the eigenvalues are taken from them.
+    """
+    _, V = torch.linalg.eigh(M)
+    return torch.sum(V * (M @ V), dim=-2), V
+
+
 def _sqrt_psd(M):
     """Symmetric PSD square roots of (..., n, n) blocks (eigh-based;
     handles zero blocks)."""
-    w, V = torch.linalg.eigh(M)
+    w, V = eigh_rayleigh(M)
     return (V * torch.sqrt(torch.clamp(w, min=0.0))[..., None, :]) @ V.transpose(-1, -2)
 
 

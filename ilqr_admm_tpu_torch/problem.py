@@ -72,6 +72,32 @@ class QuadCost(nn.Module):
         return self.xd.reshape(-1)
 
 
+@dataclasses.dataclass
+class LQTProblem:
+    """Linear(ized) quadratic tracking problem.
+
+    A: (N, x_dim, x_dim), x_{t+1} = A_t x_t + B_t u_t
+    B: (N, x_dim, u_dim)
+    cost: QuadCost
+    """
+
+    A: torch.Tensor
+    B: torch.Tensor
+    cost: QuadCost
+
+    @property
+    def N(self) -> int:
+        return self.A.shape[0]
+
+    @property
+    def x_dim(self) -> int:
+        return self.A.shape[-1]
+
+    @property
+    def u_dim(self) -> int:
+        return self.B.shape[-1]
+
+
 def host_f64(A, B, cost: QuadCost, dtype: torch.dtype):
     """(A, B, cost) rounded to `dtype`, then lifted exactly to f64 on the host.
 

@@ -15,6 +15,7 @@ from ilqr_admm_tpu_torch.ops.lifted import build_Su, build_Sw, sw_x0
 from ilqr_admm_tpu_torch.ops.parallel_riccati import lqt_backward_parallel
 from ilqr_admm_tpu_torch.ops.riccati import DPGains, lqt_backward
 from ilqr_admm_tpu_torch.ops.sls_synthesis import sls_synthesize
+from ilqr_admm_tpu_torch.ops.sqrt_riccati import eigh_rayleigh
 from ilqr_admm_tpu_torch.problem import QuadCost
 from ilqr_admm_tpu_torch.utils.precision import full_f32_matmul
 
@@ -53,7 +54,7 @@ def block_diag_stacked(blocks: torch.Tensor) -> torch.Tensor:
 
 def sqrt_psd_stacked(blocks: torch.Tensor) -> torch.Tensor:
     """Symmetric PSD square roots of stacked (N, d, d) blocks (eigh-based)."""
-    w, V = torch.linalg.eigh(blocks)
+    w, V = eigh_rayleigh(blocks)
     w = torch.sqrt(torch.clamp(w, min=0.0))
     return torch.einsum("tij,tj,tkj->tik", V, w, V)
 

@@ -20,6 +20,7 @@ counterpart of the TPU's bf16x6 `_dot6`: the f32 class without the
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -43,6 +44,45 @@ def full_f32_matmul():
         torch.set_float32_matmul_precision(prev_precision)
         torch.backends.cuda.matmul.allow_tf32 = prev_matmul
         torch.backends.cudnn.allow_tf32 = prev_cudnn
+
+
+def highest_precision(fn):
+    """Decorator: run fn under `full_f32_matmul` (the counterpart of the JAX
+    package's `highest_precision`, which traces fn at matmul precision
+    'highest')."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with full_f32_matmul():
+            return fn(*args, **kwargs)
+
+    return wrapper
+
+
+def use_x64():
+    """Make float64 the default dtype of new tensors (the counterpart of
+    enabling `jax_enable_x64`).
+
+    Needed for weight ratios beyond ~1e7 (e.g. the 3DoF arm benchmark's
+    x_std = 1e6 against u_std = 1e-4): no f32 formulation survives
+    condition numbers past ~1e7 in the Riccati and lifted solves. Call it
+    before creating tensors; `torch.set_default_dtype(torch.float32)`
+    undoes it.
+    """
+    torch.set_default_dtype(torch.float64)
+
+
+def stiffness_ratio(Q, R) -> float:
+    """max state weight / min positive control weight, which sets the
+    conditioning of this problem class. An all-zero R gives inf (0 when Q
+    is zero too)."""
+    Q, R = torch.as_tensor(Q), torch.as_tensor(R)
+    q_max = float(torch.max(torch.abs(Q)))
+    r_diag = torch.abs(torch.diagonal(R, dim1=-2, dim2=-1))
+    r_pos = r_diag[r_diag > 0]
+    if r_pos.numel() == 0:  # all-zero R: worst conditioning
+        return float("inf") if q_max > 0 else 0.0
+    return q_max / float(torch.min(r_pos))
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:

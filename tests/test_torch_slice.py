@@ -90,7 +90,10 @@ def test_port_imports_without_jax():
                      "ops.fused_rollout", "ops.sqrt_riccati", "solvers.admm", "solvers.ilqr",
                      "solvers.ilqr_admm", "solvers.lqt_admm", "solvers.sls_admm",
                      "models.arm", "chance", "solvers.isls_admm", "solvers.batched_ilqr_admm",
-                     "ops.boxqp", "ops.constrained_riccati", "solvers.boxddp", "solvers.mpc"):
+                     "ops.boxqp", "ops.constrained_riccati", "solvers.boxddp", "solvers.mpc",
+                     "facade", "solvers.implicit", "projections.primitives", "projections.sets",
+                     "utils.checkpoint", "utils.debug", "utils.metrics", "utils.profiling",
+                     "utils.trajopt"):
             assert "ilqr_admm_tpu_torch." + name in names, name
         import chip_smoke
         leaked = sorted(m for m in sys.modules if m == "ilqr_admm_tpu" or m.startswith("ilqr_admm_tpu."))

@@ -91,3 +91,20 @@ def test_helpers_match_jax():
     got = ts._sqrt_psd(torch.tensor(M))
     assert float(np.abs(got.numpy() - np.asarray(js._sqrt_psd(jnp.asarray(M)))).max()) < 1e-12
     assert float((got @ got - torch.tensor(M)).abs().max()) < 1e-12
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_eigh_rayleigh_matches_eigh(dtype):
+    """The eigenvalues as Rayleigh quotients of the eigenvectors (the
+    card's batched f32 eigh leaves a zero block's unwritten) agree with
+    numpy's eigenvalues, zero and diagonal blocks included."""
+    rng = np.random.default_rng(4)
+    X = rng.normal(size=(12, 3, 3))
+    M = X @ X.transpose(0, 2, 1)
+    M[::4] = 0.0
+    M[1::4] = np.eye(3) * rng.uniform(0.5, 2.0, size=(3, 1, 1))
+    w, V = ts.eigh_rayleigh(torch.tensor(M, dtype=dtype))
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert float(np.abs(np.sort(w.double().numpy(), -1) - np.linalg.eigvalsh(M)).max()) < tol * 10
+    recon = (V * w[:, None, :]) @ V.transpose(-1, -2)
+    assert float(np.abs(recon.double().numpy() - M).max()) < tol * 10
