@@ -6,6 +6,11 @@ Drives the port's paths on the card:
 - the box-constrained LQT-ADMM fleet of the repository's bench (16,384
   double-integrator instances, N = 100, |u| <= 5, rho_u = 0.1, 100
   iterations) through `make_fused_lqt_admm`;
+- the certified wide fleet of `benchmarks/bench_wide_certified.py:36-103`
+  (8,192 instances of DoubleIntegrator(4, 2), N = 128, so Nm = 512 and Nd
+  = 1,024; |u| <= 5, rho_u = 0.1, 100 iterations with delta products,
+  refresh_every 8) through `make_fused_lqt_admm`, whose loop is the wide
+  route `admm_u_only_wide` (W_u streamed from L2);
 - the same fleet with a velocity box |v| <= 1.3 (position free), rho_x =
   10, 200 iterations, through `make_fused_lqt_admm(..., x_lower, x_upper)`,
   whose loop is the `admm_box` kernel;
@@ -13,7 +18,9 @@ Drives the port's paths on the card:
   (1,024 chance-constrained syntheses, N = 100, robust_dim 1, bounds
   U(2, 4), rho_u = 1.0, 200 iterations) through `make_fused_sls_admm`
   in its serving configuration (exact diamond z-update, per-tile early
-  exit at 3e-3 every 16 iterations, fleet sorted by bound);
+  exit at 3e-3 every 16 iterations, fleet sorted by bound), and its
+  consensus configuration with uncertainty on both initial-state
+  components (robust_dim 2: p1 = 3 slabs, two SOC sets of q = 4 rows);
 - the blocked time-parallel LQT Riccati backward pass of
   `benchmarks/bench_parallel_riccati.py` (2-D double integrator, dt =
   0.01, Q = 100 I, R = 0.01 I, N = 10,000, nb = 128 blocks) through
@@ -73,7 +80,9 @@ Phases:
    version on the same card inputs (the LQT fleet's `admm_u_only` in
    three modes and at an odd width, against the plain version with its
    tensor-core products and against the f32 one, and the iterations its
-   early-exit tiles ran; `admm_box` at the full width, with a
+   early-exit tiles ran; `admm_u_only_wide` likewise on the wide fleet,
+   with refresh_every 8 and 1, 16-instance tiles, over-relaxation and
+   early exit, and at an odd width (Nm = 516); `admm_box` at the full width, with a
    state box only, and at an odd width, also against the plain version
    with its 3xTF32 products; `sls_admm` in the diamond,
    early-exit and consensus modes, at an odd width and with 16-instance
@@ -91,12 +100,16 @@ Phases:
    N = 37, N = 10,000, and a candidate set with NaN states, bit for bit);
 4. for each path: main path, one fleet solve (one backward pass, one car
    solve) with every launch counter set to 0 just before it and read
-   just after, checked against the certificates (`utils/certify.py`;
+   just after (the wide and robust_dim 2 fleets with their plain versions
+   patched to raise), checked against the certificates (`utils/certify.py`;
+   the wide fleet against its bench's gates, the robust_dim 2 fleet
+   against its set's violation and an f64 SLSQP oracle;
    for the car the cost and bound gates of `tests/test_ilqr_admm.py`, an
    f64 solve on the host, and an inner-line-search solve);
 5. for each path: time, the kernel and the plain version with CUDA
-   events (for the u-only path also 100 f32 cuBLAS products of the
-   loop's shape as a yardstick, for the SLS path 200; for the
+   events (for the u-only paths also 100 f32 cuBLAS products of the
+   loop's shape as a yardstick, and the wide kernel with refresh_every 1;
+   for the SLS path 200; for the
    state-bounded path also the whole forward and the
    plain fleet `make_batched_lqt_admm`; for the Riccati path, at N =
    100, 1,000 and 10,000, each kernel's device time from a CUDA graph of
@@ -255,6 +268,9 @@ from ilqr_admm_tpu_torch.solvers.mpc import (
 )
 from ilqr_admm_tpu_torch.utils.certify import (
     ARM_N_ORACLE,
+    converged_frac,
+    max_violation,
+    oracle_cost_gap,
     al_gate_failures,
     arm_gate_failures,
     boxddp_gate_failures,
@@ -291,6 +307,31 @@ MODES = {
 }
 TIMING_WINDOWS = 7
 CALLS_PER_WINDOW = 10
+
+# The certified wide fleet of benchmarks/bench_wide_certified.py:36-103:
+# d = 8, m = 4, N = 128 (Nm = 512, Nd = 1,024), 8,192 instances, |u| <= 5,
+# rho_u = 0.1, 100 iterations with delta products (refresh_every 8),
+# polish_iters 8, f32; its gates, the oracle on the first 32
+WIDE_N = 128
+WIDE_BATCH = 8192
+WIDE_ITERS = 100
+WIDE_REFRESH = 8
+WIDE_TARGET = (1.0, 0.5, -0.5, 0.8, 0.0, 0.0, 0.0, 0.0)
+WIDE_N_ORACLE = 32
+WIDE_PLAIN_WINDOWS = 3  # windows of one call for the plain version's time
+
+# The robust SLS fleet with uncertainty on both initial-state components
+# (robust_dim 2, p1 = 3), bench_pallas_sls.py's consensus configuration.
+# Its limits come from the port's f64 plain version of the same 1,024
+# instances on the host: U's rows leave their set
+# |du| + psi sigma ||phi|| <= bound by up to 2.63e-3, and the
+# oracle's cost gap on instances 0 and 1023 is 3.29e-4 / 3.33e-4, where
+# 30 consensus iterations leave the z-update inexact (1,000 outer and 150
+# inner iterations close it to 8.6e-10 in f64)
+ROBUST2_VIOLATION_TOL = 5e-3
+ROBUST2_GAP_MEDIAN = 5e-4
+ROBUST2_GAP_MAX = 1e-3
+ROBUST2_N_ORACLE = 2
 
 # The state-bounded fleet: the bench problem with a velocity box
 BOX_ITERS = 200
@@ -571,6 +612,20 @@ def soc_sets():
     return [A_hi, A_lo], [b_fixed, b_fixed], [b_bound, b_bound]
 
 
+def soc_sets_2d():
+    """The chance constraint with uncertainty on both initial-state
+    components, |du| + psi sigma ||phi|| <= bound, as two SOC sets of q = 4
+    rows: A = [diag(sqrt([0, sigma^2, sigma^2])); -+e0^T / psi], b_fixed =
+    0, b_bound = (0, 0, 0, 1 / psi). (soc_A, soc_b_fixed, soc_b_bound)."""
+    mu = np.array([1.0, 0.0, 0.0])
+    Au = np.diag(np.sqrt([0.0, SIGMA**2, SIGMA**2]))
+    A_hi = np.concatenate([Au, (-mu / PSI_INV)[None]], 0)
+    A_lo = np.concatenate([Au, (mu / PSI_INV)[None]], 0)
+    b_fixed = np.zeros(4)
+    b_bound = np.array([0.0, 0.0, 0.0, 1.0 / PSI_INV])
+    return [A_hi, A_lo], [b_fixed, b_fixed], [b_bound, b_bound]
+
+
 def sls_bounds(device, batch: int = SLS_BATCH, seed: int = 0, sort: bool = False):
     """Scenario bounds ~ U(2, 4) (binding: the unconstrained |du| peaks near 4-5)."""
     b = np.random.default_rng(seed).uniform(2.0, 4.0, batch).astype(np.float32)
@@ -594,6 +649,46 @@ def sls_solver(device, mode: str, horizon: int = N, **overrides):
     return (A, B, cost), make_fused_sls_admm(A, B, cost, *sets, **kw)
 
 
+def sls_robust2_solver(device, horizon: int = N, **overrides):
+    """`make_fused_sls_admm` with robust_dim = 2 (uncertainty on position
+    and velocity, p1 = 3): `bench_pallas_sls.py`'s consensus configuration
+    (rho_u = 1, cons_rho = 10, 200 iterations, 30 consensus iterations)
+    with the sets of `soc_sets_2d`."""
+    A, B, cost, _ = bench_problem(device, horizon=horizon, batch=1)
+    kw = dict(rho_u=SLS_RHO_U, robust_dim=2, n_iters=SLS_ITERS, batch_tile=SLS_TILE,
+              n_cons_iters=SLS_CONS_ITERS, cons_rho=SLS_CONS_RHO, device=device)
+    kw.update(overrides)
+    return (A, B, cost), make_fused_sls_admm(A, B, cost, *soc_sets_2d(), **kw)
+
+
+def wide_problem(device, batch: int = WIDE_BATCH, seed: int = 0, horizon: int = WIDE_N):
+    """bench_wide_certified.py's problem: DoubleIntegrator(4, 2, dt =
+    1/N), the via-point cost to WIDE_TARGET with Q = 1e3 I at the end and
+    r = 1e-2, f32 dynamics, x0 ~ N(0, 0.1^2) from default_rng(seed); the
+    bench's N is 128."""
+    plant = DoubleIntegrator(4, 2, dt=1.0 / horizon, dtype=torch.float32)
+    d, m = plant.x_dim, plant.u_dim
+    zs = np.stack([np.zeros(d), WIDE_TARGET]).astype(np.float32)
+    Qs = np.stack([np.zeros((d, d)), np.eye(d) * 1e3]).astype(np.float32)
+    seq = np.zeros(horizon, dtype=np.int32)
+    seq[-1] = 1
+    cost = viapoint_cost(zs, Qs, seq, 1e-2, m, dtype=torch.float32)
+    A, B = plant.AB(horizon)
+    rng = np.random.default_rng(seed)
+    x0s = torch.tensor(rng.normal(0.0, 0.1, size=(batch, d)), dtype=torch.float32, device=device)
+    return A, B, cost, x0s
+
+
+def wide_solver(device, problem=None, **overrides):
+    """`make_fused_lqt_admm` in the wide bench's configuration (its
+    default batch_tile: 32 on the wide route)."""
+    A, B, cost, _ = problem if problem is not None else wide_problem(device, batch=1)
+    kw = dict(u_lower=-U_MAX, u_upper=U_MAX, rho_u=RHO_U, n_iters=WIDE_ITERS,
+              refresh_every=WIDE_REFRESH, device=device)
+    kw.update(overrides)
+    return make_fused_lqt_admm(A, B, cost, **kw)
+
+
 def velocity_box(horizon: int = N, v_max=V_MAX):
     """(x_lower, x_upper) as (N*d,) vectors: position free, |v| <= v_max
     (a scalar or one limit a step)."""
@@ -614,6 +709,7 @@ def box_solver(device, horizon: int = N, **overrides):
 
 def reset_launch_counts():
     fused_admm.launch_count = 0
+    fused_admm.wide_launch_count = 0
     fused_admm.box_launch_count = 0
     fused_sls.launch_count = 0
     fused_riccati.scan_launch_count = 0
@@ -622,7 +718,9 @@ def reset_launch_counts():
 
 
 def launch_counts() -> dict:
-    return {"admm_u_only": fused_admm.launch_count, "admm_box": fused_admm.box_launch_count,
+    return {"admm_u_only": fused_admm.launch_count,
+            "admm_u_only_wide": fused_admm.wide_launch_count,
+            "admm_box": fused_admm.box_launch_count,
             "sls_admm": fused_sls.launch_count, "riccati_scan": fused_riccati.scan_launch_count,
             "riccati_join": fused_riccati.join_launch_count,
             "linesearch_rollout": fused_rollout.launch_count}
@@ -862,6 +960,222 @@ def phase_time(solver, inputs, card):
               f"at B={BATCH}, Nm={N}, {ADMM_ITERS} iterations, batch_tile={BATCH_TILE}; "
               f"card: {card}")
     return {name: med for name, (med, *_) in timed.items()}
+
+
+def wide_cases(device):
+    """(label, solver, kernel inputs, extra options) of the wide route's
+    kernel-vs-plain cases, on the full fleet of the wide bench: its delta
+    schedule (refresh_every 8), refresh_every 1, 16-instance tiles, the
+    over-relaxed build (alpha 1.3: at 1.6 this problem does not converge in
+    100 iterations, and f32 and 3xTF32 plain versions end 0.86 apart on
+    the CPU), and early exit with delta products; and the bench's problem
+    at N = 129 (Nm = 516: the last n-tile single, four padded columns,
+    tile 16) on 1,024 instances."""
+    problem = wide_problem(device)
+    solver = wide_solver(device, problem)
+    x0s = problem[3]
+    inputs = solver.kernel_inputs(x0s)
+    cases = [(f"wide, refresh_every={WIDE_REFRESH} (the bench)", solver, inputs, {}),
+             ("wide, refresh_every=1", solver, inputs, dict(refresh_every=1))]
+    for label, over in (("wide, batch_tile=16", dict(batch_tile=16)),
+                        ("wide, alpha=1.3", dict(alpha=1.3)),
+                        ("wide, stop_tol=1e-5, check_every=4",
+                         dict(stop_tol=1e-5, check_every=4))):
+        other = wide_solver(device, problem, **over)
+        cases.append((label, other, other.kernel_inputs(x0s), {}))
+    odd = wide_problem(device, batch=1024, seed=1, horizon=WIDE_N + 1)
+    odd_solver = wide_solver(device, odd, batch_tile=16)
+    cases.append(("wide, Nm=516, batch_tile=16", odd_solver, odd_solver.kernel_inputs(odd[3]), {}))
+    return problem, solver, inputs, cases
+
+
+def phase_wide_main_path(solver, problem):
+    """The wide bench fleet through the factory's forward with the launch
+    counters set to 0 and the plain version patched to raise: one launch
+    of the wide kernel, none of the narrow one; then the bench's gates
+    (violation 0, converged_frac >= 0.99 at 1e-4, the f64 L-BFGS-B oracle
+    gap on the first 32 instances, median and max <= 1e-4)."""
+    A, B, cost, x0s = problem
+
+    def plain_must_not_run(*args, **kwargs):
+        raise SmokeFailure("the wide main path ran the plain version of the kernel")
+
+    reset_launch_counts()
+    with _swapped(fused_admm, admm_u_only_reference=plain_must_not_run):
+        x, u, z_x, z_u = solver(x0s)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    launches = counts["admm_u_only_wide"]
+    print(f"[wide u-only main path] launches: admm_u_only_wide {launches}, admm_u_only "
+          f"{counts['admm_u_only']}; batch_tile {solver.kernel_options['batch_tile']}")
+    check(launches == 1 and counts["admm_u_only"] == 0,
+          "the wide main path did not launch the wide kernel exactly once")
+    Nm, Nd = u.shape[1], x.shape[1]
+    check(tuple(x.shape) == (WIDE_BATCH, 2 * Nm) and Nm == 4 * WIDE_N and z_x is x,
+          "unexpected wide output shapes")
+    for name, t in (("x", x), ("u", u), ("z_u", z_u)):
+        check(bool(torch.isfinite(t).all()), f"wide main path output {name} has non-finite values")
+    t0 = time.perf_counter()
+    gap_med, gap_max = oracle_cost_gap(A, B, cost, x0s[:WIDE_N_ORACLE], z_u[:WIDE_N_ORACLE],
+                                       -U_MAX, U_MAX)
+    cert = {"max_violation": max_violation(z_u, -U_MAX, U_MAX),
+            "converged_frac": converged_frac(u, z_u),
+            "cost_gap_median": gap_med, "cost_gap_max": gap_max}
+    print(f"[wide u-only main path] certificates ({time.perf_counter() - t0:.1f} s): "
+          f"max_violation {cert['max_violation']}, converged_frac {cert['converged_frac']}, "
+          f"cost_gap median {gap_med:.3e} max {gap_max:.3e} on the first {WIDE_N_ORACLE} "
+          f"(Nm={Nm}, Nd={Nd})")
+    failures = gate_failures(cert)
+    check(not failures, "; ".join(failures))
+    return launches, cert
+
+
+def wide_bound(solver, inputs):
+    """The least time of the wide solve's work: its products as the
+    kernel's route issues them on the tensor cores (3xTF32 refreshes,
+    one-pass TF32 deltas, the 6xTF32 tail, the 3xTF32 x product) at the
+    dense TF32 peak, against its inputs and outputs at the HBM rate."""
+    kw = solver.kernel_options
+    chunk_len, n_chunks, n_tail = fused_admm._schedule(
+        kw["n_iters"], kw["refresh_every"], kw["polish_iters"], kw["stop_tol"], kw["check_every"])
+    r, test = kw["refresh_every"], kw["stop_tol"] > 0.0
+    kinds = [6 if test and it == chunk_len - 1 else 1 if it % r else 3
+             for it in range(chunk_len)] * n_chunks + [6] * n_tail
+    passes, refresh = sum(kinds), kinds.count(3)
+    u_base, x_base = inputs[:2]
+    B, Nm = u_base.shape
+    Nd = x_base.shape[1]
+    tf32_flop = passes * 2 * B * Nm * Nm + 3 * 2 * B * Nm * Nd
+    ms_ops = 1e3 * tf32_flop / PEAK_TF32_FLOPS
+    ms_bytes = 1e3 * (nbytes(*inputs) + nbytes(x_base, u_base, u_base)) / PEAK_BYTES_PER_S
+    print(f"[wide u-only bound] {passes} TF32 passes of ({B} x {Nm}) @ ({Nm} x {Nm}) "
+          f"({refresh} 3xTF32 refreshes, {kinds.count(1)} one-pass deltas, "
+          f"{kinds.count(6)} 6xTF32 iterations) and a 3xTF32 x product: {tf32_flop:.4g} TF32 FLOP, {ms_ops:.4f} ms "
+          f"at {PEAK_TF32_FLOPS / 1e12:g} TFLOP/s; bytes {ms_bytes:.4f} ms")
+    return {"bound_ms": max(ms_ops, ms_bytes),
+            "bound_by": "operations" if ms_ops >= ms_bytes else "bytes",
+            "bound_ops": "TF32 tensor cores: 3xTF32 refreshes, one-pass deltas, 6xTF32 tail"}
+
+
+def phase_wide_time(solver, inputs, card):
+    """The wide kernel (the bench's delta schedule, and refresh_every 1),
+    its plain version and, as a yardstick the port never calls, 100 f32
+    cuBLAS products of the loop's shape; windows alternate."""
+    kw = solver.kernel_options
+    B, Nm = inputs[0].shape
+    yardstick = f"{WIDE_ITERS} f32 cuBLAS products ({B} x {Nm}) @ ({Nm} x {Nm})"
+    one = dict(kw, refresh_every=1)
+    timed = _timed({
+        "kernel": (lambda: admm_u_only(*inputs, solver.packed, **kw), TIMING_WINDOWS,
+                   CALLS_PER_WINDOW),
+        "kernel, refresh_every=1": (lambda: admm_u_only(*inputs, solver.packed, **one),
+                                    TIMING_WINDOWS, CALLS_PER_WINDOW),
+        "plain": (lambda: admm_u_only_reference(*inputs, **kw), WIDE_PLAIN_WINDOWS, 1),
+        yardstick: (cublas_products(inputs[0], inputs[2], n=WIDE_ITERS), TIMING_WINDOWS,
+                    CALLS_PER_WINDOW),
+    })
+    for name, (med, q1, q3, n) in timed.items():
+        print(f"[wide u-only time] {name}: {med:.4f} ms per solve (IQR {q1:.4f}-{q3:.4f}, {n} "
+              f"windows) = {B * WIDE_ITERS / (med * 1e-3):.4g} ADMM iterations/s at B={B}, "
+              f"Nm={Nm}, {WIDE_ITERS} iterations, batch_tile={kw['batch_tile']}; card: {card}")
+    return {name: med for name, (med, *_) in timed.items()}
+
+
+def robust2_flops(solver, batch: int, iters: int) -> tuple[float, float]:
+    """(f32 CUDA-core FLOP of the consensus z-update, FLOP of the products)
+    of `iters` iterations of the robust_dim 2 fleet, counted from the
+    kernel's loops over the nonzero coefficients (csrc/sls_admm.cu,
+    `Consensus`): per row and inner iteration the x-update (4 an A
+    nonzero, 2 an l_inv nonzero) and each set's A x + b, SOC projection
+    and dual update (2 an A nonzero + 6 q + 5); once a row the start (2 an
+    A nonzero + q a set), the last x-update and the row's u, y, z and
+    lambda (7 a slab)."""
+    ko = solver.kernel_options
+    A = np.stack(ko["soc_A"])
+    nnz_a = int(np.count_nonzero(A))
+    nnz_l = int(np.count_nonzero(ko["l_inv_cons"]))
+    n_sets, q = A.shape[0], A.shape[1]
+    p1, Nm = solver.U_base.shape
+    inner = 6 * nnz_a + 2 * nnz_l + n_sets * (6 * q + 5)
+    row = ko["n_cons_iters"] * inner + (4 * nnz_a + 2 * nnz_l) + (2 * nnz_a + n_sets * q) + 7 * p1
+    return float(row * Nm * batch * iters), float(2 * p1 * Nm * Nm * batch * iters)
+
+
+def phase_robust2(device, card):
+    """The robust_dim 2 consensus fleet (p1 = 3): the kernel against its
+    plain version on the same card inputs, with the kernel's 3xTF32
+    products and in f32 (SLS_FIXED_TOL x max(1, max|U|)); the main path
+    with the counters set to 0 and the plain version patched to raise;
+    the gates (converged_frac >= 0.99, the largest violation of a row's
+    set by U's rows <= ROBUST2_VIOLATION_TOL, the f64 oracle's cost gap on
+    2 instances, median and max <= ROBUST2_GAP_MEDIAN and _MAX); the kernel
+    and plain times and the bound."""
+    (A, B, cost), solver = sls_robust2_solver(device)
+    bounds = sls_bounds(device, batch=SLS_BATCH)
+    kw = solver.kernel_options
+    ops = (bounds, solver.U_base, solver.W)
+    got = sls_admm(*ops, solver.packed, **kw)
+    torch.cuda.synchronize()
+    emulated = sls_admm_reference(*ops, **kw, products="tf32x3")
+    want = sls_admm_reference(*ops, **kw)
+    tol = SLS_FIXED_TOL * max(1.0, float(emulated.abs().max()))
+    errs = {"3xTF32": float((got - emulated).abs().max()), "f32": float((got - want).abs().max())}
+    print(f"[sls robust_dim 2 kernel vs plain] consensus p1=3 (batch {SLS_BATCH}, tile "
+          f"{kw['batch_tile']}): against the 3xTF32 plain version {errs['3xTF32']:.3e}, against "
+          f"the f32 plain version {errs['f32']:.3e} (tolerance {tol:.3g}); 3xTF32 plain vs f32 "
+          f"plain {float((emulated - want).abs().max()):.3e}")
+    check(bool(torch.isfinite(got).all()), "robust_dim 2: kernel U has non-finite values")
+    for name, err in errs.items():
+        check(err <= tol, f"robust_dim 2: kernel disagrees with the {name} plain version")
+
+    def plain_must_not_run(*args, **kwargs):
+        raise SmokeFailure("the robust_dim 2 main path ran the plain version of the kernel")
+
+    reset_launch_counts()
+    with _swapped(fused_sls, sls_admm_reference=plain_must_not_run):
+        du, phi_u, U = solver(bounds)
+    torch.cuda.synchronize()
+    launches = fused_sls.launch_count
+    print(f"[sls robust_dim 2 main path] sls_admm kernel launches: {launches}")
+    check(launches == 1, "the robust_dim 2 main path did not launch the sls_admm kernel once")
+    check(tuple(U.shape) == (SLS_BATCH, N, 3) and tuple(phi_u.shape) == (SLS_BATCH, N, 2 * N)
+          and torch.equal(du, U[:, :, 0]) and torch.equal(phi_u[:, :, :2], U[:, :, 1:]),
+          "unexpected robust_dim 2 outputs")
+    t0 = time.perf_counter()
+    cert = certify_sls(A, B, cost, bounds, U, C_COEF, n_oracle=ROBUST2_N_ORACLE,
+                       workers=ROBUST2_N_ORACLE)
+    print(f"[sls robust_dim 2 main path] certificates ({time.perf_counter() - t0:.1f} s): "
+          f"converged_frac {cert['converged_frac']} (||U - P(U)|| < 5e-3; max "
+          f"{cert['prim_max']:.3e}), cone violation of U's rows {cert['cone_violation']:.3e} "
+          f"(limit {ROBUST2_VIOLATION_TOL:g}; f64 on the host 2.63e-3), oracle cost gap median "
+          f"{cert['cost_gap_median']:.3e} max {cert['cost_gap_max']:.3e} on instances "
+          f"{cert['oracle_indices']} (limits {ROBUST2_GAP_MEDIAN:g}, {ROBUST2_GAP_MAX:g}; f64 on "
+          f"the host 3.29e-4, 3.33e-4)")
+    check(cert["converged_frac"] >= 0.99, f"robust_dim 2 converged_frac {cert['converged_frac']}")
+    check(cert["cone_violation"] <= ROBUST2_VIOLATION_TOL,
+          f"robust_dim 2 cone violation {cert['cone_violation']}")
+    check(cert["cost_gap_median"] <= ROBUST2_GAP_MEDIAN and cert["cost_gap_max"] <= ROBUST2_GAP_MAX,
+          f"robust_dim 2 cost gap {cert['cost_gap_median']}, {cert['cost_gap_max']}")
+    timed = _timed({
+        "kernel": (lambda: sls_admm(*ops, solver.packed, **kw), TIMING_WINDOWS, CALLS_PER_WINDOW),
+        "plain": (lambda: sls_admm_reference(*ops, **kw), 1, 1),
+    })
+    for name, (med, q1, q3, n) in timed.items():
+        print(f"[sls robust_dim 2 time] {name}: {med:.4f} ms per solve (IQR {q1:.4f}-{q3:.4f}, "
+              f"{n} windows) = {SLS_BATCH / (med * 1e-3):.6g} syntheses/s; card: {card}")
+    z_flop, mm_flop = robust2_flops(solver, SLS_BATCH, kw["n_iters"])
+    ms_z = 1e3 * z_flop / PEAK_F32_FLOPS
+    ms_mm = 3e3 * mm_flop / PEAK_TF32_FLOPS
+    ms_bytes = 1e3 * (nbytes(bounds, solver.U_base, solver.W) + 4 * U.numel()) / PEAK_BYTES_PER_S
+    print(f"[sls robust_dim 2 bound] z-update {z_flop:.4g} f32 FLOP ({ms_z:.4f} ms at "
+          f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s), products {mm_flop:.4g} FLOP as 3xTF32 "
+          f"({ms_mm:.4f} ms), bytes {ms_bytes:.4f} ms")
+    bound_ms = max(ms_z, ms_mm, ms_bytes)
+    return {"launches": launches, "max_abs_err": errs["3xTF32"], "ms": timed["kernel"][0],
+            "plain_ms": timed["plain"][0], "bound_ms": bound_ms,
+            "bound_by": "bytes" if ms_bytes == bound_ms else "operations",
+            "bound_ops": "f32 CUDA cores (the consensus z-update)" if ms_z >= ms_mm
+            else "3xTF32 tensor cores"}
 
 
 def box_cases(device, batch: int = BATCH):
@@ -3492,6 +3806,10 @@ def main() -> int:
         max_err = run("u-only compare", phase_compare, cases)
         launches, _ = run("u-only main path", phase_main_path, solver, A, B, cost, x0s)
         times = run("u-only time", phase_time, solver, inputs, card)
+        wide_problem_, wide, wide_inputs, wide_cases_ = wide_cases("cuda")
+        wide_max_err = run("wide u-only compare", phase_compare, wide_cases_)
+        wide_launches, _ = run("wide u-only main path", phase_wide_main_path, wide, wide_problem_)
+        wide_times = run("wide u-only time", phase_wide_time, wide, wide_inputs, card)
         box = box_solver("cuda")
         box_max_err = run("box compare", phase_box_compare, "cuda")
         box_launches, _ = run("box main path", phase_box_main_path, box, x0s)
@@ -3501,6 +3819,7 @@ def main() -> int:
         sls_max_err = run("sls compare", phase_sls_compare, "cuda")
         sls_launches, _ = run("sls main path", phase_sls_main_path, sls, sls_fleet)
         sls_times = run("sls time", phase_sls_time, "cuda", card)
+        robust2 = run("sls robust_dim 2", phase_robust2, "cuda", card)
         riccati_max_err = run("riccati compare", phase_riccati_compare, "cuda")
         riccati_launches, _ = run("riccati main path", phase_riccati_main_path, "cuda")
         riccati_times = run("riccati time", phase_riccati_time, "cuda", card)
@@ -3537,7 +3856,10 @@ def main() -> int:
         run("implicit", phase_implicit, "cuda", card, facade_host)
         bounds = dict(run("fleet bounds", existing_bounds, solver, inputs, box[1], x0s,
                           sls[1], sls_fleet), **riccati_times["bounds"],
-                      linesearch_rollout=car_times["bound"])
+                      linesearch_rollout=car_times["bound"],
+                      admm_u_only_wide=wide_bound(wide, wide_inputs),
+                      sls_admm_robust_dim_2={k: robust2[k] for k in
+                                             ("bound_ms", "bound_by", "bound_ops")})
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
@@ -3554,6 +3876,17 @@ def main() -> int:
         "ms": times["kernel"],
         "plain_ms": times["plain"],
     }, {
+        # the wide route of the same TPU kernel, its own kernel: the bench
+        # row of bench_wide_certified.py (Nm = 512, refresh_every 8)
+        "name": "admm_u_only_wide",
+        "route": "cuda",
+        "source": "ilqr_admm_tpu_torch/csrc/admm_u_only_wide.cu",
+        "replaces": "ilqr_admm_tpu/ops/pallas_admm.py:90",
+        "launches": wide_launches,
+        "max_abs_err": wide_max_err,
+        "ms": wide_times["kernel"],
+        "plain_ms": wide_times["plain"],
+    }, {
         "name": "sls_admm",
         "route": "cuda",
         "source": "ilqr_admm_tpu_torch/csrc/sls_admm.cu",
@@ -3562,6 +3895,16 @@ def main() -> int:
         "max_abs_err": sls_max_err,
         "ms": sls_times[("diamond_ee", SLS_BATCH, "kernel")],
         "plain_ms": sls_times[("diamond_ee", SLS_BATCH, "plain")],
+    }, {
+        # the same kernel's consensus build at p1 = 3 on its own main path
+        "name": "sls_admm_robust_dim_2",
+        "route": "cuda",
+        "source": "ilqr_admm_tpu_torch/csrc/sls_admm.cu",
+        "replaces": "ilqr_admm_tpu/ops/pallas_sls.py:99",
+        "launches": robust2["launches"],
+        "max_abs_err": robust2["max_abs_err"],
+        "ms": robust2["ms"],
+        "plain_ms": robust2["plain_ms"],
     }, {
         "name": "admm_box",
         "route": "cuda",

@@ -23,8 +23,8 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-_SOURCES = ("admm_u_only.cu", "sls_admm.cu", "admm_box.cu", "riccati_scan.cu",
-            "linesearch_rollout.cu")
+_SOURCES = ("admm_u_only.cu", "admm_u_only_wide.cu", "sls_admm.cu", "admm_box.cu",
+            "riccati_scan.cu", "linesearch_rollout.cu")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libilqr_admm_torch.so"
@@ -106,15 +106,16 @@ def build() -> Path:
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare every signature."""
     lib = ctypes.CDLL(str(build()))
-    lib.admm_u_only_launch.argtypes = [
-        _P, _P, _P, _P, _P, _P,  # u_base, x_base, ops_f, ops_i (packed W_u, W_x), lo, hi
-        _P, _P, _P,  # x_out, u_out, zu_out
-        _I, _I, _I, _I,  # batch, Nm, Nd, batch_tile
-        _I, _I, _I,  # chunk_len, n_chunks, n_tail
-        _F, _F, _F,  # alpha, 1 - alpha, stop_tol
-        _P,  # stream
-    ]
-    lib.admm_u_only_launch.restype = _I
+    for launch in (lib.admm_u_only_launch, lib.admm_u_only_wide_launch):
+        launch.argtypes = [
+            _P, _P, _P, _P, _P, _P,  # u_base, x_base, ops_f, ops_i (packed W_u, W_x), lo, hi
+            _P, _P, _P,  # x_out, u_out, zu_out
+            _I, _I, _I, _I,  # batch, Nm, Nd, batch_tile
+            _I, _I, _I, _I,  # chunk_len, n_chunks, n_tail, refresh_every
+            _F, _F, _F,  # alpha, 1 - alpha, stop_tol
+            _P,  # stream
+        ]
+        launch.restype = _I
     lib.admm_u_only_error_string.argtypes = [_I]
     lib.admm_u_only_error_string.restype = ctypes.c_char_p
     lib.sls_admm_launch.argtypes = [

@@ -1,11 +1,14 @@
 // Fused box-constrained LQT-ADMM fleet, control bounds only, for sm_90a.
 //
 // Replaces the Pallas TPU kernel `_admm_kernel_u_only`
-// (ilqr_admm_tpu/ops/pallas_admm.py:90). Each CUDA block owns one tile of
-// `T` instances and runs the whole ADMM loop on it without leaving the SM:
+// (ilqr_admm_tpu/ops/pallas_admm.py:90) where W_u fits in a block's shared
+// memory (Nm <= 224; csrc/admm_u_only_wide.cu streams it from L2 beyond).
+// Each CUDA block owns one tile of `T` instances and runs the whole ADMM
+// loop on it without leaving the SM:
 //
 //     s     = z - lambda                  (the regularization target)
-//     u_hat = u_base + s @ W_u            (W_u = (Rr l_inv)^T, Nm x Nm)
+//     c     = s @ W_u                     (W_u = (Rr l_inv)^T, Nm x Nm)
+//     u_hat = u_base + c
 //     z     = clip(alpha u_hat + (1 - alpha) z + lambda, lo, hi)
 //     lambda= (lambda + u_hat) - z
 //
@@ -28,13 +31,20 @@
 //   each chunk, whose residual is the exit test, take 6xTF32 (the
 //   counterpart of `_dot6`), as the TPU kernel schedules its products.
 //   The x product after the loop is 3xTF32, as there.
+// - Delta products (refresh_every = r > 1, a separate build, DELTA): the
+//   first iteration of each block of r sets c in 3xTF32 and the r - 1
+//   others add (s - s_prev) @ W_u in one TF32 pass, the TPU kernel's
+//   c += bf16(s - s_prev) @ Wu_hi; c stays in the accumulators from one
+//   iteration to the next, and s rotates through three buffers, so an
+//   iteration still has one barrier (it reads s_k and s_k-1 and writes
+//   s_k+1 over s_k-2). The r = 1 builds are the code they were before.
 // - W_u lives in shared memory as 8 x 8 blocks in B-fragment order, the
 //   n-tiles in interleaved pairs (`pair_pack` in ops/fused_admm.py); W_x
 //   in the same storage is read from device memory (L2) once, after the
 //   loop.
-// - s goes to shared memory group-major (`a_pos`), double buffered, so an
-//   iteration has one barrier and every inner-loop address is a base plus
-//   a constant.
+// - s goes to shared memory group-major (`a_pos`), double buffered (triple
+//   with delta products), so an iteration has one barrier and every
+//   inner-loop address is a base plus a constant.
 // - Work: a warp owns one piece, an output pair of n-tiles (16 u columns)
 //   for two m-tiles (32 instances), or the last single n-tile for one
 //   m-tile, over the whole k range: no partial sums change hands. At T =
@@ -76,7 +86,7 @@ struct Problem {
   float* x_out;
   float* u_out;
   float* zu_out;
-  int Nm, Nd, chunk_len, n_chunks, n_tail;
+  int Nm, Nd, chunk_len, n_chunks, n_tail, refresh_every;
   float alpha, one_minus_alpha, stop_tol;
 };
 
@@ -84,11 +94,14 @@ struct Problem {
 // block's T = 16 MT instances, the nb n-tiles of pair row `pr` of W_u's
 // table. Every warp runs the same sequence of barriers. `residual` has
 // three words: chunk ch folds its max into word ch % 3 and clears word
-// (ch + 1) % 3, whose last readers have passed a barrier since.
-template <int MT, int MW, bool RELAX>
+// (ch + 1) % 3, whose last readers have passed a barrier since. DELTA:
+// refresh_every > 1, so c = s W_u stays in this thread's accumulators
+// from one iteration to the next and s rotates through three buffers
+// (s2 unused otherwise).
+template <int MT, int MW, bool RELAX, bool DELTA>
 __device__ __forceinline__ void solve(const Problem P, const float* ops, float* s0, float* s1,
-                                      const float* lo, const float* hi, float* zslots,
-                                      unsigned int* residual, int pr, int m0) {
+                                      float* s2, const float* lo, const float* hi,
+                                      float* zslots, unsigned int* residual, int pr, int m0) {
   constexpr int T = 16 * MT;
   constexpr int LDA = 8 * T;
   constexpr int MX = MT >= 2 ? 2 : 1;  // m-tiles of an x-product piece
@@ -135,12 +148,10 @@ __device__ __forceinline__ void solve(const Problem P, const float* ops, float* 
   }
   __syncthreads();  // W_u, the bounds and s0 staged
 
-  // One iteration from s_in into s_out. six: 6xTF32; out: store u and z;
-  // test: fold max |u_hat - z| into word `test - 1` of the residual
-  auto iterate = [&](const float* s_in, float* s_out, bool six, bool out, int test) {
-    float acc[2][MW][4];
-    if (six) product_nb<MW, 1, LDA, true>(acc, nb, s_in + a_off, b, klo, khi, lane, g, t);
-    else product_nb<MW, RELAX ? 1 : 2, LDA, false>(acc, nb, s_in + a_off, b, klo, khi, lane, g, t);
+  // The rest of an iteration from acc = s W_u: u_hat, the box and dual
+  // updates, s into s_out. out: store u and z; test: fold max |u_hat - z|
+  // into word `test - 1` of the residual
+  auto finish = [&](const float (&acc)[2][MW][4], float* s_out, bool out, int test) {
     unsigned int m = 0u;
 #pragma unroll
     for (int n = 0; n < 2; ++n) {
@@ -191,27 +202,76 @@ __device__ __forceinline__ void solve(const Problem P, const float* ops, float* 
     }
   };
 
+  // One iteration from s_in into s_out. six: 6xTF32
+  auto iterate = [&](const float* s_in, float* s_out, bool six, bool out, int test) {
+    float acc[2][MW][4];
+    if (six) product_nb<MW, 1, LDA, true>(acc, nb, s_in + a_off, b, klo, khi, lane, g, t);
+    else product_nb<MW, RELAX ? 1 : 2, LDA, false>(acc, nb, s_in + a_off, b, klo, khi, lane, g, t);
+    finish(acc, s_out, out, test);
+  };
+
   const bool early_exit = P.stop_tol > 0.0f;
-  int p = 0;                // buffer the next iteration reads
   const float* s_last = s0;  // the s that produced the last u_hat
-  for (int ch = 0; ch < P.n_chunks; ++ch) {
-    for (int it = 0; it < P.chunk_len; ++it) {
-      const bool chunk_end = it == P.chunk_len - 1;
+  if constexpr (DELTA) {
+    // kind 0: c = s W_u in 3xTF32; 1: c += (s - s_prev) W_u in one TF32
+    // pass; 2: c = s W_u in 6xTF32. Iteration k reads s_k (sa) and
+    // s_k-1 (sp) and writes s_k+1 (sb), the buffer of s_k-2, whose last
+    // readers have passed a barrier since
+    float c[2][MW][4];
+    float *sa = s0, *sb = s1, *sp = s2;
+    auto step = [&](int kind, bool out, int test) {
+      if (kind == 2) {
+        product_nb<MW, 1, LDA, true>(c, nb, sa + a_off, b, klo, khi, lane, g, t);
+      } else if (kind == 0) {
+        product_nb<MW, RELAX ? 1 : 2, LDA, false>(c, nb, sa + a_off, b, klo, khi, lane, g, t);
+      } else {
+        float d[2][MW][4];
+        product1_nb<MW, 2, LDA>(d, nb, sa + a_off, sp + a_off, b, klo, khi, lane, g, t);
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int mt = 0; mt < MW; ++mt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) c[n][mt][i] = add(c[n][mt][i], d[n][mt][i]);
+      }
+      finish(c, sb, out, test);
+      s_last = sa;
+      float* used = sp;
+      sp = sa;
+      sa = sb;
+      sb = used;
+      __syncthreads();
+    };
+    for (int ch = 0; ch < P.n_chunks; ++ch) {
+      for (int it = 0; it < P.chunk_len; ++it) {
+        const bool chunk_end = it == P.chunk_len - 1;
+        step(early_exit && chunk_end ? 2 : (it % P.refresh_every ? 1 : 0),
+             P.n_tail == 0 && chunk_end, early_exit && chunk_end ? ch % 3 + 1 : 0);
+      }
+      if (early_exit && !(__uint_as_float(residual[ch % 3]) >= P.stop_tol)) break;
+    }
+    for (int it = 0; it < P.n_tail; ++it) step(2, it == P.n_tail - 1, 0);
+  } else {
+    int p = 0;  // buffer the next iteration reads
+    for (int ch = 0; ch < P.n_chunks; ++ch) {
+      for (int it = 0; it < P.chunk_len; ++it) {
+        const bool chunk_end = it == P.chunk_len - 1;
+        const float* s_in = p ? s1 : s0;
+        iterate(s_in, p ? s0 : s1, early_exit && chunk_end, P.n_tail == 0 && chunk_end,
+                early_exit && chunk_end ? ch % 3 + 1 : 0);
+        s_last = s_in;
+        p ^= 1;
+        __syncthreads();
+      }
+      if (early_exit && !(__uint_as_float(residual[ch % 3]) >= P.stop_tol)) break;
+    }
+    for (int it = 0; it < P.n_tail; ++it) {
       const float* s_in = p ? s1 : s0;
-      iterate(s_in, p ? s0 : s1, early_exit && chunk_end, P.n_tail == 0 && chunk_end,
-              early_exit && chunk_end ? ch % 3 + 1 : 0);
+      iterate(s_in, p ? s0 : s1, true, it == P.n_tail - 1, 0);
       s_last = s_in;
       p ^= 1;
       __syncthreads();
     }
-    if (early_exit && !(__uint_as_float(residual[ch % 3]) >= P.stop_tol)) break;
-  }
-  for (int it = 0; it < P.n_tail; ++it) {
-    const float* s_in = p ? s1 : s0;
-    iterate(s_in, p ? s0 : s1, true, it == P.n_tail - 1, 0);
-    s_last = s_in;
-    p ^= 1;
-    __syncthreads();
   }
 
   // x = x_base + s W_x: pieces of (pair of W_x's n-tiles, MX m-tiles),
@@ -245,7 +305,7 @@ __device__ __forceinline__ void solve(const Problem P, const float* ops, float* 
 // m-tiles (MW = 2 when MT >= 2), in order, then the last single n-tile
 // (when Nm / 8 rounds up to an odd count) cut into MT pieces of one
 // m-tile. Warp w takes piece w.
-template <int MT, bool RELAX>
+template <int MT, bool RELAX, bool DELTA>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1) admm_u_only_kernel(Problem P) {
   constexpr int T = 16 * MT;
   constexpr int MW = MT >= 2 ? 2 : 1;
@@ -253,9 +313,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) admm_u_only_kernel(Problem 
   __shared__ unsigned int residual[3];
   const int n1 = (P.Nm + 7) / 8;
   float* ops = reinterpret_cast<float*>(smem_f4);  // room for a dense W_u
-  float* s0 = ops + kBlock * n1 * n1;              // two s buffers, group-major
+  float* s0 = ops + kBlock * n1 * n1;              // two s buffers (three: DELTA), group-major
   float* s1 = s0 + T * 8 * n1;
-  float* lo = s1 + T * 8 * n1;  // the bounds, zero-padded to 8 n1
+  float* s2 = s1 + T * 8 * n1;
+  float* lo = (DELTA ? s2 : s1) + T * 8 * n1;  // the bounds, zero-padded to 8 n1
   float* hi = lo + 8 * n1;
   float* zslots = hi + 8 * n1;  // with alpha != 1: 16 floats a thread
 
@@ -273,10 +334,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) admm_u_only_kernel(Problem 
   const int warp = tid / 32;
   const int pair_pieces = (n1 / 2) * (MT / MW);
   if (warp < pair_pieces) {
-    solve<MT, MW, RELAX>(P, ops, s0, s1, lo, hi, zslots, residual, warp / (MT / MW),
-                         (warp % (MT / MW)) * MW);
+    solve<MT, MW, RELAX, DELTA>(P, ops, s0, s1, s2, lo, hi, zslots, residual,
+                                warp / (MT / MW), (warp % (MT / MW)) * MW);
   } else {
-    solve<MT, 1, RELAX>(P, ops, s0, s1, lo, hi, zslots, residual, n1 / 2, warp - pair_pieces);
+    solve<MT, 1, RELAX, DELTA>(P, ops, s0, s1, s2, lo, hi, zslots, residual, n1 / 2,
+                               warp - pair_pieces);
   }
 }
 
@@ -286,27 +348,35 @@ extern "C" int admm_u_only_launch(const void* u_base, const void* x_base, const 
                                   const void* ops_i, const void* lo, const void* hi,
                                   void* x_out, void* u_out, void* zu_out, int batch, int Nm,
                                   int Nd, int T, int chunk_len, int n_chunks, int n_tail,
-                                  float alpha, float one_minus_alpha, float stop_tol,
-                                  void* stream) {
+                                  int refresh_every, float alpha, float one_minus_alpha,
+                                  float stop_tol, void* stream) {
   if (Nm <= 0 || Nd <= 0 || (T != 16 && T != 32 && T != 64) || batch <= 0 || batch % T != 0 ||
-      chunk_len < 0 || n_chunks < 0 || n_tail < 0)
+      chunk_len < 0 || n_chunks < 0 || n_tail < 0 || refresh_every < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int MT = T / 16, MW = MT >= 2 ? 2 : 1;
   const int n1 = (Nm + 7) / 8;
   const int warps = (n1 / 2) * (MT / MW) + (n1 % 2) * MT;
   if (warps > kMaxWarps) return static_cast<int>(cudaErrorInvalidValue);
-  const bool relax = alpha != 1.0f;
+  const bool relax = alpha != 1.0f, delta = refresh_every > 1;
   const size_t smem = sizeof(float) * (static_cast<size_t>(kBlock) * n1 * n1 +
-                                       2 * static_cast<size_t>(T) * 8 * n1 + 16 * n1 +
-                                       (relax ? 16 * 32 * warps : 0));
+                                       (delta ? 3 : 2) * static_cast<size_t>(T) * 8 * n1 +
+                                       16 * n1 + (relax ? 16 * 32 * warps : 0));
   Problem P{static_cast<const float*>(u_base), static_cast<const float*>(x_base),
             static_cast<const float*>(ops_f), static_cast<const int*>(ops_i),
             static_cast<const float*>(lo), static_cast<const float*>(hi),
             static_cast<float*>(x_out), static_cast<float*>(u_out), static_cast<float*>(zu_out),
-            Nm, Nd, chunk_len, n_chunks, n_tail, alpha, one_minus_alpha, stop_tol};
-  auto kernel = T == 64 ? (relax ? admm_u_only_kernel<4, true> : admm_u_only_kernel<4, false>)
-              : T == 32 ? (relax ? admm_u_only_kernel<2, true> : admm_u_only_kernel<2, false>)
-                        : (relax ? admm_u_only_kernel<1, true> : admm_u_only_kernel<1, false>);
+            Nm, Nd, chunk_len, n_chunks, n_tail, refresh_every, alpha, one_minus_alpha,
+            stop_tol};
+  using Kernel = void (*)(Problem);
+  // [T / 32 (0, 1, 2 for 16, 32, 64)][relax][delta]
+  static const Kernel kernels[3][2][2] = {
+      {{admm_u_only_kernel<1, false, false>, admm_u_only_kernel<1, false, true>},
+       {admm_u_only_kernel<1, true, false>, admm_u_only_kernel<1, true, true>}},
+      {{admm_u_only_kernel<2, false, false>, admm_u_only_kernel<2, false, true>},
+       {admm_u_only_kernel<2, true, false>, admm_u_only_kernel<2, true, true>}},
+      {{admm_u_only_kernel<4, false, false>, admm_u_only_kernel<4, false, true>},
+       {admm_u_only_kernel<4, true, false>, admm_u_only_kernel<4, true, true>}}};
+  const Kernel kernel = kernels[T / 32][relax][delta];
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);

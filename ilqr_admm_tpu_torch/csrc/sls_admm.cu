@@ -2,20 +2,22 @@
 //
 // Replaces the Pallas TPU kernel `_sls_admm_kernel`
 // (ilqr_admm_tpu/ops/pallas_sls.py:99). The decision matrix of each
-// instance is two column slabs of Nm rows ([du | phi_u column]). Each CUDA
-// block owns one tile of T instances and runs the whole ADMM loop on it
-// without leaving the SM:
+// instance is p1 = robust_dim + 1 column slabs of Nm rows ([du | phi_u
+// columns]). Each CUDA block owns one tile of T instances and runs the
+// whole ADMM loop on it without leaving the SM:
 //
-//     s_k = Z_k - L_k                         (k = 0, 1)
+//     s_k = Z_k - L_k                         (k = 0 .. p1 - 1)
 //     U_k = U_base_k + s_k @ W                (W = (l_inv Rr)^T, Nm x Nm)
 //     Z   = P(alpha U + (1 - alpha) Z + L)    (row by row, coupling the slabs)
 //     L   = L + U - Z
 //
 // from Z = U_base, L = 0. P is the exact projection of each row onto the
-// diamond w0 |du| + w1 |phi| <= bound (`Diamond`), or a fixed-count
-// consensus ADMM onto an intersection of second-order cones
-// (`Consensus<2, NSETS, Q>`, the TPU kernel's trace-time constants passed
-// by value in the kernel's parameters). U is written as (batch, Nm, 2).
+// diamond w0 |du| + w1 |phi| <= bound (`Diamond`, p1 = 2), or a
+// fixed-count consensus ADMM onto an intersection of second-order cones
+// (`Consensus<P1, NSETS, Q>`, the TPU kernel's trace-time constants passed
+// by value in the kernel's parameters; built for (p1, NSETS, Q) = (2, 2,
+// 3) and (3, 2, 4), the rows of the (3, 2, 4) build one at a time so that
+// registers stay bounded). U is written as (batch, Nm, p1).
 //
 // What bounds it on an H100: the bench's serving solve (B = 1024, Nm =
 // 100, diamond z-update, early exit) runs 64-208 iterations a tile, each
@@ -39,11 +41,14 @@
 //   setup and s where it is stored, then loading both parts, measured no
 //   faster on an H100, for twice the shared memory (the loads cost what
 //   the splits did).
-// - The tile's 2 T rows are slab-major in each 16-row m-tile: rows 0-7 are
-//   slab 0 (du) of instances 0-7, rows 8-15 slab 1 (phi) of the same
-//   instances. An accumulator holds rows g and g + 8 of columns 2 t and
-//   2 t + 1, so both slabs of instance g at a column sit in one thread,
-//   and the z-update, which couples them, runs in the accumulator layout:
+// - Each group of 8 instances has ceil(p1 / 2) 16-row m-tiles, slab-major:
+//   rows 0-7 of m-tile j are slab 2 j of instances 0-7, rows 8-15 slab
+//   2 j + 1 of the same instances (a zero slab after an odd p1: its rows
+//   are held at 0 and cost a quarter of the products at p1 = 3). An
+//   accumulator holds rows g and g + 8 of columns 2 t and 2 t + 1, and one
+//   warp owns all of a group's m-tiles for its columns, so every slab of
+//   instance g at a column sits in one thread, and the z-update, which
+//   couples them, runs in the accumulator layout:
 //   U = U_base + acc, the projection and the dual update in registers, Z
 //   and L in registers for the whole solve. The consensus z-update takes a
 //   thread's rows two at a time, their inner iterations two independent
@@ -53,14 +58,15 @@
 //   shared memory group-major (`a_pos`), double buffered, so an iteration
 //   has one barrier.
 // - Work: a warp owns one piece, a pair of W's n-tiles (16 columns) or the
-//   last single n-tile, for one m-tile (`sls_pieces` in ops/fused_sls.py):
+//   last single n-tile, for one instance group (`sls_pieces` in
+//   ops/fused_sls.py):
 //   at T = 8 and Nm = 100, 6 pairs and 1 single, 7 warps (14 at T = 16).
 //   So each thread's rows are all of one instance, and the consensus
 //   z-update keeps one set of cone offsets for them. With k_split = 2 each
 //   piece's k range is split over two warps, which hand their partial sums
 //   over through shared memory: half the chain of dependent mma, for a
-//   second barrier an iteration. The wrapper takes it where the fleet has
-//   at most one block an SM (`k_split` in ops/fused_sls.py), as at the
+//   second barrier an iteration (built for p1 = 2). The wrapper takes it
+//   where the fleet has at most one block an SM (`k_split` in ops/fused_sls.py), as at the
 //   bench's 1,024 instances; with more blocks an SM they hide each other's
 //   latency and the split only costs (tools/sls_admm_variants.py times
 //   both).
@@ -104,6 +110,8 @@ __device__ __forceinline__ float sign_of(float x) {
 
 // Exact projection of rows (a, b) onto {w0 |a| + w1 |b| <= r}.
 struct Diamond {
+  static constexpr int kP1 = 2;
+  static constexpr int kRows = 0;  // projects all of a thread's rows at once
   float w0, w1, den;  // den = w0^2 + w1^2, rounded from f64
 
   // R rows of one instance, whose bound is r
@@ -135,6 +143,11 @@ struct Diamond {
 template <int P1, int NSETS, int Q>
 struct Consensus {
   static_assert(NSETS >= 1 && Q >= 2, "consensus needs a set with a cone of dimension >= 2");
+  static constexpr int kP1 = P1;
+  // rows whose inner iterations run side by side: two while a row's
+  // consensus state (2 NSETS Q floats) is at most 12, else one, so that
+  // registers stay bounded
+  static constexpr int kRows = 2 * NSETS * Q <= 12 ? 2 : 1;
   float a[NSETS][Q][P1];      // soc_A
   float rho_a[NSETS][Q][P1];  // cons_rho * soc_A
   float b_fixed[NSETS][Q];
@@ -209,27 +222,25 @@ struct Consensus {
   }
 
   // R rows of one instance (bound `bound`, so one set of cone offsets b),
-  // two at a time: a pair's inner iterations run side by side in each pass
-  // of the loop, two independent chains (four spill on the 128 registers
-  // a thread has)
+  // kRows at a time: with two, a pair's inner iterations run side by side
+  // in each pass of the loop, two independent chains (four spill on the
+  // 128 registers a thread has)
   template <int R>
   __device__ __forceinline__ void project(const float (&y)[R][P1], float bound,
                                           float (&out)[R][P1]) const {
-    static_assert(R % 2 == 0, "rows come in (column 2 t, column 2 t + 1) pairs");
+    static_assert(R % kRows == 0, "rows come in (column 2 t, column 2 t + 1) pairs");
 #pragma unroll
-    for (int k0 = 0; k0 < R; k0 += 2) {
-      float yp[2][P1], op[2][P1];
+    for (int k0 = 0; k0 < R; k0 += kRows) {
+      float yp[kRows][P1], op[kRows][P1];
 #pragma unroll
-      for (int j = 0; j < P1; ++j) {
-        yp[0][j] = y[k0][j];
-        yp[1][j] = y[k0 + 1][j];
-      }
-      project_rows<2>(yp, bound, op);
+      for (int r = 0; r < kRows; ++r)
 #pragma unroll
-      for (int j = 0; j < P1; ++j) {
-        out[k0][j] = op[0][j];
-        out[k0 + 1][j] = op[1][j];
-      }
+        for (int j = 0; j < P1; ++j) yp[r][j] = y[k0 + r][j];
+      project_rows<kRows>(yp, bound, op);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+#pragma unroll
+        for (int j = 0; j < P1; ++j) out[k0 + r][j] = op[r][j];
     }
   }
 
@@ -268,20 +279,21 @@ struct Consensus {
 
 struct Problem {
   const float* bounds;  // (batch,)
-  const float* U_base;  // (2, Nm)
+  const float* U_base;  // (p1, Nm)
   const float* ops_f;   // W's blocks (pair_pack storage)
   const int* ops_i;     // its pair table: (offset, klo, khi, nb) rows
-  float* U_out;         // (batch, Nm, 2)
+  float* U_out;         // (batch, Nm, p1)
   int Nm, n_ops, chunk_len, n_chunks;
   float alpha, one_minus_alpha, stop_tol;
 };
 
-// The whole solve of one warp's piece: m-tile m0 of the block's T = 8 MT
-// instances, the NB n-tiles of pair row `pr` of W's table, k-steps
-// [klo, khi) of it, or half `half` of them when the piece is split over
-// KS = 2 warps. A piece is one m-tile, so a thread's rows are all of one
-// instance (row g of the m-tile). The warp owns NO n-tiles in the
-// epilogue: all NB, or with a split tile `half` of a pair (the single
+// The whole solve of one warp's piece: instance group m0 (8 instances,
+// MS = ceil(p1 / 2) m-tiles: slabs 2 j and 2 j + 1 in m-tile j, a zero slab
+// after an odd p1) of the block's MT groups, the NB n-tiles of pair row
+// `pr` of W's table, k-steps [klo, khi) of it, or half `half` of them when
+// the piece is split over KS = 2 warps (p1 = 2 only). A thread's rows are
+// all of one instance (row g of each m-tile). The warp owns NO n-tiles in
+// the epilogue: all NB, or with a split tile `half` of a pair (the single
 // tile: half 0). Every warp runs the same sequence of barriers.
 // `residual` has three words: chunk ch folds its max into word ch % 3 and
 // clears word (ch + 1) % 3, whose last readers have passed a barrier
@@ -290,9 +302,15 @@ template <int MT, int KS, int NB, class ZU>
 __device__ __forceinline__ void solve(const Problem& P, const ZU& zu, const float* ops, float* s0,
                                       float* s1, float* slots, unsigned int* residual, int pr,
                                       int m0, int half) {
-  constexpr int LDA = 16 * MT * 8;
+  constexpr int P1 = ZU::kP1;
+  constexpr int MS = (P1 + 1) / 2;           // m-tiles of an instance group
+  static_assert(KS == 1 || MS == 1, "the k split is built for p1 = 2");
+  constexpr int LDA = 16 * MT * MS * 8;
   constexpr int NO = KS == 1 ? NB : 1;  // n-tiles the warp owns
-  constexpr int R = NO * 2;                  // (du, phi) rows a thread projects
+  constexpr int R = NO * 2;                  // rows (columns of the p1 slabs) a thread projects
+  // rows the epilogue takes at a time: all, or one where the z-update
+  // runs one row at a time (so that registers stay bounded)
+  constexpr int RC = ZU::kRows == 1 ? 1 : R;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int* row = P.ops_i + 4 * pr;
@@ -301,35 +319,46 @@ __device__ __forceinline__ void solve(const Problem& P, const ZU& zu, const floa
   const int k0 = KS == 2 && half ? kmid : klo;
   const int k1 = KS == 2 && !half ? kmid : khi;
   const float* b = ops + off + (k0 - klo) * NB * kBlock;
-  const int a_off = 16 * m0 * 8;  // the piece's first row in an A buffer
+  const int a_off = 16 * MS * m0 * 8;  // the piece's first row in an A buffer
   // the first owned n-tile, as a column offset, and whether any is owned
   const int own = KS == 2 && NB == 2 ? half : 0;
   const bool owns = KS == 1 || NB == 2 || half == 0;
   const int c_own = 8 * (2 * pr + own);
   const size_t inst = static_cast<size_t>(blockIdx.x) * 8 * MT + 8 * m0 + g;
   const float bound = P.bounds[inst];
-  float* u_out = P.U_out + inst * P.Nm * 2;
+  float* u_out = P.U_out + inst * P.Nm * P1;
 
-  // ub[o][i]: U_base of slab i / 2 at column c_own + 8 o + 2 t + i % 2;
-  // z and lam in the accumulator layout of the owned tiles
-  float ub[NO][4], z[NO][1][4], lam[NO][1][4];
+  // ub[o][j][i]: U_base of slab 2 j + i / 2 at column c_own + 8 o + 2 t +
+  // i % 2 (0 for the zero slab); z and lam in the accumulator layout of
+  // the owned tiles
+  float ub[NO][MS][4], z[NO][MS][4], lam[NO][MS][4];
 #pragma unroll
   for (int o = 0; o < NO; ++o) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = c_own + 8 * o + 2 * t + (i & 1);
-      ub[o][i] = c < P.Nm ? P.U_base[(i >> 1) * P.Nm + c] : 0.0f;
-      z[o][0][i] = ub[o][i];
-      lam[o][0][i] = 0.0f;
-    }
+    for (int j = 0; j < MS; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = c_own + 8 * o + 2 * t + (i & 1);
+        const int slab = 2 * j + (i >> 1);
+        ub[o][j][i] = c < P.Nm && slab < P1 ? P.U_base[slab * P.Nm + c] : 0.0f;
+        z[o][j][i] = ub[o][j][i];
+        lam[o][j][i] = 0.0f;
+      }
     if (owns) {
-      store_piece_s<LDA, 1>(s0 + a_off, c_own + 8 * o, g, t, z[o], lam[o]);
+      store_piece_s<LDA, MS>(s0 + a_off, c_own + 8 * o, g, t, z[o], lam[o]);
       if (P.chunk_len * P.n_chunks == 0) {  // no iterations: U = U_base
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = c_own + 8 * o + 2 * t + e;
-          if (c < P.Nm)
-            *reinterpret_cast<float2*>(u_out + 2 * c) = make_float2(ub[o][e], ub[o][2 + e]);
+          if (c < P.Nm) {
+            if constexpr (P1 == 2) {
+              *reinterpret_cast<float2*>(u_out + 2 * c) =
+                  make_float2(ub[o][0][e], ub[o][0][2 + e]);
+            } else {
+#pragma unroll
+              for (int q = 0; q < P1; ++q) u_out[P1 * c + q] = ub[o][q / 2][2 * (q % 2) + e];
+            }
+          }
         }
       }
     }
@@ -339,14 +368,16 @@ __device__ __forceinline__ void solve(const Problem& P, const ZU& zu, const floa
   // One iteration from s_in into s_out. out: store U; test: fold the
   // residual into word `test - 1`
   auto iterate = [&](const float* s_in, float* s_out, bool out, int test) {
-    float acc[2][1][4];
-    product<1, NB, 2, LDA>(acc, s_in + a_off, b, k0, k1, lane, g, t);
-    float v[NO][4];  // the owned tiles' sums
+    float acc[2][MS][4];
+    product<MS, NB, 2, LDA>(acc, s_in + a_off, b, k0, k1, lane, g, t);
+    float v[NO][MS][4];  // the owned tiles' sums
     if constexpr (KS == 1) {
 #pragma unroll
       for (int o = 0; o < NO; ++o)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) v[o][i] = acc[o][0][i];
+        for (int j = 0; j < MS; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) v[o][j][i] = acc[o][j][i];
     } else {
       // hand the partial of the partner's tile over; element e of a
       // warp's slot at slot[32 e]
@@ -362,49 +393,57 @@ __device__ __forceinline__ void solve(const Problem& P, const ZU& zu, const floa
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float mine_sum = NB == 2 && half == 1 ? acc[NB - 1][0][i] : acc[0][0][i];
-        v[0][i] = owns ? add(mine_sum, theirs[32 * i]) : 0.0f;
+        v[0][0][i] = owns ? add(mine_sum, theirs[32 * i]) : 0.0f;
       }
     }
     unsigned int m = 0u;
     if (owns) {
-      // row k = 2 o + e: column c_own + 8 o + 2 t + e; slab p is
-      // accumulator element 2 p + e
-      float u[R][2], y[R][2], zn[R][2];
+      // row k = 2 o + e: column c_own + 8 o + 2 t + e; slab q is
+      // accumulator element 2 (q % 2) + e of m-tile q / 2
 #pragma unroll
-      for (int o = 0; o < NO; ++o)
+      for (int k0 = 0; k0 < R; k0 += RC) {
+        float u[RC][P1], y[RC][P1], zn[RC][P1];
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
+        for (int r = 0; r < RC; ++r) {
+          const int o = (k0 + r) / 2, e = (k0 + r) % 2;
 #pragma unroll
-          for (int p = 0; p < 2; ++p) {
-            const int i = 2 * p + e;
-            u[2 * o + e][p] = add(ub[o][i], v[o][i]);
-            y[2 * o + e][p] = add(add(mul(P.alpha, u[2 * o + e][p]),
-                                      mul(P.one_minus_alpha, z[o][0][i])), lam[o][0][i]);
+          for (int q = 0; q < P1; ++q) {
+            const int j = q / 2, i = 2 * (q % 2) + e;
+            u[r][q] = add(ub[o][j][i], v[o][j][i]);
+            y[r][q] = add(add(mul(P.alpha, u[r][q]), mul(P.one_minus_alpha, z[o][j][i])),
+                          lam[o][j][i]);
           }
-      zu.template project<R>(y, bound, zn);
+        }
+        zu.template project<RC>(y, bound, zn);
 #pragma unroll
-      for (int o = 0; o < NO; ++o) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int k = 2 * o + e;
+        for (int r = 0; r < RC; ++r) {
+          const int o = (k0 + r) / 2, e = (k0 + r) % 2;
           const int c = c_own + 8 * o + 2 * t + e;
           const bool valid = c < P.Nm;
 #pragma unroll
-          for (int p = 0; p < 2; ++p) {
-            const int i = 2 * p + e;
-            const float znp = valid ? zn[k][p] : 0.0f;
+          for (int q = 0; q < P1; ++q) {
+            const int j = q / 2, i = 2 * (q % 2) + e;
+            const float znq = valid ? zn[r][q] : 0.0f;
             if (test && valid) {
-              m = max(m, __float_as_uint(fabsf(sub(u[k][p], znp))));
-              m = max(m, __float_as_uint(fabsf(sub(znp, z[o][0][i]))));
+              m = max(m, __float_as_uint(fabsf(sub(u[r][q], znq))));
+              m = max(m, __float_as_uint(fabsf(sub(znq, z[o][j][i]))));
             }
-            lam[o][0][i] = sub(add(lam[o][0][i], u[k][p]), znp);
-            z[o][0][i] = znp;
+            lam[o][j][i] = sub(add(lam[o][j][i], u[r][q]), znq);
+            z[o][j][i] = znq;
           }
-          if (out && valid)
-            *reinterpret_cast<float2*>(u_out + 2 * c) = make_float2(u[k][0], u[k][1]);
+          if (out && valid) {
+            if constexpr (P1 == 2) {
+              *reinterpret_cast<float2*>(u_out + 2 * c) = make_float2(u[r][0], u[r][1]);
+            } else {
+#pragma unroll
+              for (int q = 0; q < P1; ++q) u_out[P1 * c + q] = u[r][q];
+            }
+          }
         }
-        store_piece_s<LDA, 1>(s_out + a_off, c_own + 8 * o, g, t, z[o], lam[o]);
       }
+#pragma unroll
+      for (int o = 0; o < NO; ++o)
+        store_piece_s<LDA, MS>(s_out + a_off, c_own + 8 * o, g, t, z[o], lam[o]);
     }
     if (test) {
       // max over non-negative floats as unsigned bits; a NaN residual
@@ -429,18 +468,20 @@ __device__ __forceinline__ void solve(const Problem& P, const ZU& zu, const floa
   }
 }
 
-// Pieces: W's pairs of n-tiles, each cut into MT pieces of one m-tile, in
-// order, then the last single n-tile (when Nm / 8 rounds up to an odd
-// count) cut likewise. Warp w takes piece w / KS (half w % KS of it).
+// Pieces: W's pairs of n-tiles, each cut into MT pieces of one instance
+// group (its MS m-tiles), in order, then the last single n-tile (when
+// Nm / 8 rounds up to an odd count) cut likewise. Warp w takes piece
+// w / KS (half w % KS of it).
 template <int MT, int KS, class ZU>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1) sls_admm_kernel(Problem P, ZU zu) {
+  constexpr int MS = (ZU::kP1 + 1) / 2;
   extern __shared__ float4 smem_f4[];
   __shared__ unsigned int residual[3];
   const int n1 = (P.Nm + 7) / 8;
   float* ops = reinterpret_cast<float*>(smem_f4);  // room for a dense W
   float* s0 = ops + kBlock * n1 * n1;              // two s buffers, group-major
-  float* s1 = s0 + 16 * MT * 8 * n1;
-  float* slots = s1 + 16 * MT * 8 * n1;            // with a k split: 4 floats a thread
+  float* s1 = s0 + 16 * MT * MS * 8 * n1;
+  float* slots = s1 + 16 * MT * MS * 8 * n1;       // with a k split: 4 floats a thread
 
   const int tid = threadIdx.x;
   const float4* src = reinterpret_cast<const float4*>(P.ops_f);
@@ -458,12 +499,13 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) sls_admm_kernel(Problem P, 
 
 template <int MT, int KS, class ZU>
 int launch(const Problem& P, int batch, const ZU& zu, cudaStream_t stream) {
+  constexpr int MS = (ZU::kP1 + 1) / 2;
   const int n1 = (P.Nm + 7) / 8;
   const int warps = KS * (n1 / 2 + n1 % 2) * MT;
   if (warps > kMaxWarps || P.n_ops > kBlock * n1 * n1)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * (static_cast<size_t>(kBlock) * n1 * n1 +
-                                       2 * static_cast<size_t>(16) * MT * 8 * n1 +
+                                       2 * static_cast<size_t>(16) * MT * MS * 8 * n1 +
                                        (KS == 2 ? static_cast<size_t>(warps) * 32 * 4 : 0));
   cudaError_t err = cudaFuncSetAttribute(sls_admm_kernel<MT, KS, ZU>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -473,13 +515,18 @@ int launch(const Problem& P, int batch, const ZU& zu, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// T = 16 has 14 warps at Nm = 100, so its pieces are never split
+// T = 16 has 14 warps at Nm = 100, so its pieces are never split; the
+// split is built for p1 = 2
 template <class ZU>
 int launch(const Problem& P, int batch, int T, int k_split, const ZU& zu, cudaStream_t stream) {
   if (T == 16)
     return k_split == 1 ? launch<2, 1>(P, batch, zu, stream)
                         : static_cast<int>(cudaErrorInvalidValue);
-  return k_split == 2 ? launch<1, 2>(P, batch, zu, stream) : launch<1, 1>(P, batch, zu, stream);
+  if constexpr (ZU::kP1 == 2) {
+    if (k_split == 2) return launch<1, 2>(P, batch, zu, stream);
+  }
+  return k_split == 1 ? launch<1, 1>(P, batch, zu, stream)
+                      : static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int P1, int NSETS, int Q>
@@ -505,17 +552,17 @@ Consensus<P1, NSETS, Q> unpack_consensus(const float* c, int n_iters) {
 }  // namespace
 
 // W arrives packed (ops_f, n_ops floats; ops_i, its pair table). z_update:
-// 0 = diamond (coeffs = w0, w1, w0^2 + w1^2), 1 = consensus (coeffs
-// packed as in unpack_consensus). p1 must be 2, T 8 or 16, k_split (warps a piece) 1
-// or 2. The instantiated consensus shapes (p1, n_sets, q) are listed in
-// ops/fused_sls.py as CONSENSUS_SHAPES.
+// 0 = diamond (coeffs = w0, w1, w0^2 + w1^2; p1 = 2), 1 = consensus
+// (coeffs packed as in unpack_consensus). T 8 or 16, k_split (warps a
+// piece) 1 or 2 (2 at p1 = 2 only). The instantiated consensus shapes
+// (p1, n_sets, q) are listed in ops/fused_sls.py as CONSENSUS_SHAPES.
 extern "C" int sls_admm_launch(const void* bounds, const void* U_base, const void* ops_f,
                                int n_ops, const void* ops_i, void* U_out, int batch, int Nm,
                                int T, int p1, int chunk_len, int n_chunks, float alpha,
                                float one_minus_alpha, float stop_tol, int z_update,
                                const void* coeffs, int n_sets, int q, int n_cons_iters,
                                int k_split, void* stream) {
-  if (Nm <= 0 || p1 != 2 || (T != 8 && T != 16) || batch <= 0 || batch % T != 0 ||
+  if (Nm <= 0 || p1 < 2 || (T != 8 && T != 16) || batch <= 0 || batch % T != 0 ||
       n_ops < 0 || n_ops % kBlock != 0 || chunk_len < 0 || n_chunks < 0 ||
       n_cons_iters < 0 || (k_split != 1 && k_split != 2))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -525,9 +572,11 @@ extern "C" int sls_admm_launch(const void* bounds, const void* U_base, const voi
                   one_minus_alpha, stop_tol};
   const float* c = static_cast<const float*>(coeffs);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (z_update == 0) return launch(P, batch, T, k_split, Diamond{c[0], c[1], c[2]}, s);
-  if (z_update == 1 && n_sets == 2 && q == 3)
+  if (z_update == 0 && p1 == 2) return launch(P, batch, T, k_split, Diamond{c[0], c[1], c[2]}, s);
+  if (z_update == 1 && p1 == 2 && n_sets == 2 && q == 3)
     return launch(P, batch, T, k_split, unpack_consensus<2, 2, 3>(c, n_cons_iters), s);
+  if (z_update == 1 && p1 == 3 && n_sets == 2 && q == 4)
+    return launch(P, batch, T, k_split, unpack_consensus<3, 2, 4>(c, n_cons_iters), s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -158,8 +158,12 @@ __device__ __forceinline__ void k_step6(float (&acc)[2][MT][4], const float* a, 
 
 // acc[n] = A[:, 8 klo : 8 khi] B_n for the NB n-tiles whose interleaved
 // blocks for k-steps klo..khi-1 start at `b`; UNROLL k-steps in flight;
-// SIX: the 6xTF32 form
-template <int MT, int NB, int UNROLL, int LDA = 16 * MT * 8, bool SIX = false>
+// SIX: the 6xTF32 form. KC > 0: the k range in chunks of KC k-steps, each
+// summed by the tensor cores from zero and added to acc in f32 (rounded
+// to nearest): the tensor cores' accumulation truncates, an error that
+// grows with the magnitude of the running sum and the length of the
+// chain, which the chunks keep short.
+template <int MT, int NB, int UNROLL, int LDA = 16 * MT * 8, bool SIX = false, int KC = 0>
 __device__ __forceinline__ void product(float (&acc)[2][MT][4], const float* a,
                                         const float* b, int klo, int khi, int lane, int g,
                                         int t) {
@@ -169,20 +173,106 @@ __device__ __forceinline__ void product(float (&acc)[2][MT][4], const float* a,
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[n][mt][i] = 0.0f;
+  if constexpr (KC == 0) {
 #pragma unroll UNROLL
-  for (int kk = klo; kk < khi; ++kk, b += NB * kBlock) {
-    if constexpr (SIX) k_step6<MT, NB, LDA>(acc, a, kk, b, lane, g, t);
-    else k_step<MT, NB, LDA>(acc, a, kk, b, lane, g, t);
+    for (int kk = klo; kk < khi; ++kk, b += NB * kBlock) {
+      if constexpr (SIX) k_step6<MT, NB, LDA>(acc, a, kk, b, lane, g, t);
+      else k_step<MT, NB, LDA>(acc, a, kk, b, lane, g, t);
+    }
+  } else {
+    for (int k0 = klo; k0 < khi; k0 += KC) {
+      float part[2][MT][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) part[n][mt][i] = 0.0f;
+      const int k1 = min(k0 + KC, khi);
+#pragma unroll UNROLL
+      for (int kk = k0; kk < k1; ++kk, b += NB * kBlock) {
+        if constexpr (SIX) k_step6<MT, NB, LDA>(part, a, kk, b, lane, g, t);
+        else k_step<MT, NB, LDA>(part, a, kk, b, lane, g, t);
+      }
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[n][mt][i] = add(acc[n][mt][i], part[n][mt][i]);
+    }
   }
 }
 
 // product<MT, nb> for a run-time nb of 0 (no work: acc = 0), 1 or 2
-template <int MT, int UNROLL, int LDA = 16 * MT * 8, bool SIX = false>
+template <int MT, int UNROLL, int LDA = 16 * MT * 8, bool SIX = false, int KC = 0>
 __device__ __forceinline__ void product_nb(float (&acc)[2][MT][4], int nb, const float* a,
                                            const float* b, int klo, int khi, int lane, int g,
                                            int t) {
-  if (nb == 2) product<MT, 2, UNROLL, LDA, SIX>(acc, a, b, klo, khi, lane, g, t);
-  else product<MT, 1, UNROLL, LDA, SIX>(acc, a, b, klo, nb == 1 ? khi : klo, lane, g, t);
+  if (nb == 2) product<MT, 2, UNROLL, LDA, SIX, KC>(acc, a, b, klo, khi, lane, g, t);
+  else product<MT, 1, UNROLL, LDA, SIX, KC>(acc, a, b, klo, nb == 1 ? khi : klo, lane, g, t);
+}
+
+// x rounded to TF32 as `split` rounds its high part, as bits
+__device__ __forceinline__ uint32_t tf32_hi(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// One k-step of the one-pass delta product, laid out as `k_step`: the A
+// operand is a - a_prev (two buffers of the same layout), each difference
+// and each B value rounded to TF32, one mma a row tile and n-tile: the
+// counterpart of the TPU kernel's bf16(s - s_prev) @ W_u_hi
+template <int MT, int NB, int LDA = 16 * MT * 8>
+__device__ __forceinline__ void k_step1(float (&acc)[2][MT][4], const float* a,
+                                        const float* a_prev, int kk, const float* b, int lane,
+                                        int g, int t) {
+  uint32_t b_hi[NB][2];
+  if constexpr (NB == 2) {
+    const float4 bv = *reinterpret_cast<const float4*>(b + 4 * lane);
+    b_hi[0][0] = tf32_hi(bv.x);
+    b_hi[0][1] = tf32_hi(bv.y);
+    b_hi[NB - 1][0] = tf32_hi(bv.z);
+    b_hi[NB - 1][1] = tf32_hi(bv.w);
+  } else {
+    const float2 bv = *reinterpret_cast<const float2*>(b + 2 * lane);
+    b_hi[0][0] = tf32_hi(bv.x);
+    b_hi[0][1] = tf32_hi(bv.y);
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int o = kk * LDA + (16 * mt + g) * 8 + 2 * t;
+    const float2 top = *reinterpret_cast<const float2*>(a + o);
+    const float2 bot = *reinterpret_cast<const float2*>(a + o + 64);
+    const float2 ptop = *reinterpret_cast<const float2*>(a_prev + o);
+    const float2 pbot = *reinterpret_cast<const float2*>(a_prev + o + 64);
+    const uint32_t hi[4] = {tf32_hi(sub(top.x, ptop.x)), tf32_hi(sub(bot.x, pbot.x)),
+                            tf32_hi(sub(top.y, ptop.y)), tf32_hi(sub(bot.y, pbot.y))};
+#pragma unroll
+    for (int n = 0; n < NB; ++n) mma(acc[n][mt], hi, b_hi[n][0], b_hi[n][1]);
+  }
+}
+
+// acc = (A - A_prev)[:, 8 klo : 8 khi] B in one TF32 pass, for a run-time
+// nb of 0, 1 or 2 n-tiles (as `product_nb`)
+template <int MT, int UNROLL, int LDA = 16 * MT * 8>
+__device__ __forceinline__ void product1_nb(float (&acc)[2][MT][4], int nb, const float* a,
+                                            const float* a_prev, const float* b, int klo,
+                                            int khi, int lane, int g, int t) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][mt][i] = 0.0f;
+  if (nb == 2) {
+#pragma unroll UNROLL
+    for (int kk = klo; kk < khi; ++kk, b += 2 * kBlock)
+      k_step1<MT, 2, LDA>(acc, a, a_prev, kk, b, lane, g, t);
+  } else if (nb == 1) {
+#pragma unroll UNROLL
+    for (int kk = klo; kk < khi; ++kk, b += kBlock)
+      k_step1<MT, 1, LDA>(acc, a, a_prev, kk, b, lane, g, t);
+  }
 }
 
 // Accumulator element i of m-tile mt sits at row 16 mt + g + 8 (i / 2),

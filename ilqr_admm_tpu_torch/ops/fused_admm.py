@@ -6,7 +6,10 @@ operator setup runs in float64 on the host and is cast to the working
 dtype; the per-solve pre-kernel products are plain torch matmuls in full
 f32; the ADMM loop itself is one hand-written CUDA kernel:
 
-- control bounds only: `csrc/admm_u_only.cu`, launched by `admm_u_only`;
+- control bounds only: `admm_u_only`, which launches `csrc/admm_u_only.cu`
+  where W_u fits in a block's shared memory (`launch_geometry`) and
+  `csrc/admm_u_only_wide.cu`, which streams W_u from L2, where it does
+  not (`wide_launch_geometry`; Nm = 512 in `bench_wide_certified.py`);
 - state bounds, with or without control bounds: `csrc/admm_box.cu`,
   launched by `admm_box`.
 
@@ -15,13 +18,16 @@ On CPU tensors each wrapper runs its plain torch version
 
 Both kernels take their products on the tensor cores in 3xTF32, the
 counterpart of the TPU's bf16x3 `_dot3` (`utils/precision.py` emulates
-it). The u-only kernel schedules its products as the TPU kernel does:
-the main iterations in 3xTF32, the `polish_iters` tail and, with
-`stop_tol > 0`, the last iteration of each chunk (whose residual is the
-exit test) in 6xTF32, the counterpart of the bf16x6 `_dot6`. It runs
-no delta products: `refresh_every` changes only the iteration count. The
-main phase runs ceil(n_main / refresh_every) * refresh_every iterations
-and the tail min(polish_iters, n_iters) more, with n_main =
+it). The u-only kernels schedule their products as the TPU kernel does:
+with refresh_every = r > 1 the running correction c = s @ W_u is set
+exactly (3xTF32) at the first iteration of each block of r and updated
+as c += (s - s_prev) @ W_u in one TF32 pass (`tf32x1_matmul`, the
+counterpart of the TPU's single bf16 pass) at the r - 1 others; the
+`polish_iters` tail and, with `stop_tol > 0`, the last iteration of each
+chunk (whose residual is the exit test) set c afresh in 6xTF32, the
+counterpart of the bf16x6 `_dot6`. With r = 1 every main iteration is a
+3xTF32 refresh. The main phase runs ceil(n_main / r) * r iterations and
+the tail min(polish_iters, n_iters) more, with n_main =
 max(n_iters - polish_iters, 0). The state-bounded path ignores
 `refresh_every`, `polish_iters`, `stop_tol` and `check_every`, as the
 JAX factory does.
@@ -37,19 +43,39 @@ from ilqr_admm_tpu_torch.problem import QuadCost, host_f64
 from ilqr_admm_tpu_torch.solvers.admm import validate_constraint_blocks
 from ilqr_admm_tpu_torch.solvers.lqt import block_diag_stacked, broadcast_rho
 from ilqr_admm_tpu_torch.utils.device import resolve_device
-from ilqr_admm_tpu_torch.utils.precision import full_f32_matmul, tf32x3_matmul, tf32x6_matmul
+from ilqr_admm_tpu_torch.utils.precision import (
+    full_f32_matmul,
+    tf32x1_matmul,
+    tf32x3_matmul,
+    tf32x6_matmul,
+)
 
-# Number of times `admm_u_only` has launched its CUDA kernel in this process.
+# Number of times `admm_u_only` has launched each of its CUDA kernels in
+# this process: csrc/admm_u_only.cu, and the wide route
+# csrc/admm_u_only_wide.cu.
 launch_count = 0
+wide_launch_count = 0
 
 # Kernel geometry, as in csrc/admm_u_only.cu: a block owns 16, 32 or 64
 # instances (one, two or four m16n8k8 row tiles) and has one warp a piece
 # (a pair of 8-column n-tiles over two row tiles, or the last single
 # n-tile over one), at most 16; it stages W_u (room for all its 8 x 8
-# blocks), two s buffers and the bounds in shared memory.
+# blocks), two s buffers (three with delta products) and the bounds in
+# shared memory.
 _U_TILES = (16, 32, 64)
 _U_MAX_WARPS = 16
 _MAX_SMEM = 232448 - 16  # an H100 block's 227 KB, less the kernels' static words
+
+# The wide route's geometry, as in csrc/admm_u_only_wide.cu: a block owns
+# 16 or 32 instances; each warp owns _WIDE_PAIRS[tile] pairs of W_u's
+# n-tiles over all the tile's m16 row tiles (32 accumulators a thread),
+# at most 16 warps; W_u's blocks stream from L2, and shared memory holds
+# two s buffers, lambda and the bounds.
+_WIDE_TILES = (16, 32)
+_WIDE_PAIRS = {16: 4, 32: 2}
+# k-steps of 8 that the wide route's refresh, tail and x products chain on
+# the tensor cores before adding the chunk to their f32 total (WIDE_KC)
+WIDE_K_CHUNK = 8
 
 
 def u_only_pieces(batch_tile: int, Nm: int) -> list[tuple[int, int, int]]:
@@ -70,12 +96,15 @@ def u_only_pieces(batch_tile: int, Nm: int) -> list[tuple[int, int, int]]:
     return pieces + [(n1 // 2, m0, 1) for m0 in range(mt if n1 % 2 else 0)]
 
 
-def launch_geometry(batch_tile: int, Nm: int, alpha: float = 1.0) -> tuple[int, int]:
-    """(threads, dynamic shared-memory bytes) of one `admm_u_only` block.
+def launch_geometry(batch_tile: int, Nm: int, alpha: float = 1.0,
+                    delta: bool = False) -> tuple[int, int]:
+    """(threads, dynamic shared-memory bytes) of one block of
+    `csrc/admm_u_only.cu`, the narrow route, which stages W_u whole.
 
     Raises ValueError when the tile cannot be launched: batch_tile must
     be 16, 32 or 64, the block's pieces must fit in 16 warps, and W_u
-    with two copies of the tile's s (and, with over-relaxation, 16 floats
+    with two copies of the tile's s (three with delta products, whose
+    iteration reads s and s_prev; and, with over-relaxation, 16 floats
     of z a thread) must fit in shared memory.
     """
     if batch_tile not in _U_TILES:
@@ -89,7 +118,7 @@ def launch_geometry(batch_tile: int, Nm: int, alpha: float = 1.0) -> tuple[int, 
             f"takes at most {_U_MAX_WARPS}, so batch_tile <= {max(fits, default=0)}"
         )
     n1 = -(-Nm // 8)
-    smem = 4 * (64 * n1 * n1 + 2 * 8 * batch_tile * n1 + 16 * n1
+    smem = 4 * (64 * n1 * n1 + (3 if delta else 2) * 8 * batch_tile * n1 + 16 * n1
                 + (16 * 32 * warps if alpha != 1.0 else 0))
     if smem > _MAX_SMEM:
         raise ValueError(
@@ -97,6 +126,77 @@ def launch_geometry(batch_tile: int, Nm: int, alpha: float = 1.0) -> tuple[int, 
             f"to stage W_u and the tile's iterate; the limit is {_MAX_SMEM} bytes"
         )
     return 32 * warps, smem
+
+
+def wide_pieces(batch_tile: int, Nm: int) -> list[tuple[int, ...]]:
+    """Each warp's rows of W_u's pair table in `csrc/admm_u_only_wide.cu`,
+    in warp order: warp w owns pairs p * w .. p * w + p - 1 (p = 2 at
+    batch_tile 32, 4 at 16; the last warp fewer) of the 8-column n-tiles,
+    for every m16 row tile of the block, over the whole k range. At Nm =
+    512 and batch_tile 32 that is 32 pairs on 16 warps."""
+    p = _WIDE_PAIRS[batch_tile]
+    n_pairs = -(-Nm // 16)
+    return [tuple(range(w, min(w + p, n_pairs))) for w in range(0, n_pairs, p)]
+
+
+def wide_launch_geometry(batch_tile: int, Nm: int) -> tuple[int, int]:
+    """(threads, dynamic shared-memory bytes) of one block of
+    `csrc/admm_u_only_wide.cu`, the wide route, which streams W_u from L2.
+
+    Raises ValueError when the tile cannot be launched: batch_tile must
+    be 16 or 32, the block's warps (`wide_pieces`) at most 16, and two
+    copies of the tile's s, its lambda and the bounds must fit in shared
+    memory (Nm <= 512 at batch_tile 32, <= 1,024 at 16).
+    """
+    if batch_tile not in _WIDE_TILES:
+        raise ValueError(f"batch_tile={batch_tile}: the wide u-only kernel takes "
+                         f"{' or '.join(map(str, _WIDE_TILES))} instances a block")
+    warps = len(wide_pieces(batch_tile, Nm))
+    if warps > _U_MAX_WARPS:
+        raise ValueError(
+            f"batch_tile={batch_tile} at Nm={Nm} needs {warps} warps per block on the wide "
+            f"route; it takes at most {_U_MAX_WARPS} (Nm <= {16 * _WIDE_PAIRS[batch_tile] * 16})"
+        )
+    n1 = -(-Nm // 8)
+    smem = 4 * (2 * 8 * batch_tile * n1 + 16 * batch_tile * -(-n1 // 2) + 16 * n1)
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"Nm={Nm} with batch_tile={batch_tile} needs {smem} bytes of shared memory on the "
+            f"wide route; the limit is {_MAX_SMEM} bytes"
+        )
+    return 32 * warps, smem
+
+
+def u_only_route(batch_tile: int, Nm: int, alpha: float = 1.0,
+                 refresh_every: int = 1) -> str:
+    """"narrow" when `csrc/admm_u_only.cu` takes the tile (W_u staged in
+    shared memory), else "wide" when `csrc/admm_u_only_wide.cu` does;
+    raises ValueError, with both kernels' reasons, when neither does."""
+    try:
+        launch_geometry(batch_tile, Nm, alpha, delta=refresh_every > 1)
+        return "narrow"
+    except ValueError as narrow:
+        try:
+            wide_launch_geometry(batch_tile, Nm)
+            return "wide"
+        except ValueError as wide:
+            raise ValueError(f"no u-only kernel takes this launch: {narrow}; {wide}") from None
+
+
+def default_u_tile(Nm: int, alpha: float = 1.0, refresh_every: int = 1) -> int:
+    """The largest tile the narrow kernel takes at this width, else the
+    largest the wide route takes (64 at the bench's Nm = 100, 32 at
+    Nm = 512)."""
+    routes = {}
+    for tile in _U_TILES:
+        try:
+            routes[tile] = u_only_route(tile, Nm, alpha, refresh_every)
+        except ValueError:
+            pass
+    if not routes:
+        raise ValueError(f"no u-only kernel takes Nm={Nm}: the wide route's limit is Nm <= "
+                         f"{16 * _WIDE_PAIRS[16] * 16}")
+    return max((t for t, r in routes.items() if r == "narrow"), default=max(routes))
 
 
 def _schedule(n_iters, refresh_every, polish_iters, stop_tol, check_every):
@@ -150,23 +250,31 @@ def admm_u_only_reference(
     u_base, x_base, W_u, W_x, lo, hi, *, n_iters, refresh_every=1, alpha=1.0,
     polish_iters=8, stop_tol=0.0, check_every=8, batch_tile=64, products="f32",
 ):
-    """Plain torch version of the kernel, in f32 or f64, on any device.
+    """Plain torch version of the kernels, in f32 or f64, on any device.
 
     Works on (n_tiles, batch_tile, Nm) views so that early exit is per
-    tile, as in the kernel: a tile that has exited keeps its iterates
+    tile, as in the kernels: a tile that has exited keeps its iterates
     until the tail. Returns (x (B, Nd), u (B, Nm), z_u (B, Nm)).
 
-    products: "f32" (full f32 matmuls) or "tf32x3", the kernel's
-    schedule of tensor-core products (float32 only): `tf32x3_matmul` in
-    the main iterations and for x, `tf32x6_matmul` in the tail and, with
-    stop_tol > 0, in the last iteration of each chunk.
+    Each iteration takes u_hat = u_base + c with c ~ s @ W_u, s = z - l:
+    with refresh_every = r > 1 the first iteration of each block of r
+    sets c = s @ W_u and the r - 1 others update c += (s - s_prev) @ W_u
+    (the delta product of `_admm_kernel_u_only`); the tail and, with
+    stop_tol > 0, the last iteration of each chunk set c afresh. With r
+    = 1 every iteration sets c.
+
+    products: "f32" (full f32 matmuls) or "tf32x3", the kernels'
+    schedule of tensor-core products (float32 only): `tf32x3_matmul` for
+    the refreshes and for x, `tf32x1_matmul` (one TF32 pass) for the
+    deltas, `tf32x6_matmul` in the tail and, with stop_tol > 0, in the
+    last iteration of each chunk.
     """
     if products == "f32":
-        main = six = torch.matmul
+        main = six = one = torch.matmul
     elif products == "tf32x3":
         if u_base.dtype != torch.float32:
             raise TypeError(f'products="tf32x3" takes float32, got {u_base.dtype}')
-        main, six = tf32x3_matmul, tf32x6_matmul
+        main, six, one = tf32x3_matmul, tf32x6_matmul, tf32x1_matmul
     else:
         raise ValueError(f'products must be "f32" or "tf32x3", got {products!r}')
     chunk_len, n_chunks, n_tail = _schedule(
@@ -177,30 +285,35 @@ def admm_u_only_reference(
     ub = u_base.reshape(n_tiles, batch_tile, Nm)
     one_minus_alpha = 1.0 - alpha
 
-    def step(z, lam, matmul):
+    def step(z, lam, s_prev, c, matmul):
+        """One iteration; matmul None: the delta product onto c."""
         s = z - lam
-        u = ub + matmul(s, W_u)
+        c = c + one(s - s_prev, W_u) if matmul is None else matmul(s, W_u)
+        u = ub + c
         if alpha == 1.0:
             v = u + lam
             z_new = torch.minimum(torch.maximum(v, lo), hi)
-            return z_new, v - z_new, s, u
+            return z_new, v - z_new, s, c, u
         z_rel = alpha * u + one_minus_alpha * z
         z_new = torch.minimum(torch.maximum(z_rel + lam, lo), hi)
-        return z_new, lam + u - z_new, s, u
+        return z_new, lam + u - z_new, s, c, u
 
     with full_f32_matmul():
-        z, lam, s, u = ub, torch.zeros_like(ub), ub, ub
+        z, lam, s, c, u = ub, torch.zeros_like(ub), ub, torch.zeros_like(ub), ub
         active = None  # per-tile mask, once early exit has been tested
         for _ in range(n_chunks):
             for i in range(chunk_len):
-                test = stop_tol > 0.0 and i == chunk_len - 1
-                new = step(z, lam, six if test else main)
+                if stop_tol > 0.0 and i == chunk_len - 1:
+                    matmul = six
+                else:
+                    matmul = None if i % refresh_every else main
+                new = step(z, lam, s, c, matmul)
                 if active is None:
-                    z, lam, s, u = new
+                    z, lam, s, c, u = new
                 else:
                     keep = active[:, None, None]
-                    z, lam, s, u = (
-                        torch.where(keep, a, b) for a, b in zip(new, (z, lam, s, u))
+                    z, lam, s, c, u = (
+                        torch.where(keep, a, b) for a, b in zip(new, (z, lam, s, c, u))
                     )
             if stop_tol > 0.0:
                 running = torch.amax(torch.abs(u - z), dim=(1, 2)) >= stop_tol
@@ -208,7 +321,7 @@ def admm_u_only_reference(
                 if not bool(active.any()):
                     break
         for _ in range(n_tail):
-            z, lam, s, u = step(z, lam, six)
+            z, lam, s, c, u = step(z, lam, s, c, six)
         x = x_base.reshape(n_tiles, batch_tile, -1) + main(s, W_x)
     return x.reshape(batch, -1), u.reshape(batch, Nm), z.reshape(batch, Nm)
 
@@ -236,15 +349,18 @@ def admm_u_only(
     kernel's storage (the solver packs them once, at setup). B must be a
     multiple of batch_tile.
 
-    CUDA tensors (float32) go to the kernel in `csrc/admm_u_only.cu`,
-    which reads only the packed operators, takes batch_tile 16, 32 or 64
-    (see `launch_geometry`) and runs its products on the tensor cores
-    (3xTF32, 6xTF32 in the tail), held to
+    CUDA tensors (float32) go to a kernel that reads only the packed
+    operators (`u_only_route` chooses it): `csrc/admm_u_only.cu`, which
+    stages W_u in shared memory and takes batch_tile 16, 32 or 64 (see
+    `launch_geometry`), else `csrc/admm_u_only_wide.cu`, which streams
+    W_u from L2 and takes 16 or 32 (see `wide_launch_geometry`); a launch
+    neither takes raises. Both run their products on the tensor cores
+    (3xTF32 refreshes, one-pass TF32 deltas, 6xTF32 in the tail), held to
     `admm_u_only_reference(..., products="tf32x3")`. CPU tensors go to
     `admm_u_only_reference` with f32 products, which reads only the dense
     operators. Any other device raises.
     """
-    global launch_count
+    global launch_count, wide_launch_count
     _check_inputs(u_base, x_base, W_u, W_x, lo, hi, batch_tile)
     Nm, Nd = W_x.shape
     _check_packed(packed, u_base, (-(-Nm // 16) + -(-Nd // 16), 4),
@@ -265,7 +381,7 @@ def admm_u_only(
         n_iters, refresh_every, polish_iters, stop_tol, check_every
     )
     batch = u_base.shape[0]
-    launch_geometry(batch_tile, Nm, alpha)
+    route = u_only_route(batch_tile, Nm, alpha, refresh_every)
 
     from ilqr_admm_tpu_torch._build import load_library
 
@@ -274,18 +390,22 @@ def admm_u_only(
     x = torch.empty_like(x_base)
     u = torch.empty_like(u_base)
     z_u = torch.empty_like(u_base)
+    launch = lib.admm_u_only_launch if route == "narrow" else lib.admm_u_only_wide_launch
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.admm_u_only_launch(
+        err = launch(
             u_base.data_ptr(), x_base.data_ptr(), ops_f.data_ptr(), ops_i.data_ptr(),
             lo.data_ptr(), hi.data_ptr(), x.data_ptr(), u.data_ptr(), z_u.data_ptr(),
-            batch, Nm, Nd, batch_tile, chunk_len, n_chunks, n_tail,
+            batch, Nm, Nd, batch_tile, chunk_len, n_chunks, n_tail, refresh_every,
             float(alpha), float(1.0 - alpha), float(stop_tol), stream,
         )
     if err != 0:
         msg = lib.admm_u_only_error_string(err).decode()
-        raise RuntimeError(f"admm_u_only kernel launch failed: {msg} (cudaError {err})")
-    launch_count += 1
+        raise RuntimeError(f"admm_u_only ({route}) kernel launch failed: {msg} (cudaError {err})")
+    if route == "narrow":
+        launch_count += 1
+    else:
+        wide_launch_count += 1
     return x, u, z_u
 
 
@@ -720,12 +840,14 @@ def make_fused_lqt_admm(
     accepted and ignored, as there.
 
     batch_tile is the number of instances one CUDA block owns (and, on
-    the u-only path, the early-exit group). The default (None) is 64 on
-    the u-only path, whose kernel takes 16, 32 or 64 (see
-    `launch_geometry`; 64 gives 256 blocks of 16 warps at the bench
-    width), and 32 on the state-bounded path, whose block stages its
-    packed operators in shared memory and takes 16 or 32 (see
-    `box_launch_geometry`). On a CUDA device dtype must be float32.
+    the u-only path, the early-exit group). The default (None) on the
+    u-only path is `default_u_tile`: the largest tile of 16, 32 or 64 the
+    narrow kernel takes (see `launch_geometry`; 64 gives 256 blocks of 16
+    warps at the bench width), else the largest of 16 or 32 the wide
+    route takes (`wide_launch_geometry`; 32 at Nm = 512). It is 32 on the
+    state-bounded path, whose block stages its packed operators in
+    shared memory and takes 16 or 32 (see `box_launch_geometry`). On a
+    CUDA device dtype must be float32.
 
     The problem data are rounded to `dtype` (as the JAX factory rounds
     them to f32), then the setup (Su, the lifted normal matrix, its
@@ -746,12 +868,11 @@ def make_fused_lqt_admm(
         _schedule(n_iters, refresh_every, polish_iters, stop_tol, check_every)
     elif n_iters < 0:
         raise ValueError("n_iters must be >= 0")
-    if batch_tile is None:
-        batch_tile = 32 if has_x else 64
-
     f64 = torch.float64
     A, B, cost = host_f64(A, B, cost, dtype)
     N, d, m = A.shape[0], A.shape[-1], B.shape[-1]
+    if batch_tile is None:
+        batch_tile = 32 if has_x else default_u_tile(N * m, alpha, refresh_every)
 
     Su = build_Su(A, B)
     Sx = build_Sx(A).reshape(N * d, d)

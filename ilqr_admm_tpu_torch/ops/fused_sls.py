@@ -47,75 +47,83 @@ launch_count = 0
 _EPS = 1e-30
 
 # Kernel geometry, as in csrc/sls_admm.cu: a block owns 8 or 16
-# instances, whose 2 slabs make one or two m16n8k8 row tiles; one warp a
-# piece of W's 8-column n-tiles (`sls_pieces`), at most 16; it stages W
-# (room for all its 8 x 8 blocks) and two s buffers in shared memory.
+# instances; each group of 8 has ceil(p1 / 2) m16n8k8 row tiles, slabs
+# 2 j and 2 j + 1 in tile j (a zero slab after an odd p1); one warp a
+# piece of W's 8-column n-tiles for one group (`sls_pieces`), at most 16;
+# it stages W (room for all its 8 x 8 blocks) and two s buffers in shared
+# memory.
 _TILES = (8, 16)
 _MAX_WARPS = 16
 _MAX_SMEM = 232448 - 16  # an H100 block's 227 KB, less the kernel's static words
 
 # The (p1, n_sets, q) of the consensus z-updates that csrc/sls_admm.cu
 # instantiates; the diamond z-update is built for p1 = 2.
-CONSENSUS_SHAPES = ((2, 2, 3),)
+CONSENSUS_SHAPES = ((2, 2, 3), (3, 2, 4))
 Z_UPDATES = ("consensus", "diamond")
 
 
-def sls_row(b: int, p: int) -> int:
+def sls_row(b: int, p: int, p1: int = 2) -> int:
     """Row of (instance b, slab p) in a tile's s and in its accumulators,
-    in `csrc/sls_admm.cu`: slab-major inside each 16-row m-tile, so rows
-    0-7 of m-tile b // 8 are slab 0 of its eight instances and rows 8-15
-    slab 1 of the same eight."""
-    return 16 * (b // 8) + 8 * p + b % 8
+    in `csrc/sls_admm.cu`: each group of eight instances has ceil(p1 / 2)
+    16-row m-tiles, slab-major inside each, so rows 0-7 of the group's
+    m-tile j are slab 2 j of its eight instances and rows 8-15 slab 2 j + 1
+    of the same eight (a zero slab after an odd p1). An accumulator holds
+    rows g and g + 8 of its m-tile, so every slab of instance g at a column
+    sits in one thread."""
+    return 16 * ((b // 8) * -(-p1 // 2) + p // 2) + 8 * (p % 2) + b % 8
 
 
-def sls_pieces(batch_tile: int, Nm: int) -> list[tuple[int, int, int]]:
+def sls_pieces(batch_tile: int, Nm: int, p1: int = 2) -> list[tuple[int, int, int]]:
     """Each warp's piece of the loop's product in `csrc/sls_admm.cu`, in
-    warp order: (row of W's pair table, m-tile, m-tiles = 1). The 2
-    batch_tile rows are batch_tile / 8 m-tiles; each pair of W's 8-column
-    n-tiles is cut into one piece an m-tile, then the last single n-tile
-    (when Nm / 8 rounds up to an odd count) likewise: at batch_tile 8 and
-    Nm = 100, six pairs and the single, 7 warps (14 at 16). A piece is one
-    m-tile, so each thread's rows belong to one instance."""
-    mt, n1 = batch_tile // 8, -(-Nm // 8)
-    pieces = [(p, m, 1) for p in range(n1 // 2) for m in range(mt)]
-    return pieces + [(n1 // 2, m, 1) for m in range(mt if n1 % 2 else 0)]
+    warp order: (row of W's pair table, first m-tile, m-tiles). The
+    batch_tile / 8 instance groups have ceil(p1 / 2) m-tiles each; each
+    pair of W's 8-column n-tiles is cut into one piece a group, then the
+    last single n-tile (when Nm / 8 rounds up to an odd count) likewise:
+    at batch_tile 8 and Nm = 100, six pairs and the single, 7 warps (14 at
+    16). A piece is one group, so each thread's rows belong to one
+    instance."""
+    groups, n1, ms = batch_tile // 8, -(-Nm // 8), -(-p1 // 2)
+    pieces = [(p, m * ms, ms) for p in range(n1 // 2) for m in range(groups)]
+    return pieces + [(n1 // 2, m * ms, ms) for m in range(groups if n1 % 2 else 0)]
 
 
-def k_split(batch: int, batch_tile: int, Nm: int, sms: int) -> int:
+def k_split(batch: int, batch_tile: int, Nm: int, sms: int, p1: int = 2) -> int:
     """Warps a piece of the product in `csrc/sls_admm.cu`: 2 (each piece's
     k range on two warps, which hand their partial sums over through
     shared memory) when the fleet has at most one block an SM, where one
     block's chain of dependent mma sets the time, and the doubled block
-    fits in 16 warps (the kernel splits only 8-instance tiles); else 1,
-    where blocks sharing an SM hide each other's latency and the split's
-    second barrier and sums only cost (tools/sls_admm_variants.py times
-    both)."""
-    fits = batch_tile == 8 and 2 * len(sls_pieces(batch_tile, Nm)) <= _MAX_WARPS
+    fits in 16 warps (the kernel splits only 8-instance tiles at p1 = 2);
+    else 1, where blocks sharing an SM hide each other's latency and the
+    split's second barrier and sums only cost (tools/sls_admm_variants.py
+    times both)."""
+    fits = (batch_tile == 8 and p1 == 2
+            and 2 * len(sls_pieces(batch_tile, Nm, p1)) <= _MAX_WARPS)
     return 2 if fits and batch // batch_tile <= sms else 1
 
 
 def launch_geometry(batch_tile: int, Nm: int, p1: int, k_split: int = 1) -> tuple[int, int]:
     """(threads, dynamic shared-memory bytes) of one kernel block.
 
-    Raises ValueError when the tile cannot be launched: p1 must be 2
-    (the slab-major rows pair du with phi in a thread), batch_tile 8 or
-    16 (whole m16n8k8 row tiles), the block's pieces (each on k_split
-    warps) must fit in 16 warps, and W with two copies of the tile's s
-    must fit in shared memory.
+    Raises ValueError when the tile cannot be launched: p1 must be at
+    least 2, batch_tile 8 or 16 (whole m16n8k8 row tiles), the block's
+    pieces (each on k_split warps; 2 only at p1 = 2) must fit in 16 warps,
+    and W with two copies of the tile's s (ceil(p1 / 2) 16-row m-tiles a
+    group of 8 instances) must fit in shared memory.
     """
-    if p1 != 2:
-        raise ValueError(f"the kernel takes p1 = 2 slabs (robust_dim 1), got p1 = {p1}")
+    if p1 < 2:
+        raise ValueError(f"the kernel takes p1 >= 2 slabs (robust_dim >= 1), got p1 = {p1}")
     if batch_tile not in _TILES:
         raise ValueError(f"batch_tile={batch_tile}: the kernel takes "
                          f"{' or '.join(map(str, _TILES))} instances a block")
-    warps = len(sls_pieces(batch_tile, Nm)) * k_split
-    if k_split == 2 and batch_tile != 8:
-        raise ValueError(f"the kernel splits the pieces of 8-instance tiles only, got {batch_tile}")
+    warps = len(sls_pieces(batch_tile, Nm, p1)) * k_split
+    if k_split == 2 and (batch_tile != 8 or p1 != 2):
+        raise ValueError(f"the kernel splits the pieces of 8-instance tiles only, at p1 = 2; got "
+                         f"batch_tile={batch_tile}, p1={p1}")
     if warps > _MAX_WARPS:
         raise ValueError(f"Nm={Nm} with batch_tile={batch_tile} needs {warps} warps per block; "
                          f"the kernel takes at most {_MAX_WARPS}")
     n1 = -(-Nm // 8)
-    smem = 4 * (64 * n1 * n1 + 2 * (p1 * batch_tile) * 8 * n1
+    smem = 4 * (64 * n1 * n1 + 2 * (2 * -(-p1 // 2) * batch_tile) * 8 * n1
                 + (32 * 4 * warps if k_split == 2 else 0))
     if smem > _MAX_SMEM:
         raise ValueError(
@@ -377,8 +385,9 @@ def sls_admm(
     numpy arrays.
 
     CUDA tensors (float32) go to the kernel in `csrc/sls_admm.cu`, which
-    reads only the packed W, takes batch_tile 8 or 16 (see
-    `launch_geometry`; `k_split` chooses its warps) and runs its products
+    reads only the packed W, takes batch_tile 8 or 16 and any p1 >= 2
+    (see `launch_geometry`; `k_split` chooses its warps; the diamond at
+    p1 = 2, the consensus at the shapes of CONSENSUS_SHAPES) and runs its products
     on the tensor cores in 3xTF32, held to `sls_admm_reference(...,
     products="tf32x3")`. CPU tensors go to `sls_admm_reference` with f32
     products, which reads only the dense W. Any other device raises.
@@ -404,7 +413,7 @@ def sls_admm(
     batch = bounds.shape[0]
     p1, Nm = U_base.shape
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    split = k_split(batch, batch_tile, Nm, sms)
+    split = k_split(batch, batch_tile, Nm, sms, p1)
     launch_geometry(batch_tile, Nm, p1, split)
     mode, coeffs, n_sets, q = kernel_z_update(
         p1, z_update, diamond_w, soc_A, soc_b_fixed, soc_b_bound, l_inv_cons, cons_rho

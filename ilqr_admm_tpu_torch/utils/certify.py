@@ -11,7 +11,11 @@ The robust SLS fleet: counterpart of `benchmarks/_oracles.py`
 `benchmarks/bench_pallas_sls.py`: the distance of each reported U to its
 exact f64 diamond projection, and the relative cost gap of that
 projection against a float64 trust-constr QP oracle on a subsample
-spread over the fleet.
+spread over the fleet. With uncertainty on more than one initial-state
+component (p1 = robust_dim + 1 >= 3 slabs) the set of a row is
+|du| + c ||phi|| <= bound: the same certificates with its exact
+projection and a float64 SLSQP oracle, and the largest violation of the
+set by U's rows.
 
 The state-bounded LQT fleet: feasibility of both projected iterates, the
 fraction of instances with both primal residuals at the reference
@@ -344,11 +348,37 @@ def project_diamond(v, c: float, r):
     return out.reshape(v.shape)
 
 
+def project_cone(v, c: float, r):
+    """Exact projection of rows v = (a, phi) (..., p1) onto {|a| + c ||phi||
+    <= r}, in f64: the set is symmetric in the direction of phi, so the
+    projection keeps it and projects (a, ||phi||) onto the diamond
+    (`project_diamond`). At p1 = 2 it is `project_diamond` itself."""
+    v = np.asarray(v, np.float64)
+    if v.shape[-1] == 2:
+        return project_diamond(v, c, r)
+    rho = np.linalg.norm(v[..., 1:], axis=-1)
+    a, rho_p = np.moveaxis(project_diamond(np.stack([v[..., 0], rho], -1), c, r), -1, 0)
+    scale = np.where(rho > 0.0, rho_p / np.where(rho > 0.0, rho, 1.0), 0.0)
+    return np.concatenate([a[..., None], v[..., 1:] * scale[..., None]], axis=-1)
+
+
 def sls_primal_residuals(U, bounds, c: float) -> np.ndarray:
-    """||U_i - P_diamond(U_i)|| of each instance; U (batch, Nm, 2), bounds (batch,)."""
+    """||U_i - P(U_i)|| of each instance, P the exact projection of each
+    row (`project_cone`; the diamond at p1 = 2); U (batch, Nm, p1), bounds
+    (batch,)."""
     U = _f64(U).numpy()
-    return np.linalg.norm((U - project_diamond(U, c, _f64(bounds).numpy()[:, None]))
+    return np.linalg.norm((U - project_cone(U, c, _f64(bounds).numpy()[:, None]))
                           .reshape(U.shape[0], -1), axis=-1)
+
+
+def sls_cone_violation(U, bounds, c: float) -> float:
+    """The largest violation of a row's set by U's rows, max over the
+    fleet of |du_r| + c ||phi_r|| - bound (<= 0 when every row is in its
+    set); U (batch, Nm, p1), bounds (batch,)."""
+    U = _f64(U).numpy()
+    over = (np.abs(U[..., 0]) + c * np.linalg.norm(U[..., 1:], axis=-1)
+            - _f64(bounds).numpy()[:, None])
+    return float(over.max())
 
 
 def sls_qp(A, B, cost: QuadCost, bounds, U, c: float, workers: int = 1) -> dict:
@@ -416,6 +446,69 @@ def _sls_qp_one(H, g_du, g_phi, const_du, const_phi, Hfull, gfull, A_con, c, U, 
     return j_z, min(res.fun, j_z), np.linalg.norm(U - z)
 
 
+def sls_soc_qp(A, B, cost: QuadCost, bounds, U, c: float, workers: int = 1) -> dict:
+    """The exact convex oracle of a robust SLS fleet with p = robust_dim
+    >= 2 feedback columns, per instance: `sls_qp`'s objective summed over
+    du and the p columns phi_j (each against Sx's column j), subject to
+    |du_r| + c ||phi_r|| <= bound on every row, solved by scipy SLSQP from
+    the exact projection z of the reported U (bounds (B,), U (B, Nm, p +
+    1)). The norm is smoothed as sqrt(||phi||^2 + eps^2) - eps with eps =
+    1e-9, which enlarges each set by less than c eps: the oracle's optimum
+    can only be lower, and the gap only larger. Returns j_z = J(z),
+    j_star = min(J at the oracle's optimum, j_z) and prim = ||U - z||."""
+    A, B = _f64(A), _f64(B)
+    bounds, U = _f64(bounds).numpy(), _f64(U).numpy()
+    p = U.shape[-1] - 1
+    Su = build_Su(A, B).numpy()
+    Sx = build_Sx(A, p).reshape(-1, p).numpy()
+    Ql = block_diag_stacked(_f64(cost.Q)).numpy()
+    Rl = block_diag_stacked(_f64(cost.R)).numpy()
+    xd = _f64(cost.lifted_xd()).numpy()
+    H = Su.T @ Ql @ Su + Rl
+    g = np.stack([-Su.T @ (Ql @ xd)] + [Su.T @ (Ql @ Sx[:, j]) for j in range(p)])
+    const = np.asarray([xd @ Ql @ xd] + [Sx[:, j] @ Ql @ Sx[:, j] for j in range(p)])
+    out = _map(_sls_soc_one, [(H, g, const, c, U[i], float(r)) for i, r in enumerate(bounds)],
+               workers)
+    j_z, j_star, prim = (np.asarray(v) for v in zip(*out))
+    return {"j_z": j_z, "j_star": j_star, "prim": prim}
+
+
+def _sls_soc_one(H, g, const, c, U, r, eps=1e-9):
+    """`sls_soc_qp` for one instance: (j_z, j_star, prim)."""
+    Nm, p1 = U.shape
+
+    def f(v):
+        V = v.reshape(p1, Nm)
+        return float(np.einsum("jn,jn->", V @ H, V) + 2 * np.sum(g * V) + const.sum())
+
+    def jac(v):
+        return (2 * (v.reshape(p1, Nm) @ H + g)).reshape(-1)
+
+    def cons(v):
+        V = v.reshape(p1, Nm)
+        n = np.sqrt(np.sum(V[1:] ** 2, axis=0) + eps * eps) - eps
+        return np.concatenate([r - V[0] - c * n, r + V[0] - c * n])
+
+    def cons_jac(v):
+        V = v.reshape(p1, Nm)
+        dn = V[1:] / np.sqrt(np.sum(V[1:] ** 2, axis=0) + eps * eps)  # (p, Nm)
+        J = np.zeros((2, Nm, p1, Nm))
+        rows = np.arange(Nm)
+        for s, sign in enumerate((1.0, -1.0)):
+            J[s, rows, 0, rows] = -sign
+            for j in range(1, p1):
+                J[s, rows, j, rows] = -c * dn[j - 1]
+        return J.reshape(2 * Nm, p1 * Nm)
+
+    z = project_cone(U, c, r)  # exact feasible iterate
+    x0 = z.T.reshape(-1)  # [du; phi_1; ...; phi_p]
+    j_z = f(x0)
+    res = minimize(f, x0, jac=jac, method="SLSQP",
+                   constraints=[{"type": "ineq", "fun": cons, "jac": cons_jac}],
+                   options={"ftol": 1e-16, "maxiter": 2000})
+    return j_z, min(res.fun, j_z), np.linalg.norm(U - z)
+
+
 def oracle_indices(batch: int, n: int = SLS_N_ORACLE) -> np.ndarray:
     """n instances spread evenly over the fleet (both ends of a sorted one)."""
     return np.linspace(0, batch - 1, n).astype(int)
@@ -423,18 +516,21 @@ def oracle_indices(batch: int, n: int = SLS_N_ORACLE) -> np.ndarray:
 
 def certify_sls(A, B, cost: QuadCost, bounds, U, c: float, n_oracle: int = SLS_N_ORACLE,
                 workers: int = 1) -> dict:
-    """All certificates of one robust SLS fleet solve (U (batch, Nm, 2)).
+    """All certificates of one robust SLS fleet solve (U (batch, Nm, p1)).
 
-    converged_frac and prim_max cover every instance; the oracle sees
+    converged_frac, prim_max and cone_violation cover every instance; the
+    oracle (`sls_qp` at p1 = 2, else `sls_soc_qp`) sees
     `oracle_indices(batch, n_oracle)`.
     """
     prim = sls_primal_residuals(U, bounds, c)
     idx = oracle_indices(len(prim), n_oracle)
-    orc = sls_qp(A, B, cost, _f64(bounds)[idx], _f64(U)[idx], c, workers)
+    oracle = sls_qp if U.shape[-1] == 2 else sls_soc_qp
+    orc = oracle(A, B, cost, _f64(bounds)[idx], _f64(U)[idx], c, workers)
     gaps = (orc["j_z"] - orc["j_star"]) / np.maximum(np.abs(orc["j_star"]), 1e-12)
     return {
         "converged_frac": float(np.mean(prim < SLS_PRIMAL_TOL)),
         "prim_max": float(prim.max()),
+        "cone_violation": sls_cone_violation(U, bounds, c),
         "cost_gap_median": float(np.median(gaps)),
         "cost_gap_max": float(np.max(gaps)),
         "oracle_indices": idx.tolist(),

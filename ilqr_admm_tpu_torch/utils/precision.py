@@ -14,7 +14,8 @@ counterpart of the TPU kernels' bf16x3 `_dot3`); `tf32_round` and
 `tf32x3_matmul` emulate that in plain torch, on any device. Three parts
 an operand and six products (6xTF32, `tf32x6_matmul`) are the
 counterpart of the TPU's bf16x6 `_dot6`: the f32 class without the
-3xTF32 split's own error.
+3xTF32 split's own error. One pass of the two TF32 high parts
+(`tf32x1_matmul`) is the counterpart of the TPU's single bf16 pass.
 """
 
 from __future__ import annotations
@@ -129,6 +130,17 @@ def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     (a_hi, a_lo), (b_hi, b_lo) = tf32_split(a, 2), tf32_split(b, 2)
     with full_f32_matmul():
         return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def tf32x1_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as one TF32 tensor-core pass computes it: each operand
+    rounded to TF32 (`tf32_round`, the high part of `tf32_split`), their
+    product summed in f32. The Hopper counterpart of the TPU kernels'
+    single bf16 pass, which the u-only kernel takes for its delta
+    products (c += bf16(s - s_prev) @ W_u_hi). float32 only.
+    """
+    with full_f32_matmul():
+        return tf32_round(a) @ tf32_round(b)
 
 
 def tf32x6_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -289,7 +289,7 @@ def test_kernel_z_update_packing():
     mode, coeffs, _, _ = kernel_z_update(2, "diamond", (1.0, C_COEF), (), (), (), None, 10.0)
     assert mode == 0
     np.testing.assert_array_equal(coeffs, np.float32([1.0, C_COEF, 1.0 + C_COEF**2]))
-    with pytest.raises(ValueError, match=r"instantiates \[\(2, 2, 3\)\]"):
+    with pytest.raises(ValueError, match=r"instantiates \[\(2, 2, 3\), \(3, 2, 4\)\]"):
         kernel_z_update(2, "consensus", None, soc_A[:1], b_fixed[:1], b_bound[:1],
                         np.eye(2), 10.0)
     with pytest.raises(ValueError, match="p1 = 2"):
@@ -337,8 +337,13 @@ def test_launch_geometry_limits():
         launch_geometry(16, 100, 2, k_split=2)
     with pytest.raises(ValueError, match="8 or 16"):
         launch_geometry(4, 100, 2)
-    with pytest.raises(ValueError, match="p1 = 2"):
-        launch_geometry(8, 100, 3)
+    # p1 = 3: two m-tiles a group of 8 instances (the second half zero),
+    # the same warps, twice the s buffers; the k split stays at p1 = 2
+    assert launch_geometry(8, 100, 3) == (224, 4 * (64 * 13 * 13 + 2 * 32 * 8 * 13))
+    with pytest.raises(ValueError, match="at p1 = 2"):
+        launch_geometry(8, 100, 3, k_split=2)
+    with pytest.raises(ValueError, match="p1 >= 2"):
+        launch_geometry(8, 100, 1)
     with pytest.raises(ValueError, match="17 warps"):
         launch_geometry(8, 264, 2)
     with pytest.raises(ValueError, match="shared memory"):
