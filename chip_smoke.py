@@ -70,7 +70,15 @@ Drives the port's paths on the card:
   iLQR-ADMM), `car_state_constraints.py` (CarSimple, N = 500, consensus
   and the exact rotated-box projection), and in f64
   `inverse_lqt_learning.py` (the IFT gradient of `lqt_admm_implicit`
-  and its 150 Adam steps); no kernel lies on them.
+  and its 150 Adam steps); no kernel lies on them;
+- the scale-out layer `parallel/` on `torch.distributed`, in worlds of
+  ranks this script spawns (each a process that imports only the port):
+  the bench fleet through `admm_u_only` and the diamond_ee SLS fleet
+  through `sls_admm` under `sharded_instance_solve`, the consensus
+  projection with its blocks sharded, the time-sharded Riccati pass and
+  the box backward with `mesh=`. The card is one H100, so two ranks share
+  it over gloo and one rank runs NCCL: the phases show that a sharded
+  solve gives the single-process outputs, not how it scales.
 
 Phases:
 
@@ -157,7 +165,24 @@ Phases:
    the card's phases): costs within 1e-3 where the solve is converged or
    deterministic, the bounds, the obstacle clearances, the exact
    certificate, and the IFT gradient against a central difference and the
-   host's.
+   host's;
+10. slice 15, the scale-out layer: single-process references on the card,
+   then a gloo world of 2 ranks on the card runs [parallel data] (the
+   16,384-instance bench fleet under `sharded_instance_solve`: the
+   gathered x, u and z_u equal the single-process call bit for bit, each
+   rank's `admm_u_only` counter set to 0 just before and > 0 after, the
+   bench certificates on the gathered fleet, the `mc_success_rate` of the
+   converged flags equal to the single-process rate), [parallel sls] (the
+   1,024-instance diamond_ee fleet through `sls_admm`, likewise),
+   [parallel consensus] (`project_set_convex_sharded`, the two SOC blocks
+   of the chance constraint over 2 ranks, 1,024 points, against the
+   stacked form on one device: f64 within 1e-12, f32 within 1e-4, times
+   max(1, max|x|)) and [parallel time] (`lqt_backward_time_sharded` at N
+   = 10,000, d = 4 and `ilqr_backward_box_parallel(mesh=...)` against
+   their one-device calls in f64, within 1e-10 relative); then an NCCL
+   world of 1 rank runs [parallel data]. A rank that exits non-zero or
+   outlasts PARALLEL_TIMEOUT fails the run. Each line carries the wall
+   times and the card's name and power limit.
 
 Any failure exits non-zero before the last line. The last line is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
@@ -178,10 +203,14 @@ import copy
 import io
 import json
 import multiprocessing
+import shutil
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -222,13 +251,23 @@ from ilqr_admm_tpu_torch.ops.parallel_riccati import (
     rollout_closed_loop_parallel,
     value_elements,
 )
+from ilqr_admm_tpu_torch.ops.constrained_riccati import ilqr_backward_box_parallel
 from ilqr_admm_tpu_torch.ops.riccati import lqt_backward, quad_cost_model
 from ilqr_admm_tpu_torch.ops.rollout import (
     rollout_closed_loop,
     rollout_nonlinear,
     rollout_sls_delta,
 )
-from ilqr_admm_tpu_torch.parallel import batched_al_solve
+from ilqr_admm_tpu_torch.parallel import (
+    batched_al_solve,
+    distributed,
+    lqt_backward_time_sharded,
+    make_mesh,
+    mc_success_rate,
+    project_set_convex_sharded,
+    project_set_convex_stacked,
+    sharded_instance_solve,
+)
 from ilqr_admm_tpu_torch.problem import ILQRConfig, SolveStatus
 from ilqr_admm_tpu_torch.projections import (
     project_bound,
@@ -268,8 +307,10 @@ from ilqr_admm_tpu_torch.solvers.mpc import (
 )
 from ilqr_admm_tpu_torch.utils.certify import (
     ARM_N_ORACLE,
+    converged_flags,
     converged_frac,
     max_violation,
+    sls_converged_flags,
     oracle_cost_gap,
     al_gate_failures,
     arm_gate_failures,
@@ -508,7 +549,7 @@ BOXDDP_GRAPH_ITERS = 3
 BOXDDP_COMPARE = 1
 BOXDDP_COMPARE_REL = 1e-3
 BOXDDP_STOPS = (SolveStatus.LINE_SEARCH_FAILED, SolveStatus.MAX_ITER)
-BOXDDP_WINDOWS = 2  # the main path's solve is the first (3 before the facade phases)
+BOXDDP_WINDOWS = 1  # the main path's solve (3 before the facade phases, 2 before PR 15)
 BOXDDP_PROFILED_ITERS = 3
 # worker processes of the f64 oracles (the boxDDP, arm and SLS polishes)
 ORACLE_WORKERS = 7
@@ -568,6 +609,23 @@ IFT_FD_RTOL = 1e-3
 IFT_HOST_RTOL = 1e-8
 FACADE_REPEATS = 1  # timed runs after the counted one (cut from 3 for the run's length)
 FACADE_MC = 10_000
+
+# Slice 15, the scale-out layer: worlds of ranks spawned here, each a
+# process that imports only the port. Two ranks share the one card over
+# gloo (NCCL refuses two ranks on one device); one rank runs NCCL, the
+# backend of a machine with a card a rank. One card shows that a sharded
+# fleet gives the unsharded outputs, not how a fleet scales.
+PARALLEL_WORLDS = (("gloo", 2), ("nccl", 1))
+PARALLEL_TIMEOUT = 300  # seconds a world may take, its ranks' start included
+# the consensus projection of tests/test_consensus_parallel.py's chance
+# constraint, one point an instance of the SLS fleet
+CONSENSUS_RHO = 10.0
+CONSENSUS_ITERS = 50
+CONSENSUS_THRESHOLD = 1e-6
+CONSENSUS_F64_TOL = 1e-12  # sharded against stacked: the order of two sums
+CONSENSUS_F32_TOL = 1e-4  # times max(1, max|x|): f32 rounding through 50 iterations
+TIME_SHARDED_TOL = 1e-10  # f64, relative to max(1, max|ref|)
+TIME_BOX_U = 0.5  # |u| bound of the box backward on riccati_problem's data
 
 # Published peaks of one H100 SXM: f32 outside the tensor cores, dense
 # TF32 on the tensor cores, and HBM3
@@ -1482,8 +1540,9 @@ def phase_sls_time(device, card):
                 "forward": (lambda: solver(bounds), TIMING_WINDOWS, CALLS_PER_WINDOW),
                 "plain": (lambda: sls_admm_reference(*ops, **kw), plain_windows, plain_calls),
             }
-            for fn, _, _ in paths.values():  # warm up
-                fn()
+            for fn, _, calls in paths.values():  # warm up all but one-call paths, as _timed
+                if calls > 1:
+                    fn()
             torch.cuda.synchronize()
             ms = {name: [] for name in paths}
             for w in range(TIMING_WINDOWS):
@@ -2919,19 +2978,36 @@ def _timed_solve(fn, device):
     return out, time.perf_counter() - t0
 
 
+SINGLE_CASES = {"AL keep-out": (al_obstacle_problem, al_obstacle_solve),
+                "barrier |u| <= 5": (barrier_problem, barrier_solve),
+                "PD car from a straight line": (pd_problem, pd_solve)}
+
+
+def _single_host_f64(name):
+    """(result, seconds) of a single solve in f64 on this host (a worker
+    process with one thread, beside the card's solves)."""
+    torch.set_num_threads(1)
+    problem, solve = SINGLE_CASES[name]
+    return _timed_solve(lambda: solve(problem("cpu", torch.float64)), "cpu")
+
+
 def phase_single_solves(device, card):
     """The barrier, AL and PD single solves on the card in f32, each against
-    the port's f64 solve of the same problem on the host: cost within
+    the port's f64 solve of the same problem on the host (in worker
+    processes beside the card's solves, since PR 15): cost within
     SINGLE_COST_REL, statuses the same stop, and each problem's own gates.
     Returns {name: seconds of the card's solve}."""
     out = {}
-    cases = (("AL keep-out", al_obstacle_problem, al_obstacle_solve),
-             ("barrier |u| <= 5", barrier_problem, barrier_solve),
-             ("PD car from a straight line", pd_problem, pd_solve))
-    for name, problem, solve in cases:
-        p_card = problem(device)
-        res, seconds = _timed_solve(lambda: solve(p_card), device)
-        host, host_s = _timed_solve(lambda: solve(problem("cpu", torch.float64)), "cpu")
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(len(SINGLE_CASES), mp_context=ctx) as pool:
+        hosts = {name: pool.submit(_single_host_f64, name) for name in SINGLE_CASES}
+        cards = {}
+        for name, (problem, solve) in SINGLE_CASES.items():
+            p_card = problem(device)
+            cards[name] = (p_card, *_timed_solve(lambda: solve(p_card), device))
+        hosts = {name: future.result() for name, future in hosts.items()}
+    for name, (p_card, res, seconds) in cards.items():
+        host, host_s = hosts[name]
         status = int(res.status)
         rel = abs(float(res.cost) - float(host.cost)) / abs(float(host.cost))
         print(f"[single] {name}: card f32 cost {float(res.cost):.7f}, status {status}, "
@@ -3781,6 +3857,288 @@ def phase_implicit(device, card, host):
           f"implicit: recovered target {target}, bound {bound}")
     return med
 
+def chance_soc_blocks():
+    """`tests/test_consensus_parallel.py::_chance_soc_blocks`: the
+    state-bounds chance-constraint pair, two SOCs a decision row [du |
+    phi] (f64 numpy: As (2, 3, 2), bs (2, 3))."""
+    psi_inv = float(norm.ppf(0.9))
+    mu = np.array([0.0, 0.3])
+    sig = np.diag(np.sqrt([0.0, 0.02]))
+    b = np.array([0.0, 0.0, 5.0 / psi_inv])
+    return (np.stack([np.concatenate([sig, (-mu / psi_inv)[None]]),
+                      np.concatenate([sig, (mu / psi_inv)[None]])]), np.stack([b, b]))
+
+
+def consensus_points(device, dtype, batch: int = SLS_BATCH):
+    return torch.tensor(np.random.default_rng(0).standard_normal((batch, 2)) * 3.0,
+                        dtype=dtype, device=device)
+
+
+def consensus_projection(device, dtype, mesh=None):
+    """The chance-constraint projection of `consensus_points`: over the
+    mesh's 'consensus' axis, or stacked in one process with mesh=None."""
+    As, bs = (torch.tensor(t, dtype=dtype, device=device) for t in chance_soc_blocks())
+    return project_set_convex_sharded(
+        consensus_points(device, dtype), As, bs, project_soc_unit, rho=CONSENSUS_RHO,
+        max_iter=CONSENSUS_ITERS, threshold=CONSENSUS_THRESHOLD, mesh=mesh)
+
+
+def time_box_inputs(data):
+    """The boxDDP backward's inputs on riccati_problem's (f64) data: the
+    cost's Taylor blocks at the zero nominal, |u| <= TIME_BOX_U."""
+    A, B, Q, xd, R = data
+    m = B.shape[-1]
+    u_nom = torch.zeros((A.shape[0], m), dtype=A.dtype, device=A.device)
+    cts, Cts = quad_cost_model(Q, xd, R, torch.zeros_like(xd), u_nom)
+    return A, B, Cts, cts, u_nom, -TIME_BOX_U, TIME_BOX_U
+
+
+def _rel_err(got, want) -> float:
+    return float((got - want).abs().max() / max(1.0, float(want.abs().max())))
+
+
+def parallel_references(device, path: Path):
+    """The single-process results the worlds are held to, saved to `path`:
+    the bench fleet through `admm_u_only`, the diamond_ee SLS fleet through
+    `sls_admm`, the stacked consensus projection in f64 and f32, the time-
+    parallel Riccati pass and the box backward in f64 (`riccati_problem`)."""
+    A, B, cost, x0s = bench_problem(device)
+    solver = make_fused_lqt_admm(A, B, cost, u_lower=-U_MAX, u_upper=U_MAX, rho_u=RHO_U,
+                                 n_iters=ADMM_ITERS, batch_tile=BATCH_TILE, device=device)
+    x, u, _, z_u = solver(x0s)
+    _, sls = sls_solver(device, "diamond_ee")
+    bounds = sls_bounds(device, batch=SLS_BATCH, sort=True)
+    du, phi_u, U = sls(bounds)
+    data = [t.double() for t in riccati_problem(device)[0]]
+    refs = {
+        "data": {"x": x, "u": u, "z_u": z_u,
+                 "rate": float(mc_success_rate(converged_flags, None, u, z_u))},
+        "sls": {"du": du, "phi_u": phi_u, "U": U, "rate": float(mc_success_rate(
+            lambda U_, b_: sls_converged_flags(U_, b_, C_COEF), None, U, bounds))},
+        "consensus": {str(dt): consensus_projection(device, dt)
+                      for dt in (torch.float64, torch.float32)},
+        "time": {"gains": lqt_backward_parallel(*data)._asdict(),
+                 "box": ilqr_backward_box_parallel(*time_box_inputs(data))},
+    }
+    torch.save(refs, path)
+    return refs
+
+
+def _bitwise(got: dict, want: dict) -> dict:
+    return {k: bool(torch.equal(t, want[k])) for k, t in got.items()}
+
+
+def _rank_data(mesh, device, ref):
+    """[parallel data]: the bench fleet sharded over 'data'."""
+    A, B, cost, x0s = bench_problem(device)
+    solver = make_fused_lqt_admm(A, B, cost, u_lower=-U_MAX, u_upper=U_MAX, rho_u=RHO_U,
+                                 n_iters=ADMM_ITERS, batch_tile=BATCH_TILE, device=device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    x, u, _, z_u = sharded_instance_solve(solver, mesh, x0s)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    cert = certify(A, B, cost, x0s, u, z_u, -U_MAX, U_MAX)
+    return {"seconds": seconds, "launches": launches["admm_u_only"], "all_launches": launches,
+            "bitwise": _bitwise({"x": x, "u": u, "z_u": z_u}, ref),
+            "rate": float(mc_success_rate(converged_flags, mesh, u, z_u)),
+            "certificate": cert, "gate_failures": gate_failures(cert)}
+
+
+def _rank_sls(mesh, device, ref):
+    """[parallel sls]: the diamond_ee SLS fleet sharded over 'data'."""
+    _, solver = sls_solver(device, "diamond_ee")
+    bounds = sls_bounds(device, batch=SLS_BATCH, sort=True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    du, phi_u, U = sharded_instance_solve(solver, mesh, bounds)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    flags = lambda U_, b_: sls_converged_flags(U_, b_, C_COEF)  # noqa: E731
+    return {"seconds": seconds, "launches": launches["sls_admm"], "all_launches": launches,
+            "bitwise": _bitwise({"du": du, "phi_u": phi_u, "U": U}, ref),
+            "rate": float(mc_success_rate(flags, mesh, U, bounds))}
+
+
+def _rank_consensus(device, ref):
+    """[parallel consensus]: the chance-constraint projection with its two
+    SOC blocks sharded over 'consensus', in f64 and f32."""
+    mesh = make_mesh(axis_names=("consensus",), device=device)
+    out = {}
+    for dt in (torch.float64, torch.float32):
+        reads = projection_sets.host_sync_count
+        t0 = time.perf_counter()
+        x = consensus_projection(device, dt, mesh)
+        sync(device)
+        want = ref[str(dt)]
+        out[str(dt)] = {"seconds": time.perf_counter() - t0, "max_abs_err": float(
+            (x - want).abs().max()), "scale": max(1.0, float(want.abs().max())),
+            "iterations": projection_sets.host_sync_count - reads - 1}
+    return out
+
+
+def _rank_time(device, ref):
+    """[parallel time]: the N = 10,000 LQT pass and the box backward with
+    the horizon sharded over 'time', in f64."""
+    mesh = make_mesh(axis_names=("time",), device=device)
+    data = [t.double() for t in riccati_problem(device)[0]]
+    t0 = time.perf_counter()
+    gains = lqt_backward_time_sharded(*data, mesh=mesh)
+    sync(device)
+    lqt_seconds = time.perf_counter() - t0
+    box = time_box_inputs(data)
+    t0 = time.perf_counter()
+    K, k = ilqr_backward_box_parallel(*box, mesh=mesh)
+    sync(device)
+    box_seconds = time.perf_counter() - t0
+    K_ref, k_ref = ref["box"]
+    clamped = (k_ref - box[4]).abs() >= TIME_BOX_U * (1 - 1e-12)
+    return {"lqt_seconds": lqt_seconds, "box_seconds": box_seconds,
+            "lqt_rel_err": {f: _rel_err(getattr(gains, f), ref["gains"][f])
+                            for f in gains._fields},
+            "box_rel_err": {"K": _rel_err(K, K_ref), "k": _rel_err(k, k_ref)},
+            "box_clamped": int(clamped.sum())}
+
+
+def parallel_rank(rank: int, nproc: int, port: int, backend: str, directory: str, device):
+    """One rank of a world (a spawned process): joins the world, runs the
+    [parallel ...] phases on the global arguments every rank makes, and
+    writes what it measured to rank<r>.json. The parent judges it."""
+    torch.set_num_threads(1)
+    distributed.initialize(f"localhost:{port}", nproc, rank, device=device, backend=backend)
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if torch.device(device).type == "cuda" else torch.device(device)
+    refs = torch.load(Path(directory) / "refs.pt", map_location=dev)
+    mesh = make_mesh(device=device)
+    out = {"backend": torch.distributed.get_backend(), "world": torch.distributed.get_world_size(),
+           "device": str(dev), "data": _rank_data(mesh, dev, refs["data"])}
+    if nproc > 1:
+        out["sls"] = _rank_sls(mesh, dev, refs["sls"])
+        out["consensus"] = _rank_consensus(dev, refs["consensus"])
+        out["time"] = _rank_time(dev, refs["time"])
+    (Path(directory) / f"rank{rank}.json").write_text(json.dumps(out))
+    torch.distributed.destroy_process_group()
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_parallel_world(backend: str, nproc: int, directory: Path, device="cuda",
+                       timeout: float = PARALLEL_TIMEOUT) -> list[dict]:
+    """Spawn nproc ranks of `parallel_rank` and wait for them; any rank that
+    exits non-zero or outlasts the timeout fails the run (every rank is
+    stopped first). Returns each rank's measurements."""
+    ctx = multiprocessing.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=parallel_rank,
+                         args=(r, nproc, port, backend, str(directory), device))
+             for r in range(nproc)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        late = [p for p in procs if p.is_alive()]
+        for p in late:
+            p.kill()
+            p.join()
+    check(not late, f"a {backend} world of {nproc} outlasted {timeout} s")
+    codes = [p.exitcode for p in procs]
+    check(all(c == 0 for c in codes), f"a {backend} world of {nproc} ranks exited {codes}")
+    return [json.loads((directory / f"rank{r}.json").read_text()) for r in range(nproc)]
+
+
+def _check_fleet(label, world, outs, refs, kernel, wall, card):
+    for r, out in enumerate(outs):
+        check(all(out["bitwise"].values()),
+              f"[{label}] rank {r}: the gathered fleet differs from the single-process "
+              f"call: {out['bitwise']}")
+        check(out["launches"] > 0, f"[{label}] rank {r} launched no {kernel} kernel: "
+              f"{out['all_launches']}")
+        check(out["rate"] == refs["rate"], f"[{label}] rank {r}: converged rate "
+              f"{out['rate']} != the single-process {refs['rate']}")
+    print(f"[{label}] {world}: "
+          f"gathered {sorted(outs[0]['bitwise'])} equal the single-process call bit for bit on "
+          f"every rank; {kernel} launches per rank {[o['launches'] for o in outs]}; "
+          f"converged rate {outs[0]['rate']} (single process {refs['rate']}); sharded solve "
+          f"{[round(o['seconds'], 4) for o in outs]} s a rank, the world {wall:.1f} s; {card}; "
+          "one card: equality, not scaling")
+
+
+def phase_parallel(card, device="cuda"):
+    """Slice 15's phases: [parallel data] and [parallel sls] (the bench and
+    SLS fleets sharded through their kernels), [parallel consensus] and
+    [parallel time], in a gloo world of 2 ranks on the one card, then
+    [parallel data] in an NCCL world of 1."""
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    directory = Path(tempfile.mkdtemp(prefix="parallel_smoke_", dir=build))
+    try:
+        t0 = time.perf_counter()
+        refs = parallel_references(device, directory / "refs.pt")
+        print(f"[parallel] single-process references in {time.perf_counter() - t0:.1f} s")
+        for backend, nproc in PARALLEL_WORLDS:
+            t0 = time.perf_counter()
+            outs = run_parallel_world(backend, nproc, directory, device)
+            wall = time.perf_counter() - t0
+            check(all(o["backend"] == backend and o["world"] == nproc for o in outs),
+                  f"the {backend} world of {nproc} came up as "
+                  f"{[(o['backend'], o['world']) for o in outs]}")
+            world = f"{backend}, {nproc} rank(s) on {outs[0]['device']}"
+            _check_fleet("parallel data", world, [o["data"] for o in outs], refs["data"],
+                         "admm_u_only", wall, card)
+            for r, o in enumerate(outs):
+                check(not o["data"]["gate_failures"],
+                      f"[parallel data] rank {r}: {'; '.join(o['data']['gate_failures'])}")
+            cert = outs[0]["data"]["certificate"]
+            print(f"[parallel data] certificates on the gathered fleet (every rank): "
+                  f"max_violation {cert['max_violation']}, converged_frac "
+                  f"{cert['converged_frac']}, cost_gap median {cert['cost_gap_median']:.3e} "
+                  f"max {cert['cost_gap_max']:.3e}")
+            if nproc == 1:
+                continue
+            _check_fleet("parallel sls", world, [o["sls"] for o in outs], refs["sls"],
+                         "sls_admm", wall, card)
+            for dt, tol in (("torch.float64", CONSENSUS_F64_TOL),
+                            ("torch.float32", CONSENSUS_F32_TOL)):
+                res = [o["consensus"][dt] for o in outs]
+                for r, c in enumerate(res):
+                    check(c["max_abs_err"] <= tol * c["scale"],
+                          f"[parallel consensus] rank {r}, {dt}: max|x - stacked| "
+                          f"{c['max_abs_err']:.3e} > {tol} x {c['scale']}")
+                print(f"[parallel consensus] {dt}, {SLS_BATCH} points, 2 SOC blocks over 2 "
+                      f"ranks: max|x - stacked on one device| "
+                      f"{[c['max_abs_err'] for c in res]} (limit {tol} x max(1, max|x|)), "
+                      f"{res[0]['iterations']} iterations, "
+                      f"{[round(c['seconds'], 3) for c in res]} s a rank; {card}; "
+                      "one card: equality, not scaling")
+            for r, o in enumerate(outs):
+                tm = o["time"]
+                worst = max(list(tm["lqt_rel_err"].values()) + list(tm["box_rel_err"].values()))
+                check(worst <= TIME_SHARDED_TOL,
+                      f"[parallel time] rank {r}: relative errors {tm['lqt_rel_err']}, "
+                      f"{tm['box_rel_err']} > {TIME_SHARDED_TOL}")
+            tm = [o["time"] for o in outs]
+            print(f"[parallel time] N = {RICCATI_N}, d = 4, f64, 2 ranks of {RICCATI_N // 2} "
+                  f"stages: lqt_backward_time_sharded vs lqt_backward_parallel on one device, "
+                  f"largest relative error {max(max(t['lqt_rel_err'].values()) for t in tm):.3e}; "
+                  f"ilqr_backward_box_parallel(mesh=...) vs its unsharded call "
+                  f"{max(max(t['box_rel_err'].values()) for t in tm):.3e} "
+                  f"({tm[0]['box_clamped']} clamped controls) (limit {TIME_SHARDED_TOL}); "
+                  f"{[round(t['lqt_seconds'], 3) for t in tm]} s and "
+                  f"{[round(t['box_seconds'], 3) for t in tm]} s a rank; {card}; "
+                  "one card: equality, not scaling")
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
 def main() -> int:
     seconds = {}
 
@@ -3854,6 +4212,7 @@ def main() -> int:
         run("facade car", phase_facade_car, "cuda", card, facade_host)
         run("facade maze", phase_facade_maze, "cuda", card, facade_host)
         run("implicit", phase_implicit, "cuda", card, facade_host)
+        run("parallel", phase_parallel, card)
         bounds = dict(run("fleet bounds", existing_bounds, solver, inputs, box[1], x0s,
                           sls[1], sls_fleet), **riccati_times["bounds"],
                       linesearch_rollout=car_times["bound"],

@@ -113,14 +113,21 @@ def ilqr_backward_box_parallel(A, B, Cts, cts, u_nom, u_lower, u_upper, reg=0.0,
     of the pass of least KKT violation (NaN counts as +inf). Returns (K,
     k), and the post-exchange set (clamp_lo, clamp_hi) when return_clamp.
 
-    mesh: the JAX package shards each pass's horizon over a device mesh
-    (`parallel/time_sharded.py`); the port has no `parallel/` layer yet
-    (ROADMAP.md, queue 1, the `parallel/` item), so a mesh raises.
+    mesh: a `DeviceMesh` (`parallel/mesh.py`) shards every pass's horizon
+    over its `mesh_axis` (`parallel/time_sharded.py::ilqr_backward_time_sharded`:
+    one all_gather of O(P d^2) chunk totals a pass); every rank of the
+    axis makes the call with the same arguments, and the masked model and
+    the exchange, per-stage algebra, run on each rank over the whole
+    horizon.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "ilqr_backward_box_parallel(mesh=...) needs parallel/time_sharded.py, which is "
-            "not ported yet (ROADMAP.md, queue 1, the parallel/ item)")
+    if mesh is None:
+        backward = ilqr_backward_parallel
+    else:
+        from ilqr_admm_tpu_torch.parallel.time_sharded import ilqr_backward_time_sharded
+
+        def backward(A_, B_, Cts_, cts_, drift=None, **kw):
+            return ilqr_backward_time_sharded(A_, B_, Cts_, cts_, drift, mesh=mesh,
+                                              axis=mesh_axis, **kw)
     d, m = A.shape[-1], B.shape[-1]
     dtype, device = A.dtype, A.device
     lo, hi = box_bounds(u_lower, m, A), box_bounds(u_upper, m, A)
@@ -147,7 +154,7 @@ def ilqr_backward_box_parallel(A, B, Cts, cts, u_nom, u_lower, u_upper, reg=0.0,
                               + eye_m * (1.0 - F)[:, :, None])
         Cts_eff[:, d:, :d] = Cux_full * F[:, :, None]
         Cts_eff[:, :d, d:] = Cts[:, :d, d:] * F[:, None, :]
-        K, k, J, eta = ilqr_backward_parallel(
+        K, k, J, eta = backward(
             A, B_eff, Cts_eff, torch.cat([cx_eff, cu_eff], dim=-1), return_value=True,
             drift=drift, fast_inverse=fast)
         return K * F[:, :, None], k * F + c, J, eta
@@ -171,7 +178,7 @@ def ilqr_backward_box_parallel(A, B, Cts, cts, u_nom, u_lower, u_upper, reg=0.0,
         return new_lo, new_hi, torch.where(torch.isnan(viol), float("inf"), viol)
 
     if clamp0 is None:
-        _, k_unc = ilqr_backward_parallel(A, B, Cts, cts, fast_inverse=fast)
+        _, k_unc = backward(A, B, Cts, cts, fast_inverse=fast)
         clamp_lo, clamp_hi = k_unc <= dlo, k_unc >= dhi
     else:
         clamp_lo, clamp_hi = clamp0

@@ -2,15 +2,18 @@
 `ilqr_admm_tpu/parallel/batch.py`).
 
 Where the JAX package vmaps a single-instance solver over an instance
-axis, each function here runs the port's fleet form of that solver: one
-loop over a leading fleet axis F, each instance stopping on its own with
-one host read an iteration for the whole fleet. Names and argument order
-are the JAX package's, with x0s (F, d) and u0s (F, N, m); `device`
-defaults to the CUDA card. The user functions and projections are
-single-instance and must work under `torch.func.vmap`.
+axis, each `batched_*` function here runs the port's fleet form of that
+solver: one loop over a leading fleet axis F, each instance stopping on
+its own with one host read an iteration for the whole fleet. Names and
+argument order are the JAX package's, with x0s (F, d) and u0s (F, N, m);
+`device` defaults to the CUDA card. The user functions and projections
+are single-instance and must work under `torch.func.vmap`.
 
-Not ported yet: `sharded_instance_solve` and `mc_success_rate`, which
-need a device mesh (ROADMAP.md, queue 1, the `parallel/` item).
+`sharded_instance_solve` and `mc_success_rate` shard a fleet over the
+'data' axis of a mesh (`mesh.py`): each rank solves its contiguous
+shard, and the only collectives are the gather of the results and the
+reduction of the rates. Every rank calls them with the same global
+arguments.
 """
 
 from __future__ import annotations
@@ -18,8 +21,12 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch.func import vmap
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from ilqr_admm_tpu_torch.parallel.collectives import all_reduce, gather_packed
+from ilqr_admm_tpu_torch.parallel.mesh import axis_group, mesh_device
 from ilqr_admm_tpu_torch.problem import ADMMConfig, ILQRConfig, QuadCost
 from ilqr_admm_tpu_torch.solvers.admm import validate_constraint_blocks
 from ilqr_admm_tpu_torch.solvers.al_ilqr import ALResult, al_ilqr_fleet_solve
@@ -107,3 +114,65 @@ def batched_al_solve(f: Callable, get_AB: Callable, get_Cs: Callable, cost_fn: C
     instance's `.max_violation`."""
     return al_ilqr_fleet_solve(f, get_AB, get_Cs, cost_fn, x0s, u0s, ineq=ineq, eq=eq, cfg=cfg,
                                device=device, **al_kwargs)
+
+
+def _instance_shards(batched_args, size: int, index: int):
+    """Each argument's contiguous shard `index` of `size` along its leading
+    (instance) axis; the axis must divide evenly, as under `shard_map`."""
+    if not batched_args:
+        raise ValueError("a sharded solve needs at least one batched argument")
+    shards = []
+    for i, a in enumerate(batched_args):
+        n = a.shape[0]
+        if n % size:
+            raise ValueError(f"batched argument {i} has {n} instances, which the mesh axis of "
+                             f"size {size} does not divide")
+        per = n // size
+        shards.append(a[index * per:(index + 1) * per])
+    return shards
+
+
+def sharded_instance_solve(solve_batch_fn: Callable, mesh, *batched_args, axis: str = "data"):
+    """Shard a fleet solve over the mesh's instance axis.
+
+    solve_batch_fn(*batched_args) maps leading-axis batches to
+    leading-axis results (a tensor, or a tuple, NamedTuple, list or dict
+    of them; None entries pass through). Each rank runs it on its
+    contiguous shard of every argument, with no cross-instance
+    communication, and the results are gathered along the leading axis:
+    every rank returns the whole fleet's result, as the JAX call returns
+    the global array. The leading axes must be divisible by the axis
+    size, and every rank's results must have the same shapes.
+    """
+    group, size, index = axis_group(mesh, axis)
+    out = solve_batch_fn(*_instance_shards(batched_args, size, index))
+    leaves, spec = tree_flatten(out)
+    pos = [i for i, v in enumerate(leaves) if v is not None]
+    for i in pos:
+        if not isinstance(leaves[i], torch.Tensor) or leaves[i].ndim == 0:
+            raise TypeError("every result of a sharded solve must be a tensor with a leading "
+                            f"instance axis; got {type(leaves[i]).__name__} "
+                            f"{getattr(leaves[i], 'shape', '')}")
+    for i, t in zip(pos, gather_packed([leaves[i] for i in pos], group)):
+        leaves[i] = t
+    return tree_unflatten(leaves, spec)
+
+
+def mc_success_rate(success_fn: Callable, mesh, *batched_args, axis: str = "data"):
+    """Mesh-reduced Monte-Carlo success rate.
+
+    success_fn(*args) -> (shard_batch,) bool or float per-instance
+    successes. With mesh=None, the mean over the whole batch; otherwise
+    each rank evaluates its shard and the rate is the all-reduced sum of
+    the successes over the all-reduced count (float64), the same on
+    every rank. Returns a 0-d tensor.
+    """
+    if mesh is None:
+        return torch.mean(torch.as_tensor(success_fn(*batched_args)).to(torch.float64))
+    group, size, index = axis_group(mesh, axis)
+    s = torch.as_tensor(success_fn(*_instance_shards(batched_args, size, index)))
+    s = s.to(mesh_device(mesh), torch.float64)
+    total = all_reduce(torch.stack([s.sum(), torch.tensor(float(s.numel()), dtype=s.dtype,
+                                                          device=s.device)]),
+                       dist.ReduceOp.SUM, group)
+    return total[0] / total[1]

@@ -121,10 +121,15 @@ def max_violation(z_u, u_lower, u_upper) -> float:
     return float(torch.max(torch.maximum(over, under)))
 
 
+def converged_flags(u, z_u) -> torch.Tensor:
+    """(batch,) bool on the host: the instances whose primal residual
+    ||u - z_u|| is below PRIMAL_TOL."""
+    return torch.linalg.vector_norm(_f64(u) - _f64(z_u), dim=-1) < PRIMAL_TOL
+
+
 def converged_frac(u, z_u) -> float:
     """Fraction of instances whose primal residual ||u - z_u|| is below PRIMAL_TOL."""
-    prim = torch.linalg.vector_norm(_f64(u) - _f64(z_u), dim=-1)
-    return float(torch.mean((prim < PRIMAL_TOL).to(torch.float64)))
+    return float(torch.mean(converged_flags(u, z_u).to(torch.float64)))
 
 
 def oracle_cost_gap(A, B, cost: QuadCost, x0s, z_u, u_lower, u_upper):
@@ -369,6 +374,12 @@ def sls_primal_residuals(U, bounds, c: float) -> np.ndarray:
     U = _f64(U).numpy()
     return np.linalg.norm((U - project_cone(U, c, _f64(bounds).numpy()[:, None]))
                           .reshape(U.shape[0], -1), axis=-1)
+
+
+def sls_converged_flags(U, bounds, c: float) -> torch.Tensor:
+    """(batch,) bool on the host: the instances whose residual
+    `sls_primal_residuals` is below SLS_PRIMAL_TOL."""
+    return torch.as_tensor(sls_primal_residuals(U, bounds, c) < SLS_PRIMAL_TOL)
 
 
 def sls_cone_violation(U, bounds, c: float) -> float:

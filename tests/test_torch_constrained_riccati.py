@@ -175,7 +175,9 @@ def test_backward_box_parallel_overactuated_matches_jax():
 
 
 def test_backward_box_parallel_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    """A `DeviceMesh` shards each pass over its 'time' axis
+    (`tests/test_torch_time_sharded.py`); anything else is refused."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tc.ilqr_backward_box_parallel(*_t(_problem(0, N=4)), -1.0, 1.0, mesh=object())
 
 

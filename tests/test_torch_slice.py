@@ -93,7 +93,9 @@ def test_port_imports_without_jax():
                      "ops.boxqp", "ops.constrained_riccati", "solvers.boxddp", "solvers.mpc",
                      "facade", "solvers.implicit", "projections.primitives", "projections.sets",
                      "utils.checkpoint", "utils.debug", "utils.metrics", "utils.profiling",
-                     "utils.trajopt"):
+                     "utils.trajopt", "parallel.batch", "parallel.collectives",
+                     "parallel.consensus", "parallel.distributed", "parallel.mesh",
+                     "parallel.time_sharded", "viz", "native"):
             assert "ilqr_admm_tpu_torch." + name in names, name
         import chip_smoke
         leaked = sorted(m for m in sys.modules if m == "ilqr_admm_tpu" or m.startswith("ilqr_admm_tpu."))
