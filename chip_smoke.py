@@ -157,10 +157,10 @@ Phases:
    windows) and a `torch.profiler` split; the AL arm fleet: its main path
    with its host reads and the gates against the JAX package's f32
    numbers (`certify_al_fleet`), the fleet of 8 against 8 single
-   `al_ilqr_solve` calls, and solves/s (3 windows);
+   `al_ilqr_solve` calls, and solves/s (1 window);
 9. slice 13, the facade: each workflow on the card with its host reads
-   (synchronizing CUDA calls, in sync debug mode) and the median time of
-   FACADE_REPEATS runs after it (the car and the maze: that one run),
+   (synchronizing CUDA calls, in sync debug mode) and the time of that
+   run (FACADE_REPEATS more runs after it where it is set),
    against the same workflow in f64 on the host (worker processes beside
    the card's phases): costs within 1e-3 where the solve is converged or
    deterministic, the bounds, the obstacle clearances, the exact
@@ -203,6 +203,7 @@ import copy
 import io
 import json
 import multiprocessing
+import re
 import shutil
 import socket
 import subprocess
@@ -564,7 +565,7 @@ AL_ARM_SOLVE = dict(max_iter=8, max_line_search_iter=15)
 AL_ARM_KW = dict(n_al=7, mu0=1e2, mu_factor=8.0, tol_con=1e-5)
 AL_ARM_COMPARE = 2  # 8 before the facade phases (cut for their time, as BOXDDP_COMPARE)
 AL_ARM_COMPARE_REL = 1e-3
-AL_ARM_WINDOWS = 3
+AL_ARM_WINDOWS = 1  # 3 before, cut for the run's length
 # Slice 13, the reference library's own API on the card: the SLS / iSLS
 # facade at the examples' sizes, none cut, each workflow in the examples'
 # dtype against the port's f64 run of the same workflow on the host (in a
@@ -599,15 +600,15 @@ AL_ARM_WINDOWS = 3
 # -FACADE_CLEARANCE_TOL; the IFT gradient within IFT_FD_RTOL of the
 # central difference (tests/test_implicit.py:53-54) and IFT_HOST_RTOL of
 # the host's f64 gradient. Times: the host clock around a workflow with a
-# sync, FACADE_REPEATS runs after a warm-up (the car and the maze, a minute
-# and half a minute a run: their one gated run); host reads: the card's
-# synchronizing calls in the first run (torch.cuda sync debug mode).
+# sync around the gated run (FACADE_REPEATS runs after it where set);
+# host reads: the card's synchronizing calls in the first run
+# (torch.cuda sync debug mode).
 FACADE_COST_REL = 1e-3
 FACADE_U_TOL = 5e-2
 FACADE_CLEARANCE_TOL = 1e-4
 IFT_FD_RTOL = 1e-3
 IFT_HOST_RTOL = 1e-8
-FACADE_REPEATS = 1  # timed runs after the counted one (cut from 3 for the run's length)
+FACADE_REPEATS = 0  # timed runs after the counted one (3, then 1, cut for the run's length)
 FACADE_MC = 10_000
 
 # Slice 15, the scale-out layer: worlds of ranks spawned here, each a
@@ -1045,6 +1046,43 @@ def wide_cases(device):
     odd_solver = wide_solver(device, odd, batch_tile=16)
     cases.append(("wide, Nm=516, batch_tile=16", odd_solver, odd_solver.kernel_inputs(odd[3]), {}))
     return problem, solver, inputs, cases
+
+
+def wide_ptxas(log: str) -> dict:
+    """{(instances a block, relax, delta): "stack and spills; registers"}
+    of each wide kernel build, from ptxas's -v output in nvcc.log (its
+    entry line, the function's properties, its stack and spills, its
+    registers)."""
+    lines = log.splitlines()
+    out = {}
+    for i, line in enumerate(lines):
+        m = re.search(r"admm_u_only_wide_kernelILi(\d)ELb([01])ELb([01])E", line)
+        if m and "Compiling entry function" in line and i + 3 < len(lines):
+            key = (16 * int(m.group(1)), int(m.group(2)), int(m.group(3)))
+            out[key] = f"{lines[i + 2].strip()}; {lines[i + 3].split(':', 1)[-1].strip()}"
+    return out
+
+
+def phase_wide_geometry(cases):
+    """Each wide case's launch as `admm_u_only` makes it: instances a
+    block, threads, shared memory, the blocks an SM holds by shared memory
+    and the waves the grid takes on this card, and its kernel build's
+    registers and spills."""
+    ptxas = wide_ptxas((_build.build_dir() / "nvcc.log").read_text())
+    props = torch.cuda.get_device_properties(0)
+    sm_smem = getattr(props, "shared_memory_per_multiprocessor", 233472)
+    for label, solver, inputs, extra in cases:
+        kw = dict(solver.kernel_options, **extra)
+        B, Nm = inputs[0].shape
+        threads, smem = fused_admm.wide_launch_geometry(kw["batch_tile"], Nm)
+        per_sm = min(sm_smem // (smem + 1024), 2048 // threads)
+        blocks = B // kw["batch_tile"]
+        build = ptxas.get((kw["batch_tile"], int(kw["alpha"] != 1.0), int(kw["refresh_every"] > 1)))
+        print(f"[wide u-only geometry] {label}: {kw['batch_tile']} instances a block, {threads} "
+              f"threads, {smem} B of shared memory, {per_sm} block(s) an SM: "
+              f"{-(-blocks // (per_sm * props.multi_processor_count))} waves of {blocks} "
+              f"blocks on {props.multi_processor_count} SMs; ptxas: {build}")
+        check(per_sm > 0 and build is not None, f"{label}: no build or no room for the wide block")
 
 
 def phase_wide_main_path(solver, problem):
@@ -1531,13 +1569,16 @@ def phase_sls_time(device, card):
         plain_windows, plain_calls = (1, 1) if mode == "consensus" else (5, 2)
         _, solver = sls_solver(device, mode)
         for batch in SLS_TIME_BATCHES:
+            # consensus at 16,384 is ~0.11 s a call: 2 calls a window (10
+            # before, cut for the run's length)
+            per_window = 2 if mode == "consensus" and batch > SLS_BATCH else CALLS_PER_WINDOW
             bounds = sls_bounds(device, batch=batch, sort=mode == "diamond_ee")
             kw = solver.kernel_options
             ops = (bounds, solver.U_base, solver.W)
             paths = {
                 "kernel": (lambda: sls_admm(*ops, solver.packed, **kw), TIMING_WINDOWS,
-                           CALLS_PER_WINDOW),
-                "forward": (lambda: solver(bounds), TIMING_WINDOWS, CALLS_PER_WINDOW),
+                           per_window),
+                "forward": (lambda: solver(bounds), TIMING_WINDOWS, per_window),
                 "plain": (lambda: sls_admm_reference(*ops, **kw), plain_windows, plain_calls),
             }
             for fn, _, calls in paths.values():  # warm up all but one-call paths, as _timed
@@ -4165,6 +4206,7 @@ def main() -> int:
         launches, _ = run("u-only main path", phase_main_path, solver, A, B, cost, x0s)
         times = run("u-only time", phase_time, solver, inputs, card)
         wide_problem_, wide, wide_inputs, wide_cases_ = wide_cases("cuda")
+        run("wide u-only geometry", phase_wide_geometry, wide_cases_)
         wide_max_err = run("wide u-only compare", phase_compare, wide_cases_)
         wide_launches, _ = run("wide u-only main path", phase_wide_main_path, wide, wide_problem_)
         wide_times = run("wide u-only time", phase_wide_time, wide, wide_inputs, card)

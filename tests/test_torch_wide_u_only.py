@@ -355,6 +355,73 @@ def test_wide_geometry_and_route_choice():
         default_u_tile(1040)
 
 
+@pytest.mark.parametrize("Nm,routes,tiles", [
+    (100, ("narrow", "narrow", "narrow"), (64, 64)),
+    (224, ("narrow", "wide", None), (16, 32)),
+    (225, ("wide", "wide", None), (32, 32)),
+    (512, ("wide", "wide", None), (32, 32)),
+    (516, ("wide", None, None), (16, 16)),
+    (1024, ("wide", None, None), (16, 16)),
+    (1025, (None, None, None), None),
+])
+def test_route_choice_at_the_edges_of_each_route(Nm, routes, tiles):
+    """`u_only_route` for tiles 16, 32 and 64 (None where it raises) and
+    `default_u_tile` with refresh_every 1 and 8, at the narrow kernel's
+    last width, the wide route's first, the bench's, a padded width and
+    the wide route's last and first refused."""
+    for tile, want in zip((16, 32, 64), routes):
+        if want is None:
+            with pytest.raises(ValueError, match="no u-only kernel"):
+                u_only_route(tile, Nm)
+        else:
+            assert u_only_route(tile, Nm) == want
+    if tiles is None:
+        with pytest.raises(ValueError, match="no u-only kernel"):
+            default_u_tile(Nm)
+    else:
+        assert (default_u_tile(Nm), default_u_tile(Nm, refresh_every=8)) == tiles
+
+
+@pytest.mark.parametrize("batch_tile", [16, 32])
+def test_wide_geometry_fits_at_every_width_it_takes(batch_tile):
+    """At every Nm from 1 to 1,024 the wide route either raises or gives
+    whole warps, at most 16, and shared memory within a block's limit that
+    grows with Nm; it takes every Nm up to 512 at tile 32 and up to 1,024
+    at tile 16, and none past."""
+    last, taken = 0, []
+    for Nm in range(1, 1025):
+        try:
+            threads, smem = wide_launch_geometry(batch_tile, Nm)
+        except ValueError:
+            continue
+        taken.append(Nm)
+        assert threads % 32 == 0 and 32 <= threads <= 32 * 16
+        assert threads == 32 * len(wide_pieces(batch_tile, Nm))
+        assert last <= smem <= fused_admm._MAX_SMEM and smem % 16 == 0
+        last = smem
+    assert taken == list(range(1, {16: 1024, 32: 512}[batch_tile] + 1))
+
+
+def test_wide_ptxas_reads_each_builds_registers_and_spills():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_Z23admm_u_only_wide_kernelILi2ELb0ELb1EEv7Problem'"
+        " for 'sm_90a'",
+        "ptxas info    : Function properties for _Z23admm_u_only_wide_kernelILi2ELb0ELb1EEv7Problem",
+        "    72 bytes stack frame, 72 bytes spill stores, 72 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 0 barriers, 72 bytes cumulative stack size",
+        "ptxas info    : Compiling entry function '_Z23admm_u_only_wide_kernelILi1ELb1ELb0EEv7Problem'"
+        " for 'sm_90a'",
+        "ptxas info    : Function properties for _Z23admm_u_only_wide_kernelILi1ELb1ELb0EEv7Problem",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 104 registers, used 1 barriers",
+    ])
+    got = chip_smoke.wide_ptxas(log)
+    assert set(got) == {(32, 0, 1), (16, 1, 0)}
+    assert got[(32, 0, 1)] == ("72 bytes stack frame, 72 bytes spill stores, 72 bytes spill loads; "
+                               "Used 128 registers, used 0 barriers, 72 bytes cumulative stack size")
+    assert got[(16, 1, 0)].endswith("Used 104 registers, used 1 barriers")
+
+
 def test_wide_solver_defaults_to_the_wide_tile_and_runs_plain_on_cpu():
     problem = chip_smoke.wide_problem("cpu", batch=64)
     solver = chip_smoke.wide_solver("cpu", problem)

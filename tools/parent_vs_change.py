@@ -4,7 +4,9 @@ with `git archive`), on one CUDA card: times, and outputs bit for bit.
 
 Each tree runs in its own processes with its own package, wrapper and
 library, on the same inputs: the u-only bench fleet (16,384 instances,
-refresh_every 1, `admm_u_only`) and the SLS bench fleet (1,024 instances,
+refresh_every 1, `admm_u_only`), the wide fleet of
+`benchmarks/bench_wide_certified.py` (8,192 instances, Nm = 512, the wide
+route; refresh_every 8 and 1) and the SLS bench fleet (1,024 instances,
 `sls_admm`) in the diamond_ee, diamond and consensus modes, in the order
 other, this, this, other. Each process times the kernels with CUDA events
 (median of 7 windows of 10 calls, after a warm-up) and saves their
@@ -13,7 +15,7 @@ equal bit for bit. The other tree builds its library under its own
 build/ directory.
 
 Run from the repository root on a machine with a card and nvcc, with the
-outputs (~115 MB) in a directory that is not brought back, e.g.:
+outputs (~290 MB) in a directory that is not brought back, e.g.:
     git archive <parent> | tar -x -C build/parent
     python3 tools/parent_vs_change.py build/parent build/parent_vs_change
 """
@@ -46,6 +48,13 @@ solver = make_fused_lqt_admm(A, B, cost, u_lower=-cs.U_MAX, u_upper=cs.U_MAX, rh
                              n_iters=cs.ADMM_ITERS, batch_tile=cs.BATCH_TILE, device="cuda")
 inputs = solver.kernel_inputs(x0s)
 runs["admm_u_only"] = lambda: admm_u_only(*inputs, solver.packed, **solver.kernel_options)
+problem = cs.wide_problem("cuda")
+wide = cs.wide_solver("cuda", problem)
+wide_inputs = wide.kernel_inputs(problem[3])
+for r in (cs.WIDE_REFRESH, 1):
+    runs[f"admm_u_only_wide refresh_every={r}"] = (
+        lambda r=r: admm_u_only(*wide_inputs, wide.packed, **dict(wide.kernel_options,
+                                                                  refresh_every=r)))
 for mode in ("diamond_ee", "diamond", "consensus"):
     _, s = cs.sls_solver("cuda", mode)
     bounds = cs.sls_bounds("cuda", sort=mode == "diamond_ee")
