@@ -79,6 +79,14 @@ Drives the port's paths on the card:
   the box backward with `mesh=`. The card is one H100, so two ranks share
   it over gloo and one rank runs NCCL: the phases show that a sharded
   solve gives the single-process outputs, not how it scales.
+- the examples' twins (`examples_torch/`): nine of the eleven examples
+  that no other phase re-codes, each as a user runs it (`python
+  examples_torch/<name>.py --device cuda`) in a process of its own, six
+  at once, held to the reference notebooks' goldens of
+  `tests/test_examples.py`; beside them an audit of the batched
+  `torch.linalg` ops the port calls (cholesky, cholesky_ex, solve,
+  solve_triangular, inv, pinv, qr, cholesky_solve) on memory that held
+  NaN, with a zero or singular block, against numpy.
 
 Phases:
 
@@ -183,6 +191,12 @@ Phases:
    world of 1 rank runs [parallel data]. A rank that exits non-zero or
    outlasts PARALLEL_TIMEOUT fails the run. Each line carries the wall
    times and the card's name and power limit.
+11. slice 17: [linalg audit] (`linalg_audit` in f64 and f32: each
+   batched op's well-conditioned blocks against numpy, the zero or
+   singular block as numpy has it; a fault fails the run), then
+   [examples] (`phase_examples`: EXAMPLES_ON_CARD, each twin's process,
+   its exit code, wall time and golden numbers; a twin that fails, times
+   out or misses a golden row fails the run).
 
 Any failure exits non-zero before the last line. The last line is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
@@ -203,6 +217,7 @@ import copy
 import io
 import json
 import multiprocessing
+import os
 import re
 import shutil
 import socket
@@ -627,6 +642,29 @@ CONSENSUS_F64_TOL = 1e-12  # sharded against stacked: the order of two sums
 CONSENSUS_F32_TOL = 1e-4  # times max(1, max|x|): f32 rounding through 50 iterations
 TIME_SHARDED_TOL = 1e-10  # f64, relative to max(1, max|ref|)
 TIME_BOX_U = 0.5  # |u| bound of the box backward on riccati_problem's data
+
+# Slice 17, the examples as torch twins (`examples_torch/`): nine of the
+# eleven that no earlier phase re-codes run here, each in its own process
+# with --device cuda, EXAMPLES_POOL at once, the longest first (the order
+# of EXAMPLES_ON_CARD, by their card times alone: 26.2 s down to 9.9 s,
+# H100 80GB HBM3 at 700 W). Each is held to its tests/test_examples.py
+# GOLDENS rows (`examples_torch/goldens.py`) and its own asserts (exit 0).
+# Left out for the run's length: boxddp_car_parking (453 s alone: an eager
+# N = 500 boxDDP, 100 + 250 iterations of small launches) and
+# car_control_bounds (101 s alone), each run once on the card with every
+# golden met (PERF.md section 6).
+EXAMPLES_ON_CARD = (
+    "batched_multistart", "robust_fleet_diamond", "double_integrator_control_bounds",
+    "admm_acceleration", "mpc_car", "arm_robust", "robust_joint_calibration",
+    "arm_constrained", "sparse_control_l1",
+)
+EXAMPLES_POOL = 6
+EXAMPLES_TIMEOUT = 600  # seconds a twin may take on the card
+# [linalg audit]: the batched torch.linalg calls of the port's paths on
+# memory that held NaN, a zero or singular block among well-conditioned
+# ones, block by block against numpy (relative to max(1, max|ref|))
+LINALG_BATCH = 500
+LINALG_TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 
 # Published peaks of one H100 SXM: f32 outside the tensor cores, dense
 # TF32 on the tensor cores, and HBM3
@@ -4180,6 +4218,181 @@ def phase_parallel(card, device="cuda"):
         shutil.rmtree(directory, ignore_errors=True)
 
 
+# ---- slice 17: the examples' twins on the card, and the linalg audit ----
+
+
+ROOT = Path(__file__).resolve().parent
+
+
+def run_twin(name: str, device="cuda"):
+    """examples_torch/<name>.py in its own process on `device` (one BLAS
+    thread): (name, exit code or None at the timeout, stdout, stderr,
+    seconds). subprocess.run kills the process at the timeout."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, str(ROOT / "examples_torch" / f"{name}.py"),
+                               "--device", str(device)], capture_output=True, text=True,
+                              timeout=EXAMPLES_TIMEOUT, cwd=ROOT, env=env)
+        code, out, err = proc.returncode, proc.stdout, proc.stderr
+    except subprocess.TimeoutExpired as exc:
+        code, out, err = None, exc.stdout or "", exc.stderr or ""
+        out, err = (v.decode() if isinstance(v, bytes) else v for v in (out, err))
+    return name, code, out, err, time.perf_counter() - t0
+
+
+def phase_examples(card, device="cuda"):
+    """[examples]: EXAMPLES_ON_CARD, each in its own process on the card,
+    EXAMPLES_POOL at once in that order (the longest first). A twin passes
+    when it exits 0 (its own asserts) and its output meets every GOLDENS
+    row of its example. Returns {name: seconds}."""
+    from examples_torch.goldens import check_output, load_goldens
+
+    goldens = load_goldens()
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(EXAMPLES_POOL) as workers:
+        results = list(workers.map(lambda n: run_twin(n, device), EXAMPLES_ON_CARD))
+    wall = time.perf_counter() - t0
+    failures, seconds = [], {}
+    for name, code, out, err, sec in results:
+        fails, values = check_output(name, out, goldens)
+        if code != 0:
+            why = "timed out" if code is None else f"exited {code}"
+            fails.insert(0, f"{name} {why} after {sec:.1f} s: {err.strip()[-1500:]}")
+        seconds[name] = sec
+        print(f"[examples] {name}: {sec:.1f} s on the card, exit {code}, golden numbers "
+              f"{values}, {'every GOLDENS row met' if not fails else 'FAILED'}")
+        failures += fails
+    print(f"[examples] {len(EXAMPLES_ON_CARD)} twins, {EXAMPLES_POOL} processes at once, the "
+          f"longest first: phase {wall:.1f} s of wall time ({sum(seconds.values()):.1f} s "
+          f"summed); card: {card}")
+    check(not failures, "[examples] " + "; ".join(failures))
+    return seconds
+
+
+def _nan_filled(device):
+    """Fill, then free, 64 MiB with NaN: the caching allocator hands that
+    memory to the next call's outputs, so an output the op leaves
+    unwritten reads NaN (the trap of the batched f32 eigh that
+    `ops/sqrt_riccati.py::eigh_rayleigh` works around)."""
+    junk = torch.full((1 << 24,), float("nan"), device=device)
+    del junk
+
+
+def _spd(rng, batch, n):
+    X = rng.normal(size=(batch, n, n))
+    return X @ X.transpose(0, 2, 1) + n * np.eye(n)
+
+
+def _rel_np(got, want) -> float:
+    return float(np.max(np.abs(got - want)) / max(1.0, float(np.max(np.abs(want)))))
+
+
+def _raises(fn, device) -> bool:
+    try:
+        fn()
+        sync(device)
+    except torch.linalg.LinAlgError:
+        return True
+    return False
+
+
+def linalg_audit(device, dtype):
+    """Each batched torch.linalg op of the port at one call site's shapes,
+    on memory that held NaN, block by block against numpy: {op: (relative
+    error of the well-conditioned blocks, whether the zero or singular
+    block came out as numpy has it)}. The zero block z: cholesky, solve and
+    inv must raise as numpy does (then the batch with z well-conditioned is
+    compared); cholesky_ex must flag z alone; pinv must give z zeros;
+    qr must give z's R zero and an orthonormal Q; solve_triangular and
+    cholesky_solve take a zero right-hand side at z and must give zeros."""
+    rng = np.random.default_rng(0)
+    batch = LINALG_BATCH
+    z = batch // 2
+
+    def t(a):
+        _nan_filled(device)
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    def host(x):
+        return x.double().cpu().numpy()
+
+    out = {}
+    # cholesky: Quu of the time-parallel backward (ops/parallel_riccati.py:302), m = 2
+    M = _spd(rng, batch, 2)
+    bad = M.copy()
+    bad[z] = 0.0
+    raised = _raises(lambda: torch.linalg.cholesky(t(bad)), device)
+    L = host(torch.linalg.cholesky(t(M)))
+    out["cholesky"] = (_rel_np(L, np.linalg.cholesky(M)), raised)
+    # cholesky_ex, upper: the ADMM x-update's factor (solvers/lqt_admm.py:33)
+    U, info = torch.linalg.cholesky_ex(t(bad), upper=True)
+    info, U = info.cpu().numpy(), host(U)
+    keep = np.arange(batch) != z
+    flags = bool(info[z] > 0 and (info[keep] == 0).all())
+    out["cholesky_ex"] = (_rel_np(U[keep], np.linalg.cholesky(M[keep]).transpose(0, 2, 1)),
+                          flags)
+    # solve: the combine's inverse T^-1 (ops/parallel_riccati.py:99), d = 4
+    T = _spd(rng, batch, 4)
+    bad = T.copy()
+    bad[z] = 0.0
+    eye = np.broadcast_to(np.eye(4), T.shape).copy()
+    raised = _raises(lambda: torch.linalg.solve(t(bad), t(eye)), device)
+    X = host(torch.linalg.solve(t(T), t(eye)))
+    out["solve"] = (_rel_np(X, np.linalg.solve(T, eye)), raised)
+    # inv: the pullbacks of the rotated boxes (projections/sets.py:238)
+    raised = _raises(lambda: torch.linalg.inv(t(bad)), device)
+    out["inv"] = (_rel_np(host(torch.linalg.inv(t(T))), np.linalg.inv(T)), raised)
+    # solve_triangular, lower: the Cholesky solve (ops/riccati.py:64), rhs (4, 3)
+    L4 = np.linalg.cholesky(T)
+    rhs = rng.normal(size=(batch, 4, 3))
+    rhs[z] = 0.0
+    Y = host(torch.linalg.solve_triangular(t(L4), t(rhs), upper=False))
+    out["solve_triangular"] = (_rel_np(Y[keep], np.linalg.solve(L4, rhs)[keep]),
+                               bool((Y[z] == 0).all()))
+    # cholesky_solve, lower (ops/riccati.py:128) and upper (solvers/lqt_admm.py:39)
+    Y = host(torch.cholesky_solve(t(rhs), t(L4)))
+    Yu = host(torch.cholesky_solve(t(rhs), t(L4.transpose(0, 2, 1).copy()), upper=True))
+    want = np.linalg.solve(T, rhs)
+    out["cholesky_solve"] = (max(_rel_np(Y[keep], want[keep]), _rel_np(Yu[keep], want[keep])),
+                             bool((Y[z] == 0).all() and (Yu[z] == 0).all()))
+    # pinv: the nullspace projector (utils/cost_assembly.py:108), J (3, 9)
+    J = rng.normal(size=(batch, 3, 9))
+    J[z] = 0.0
+    P = host(torch.linalg.pinv(t(J)))
+    out["pinv"] = (_rel_np(P[keep], np.linalg.pinv(J[keep])), bool((P[z] == 0).all()))
+    # qr: reduced (solvers/lqt.py:134) and R only (ops/sqrt_riccati.py:152), (6, 4) blocks
+    G = rng.normal(size=(batch, 6, 4))
+    G[z] = 0.0
+    Q, R = (host(v) for v in torch.linalg.qr(t(G)))
+    R_only = host(torch.linalg.qr(t(G), mode="r").R)
+    R_np = np.linalg.qr(G[keep], mode="r")
+    orth = np.abs(Q.transpose(0, 2, 1) @ Q - np.eye(4)).max()
+    err = max(_rel_np(np.abs(R[keep]), np.abs(R_np)), _rel_np(np.abs(R_only[keep]), np.abs(R_np)),
+              _rel_np(Q[keep] @ R[keep], G[keep]), float(orth))
+    out["qr"] = (err, bool((R[z] == 0).all() and (R_only[z] == 0).all()
+                           and np.isfinite(Q[z]).all()))
+    return out
+
+
+def phase_linalg_audit(card, device="cuda"):
+    """[linalg audit]: `linalg_audit` in f64 and f32 (eigh: `[facade sls]`).
+    A wrong block or a zero block that does not come out as numpy's is a
+    fault and fails the run."""
+    faults = []
+    for dtype in (torch.float64, torch.float32):
+        tol = LINALG_TOL[dtype]
+        for op, (err, zero_ok) in linalg_audit(device, dtype).items():
+            ok = err <= tol and zero_ok
+            print(f"[linalg audit] {op}, {_dtype_name(dtype)}, {LINALG_BATCH} blocks: well-"
+                  f"conditioned blocks {err:.3e} from numpy (limit {tol:g}), the zero or singular "
+                  f"block {'as numpy' if zero_ok else 'NOT as numpy'}: {'ok' if ok else 'FAULT'}")
+            if not ok:
+                faults.append(f"{op} {_dtype_name(dtype)}")
+    print(f"[linalg audit] card: {card}")
+    check(not faults, f"[linalg audit] faults: {faults}")
+
+
 def main() -> int:
     seconds = {}
 
@@ -4255,6 +4468,8 @@ def main() -> int:
         run("facade maze", phase_facade_maze, "cuda", card, facade_host)
         run("implicit", phase_implicit, "cuda", card, facade_host)
         run("parallel", phase_parallel, card)
+        run("linalg audit", phase_linalg_audit, card)
+        run("examples", phase_examples, card)
         bounds = dict(run("fleet bounds", existing_bounds, solver, inputs, box[1], x0s,
                           sls[1], sls_fleet), **riccati_times["bounds"],
                       linesearch_rollout=car_times["bound"],
