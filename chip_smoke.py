@@ -33,6 +33,17 @@ Drives the port's paths on the card:
   parking cost, |w| <= 0.5, |a| <= 2, rho_u = diag(1e-2, 1e-3), 60 outer
   steps, 30 ADMM iterations, 20 alphas, SQP-style outer line search,
   f32), whose line-search rollout is the `linesearch_rollout` kernel;
+- the same car as a fleet of parkings (x0 = CAR_X0 + N(0, 0.05^2) as
+  `benchmarks/bench_boxddp.py:66-70` draws them, instance 0 at CAR_X0;
+  the first 64 of the bench's 256)
+  through `ilqr_admm_fleet` in both line-search modes, whose line search
+  is the same kernel's fleet form (every instance's candidates in one
+  launch of F x A blocks);
+- the fleet configurations of `parallel/batch.py` in f64:
+  `batched_lqt_admm_dp` with accel and with adaptive rho, and
+  `batched_ilqr_solve` with the lifted 'batch' and 'sls' methods, on
+  `tests/test_parallel.py`'s double integrator (1,024 instances); no
+  kernel lies on them;
 - the 3DoF arm fleet of `benchmarks/bench_arm_admm.py:58-179` through
   `ilqr_admm_fleet` (1,024 instances, N = 100, |u| <= 2.5, rho_u = 1e-2,
   12 outer steps, 20 ADMM iterations, 5 alphas, f32) in both line-search
@@ -113,7 +124,9 @@ Phases:
    and one too long to stage) and with nb = 1,024 (the join's longest
    prologue);
    `linesearch_rollout` at N = 500 with 20, 1 and 128 candidates, N = 60,
-   N = 37, N = 10,000, and a candidate set with NaN states, bit for bit);
+   N = 37, N = 10,000, and a candidate set with NaN states, and in its
+   fleet form at (F, A, N) = (256, 20, 500) and (3, 128, 37) with NaN
+   states in one instance, bit for bit);
 4. for each path: main path, one fleet solve (one backward pass, one car
    solve) with every launch counter set to 0 just before it and read
    just after (the wide and robust_dim 2 fleets with their plain versions
@@ -198,6 +211,20 @@ Phases:
    its exit code, wall time and golden numbers; a twin that fails, times
    out or misses a golden row fails the run).
 
+12. slice 18: [car fleet] (`phase_car_fleet`: in each line-search mode
+   the 64-parking fleet through the kernel only, its launch counter set
+   to 0 just before and read just after, one launch a line search (an
+   outer step, or a fleet ADMM iteration in the inner mode), the host
+   reads, the bound violation, instance 0 against the single car's gates,
+   the kernel against its plain version on the solve's first candidate
+   batch bit for bit, solves/s; the fleet of 4 against 4 single
+   `ilqr_admm` solves with the fused rollout, |dcost|/cost <= 1e-3 and the
+   same stops; the kernel's time in one fleet launch beside its plain
+   version's; a `torch.profiler` split of the outer mode's first 3 outer
+   steps), then [fleet configs] (`phase_fleet_configs`: each fleet of
+   1,024 against single solves of its first 8 in f64, iterations equal,
+   trajectories or costs within 1e-10 relative, the same stops).
+
 Any failure exits non-zero before the last line. The last line is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
 its launches on its main path, its error against its plain version, its
@@ -205,11 +232,15 @@ time, its plain version's time and its bound on an H100 (`bound_ops`:
 the f32 CUDA cores, 3xTF32 on the tensor cores, or a dependency chain of
 f32 additions); the line before that, the seconds each phase took.
 
-Run from the repository root: python3 chip_smoke.py
+Run from the repository root: python3 chip_smoke.py. With --profile it
+also runs the `torch.profiler` phases (the Riccati pass, the car, the car
+fleet, the arm fleet, the MPC ticks and the boxDDP fleet: device busy
+shares and top device ops), which gate nothing.
 """
 
 from __future__ import annotations
 
+import argparse
 import bisect
 import concurrent.futures
 import contextlib
@@ -276,6 +307,8 @@ from ilqr_admm_tpu_torch.ops.rollout import (
 )
 from ilqr_admm_tpu_torch.parallel import (
     batched_al_solve,
+    batched_ilqr_solve,
+    batched_lqt_admm_dp,
     distributed,
     lqt_backward_time_sharded,
     make_mesh,
@@ -284,7 +317,7 @@ from ilqr_admm_tpu_torch.parallel import (
     project_set_convex_stacked,
     sharded_instance_solve,
 )
-from ilqr_admm_tpu_torch.problem import ILQRConfig, SolveStatus
+from ilqr_admm_tpu_torch.problem import ADMMConfig, ILQRConfig, QuadCost, SolveStatus
 from ilqr_admm_tpu_torch.projections import (
     project_bound,
     project_outside_rotated_boxes,
@@ -308,10 +341,12 @@ from ilqr_admm_tpu_torch.solvers.boxddp import (
     boxddp_init,
     boxddp_solve,
 )
+from ilqr_admm_tpu_torch.solvers.ilqr import ilqr_init, ilqr_solve
 from ilqr_admm_tpu_torch.solvers.ilqr_admm import ilqr_admm
 from ilqr_admm_tpu_torch.solvers.implicit import lqt_admm_implicit
 from ilqr_admm_tpu_torch.solvers.isls_admm import isls_admm
 from ilqr_admm_tpu_torch.solvers.lqt import sls_controller, sqrt_psd_stacked
+from ilqr_admm_tpu_torch.solvers.lqt_admm import lqt_admm_dp
 from ilqr_admm_tpu_torch.solvers.pd_ilqr import pd_ilqr_init, pd_ilqr_solve
 from ilqr_admm_tpu_torch.solvers.mpc import (
     make_mpc_fleet_step_constrained,
@@ -476,10 +511,54 @@ FADD_LATENCY_CYCLES = 4
 # f32 operations of one car step of one candidate, a transcendental or a
 # square root counting one
 CAR_STEP_OPS = 22
-CAR_SOLVES_TIMED = 3
+CAR_SOLVES_TIMED = 1  # 3 before the car fleet phases (cut for the run's length)
+# (F, A, N) fleet cases of the kernel against its plain version: the [car
+# fleet] phase's outer-mode launch, and an odd horizon at the most
+# candidates an instance (with NaN candidates in instance 1)
+ROLLOUT_FLEET_CASES = ((256, CAR_ALPHAS, CAR_N, False), (3, 128, 37, True))
 # outer steps of the profiled solve: the profiler's post-processing of a
 # whole 44-step solve (~100,000 device ops) took 79 s on the H100's host
 CAR_PROFILED_STEPS = 10
+
+# The car of the [car] phases as a fleet through ilqr_admm_fleet with the
+# fused rollout, F initial states drawn as benchmarks/bench_boxddp.py:66-70
+# draws them (default_rng(0) after its u0: CAR_X0 + N(0, 0.05^2)), with
+# instance 0 at CAR_X0 exactly, so that it is the single car's problem.
+# The bench's 256 cut to its first 64 for the run's length; the kernel is
+# timed at the full fleet's launch, 256 x 20 blocks
+CAR_FLEET = 64
+CAR_FLEET_TIMED = 256
+CAR_FLEET_MODES = ("outer", "inner")
+# the fleet of 4 against 4 single solves: the arm fleet's compare gates
+CAR_FLEET_COMPARE = 4
+CAR_FLEET_COMPARE_REL = 1e-3
+CAR_FLEET_WINDOWS = 0  # timed solves after the main path's (whose time is the first window)
+CAR_FLEET_PROFILED_STEPS = 3
+# the JAX package's own bound violations of u_nom on the fleet's CAR_FLEET
+# starts, each solved alone in f32 on the CPU (the last line of
+# tools/car_fleet_jax_reference.py outer|inner 64): their median, max and
+# count over the single car's gate
+CAR_FLEET_JAX = {"outer": dict(instances=64, median=1.7047e-05, max=1.7121e-03, over=3),
+                 "inner": dict(instances=64, median=5.1343e-04, max=1.0904e-02, over=20)}
+# The fleet is held to that record: at most CAR_FLEET_OVER_MARGIN more
+# instances over the gate than the JAX package's solves, and a max
+# violation at most CAR_FLEET_MAX_FACTOR times theirs. f32 rounding moves
+# 60-step-capped solves in a fleet as it does between hosts (H100 80GB
+# HBM3, 700.00 W, F = 64: outer 6 over, max 3.4x JAX's; inner 20 over,
+# max 13.7x; that start's solve alone through the kernel 3.9e-3)
+CAR_FLEET_OVER_MARGIN = 6
+CAR_FLEET_MAX_FACTOR = {"outer": 5.0, "inner": 20.0}
+
+# The fleet configurations of parallel/batch.py, in f64 on the card on
+# tests/test_parallel.py's 1-D double integrator (N = 50, terminal (1, 0)
+# at 1e4, u_std 1e-2): the DP LQT-ADMM fleet with accel and with adaptive
+# rho (|u| <= 5, rho_u 1e-2, 50 iterations at tol 1e-4, x0 ~ N(0, 0.1^2)),
+# and the iLQR fleet's lifted 'batch' and 'sls' methods (x0 ~ N(0, 0.2^2),
+# 10 iterations of 10 alphas), each against single solves of its first
+FLEET_CONFIG_N = 50
+FLEET_CONFIG_BATCH = 1024
+FLEET_CONFIG_COMPARE = 8
+FLEET_CONFIG_REL = 1e-10
 
 # The 3DoF arm fleet of benchmarks/bench_arm_admm.py:58-179 through
 # ilqr_admm_fleet, at its own size: N = 100, 1,024 instances, |u| <= 2.5
@@ -493,7 +572,7 @@ ARM_MODES = ("inner", "outer")
 # batched and unbatched reductions may round apart
 ARM_COMPARE = 8
 ARM_COMPARE_REL = 1e-3
-ARM_TIMING_WINDOWS = 3
+ARM_TIMING_WINDOWS = 1  # 3 before the car fleet phases (cut for the run's length)
 # The robust arm of tests/test_isls_robust.py:28-200 (the reference
 # notebook `3DoF robot/State bounds and robust control bounds`) in f64
 ARM_ROBUST_VAR = 0.1
@@ -514,8 +593,8 @@ MPC_TARGET = (2.0, 1.0)
 MPC_PARK_TOL = 0.05  # bench_mpc.py:209, 212
 MPC_X0 = (0.0, 0.0, 0.5, 0.0)
 MPC_TICK_KW = {"dp": {}, "sqp": dict(method="batch", line_search="outer")}
-MPC_WINDOWS = 3
-MPC_EAGER_TICKS = 9  # the eager and served loops: 3 windows of 3 ticks
+MPC_WINDOWS = 1  # 3 before the car fleet phases (cut for the run's length)
+MPC_EAGER_TICKS = 3  # the eager and served loops (9 before the car fleet phases)
 MPC_GRAPH_TOL = 1e-6  # max |du| of a tick's CUDA graph against its eager run
 MPC_COMPARE = 8
 MPC_COMPARE_TICKS = 2
@@ -563,6 +642,7 @@ BOXDDP_GRAPH_ITERS = 3
 # (8 instances before the facade phases; 1 since, for their time: the 8
 # singles took 201 s, PERF.md section 6)
 BOXDDP_COMPARE = 1
+BOXDDP_COMPARE_ITERS = 50  # the compare's solves (150, the bench's, before the car fleet phases)
 BOXDDP_COMPARE_REL = 1e-3
 BOXDDP_STOPS = (SolveStatus.LINE_SEARCH_FAILED, SolveStatus.MAX_ITER)
 BOXDDP_WINDOWS = 1  # the main path's solve (3 before the facade phases, 2 before PR 15)
@@ -2072,7 +2152,45 @@ def phase_car_compare(device):
         print(f"[car kernel vs plain] {label}: max|dxs| {err:.3e} over finite states; "
               f"bit-identical {same}; NaN states {n_nan}")
         check(same, f"rollout {label}: kernel and plain version are not bit-identical")
+    # the fleet form: F initial states, one launch of F * A blocks
+    for n_fleet, n_cands, horizon, nan in ROLLOUT_FLEET_CASES:
+        car, x0s, u = rollout_fleet_case(device, n_fleet, n_cands, horizon, nan)
+        label = (f"fleet F={n_fleet}, A={n_cands}, N={horizon}"
+                 + (", NaN candidates in instance 1" if nan else ""))
+        worst = max(worst, rollout_fleet_compare(car, x0s, u, label))
     return worst
+
+
+def rollout_fleet_case(device, n_fleet, n_cands, horizon, nan=False):
+    """(car, x0s (F, 4), u_cands (F, A, N, 2)): x0s = CAR_X0 + N(0,
+    0.05^2), each instance's candidates `rollout_case`'s with its own
+    seed; nan: instance 1's as `rollout_case(nan=True)`'s."""
+    f32 = dict(dtype=torch.float32, device=device)
+    x0s = torch.tensor(np.array(CAR_X0) + np.random.default_rng(0).normal(0, 0.05, (n_fleet, 4)),
+                       **f32)
+    u = torch.stack([rollout_case(device, horizon, n_cands, nan=nan and f == 1, seed=f)[2]
+                     for f in range(n_fleet)])
+    return CarFrontWheel(dt=15.0 / horizon), x0s, u.contiguous()
+
+
+def rollout_fleet_compare(car, x0s, u, label):
+    """The fleet launch against the plain version on the same inputs, bit
+    for bit, NaN positions included: the max |dxs| over finite states."""
+    got = linesearch_rollout(car, x0s, u)
+    torch.cuda.synchronize()
+    want = linesearch_rollout_reference(car.step_cols, x0s, u)
+    torch.cuda.synchronize()
+    check(tuple(got.shape) == tuple(u.shape[:-1]) + (4,), f"rollout {label}: shape {got.shape}")
+    check(torch.equal(torch.isnan(got), torch.isnan(want)), f"rollout {label}: NaN positions differ")
+    check(torch.equal(got[:, :, 0], x0s[:, None].expand(u.shape[0], u.shape[1], 4)),
+          f"rollout {label}: xs[f, :, 0] != x0s[f]")
+    fin = torch.isfinite(want)
+    err = float((got - want)[fin].abs().max())
+    same = torch.equal(torch.nan_to_num(got, nan=7.0), torch.nan_to_num(want, nan=7.0))
+    print(f"[car kernel vs plain] {label}: max|dxs| {err:.3e} over finite states; bit-identical "
+          f"{same}; NaN states {int((~fin).sum())}")
+    check(same, f"rollout {label}: kernel and plain version are not bit-identical")
+    return err
 
 
 def _car_gates(res, label, cost_max, violation_max):
@@ -2115,12 +2233,28 @@ def phase_car_main_path(device):
     return launches, res
 
 
-def phase_car_host_f64(main):
-    """The same problem solved by the port in f64 on the host CPU with the
-    plain vmapped rollout: the f32 card solve must be within 1e-3 of it."""
+def _car_host_f64():
+    """The car's f64 solve on this host with the plain vmapped rollout (one
+    BLAS thread: it runs in a worker process beside the card's phases):
+    (result, seconds)."""
+    torch.set_num_threads(1)
     t0 = time.perf_counter()
-    ref = car_solve("cpu", torch.float64, fused=False)
-    seconds = time.perf_counter() - t0
+    return car_solve("cpu", torch.float64, fused=False), time.perf_counter() - t0
+
+
+def start_car_host_f64():
+    """`_car_host_f64` in a spawned worker process: its future."""
+    ctx = multiprocessing.get_context("spawn")
+    pool = concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx)
+    future = pool.submit(_car_host_f64)
+    pool.shutdown(wait=False)
+    return future
+
+
+def phase_car_host_f64(main, future):
+    """The same problem solved by the port in f64 on the host CPU
+    (`start_car_host_f64`): the f32 card solve must be within 1e-3 of it."""
+    ref, seconds = future.result()
     cost, viol = _car_gates(ref, "car f64 host solve", CAR_COST_MAX, CAR_VIOLATION_MAX)
     rel = abs(float(main.cost) - cost) / cost
     print(f"[car f64 host] cost {cost:.6f}, violation {viol:.3e}, {ref.outer_iters} outer steps, "
@@ -2163,7 +2297,8 @@ def car_bound(x0, u, xs, sm_clock_hz):
     component at t + 1 needs the one at t) at an FADD's latency and the
     card's maximum SM clock. The chain is a bound of operations, so it is
     reported as one, with `bound_ops` naming it."""
-    n_cands, horizon = u.shape[0], u.shape[1]
+    horizon = u.shape[-2]
+    n_cands = u.numel() // (horizon * u.shape[-1])  # a fleet's F * A
     result = bound(CAR_STEP_OPS * n_cands * horizon, nbytes(x0, u, xs))
     chain_ms = 1e3 * (horizon - 1) * FADD_LATENCY_CYCLES / sm_clock_hz
     if chain_ms > result["bound_ms"]:
@@ -2238,6 +2373,344 @@ def phase_car_profile(device, card):
     for name, (t, c) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"[car profile] {t * 1e3:9.3f} ms, {c:6d} calls: {name[:90]}")
     return {"busy_share": busy_us / wall_us}
+
+# ---- the car as a fleet through ilqr_admm_fleet -----------------------------
+
+
+def car_admm_fleet_problem(device, dtype=torch.float32, batch=CAR_FLEET, n_alphas=CAR_ALPHAS,
+                           seed=0):
+    """The [car] phases' problem as a fleet: the single car's u0
+    (default_rng(seed)) for every instance and x0s = CAR_X0 + N(0, 0.05^2)
+    as bench_boxddp.py draws them (default_rng(0) after its u0), instance 0
+    at CAR_X0: a dict of the car, its cost, x_nom0 (F, N, 4), u0 (F, N,
+    2), the clip projection on the fleet's rows and the alpha grid."""
+    kw = dict(dtype=dtype, device=device)
+    car, cost, _, u0, _, alphas = car_problem(device, dtype, n_alphas, seed)
+    rng = np.random.default_rng(0)
+    rng.normal(size=(CAR_N, 2))  # the bench's u0 draw
+    x0s = np.array(CAR_X0) + rng.normal(0, 0.05, (batch, 4))
+    x0s[0] = CAR_X0
+    x0s = torch.tensor(x0s, **kw)
+    u0s = u0.expand(batch, CAR_N, 2).contiguous()
+    x_nom0 = vmap(rollout_nonlinear, in_dims=(None, 0, 0))(car.step, x0s, u0s)
+    lo, hi = torch.tensor(CAR_U_LO, **kw), torch.tensor(CAR_U_HI, **kw)
+
+    def project_u(u):
+        return torch.minimum(torch.maximum(u.reshape(-1, CAR_N, 2), lo), hi).reshape(u.shape)
+
+    return dict(car=car, cost=cost, x_nom0=x_nom0, u0=u0s, project_u=project_u, alphas=alphas)
+
+
+def car_admm_fleet_solve(p, config, rollout="kernel", stats=None, rows=slice(None)):
+    """ilqr_admm_fleet of the fleet's `rows` with `config` (CAR_SOLVE or
+    CAR_INNER); rollout: the line-search rollout ("kernel": the kernel's
+    fleet callable; None: the default vmapped plain rollout, any dtype)."""
+    car, cost, alphas = p["car"], p["cost"], p["alphas"]
+    x_nom0 = p["x_nom0"][rows]
+    dtype, device = x_nom0.dtype, x_nom0.device
+    if rollout == "kernel":
+        rollout = make_fused_linesearch_rollout(car, CAR_N, 4, 2, alphas.shape[0], device=device)
+    return ilqr_admm_fleet(car.step, car.get_AB, cost, x_nom0, p["u0"][rows],
+                           get_Cs=cost.get_Cs, project_u=p["project_u"], alphas=alphas,
+                           rho_u=torch.diag(torch.tensor(CAR_RHO_U, dtype=dtype, device=device)),
+                           linesearch_rollout=rollout, device=device, stats=stats, **config)
+
+
+def _car_fleet_modes():
+    """mode -> (config, alphas, u0 seed, cost gate, violation gate): those
+    of [car main path] (outer) and [car inner mode] (inner)."""
+    return {"outer": (CAR_SOLVE, CAR_ALPHAS, 0, CAR_COST_MAX, CAR_VIOLATION_MAX),
+            "inner": (CAR_INNER, CAR_INNER_ALPHAS, CAR_INNER_SEED, CAR_INNER_COST_MAX,
+                      CAR_INNER_VIOLATION_MAX)}
+
+
+def car_fleet_violations(res):
+    """Each instance's max bound violation of u_nom, (F,) f64 on the host."""
+    u = res.u_nom.double().cpu()
+    lo, hi = torch.tensor(CAR_U_LO, dtype=torch.float64), torch.tensor(CAR_U_HI, dtype=torch.float64)
+    return torch.clamp(torch.maximum(u - hi, lo - u), min=0.0).amax(dim=(1, 2))
+
+
+def _violations_by_status(res, viols, gate) -> str:
+    status = res.status.cpu()
+    parts = []
+    for v in status.unique().tolist():
+        m = status == v
+        parts.append(f"{SolveStatus(v).name} {int(m.sum())}: max {float(viols[m].max()):.3e}, "
+                     f"median {float(viols[m].median()):.3e}, {int((viols[m] > gate).sum())} over")
+    return "; ".join(parts)
+
+
+def phase_car_fleet_main_path(device, card, mode, batch=CAR_FLEET):
+    """One f32 fleet solve through the kernel only, with the launch counter
+    set to 0 just before it and read just after (one launch a line search:
+    an outer step in the outer mode, a fleet ADMM iteration in the inner),
+    its host reads, finite costs, instance 0 against every gate of the
+    single car, the fleet's bound violations by status, the kernel against
+    its plain version on the solve's first candidate batch (F * A rows)
+    bit for bit, and solves/s."""
+    config, n_alphas, seed, cost_max, viol_max = _car_fleet_modes()[mode]
+    p = car_admm_fleet_problem(device, batch=batch, n_alphas=n_alphas, seed=seed)
+    fused = make_fused_linesearch_rollout(p["car"], CAR_N, 4, 2, n_alphas, device=device)
+    first = []
+
+    def captured(x0s, u_cands):
+        if not first:
+            first.append((x0s.clone(), u_cands.clone()))
+        return fused(x0s, u_cands)
+
+    def plain_must_not_run(*args, **kwargs):
+        raise SmokeFailure("the car fleet's main path ran linesearch_rollout_reference")
+
+    stats = {}
+    reset_launch_counts()
+    syncs0 = admm_solver.host_sync_count
+    t0 = time.perf_counter()
+    with _swapped(fused_rollout, linesearch_rollout_reference=plain_must_not_run):
+        res = car_admm_fleet_solve(p, config, rollout=captured, stats=stats)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fused_rollout.launch_count
+    reads = admm_solver.host_sync_count - syncs0
+    searches = stats["outer_steps"] if mode == "outer" else stats["fleet_admm_iters"]
+    label = f"car fleet ({mode})"
+    check(tuple(res.u_nom.shape) == (batch, CAR_N, 2), f"{label}: u_nom {tuple(res.u_nom.shape)}")
+    check(bool(torch.isfinite(res.cost).all()), f"{label}: non-finite costs")
+    check(bool(torch.isfinite(res.x_nom).all() and torch.isfinite(res.u_nom).all()),
+          f"{label}: non-finite trajectories")
+    viols = car_fleet_violations(res)
+    cost0, status0, viol0 = float(res.cost[0]), int(res.status[0]), float(viols[0])
+    costs = res.cost.double().cpu()
+    print(f"[car fleet main path] {mode} line search, {batch} instances, f32: cost mean "
+          f"{float(costs.mean()):.6f} min {float(costs.min()):.6f} max {float(costs.max()):.6f}; "
+          f"outer steps {stats['outer_steps']} (instances {int(res.outer_iters.min())}-"
+          f"{int(res.outer_iters.max())}); instance 0 (the single car's problem): cost "
+          f"{cost0:.6f} (gates ({CAR_COST_MIN}, {cost_max}]), status {SolveStatus(status0).name}, "
+          f"bound violation {viol0:.3e} (gate {viol_max}); {seconds:.2f} s with the build "
+          f"loaded; card: {card}")
+    print(f"[car fleet main path] {mode}: max bound violation {float(viols.max()):.3e} (gate "
+          f"{viol_max}), {int((viols > viol_max).sum())} of {batch} over, by status: "
+          f"{_violations_by_status(res, viols, viol_max)}")
+    print(f"[car fleet main path] {mode}: linesearch_rollout launches {launches} (fleet form, "
+          f"{batch} x {n_alphas} blocks each) for {searches} line searches; host reads of stop "
+          f"flags {reads} = {stats['outer_steps']} outer steps + {stats['fleet_admm_iters']} "
+          f"fleet ADMM iterations")
+    check(launches == searches > 0,
+          f"{label}: linesearch_rollout launched {launches} times for {searches} line searches")
+    check(reads == stats["outer_steps"] + stats["fleet_admm_iters"], f"{label}: {reads} host reads")
+    check(CAR_COST_MIN < cost0 <= cost_max,
+          f"{label}: instance 0's cost {cost0} outside ({CAR_COST_MIN}, {cost_max}]")
+    check(status0 in CAR_STATUSES, f"{label}: instance 0's status {SolveStatus(status0).name}")
+    check(viol0 <= viol_max, f"{label}: instance 0's bound violation {viol0:.3e} > {viol_max}")
+    x0s, u = first[0]
+    err = rollout_fleet_compare(p["car"], x0s, u, f"{label}'s first candidate batch, "
+                                f"F={batch}, A={n_alphas}, N={CAR_N}")
+    ms = [seconds * 1e3] + [_timed_solve(lambda: car_admm_fleet_solve(p, config), device)[1] * 1e3
+                            for _ in range(CAR_FLEET_WINDOWS)]
+    med, q1, q3 = _median_iqr(ms)
+    print(f"[car fleet time] {mode} line search, {batch} instances, f32: {med:.1f} ms a solve "
+          f"(IQR {q1:.1f}-{q3:.1f}; {', '.join(f'{t:.1f}' for t in ms)}) = "
+          f"{batch / (med / 1e3):.2f} solves/s; card: {card}")
+    return dict(launches=launches, max_abs_err=err, ms=med, problem=p,
+                over=int((viols > viol_max).sum()), max_violation=float(viols.max()),
+                median_violation=float(viols.median()))
+
+
+def phase_car_fleet_bounds(mode, main, batch=CAR_FLEET):
+    """The fleet-wide bound. The single car's gate (3e-4 outer, 1e-3
+    inner) was set for one start; from this scatter the JAX package's own
+    f32 single solves exceed it on some starts, so the fleet is held to
+    it on instance 0 (`phase_car_fleet_main_path`) and on its median
+    instance, and to the JAX package's record on the same starts
+    (`CAR_FLEET_JAX`) in its count over the gate and its max."""
+    viol_max = _car_fleet_modes()[mode][4]
+    jax_ref = CAR_FLEET_JAX[mode]
+    over_max = jax_ref["over"] + CAR_FLEET_OVER_MARGIN
+    max_max = jax_ref["max"] * CAR_FLEET_MAX_FACTOR[mode]
+    label = f"car fleet ({mode})"
+    print(f"[car fleet bounds] {mode}: median bound violation {main['median_violation']:.3e} "
+          f"(gate {viol_max}), {main['over']} of {batch} over the gate (limit {over_max}), max "
+          f"{main['max_violation']:.3e} (limit {max_max:.3e}); the JAX package's f32 single "
+          f"solves of the same starts: median {jax_ref['median']:.3e}, max {jax_ref['max']:.3e}, "
+          f"{jax_ref['over']} over")
+    check(batch == jax_ref["instances"],
+          f"{label}: {batch} instances against a JAX record of {jax_ref['instances']}")
+    check(main["median_violation"] <= viol_max,
+          f"{label}: median bound violation {main['median_violation']:.3e} > {viol_max}")
+    check(main["over"] <= over_max, f"{label}: {main['over']} instances over the bound gate, "
+          f"more than the JAX package's {jax_ref['over']} + {CAR_FLEET_OVER_MARGIN}")
+    check(main["max_violation"] <= max_max, f"{label}: max bound violation "
+          f"{main['max_violation']:.3e} > {CAR_FLEET_MAX_FACTOR[mode]:g} x the JAX package's "
+          f"{jax_ref['max']:.3e}")
+
+
+def phase_car_fleet_compare(device, mode, dtype=torch.float32):
+    """The fleet's first CAR_FLEET_COMPARE instances as a fleet against as
+    many single `ilqr_admm` solves with the fused rollout: (max
+    |dcost|/cost, the same stops)."""
+    config, n_alphas, seed, _, _ = _car_fleet_modes()[mode]
+    p = car_admm_fleet_problem(device, dtype, batch=CAR_FLEET_COMPARE, n_alphas=n_alphas,
+                               seed=seed)
+    car, cost = p["car"], p["cost"]
+    fleet = car_admm_fleet_solve(p, config)
+    lo, hi = (torch.tensor(b, dtype=dtype, device=device) for b in (CAR_U_LO, CAR_U_HI))
+    single_rollout = make_fused_linesearch_rollout(car, CAR_N, 4, 2, n_alphas, device=device)
+    singles = [ilqr_admm(car.step, car.get_AB, cost, p["x_nom0"][i], p["u0"][i],
+                         get_Cs=cost.get_Cs, alphas=p["alphas"],
+                         project_u=lambda u: torch.minimum(torch.maximum(
+                             u.reshape(CAR_N, 2), lo), hi).reshape(-1),
+                         rho_u=torch.diag(torch.tensor(CAR_RHO_U, dtype=dtype, device=device)),
+                         linesearch_rollout=single_rollout, device=device, **config)
+               for i in range(CAR_FLEET_COMPARE)]
+    cost_s = torch.stack([r.cost for r in singles])
+    rel = float(((fleet.cost - cost_s).abs() / cost_s.abs()).max())
+    status_s = [r.status for r in singles]
+    same = all(_same_stop(int(a), b) for a, b in zip(fleet.status.tolist(), status_s))
+    print(f"[car fleet compare] {mode} line search, {CAR_FLEET_COMPARE} instances, "
+          f"{_dtype_name(dtype)}: max |dcost|/cost {rel:.3e} (gate {CAR_FLEET_COMPARE_REL:g}); "
+          f"statuses fleet {fleet.status.tolist()}, single {status_s}; outer steps fleet "
+          f"{fleet.outer_iters.tolist()}, single {[r.outer_iters for r in singles]}")
+    return rel, same
+
+
+def phase_car_fleet(device, card, profile=False):
+    """[car fleet]: the main path in each line-search mode with its bound
+    gate, the fleet of 4 against single solves, the kernel's time in one
+    fleet launch, and with profile a profile of the outer mode's first
+    steps. Returns the outer mode's kernel entry for the `kernels` line."""
+    main = {mode: phase_car_fleet_main_path(device, card, mode) for mode in CAR_FLEET_MODES}
+    for mode in CAR_FLEET_MODES:
+        phase_car_fleet_bounds(mode, main[mode])
+        rel, same = phase_car_fleet_compare(device, mode)
+        check(rel <= CAR_FLEET_COMPARE_REL,
+              f"car fleet ({mode}) differs from single solves by {rel:.3e}")
+        check(same, f"car fleet ({mode}) statuses differ from single solves")
+    car, x0s, u = rollout_fleet_case(device, CAR_FLEET_TIMED, CAR_ALPHAS, CAR_N)
+    kernel = (lambda: linesearch_rollout(car, x0s, u))
+    plain = (lambda: linesearch_rollout_reference(car.step_cols, x0s, u))
+    timed = _timed({"wrapper": (kernel, TIMING_WINDOWS, CALLS_PER_WINDOW), "plain": (plain, 3, 1)})
+    timed["kernel"] = (*_graph_ms(kernel), TIMING_WINDOWS)
+    for name, (med, q1, q3, n) in timed.items():
+        how = "CUDA graph of 10 calls" if name == "kernel" else "CUDA events"
+        print(f"[car fleet time] linesearch_rollout {name}, one fleet launch: {med:.4f} ms (IQR "
+              f"{q1:.4f}-{q3:.4f}, {n} windows, {how}) at F={CAR_FLEET_TIMED}, A={CAR_ALPHAS}, "
+              f"N={CAR_N}; card: {card}")
+    xs = linesearch_rollout(car, x0s, u)
+    fleet_bound = car_bound(x0s, u, xs, max_sm_clock_hz())
+    print(f"[car fleet time] its bound {fleet_bound['bound_ms']:.4f} ms by "
+          f"{fleet_bound['bound_by']} ({nbytes(x0s, u, xs) / 1e6:.2f} MB once at "
+          f"{PEAK_BYTES_PER_S / 1e12:g} TB/s)")
+    if profile:
+        phase_car_fleet_profile(device, card, main["outer"]["problem"])
+    out = main["outer"]
+    return {"launches": out["launches"], "max_abs_err": out["max_abs_err"],
+            "ms": timed["kernel"][0], "plain_ms": timed["plain"][0], "bound": fleet_bound,
+            "inner_launches": main["inner"]["launches"]}
+
+
+def phase_car_fleet_profile(device, card, p):
+    """The first CAR_FLEET_PROFILED_STEPS outer steps of the outer-mode
+    fleet under `torch.profiler`: the device's busy share of the wall time
+    and the top device ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    config = dict(CAR_SOLVE, max_iter=CAR_FLEET_PROFILED_STEPS)
+    car_admm_fleet_solve(p, config)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        car_admm_fleet_solve(p, config)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, n_ops, kernels, ranges = kineto_split(
+        prof, (batched_ilqr_admm.PROFILE_LINEARIZE, batched_ilqr_admm.PROFILE_ADMM,
+               batched_ilqr_admm.PROFILE_ROLLOUT))
+    if busy <= 0.0:
+        print("[car fleet profile] the profiler saw no device time: not measured")
+        return
+    print(f"[car fleet profile] outer mode, {CAR_FLEET} instances, first {CAR_FLEET_PROFILED_STEPS} "
+          f"outer steps: wall {wall_us / 1e3:.1f} ms under the profiler, device busy "
+          f"{busy * 1e3:.1f} ms = {100 * busy * 1e6 / wall_us:.2f}%; {n_ops} device ops; card: "
+          f"{card}")
+    for name, (count, host, dev) in ranges.items():
+        print(f"[car fleet profile] {name}: {count} ranges, kernels {dev * 1e3:.1f} ms, host "
+              f"{host * 1e3:.1f} ms")
+    for name, (t, c) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"[car fleet profile] {t * 1e3:9.3f} ms, {c:6d} calls: {name[:90]}")
+
+
+# ---- the fleet configurations of parallel/batch.py ---------------------------
+
+
+def fleet_config_problem(device, dtype=torch.float64):
+    """tests/test_parallel.py's problem in the port: (A, B, cost) and the
+    iLQR functions (f, get_AB, get_Cs, cost)."""
+    n = FLEET_CONFIG_N
+    plant = DoubleIntegrator(1, 2, dt=1.0 / n, device=device, dtype=dtype)
+    A, B = plant.AB(n)
+    seq = np.zeros(n, dtype=np.int32)
+    seq[-1] = 1
+    kw = dict(dtype=dtype, device=device)
+    cost = viapoint_cost(torch.tensor(np.stack([np.zeros(2), [1.0, 0.0]]), **kw),
+                         torch.tensor(np.stack([np.zeros((2, 2)), np.eye(2) * 1e4]), **kw),
+                         seq, 1e-2, 1)
+    fns = (lambda x, u: plant.A @ x + plant.B @ u, lambda xs, us: (A, B),
+           lambda xs, us: quad_cost_model(cost.Q, cost.xd, cost.R, xs, us), cost)
+    return A, B, cost, fns
+
+
+def _rel_max(a, b) -> float:
+    return float((a - b).abs().max() / max(1.0, float(b.abs().max())))
+
+
+def phase_fleet_configs(device, card):
+    """[fleet configs]: `batched_lqt_admm_dp` with accel and with adaptive
+    rho, and `batched_ilqr_solve` with the lifted 'batch' and 'sls'
+    methods, each a fleet of FLEET_CONFIG_BATCH in f64 against single
+    solves of its first FLEET_CONFIG_COMPARE."""
+    A, B, cost, fns = fleet_config_problem(device)
+    f64 = dict(dtype=torch.float64, device=device)
+    n = FLEET_CONFIG_COMPARE
+    x0s = torch.tensor(np.random.default_rng(0).normal(0, 0.1, (FLEET_CONFIG_BATCH, 2)), **f64)
+    for name, mode in (("accel", dict(accel=True)), ("adaptive_rho", dict(adaptive_rho=True))):
+        cfg = ADMMConfig(max_iter=50, tol=1e-4, **mode)
+        proj = lambda u: project_bound(u, -5.0, 5.0)  # noqa: E731
+        (x, u, iters), t = _timed_solve(lambda: batched_lqt_admm_dp(
+            A, B, cost, x0s, project_u=proj, rho_u=1e-2, cfg=cfg, device=device), device)
+        singles = [lqt_admm_dp(A, B, cost, x0s[i], project_u=proj, rho_u=1e-2, cfg=cfg)
+                   for i in range(n)]
+        rel_x = max(_rel_max(x[i], r[0]) for i, r in enumerate(singles))
+        rel_u = max(_rel_max(u[i], r[1]) for i, r in enumerate(singles))
+        its = [r[3].iters for r in singles]
+        print(f"[fleet configs] batched_lqt_admm_dp {name}, {FLEET_CONFIG_BATCH} instances, f64: "
+              f"{t:.2f} s a solve; iterations of the first {n} {iters[:n].tolist()}, single "
+              f"{its} (fleet {int(iters.min())}-{int(iters.max())}); max rel dx {rel_x:.3e}, du "
+              f"{rel_u:.3e} (gate {FLEET_CONFIG_REL:g}); card: {card}")
+        check(iters[:n].tolist() == its, f"batched_lqt_admm_dp {name}: iterations differ")
+        check(max(rel_x, rel_u) <= FLEET_CONFIG_REL,
+              f"batched_lqt_admm_dp {name} differs from single solves by {max(rel_x, rel_u):.3e}")
+    x0s = torch.tensor(np.random.default_rng(1).normal(0, 0.2, (FLEET_CONFIG_BATCH, 2)), **f64)
+    u0s = torch.zeros((FLEET_CONFIG_BATCH, FLEET_CONFIG_N, 1), **f64)
+    cfg = ILQRConfig(max_iter=10, max_line_search_iter=10)
+    for method in ("batch", "sls"):
+        st, t = _timed_solve(lambda: batched_ilqr_solve(*fns, x0s, u0s, cfg, method=method,
+                                                        device=device), device)
+        singles = [ilqr_solve(fns[0], fns[1], fns[2], fns[3],
+                              ilqr_init(fns[0], fns[3], x0s[i], u0s[i], device=device), cfg,
+                              method=method) for i in range(n)]
+        rel = max(abs(float(st.cost[i]) - float(r.cost)) / max(1.0, abs(float(r.cost)))
+                  for i, r in enumerate(singles))
+        same = all(_same_stop(int(st.status[i]), r.status) for i, r in enumerate(singles))
+        its = [r.iteration for r in singles]
+        print(f"[fleet configs] batched_ilqr_solve method={method!r}, {FLEET_CONFIG_BATCH} "
+              f"instances, f64: {t:.2f} s a solve; statuses of the first {n} "
+              f"{st.status[:n].tolist()}, single {[r.status for r in singles]}; iterations "
+              f"{st.iteration[:n].tolist()}, single {its}; max rel dcost {rel:.3e} (gate "
+              f"{FLEET_CONFIG_REL:g}); card: {card}")
+        check(same, f"batched_ilqr_solve {method}: statuses differ from single solves")
+        check(st.iteration[:n].tolist() == its, f"batched_ilqr_solve {method}: iterations differ")
+        check(rel <= FLEET_CONFIG_REL, f"batched_ilqr_solve {method}: cost differs by {rel:.3e}")
+
 
 def sync(device):
     if torch.device(device).type == "cuda":
@@ -2323,8 +2796,8 @@ def phase_arm_compare(device, used):
 
 
 def phase_arm_main_path(device, mode, problem):
-    """One fleet solve with its host reads and the bench's certificates.
-    Returns (result, certificate, gate failures)."""
+    """One fleet solve with its host reads. Returns (the result, the
+    inputs of its certificate on the host)."""
     arm, cost, q0s, _, _, _ = problem
     dtype = str(q0s.dtype).replace("torch.", "")
     stats = {}
@@ -2340,43 +2813,57 @@ def phase_arm_main_path(device, mode, problem):
           f"arm fleet ({mode}, {dtype}): non-finite result")
     alone = (res.outer_iters + stats["admm_iters"]).cpu()
     most = ARM_SOLVE["max_iter"] * (1 + ARM_SOLVE["max_admm_iter"])
-    cert = certify_arm(arm, cost, q0s, res, ARM_U_BOUND, workers=ORACLE_WORKERS)
-    failures = arm_gate_failures(cert, mode)
-    print(f"[arm fleet main path] {mode} line search, {n_inst} instances, {dtype}: "
-          f"converged_frac {cert['converged_frac']:.4f}, max violation "
-          f"{cert['max_violation']:.3e}, bounds active {cert['bounds_active_frac']:.3f}, "
-          f"mean cost {cert['mean_cost']:.6f}, outer iterations mean "
-          f"{cert['mean_outer_iters']:.2f} max {cert['max_outer_iters']}, oracle gap median "
-          f"{cert['cost_gap_median']:.3e} max {cert['cost_gap_max']:.3e} (f64 L-BFGS-B polish "
-          f"of {ARM_N_ORACLE} instances, {cert['oracle_seconds']:.1f} s on the host); "
-          f"{seconds:.2f} s; gates {'pass' if not failures else 'MISSED: ' + '; '.join(failures)}")
-    print(f"[arm fleet main path] {mode}: host reads of stop flags {reads} = "
-          f"{stats['outer_steps']} outer steps + {stats['fleet_admm_iters']} fleet ADMM "
-          f"iterations; the slowest instance alone would read {int(alone.max())} (instance "
-          f"{int(alone.argmax())}); at most {most} for any fleet size")
+    print(f"[arm fleet main path] {mode} line search, {n_inst} instances, {dtype}: {seconds:.2f} s; "
+          f"host reads of stop flags {reads} = {stats['outer_steps']} outer steps + "
+          f"{stats['fleet_admm_iters']} fleet ADMM iterations; the slowest instance alone would "
+          f"read {int(alone.max())} (instance {int(alone.argmax())}); at most {most} for any "
+          f"fleet size")
     check(reads == stats["outer_steps"] + stats["fleet_admm_iters"] <= most,
           f"arm fleet ({mode}): {reads} host reads")
-    return res, cert, failures
+    # everything the certificate reads is on the host first: its thread
+    # makes no CUDA call while the card's phases capture graphs
+    host_res = type(res)(*(t.cpu() if torch.is_tensor(t) else t for t in res))
+    host_cost = QuadCost(cost.Q.cpu(), cost.xd.cpu(), cost.R.cpu())
+    return res, (arm, host_cost, q0s.cpu(), host_res, ARM_U_BOUND)
 
 
 def phase_arm_fleet(device, batch=ARM_FLEET):
-    """The main path in each line-search mode, in f32; where f32 misses a
-    gate, the same fleet in f64 on the card, certified and labelled so,
-    with the f32 numbers printed beside it."""
-    problems = {torch.float32: arm_fleet_problem(device, batch=batch)}
-    used = {}
+    """The main path in each line-search mode in f32, and the outer mode
+    in f64 too: the f32 outer fleet misses the bench's gap gates on the
+    card (its f32 explicit inverse, ROADMAP queue 1 item 1), so that fleet
+    is certified in f64 where f32 misses, as before. The certificates
+    (f64 L-BFGS-B polishes in worker processes) run on the host in a
+    thread beside the next phases; `phase_arm_certificate` gates them.
+    Returns (problems, the dtype each mode's later phases run in, the
+    certificates' future)."""
+    problems = {dtype: arm_fleet_problem(device, dtype, batch)
+                for dtype in (torch.float32, torch.float64)}
+    jobs = [(mode, dtype, phase_arm_main_path(device, mode, problems[dtype])[1])
+            for mode, dtype in (("inner", torch.float32), ("outer", torch.float32),
+                                ("outer", torch.float64))]
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(lambda: [(mode, dtype, certify_arm(*inputs, workers=ORACLE_WORKERS))
+                                  for mode, dtype, inputs in jobs])
+    pool.shutdown(wait=False)
+    return problems, {"inner": torch.float32, "outer": torch.float64}, future
+
+
+def phase_arm_certificate(future):
+    """The arm fleets' certificates and the bench's gates: each mode passes
+    in f32, or where f32 misses (the outer mode), in f64 on the card."""
+    passed = {}
+    for mode, dtype, cert in future.result():
+        failures = arm_gate_failures(cert, mode)
+        print(f"[arm fleet main path] {mode} line search, {_dtype_name(dtype)}: converged_frac "
+              f"{cert['converged_frac']:.4f}, max violation {cert['max_violation']:.3e}, bounds "
+              f"active {cert['bounds_active_frac']:.3f}, mean cost {cert['mean_cost']:.6f}, outer "
+              f"iterations mean {cert['mean_outer_iters']:.2f} max {cert['max_outer_iters']}, "
+              f"oracle gap median {cert['cost_gap_median']:.3e} max {cert['cost_gap_max']:.3e} "
+              f"(f64 L-BFGS-B polish of {ARM_N_ORACLE} instances, {cert['oracle_seconds']:.1f} s "
+              f"on the host); gates {'pass' if not failures else 'MISSED: ' + '; '.join(failures)}")
+        passed[mode] = passed.get(mode, False) or not failures
     for mode in ARM_MODES:
-        res, cert, failures = phase_arm_main_path(device, mode, problems[torch.float32])
-        used[mode] = torch.float32
-        if failures:
-            print(f"[arm fleet main path] {mode}: f32 misses the bench's gates; the certified "
-                  f"fleet runs in f64 on the card")
-            if torch.float64 not in problems:
-                problems[torch.float64] = arm_fleet_problem(device, torch.float64, batch)
-            res, cert, failures = phase_arm_main_path(device, mode, problems[torch.float64])
-            used[mode] = torch.float64
-        check(not failures, f"arm fleet ({mode}): " + "; ".join(failures))
-    return problems, used
+        check(passed[mode], f"arm fleet ({mode}): misses the bench's gates in f32 and f64")
 
 
 def phase_arm_time(device, card, problems, used):
@@ -2704,7 +3191,7 @@ def _stop_flags_read():
     always = dict(can_stop=lambda cfg: True)
     outer = dict(outer_can_stop=lambda outer_tol, osc_tol: True)
     with _swapped(admm_solver, **always), _swapped(ilqr_admm_solver, **outer), \
-            _swapped(batched_ilqr_admm, **always, **outer):
+            _swapped(batched_ilqr_admm, **outer):
         yield
 
 
@@ -3212,19 +3699,20 @@ def phase_boxddp_certificate(future, card):
 
 def phase_boxddp_compare(device):
     """The fleet's first BOXDDP_COMPARE instances against as many single
-    boxddp_solve calls (both with graph=True): |dcost|/cost and statuses
-    (BOXDDP_STOPS as one)."""
+    boxddp_solve calls (both with graph=True, BOXDDP_COMPARE_ITERS
+    iterations): |dcost|/cost and statuses (BOXDDP_STOPS as one)."""
     p = car_fleet_problem(device, batch=BOXDDP_COMPARE)
     car, cost = p["car"], p["cost"]
-    fleet = car_fleet_solve(p)
+    fleet = car_fleet_solve(p, max_iter=BOXDDP_COMPARE_ITERS)
 
     t0 = time.perf_counter()
     singles = []
     for i in range(BOXDDP_COMPARE):
         st = boxddp_init(car.step, cost, p["x0s"][i], p["u0s"][i], p["lo"], p["hi"], device=device)
         singles.append(boxddp_solve(car.step, car.get_AB, cost.get_Cs, cost, st, p["lo"], p["hi"],
-                                    cfg=ILQRConfig(**BOXDDP_SOLVE), qp_iters=BOXDDP_QP_ITERS,
-                                    graph=True))
+                                    cfg=ILQRConfig(**dict(BOXDDP_SOLVE,
+                                                          max_iter=BOXDDP_COMPARE_ITERS)),
+                                    qp_iters=BOXDDP_QP_ITERS, graph=True))
     seconds = time.perf_counter() - t0
     cost_s = torch.stack([s.cost for s in singles])
     rels = ((fleet.cost - cost_s).abs() / cost_s.abs()).tolist()
@@ -4393,7 +4881,11 @@ def phase_linalg_audit(card, device="cuda"):
     check(not faults, f"[linalg audit] faults: {faults}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
+    parser.add_argument("--profile", action="store_true",
+                        help="also run the torch.profiler phases, which gate nothing")
+    profile = parser.parse_args(argv).profile
     seconds = {}
 
     def run(label, fn, *args):
@@ -4436,31 +4928,41 @@ def main() -> int:
         riccati_max_err = run("riccati compare", phase_riccati_compare, "cuda")
         riccati_launches, _ = run("riccati main path", phase_riccati_main_path, "cuda")
         riccati_times = run("riccati time", phase_riccati_time, "cuda", card)
-        run("riccati profile", phase_riccati_profile, "cuda", card)
+        if profile:
+            run("riccati profile", phase_riccati_profile, "cuda", card)
+        car_host = run("car f64 host start", start_car_host_f64)
         car_max_err = run("car compare", phase_car_compare, "cuda")
         car_launches, car_main = run("car main path", phase_car_main_path, "cuda")
-        run("car f64 host solve", phase_car_host_f64, car_main)
         run("car inner mode", phase_car_inner, "cuda")
         car_times = run("car time", phase_car_time, "cuda", card)
-        run("car profile", phase_car_profile, "cuda", card)
-        arm_problems, arm_dtypes = run("arm fleet main path", phase_arm_fleet, "cuda")
+        if profile:
+            run("car profile", phase_car_profile, "cuda", card)
+        car_admm_fleet = run("car fleet", phase_car_fleet, "cuda", card, profile)
+        run("car f64 host solve", phase_car_host_f64, car_main, car_host)
+        run("fleet configs", phase_fleet_configs, "cuda", card)
+        arm_problems, arm_dtypes, arm_certificates = run("arm fleet main path", phase_arm_fleet,
+                                                         "cuda")
         run("arm compare", phase_arm_compare, "cuda", arm_dtypes)
         run("arm fleet time", phase_arm_time, "cuda", card, arm_problems, arm_dtypes)
-        run("arm profile", phase_arm_profile, "cuda", card, arm_problems, arm_dtypes)
+        if profile:
+            run("arm profile", phase_arm_profile, "cuda", card, arm_problems, arm_dtypes)
         run("arm robust", phase_arm_robust, "cuda")
         run("mpc car", phase_mpc_car, "cuda", card)
+        run("arm certificate", phase_arm_certificate, arm_certificates)
         run("mpc fleet", phase_mpc_fleet, "cuda", card)
         run("mpc boxddp", phase_mpc_boxddp, "cuda", card)
-        run("mpc profile", phase_mpc_profile, "cuda", card)
+        if profile:
+            run("mpc profile", phase_mpc_profile, "cuda", card)
         run("single solves", phase_single_solves, "cuda", card)
         run("boxddp graph", phase_boxddp_graph, "cuda")
         car_fleet, _, certificate, main_ms = run("boxddp main path", phase_boxddp_main_path,
                                                  "cuda", card)
         run("boxddp compare", phase_boxddp_compare, "cuda")
         boxddp_time = run("boxddp time", phase_boxddp_time, "cuda", card, car_fleet, main_ms)
-        run("boxddp certificate", phase_boxddp_certificate, certificate, card)
-        run("boxddp profile", phase_boxddp_profile, "cuda", card, car_fleet, boxddp_time["ms"])
+        if profile:
+            run("boxddp profile", phase_boxddp_profile, "cuda", card, car_fleet, boxddp_time["ms"])
         run("al arm", phase_al_arm, "cuda", card)
+        run("boxddp certificate", phase_boxddp_certificate, certificate, card)
         facade_host = run("facade host start", start_facade_host_runs)
         run("facade sls", phase_facade_sls, "cuda", card, facade_host)
         run("facade obstacles", phase_facade_obstacles, "cuda", card, facade_host)
@@ -4473,6 +4975,7 @@ def main() -> int:
         bounds = dict(run("fleet bounds", existing_bounds, solver, inputs, box[1], x0s,
                           sls[1], sls_fleet), **riccati_times["bounds"],
                       linesearch_rollout=car_times["bound"],
+                      linesearch_rollout_fleet=car_admm_fleet["bound"],
                       admm_u_only_wide=wide_bound(wide, wide_inputs),
                       sls_admm_robust_dim_2={k: robust2[k] for k in
                                              ("bound_ms", "bound_by", "bound_ops")})
@@ -4550,7 +5053,7 @@ def main() -> int:
             "ms": riccati_times[(RICCATI_N, f"{kname} kernel")],
             "plain_ms": riccati_times[(RICCATI_N, f"{kname} plain")],
         })
-    kernels.append({
+    kernels.extend([{
         "name": "linesearch_rollout",
         "route": "cuda",
         "source": "ilqr_admm_tpu_torch/csrc/linesearch_rollout.cu",
@@ -4561,7 +5064,19 @@ def main() -> int:
         # Riccati kernels
         "ms": car_times["kernel"],
         "plain_ms": car_times["plain"],
-    })
+    }, {
+        # the same kernel's fleet form on its own main path: the [car fleet]
+        # outer mode, F * A = 64 x 20 blocks a launch (the inner mode's
+        # launches are printed in its phase), timed at 256 x 20
+        "name": "linesearch_rollout_fleet",
+        "route": "cuda",
+        "source": "ilqr_admm_tpu_torch/csrc/linesearch_rollout.cu",
+        "replaces": "ilqr_admm_tpu/ops/pallas_rollout.py:90",
+        "launches": car_admm_fleet["launches"],
+        "max_abs_err": car_admm_fleet["max_abs_err"],
+        "ms": car_admm_fleet["ms"],
+        "plain_ms": car_admm_fleet["plain_ms"],
+    }])
     for k in kernels:
         k.update(bounds[k["name"]], library_ms=None)
     print(json.dumps({"kernels": kernels}))

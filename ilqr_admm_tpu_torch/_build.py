@@ -161,8 +161,8 @@ def load_library() -> ctypes.CDLL:
     lib.riccati_error_string.argtypes = [_I]
     lib.riccati_error_string.restype = ctypes.c_char_p
     lib.linesearch_rollout_car_front_wheel_launch.argtypes = [
-        _P, _P, _P,  # x0, u_cands, xs
-        _I, _I,  # A, N
+        _P, _P, _P,  # x0s, u_cands, xs
+        _I, _I, _I,  # R (initial states), A (candidates each), N
         _F, _F, _F,  # dt, dist, dist**2
         _P,  # stream
     ]

@@ -2,11 +2,21 @@
 //
 // Replaces the Pallas TPU kernel `kernel` of
 // `make_pallas_linesearch_rollout` (ilqr_admm_tpu/ops/pallas_rollout.py:90).
-// For each candidate a of the A control sequences u[a] (N, M):
+// For each of R initial states x0s[r] (D,) and each of its A candidate
+// control sequences u[r, a] (N, M):
 //
-//     xs[a, 0] = x0,   xs[a, t + 1] = step(xs[a, t], u[a, t])   (t < N - 1)
+//     xs[r, a, 0] = x0s[r],   xs[r, a, t + 1] = step(xs[r, a, t], u[r, a, t])   (t < N - 1)
 //
-// written to xs (A, N, D); the final state x_N is not stored, as on the TPU.
+// written to xs (R, A, N, D); the final state x_N is not stored, as on the
+// TPU. R = 1 is the single line search; R > 1 a fleet's line searches in
+// one launch, the counterpart of the Pallas call under `jax.vmap`, which
+// batches it over a grid axis. A block rolls out one candidate of one
+// instance, so every row is bit for bit what a launch of its own gives.
+//
+// Limits: the grid is R * A blocks along x (at most 2^31 - 1, and the
+// launcher takes R * A as an int); offsets into u and xs are size_t, so
+// R * A * N * D has no 32-bit limit. A stays <= 128 an instance (the JAX
+// contract, checked by the Python wrapper).
 //
 // The plant is compiled in: the step of CarFrontWheel
 // (ilqr_admm_tpu/models/car.py:37-44), where the TPU kernel traced a
@@ -35,7 +45,7 @@
 // The least time is then (N - 1) dependent adds (tools/rollout_variants.py
 // measures the add's latency and the clock).
 //
-// Design: one block a candidate, 256 threads, the horizon in chunks of
+// Design: one block a candidate (of one instance), 256 threads, the horizon in chunks of
 // kChunk steps staged in shared memory, with (x, y, o, v) carried from one
 // chunk to the next. In each chunk:
 //   1. all threads: w[t] and a[t] dt from the candidate's controls;
@@ -103,15 +113,17 @@ __device__ __forceinline__ float chain(const float* __restrict__ d, float* __res
 }
 
 __global__ void __launch_bounds__(kThreads)
-    car_front_wheel_rollout_kernel(const float* __restrict__ x0, const float* __restrict__ u,
-                                   float* __restrict__ xs, int N, CarFrontWheel car) {
+    car_front_wheel_rollout_kernel(const float* __restrict__ x0s, const float* __restrict__ u,
+                                   float* __restrict__ xs, int A, int N, CarFrontWheel car) {
   __shared__ __align__(16) float staged[10][kRow];
   float *W = staged[0], *ADT = staged[1], *SW = staged[2], *CW = staged[3], *V = staged[4];
   float *B = staged[5], *DO = staged[6], *O = staged[7], *X = staged[8], *Y = staged[9];
   const int tid = threadIdx.x;
   const float2* ua = reinterpret_cast<const float2*>(u) + static_cast<size_t>(blockIdx.x) * N;
   float4* xa = reinterpret_cast<float4*>(xs) + static_cast<size_t>(blockIdx.x) * N;
-  // the carries: thread 0 holds x, o and v, thread 32 holds y
+  // the carries, from this candidate's instance: thread 0 holds x, o and
+  // v, thread 32 holds y
+  const float* x0 = x0s + static_cast<size_t>(blockIdx.x / A) * 4;
   float x = x0[0], y = x0[1], o = x0[2], v = x0[3];
 
   for (int c0 = 0; c0 < N; c0 += kChunk) {
@@ -157,12 +169,13 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-extern "C" int linesearch_rollout_car_front_wheel_launch(const void* x0, const void* u, void* xs,
-                                                         int A, int N, float dt, float dist,
+// x0s (R, 4), u (R, A, N, 2), xs (R, A, N, 4); R * A blocks.
+extern "C" int linesearch_rollout_car_front_wheel_launch(const void* x0s, const void* u, void* xs,
+                                                         int R, int A, int N, float dt, float dist,
                                                          float dist_sq, void* stream) {
-  if (A < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
-  car_front_wheel_rollout_kernel<<<A, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x0), static_cast<const float*>(u), static_cast<float*>(xs), N,
+  if (R < 1 || A < 1 || N < 1 || R > 0x7fffffff / A) return static_cast<int>(cudaErrorInvalidValue);
+  car_front_wheel_rollout_kernel<<<R * A, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x0s), static_cast<const float*>(u), static_cast<float*>(xs), A, N,
       CarFrontWheel{dt, dist, dist_sq});
   return static_cast<int>(cudaGetLastError());
 }

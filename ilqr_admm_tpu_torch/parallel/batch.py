@@ -18,6 +18,7 @@ arguments.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -28,13 +29,17 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from ilqr_admm_tpu_torch.parallel.collectives import all_reduce, gather_packed
 from ilqr_admm_tpu_torch.parallel.mesh import axis_group, mesh_device
 from ilqr_admm_tpu_torch.problem import ADMMConfig, ILQRConfig, QuadCost
-from ilqr_admm_tpu_torch.solvers.admm import validate_constraint_blocks
+from ilqr_admm_tpu_torch.solvers.admm import admm_fleet, validate_constraint_blocks
 from ilqr_admm_tpu_torch.solvers.al_ilqr import ALResult, al_ilqr_fleet_solve
-from ilqr_admm_tpu_torch.solvers.batched_ilqr_admm import _admm_fleet, _admm_fleet_anderson
 from ilqr_admm_tpu_torch.solvers.boxddp import boxddp_fleet_init, boxddp_fleet_solve
 from ilqr_admm_tpu_torch.solvers.ilqr import ILQRState, ilqr_fleet_init, ilqr_fleet_solve
 from ilqr_admm_tpu_torch.solvers.lqt import broadcast_rho
-from ilqr_admm_tpu_torch.solvers.lqt_admm import dp_operators, dp_sweep
+from ilqr_admm_tpu_torch.solvers.lqt_admm import (
+    blockwise,
+    dp_adaptive_update,
+    dp_operators,
+    dp_sweep,
+)
 from ilqr_admm_tpu_torch.utils.device import resolve_device
 from ilqr_admm_tpu_torch.utils.precision import full_f32_matmul
 
@@ -46,16 +51,14 @@ def batched_lqt_admm_dp(A, B, cost: QuadCost, x0s, project_x: Optional[Callable]
     """Solve the same constrained LQT (`lqt_admm_dp`, operator form) from a
     fleet of initial states x0s (F, d).
 
+    The fleet runs the one ADMM loop (`admm.admm_fleet`) in any of its
+    modes: plain, accel, Anderson (cfg.anderson_m > 0), or adaptive_rho.
     The DP x-update's affine operators are built once (their Jacobians do
-    not depend on x0, only the constant term does, one row an instance)
-    and the fleet's ADMM runs the loop of `ilqr_admm_fleet`: plain, or
-    Anderson with cfg.anderson_m > 0. Returns (x (F, N*d), u (F, N*m),
-    iters (F,)).
+    not depend on x0, only the constant term does, one row an instance);
+    with cfg.adaptive_rho each iteration re-runs each instance's backward
+    pass at its own penalty scale, as `lqt_admm_dp` does (the operators
+    bake the penalty in). Returns (x (F, N*d), u (F, N*m), iters (F,)).
     """
-    if cfg.adaptive_rho or cfg.accel:
-        raise NotImplementedError(
-            "batched_lqt_admm_dp runs the plain and Anderson ADMM loops; adaptive_rho and "
-            "accel have no fleet loop yet")
     validate_constraint_blocks(project_x, rho_x, project_u, rho_u)
     device = resolve_device(device)
     A, B, x0s = (torch.as_tensor(t, device=device) for t in (A, B, x0s))
@@ -63,32 +66,47 @@ def batched_lqt_admm_dp(A, B, cost: QuadCost, x0s, project_x: Optional[Callable]
     N, d, m = A.shape[0], A.shape[-1], B.shape[-1]
     F, dtype = x0s.shape[0], A.dtype
     kw = dict(dtype=dtype, device=device)
-    _, sweep = dp_sweep(A, B, cost, broadcast_rho(rho_x, d, N, dtype, device),
-                        broadcast_rho(rho_u, m, N, dtype, device))
-    zx, zu = torch.zeros((N * d,), **kw), torch.zeros((N * m,), **kw)
-    consts, jac_x, jac_u = dp_operators(sweep, x0s, zx, zu)
+    Qr = broadcast_rho(rho_x, d, N, dtype, device)
+    Rr = broadcast_rho(rho_u, m, N, dtype, device)
+    rho_wx = rho_wu = None
+    if cfg.adaptive_rho:
+        update = vmap(functools.partial(dp_adaptive_update, A, B, cost, Qr, Rr))
 
-    def f_argmin(x, u):
-        xv = zx if x is None else x
-        uv = zu if u is None else u
-        return tuple(c + xv @ Jx.T + uv @ Ju.T
-                     for c, Jx, Ju in zip(consts[:2], jac_x[:2], jac_u[:2]))
+        def f_argmin(x, u, s):
+            # vmap takes no None: a disabled block's target is the zero row
+            xs, us, _ = update(x0s, torch.zeros((F, N * d), **kw) if x is None else x,
+                               torch.zeros((F, N * m), **kw) if u is None else u, s)
+            return xs, us
 
-    loop = _admm_fleet_anderson if cfg.anderson_m > 0 else _admm_fleet
+        if Qr is not None and project_x is not None:
+            rho_wx = blockwise(Qr, d, N)
+        if Rr is not None and project_u is not None:
+            rho_wu = blockwise(Rr, m, N)
+    else:
+        _, sweep = dp_sweep(A, B, cost, Qr, Rr)
+        zx, zu = torch.zeros((N * d,), **kw), torch.zeros((N * m,), **kw)
+        consts, jac_x, jac_u = dp_operators(sweep, x0s, zx, zu)
+
+        def f_argmin(x, u):
+            xv = zx if x is None else x
+            uv = zu if u is None else u
+            return tuple(c + xv @ Jx.T + uv @ Ju.T
+                         for c, Jx, Ju in zip(consts[:2], jac_x[:2], jac_u[:2]))
+
     z_x, z_u = torch.zeros((F, N * d), **kw), torch.zeros((F, N * m), **kw)
-    x_x, x_u, *_, iters, _ = loop(
+    x_x, x_u, *_, info = admm_fleet(
         f_argmin, None if project_x is None else vmap(project_x),
-        None if project_u is None else vmap(project_u), (N * d,), (N * m,), cfg, z_x, z_u,
-        torch.zeros_like(z_x), torch.zeros_like(z_u),
-        torch.ones((F,), dtype=torch.bool, device=device))
-    return x_x, x_u, iters
+        None if project_u is None else vmap(project_u), cfg, z_x, z_u,
+        torch.zeros_like(z_x), torch.zeros_like(z_u), rho_weight_x=rho_wx, rho_weight_u=rho_wu)
+    return x_x, x_u, info.iters
 
 
 def batched_ilqr_solve(f: Callable, get_AB: Callable, get_Cs: Callable, cost_fn: Callable,
                        x0s, u0s, cfg: ILQRConfig = ILQRConfig(), method: str = "dp", *,
                        device=None) -> ILQRState:
     """A fleet of iLQR solves (multi-start, scenario sampling): x0s (F, d),
-    u0s (F, N, m). Returns the fleet state of `ilqr_fleet_solve`."""
+    u0s (F, N, m); method 'dp', 'batch' or 'sls'. Returns the fleet state
+    of `ilqr_fleet_solve`."""
     st = ilqr_fleet_init(f, cost_fn, x0s, u0s, device=device)
     return ilqr_fleet_solve(f, get_AB, get_Cs, cost_fn, st, cfg, method)
 

@@ -6,25 +6,29 @@ by `tests/test_batched_ilqr_admm.py`).
 flags after each outer step and each ADMM iteration, so it cannot be
 vmapped. Here one solve carries a leading fleet axis F through the same
 loops, as a vmapped `while_loop` does: the outer loop runs while any
-instance is RUNNING, the inner ADMM while any instance taking part in it
+instance is RUNNING, the inner ADMM (`admm.admm_fleet`, the loop of
+`admm_solve` with the fleet axis) while any instance taking part in it
 is; an instance that has left keeps its carry (`torch.where` on its own
 mask), and an instance whose outer loop has ended takes no part in later
-inner loops. Each instance keeps its own residual norms and stop tests
-(`admm.stop_tests`, the single-instance rules). One host read of a flag
-serves the whole fleet: a solve counts one read an outer step and one an
-ADMM iteration, as many as its slowest instance alone would, whatever F.
+inner loops. Each instance keeps its own residual norms and stop tests.
+One host read of a flag serves the whole fleet: a solve counts one read
+an outer step and one an ADMM iteration, as many as its slowest instance
+alone would, whatever F.
 
 The batch method's x-update runs batched over the fleet: `get_AB`
 vmapped, `build_Su` vmapped, the normal equations with Su^T Q blockwise,
-one batched Cholesky of (F, N*m, N*m) and batched solves. The inner line
+one batched Cholesky of (F, N*m, N*m) and batched solves. The line
 search rolls the (F, A, N, m) candidates out as one time loop of the
-vmapped step over F*A rows. `line_search='outer'` keeps the explicit
+vmapped step over F*A rows, or, given `linesearch_rollout`, in one call
+of it on the fleet (`ops/fused_rollout.py`: the CUDA kernel's F * A
+blocks in one launch, the counterpart of the Pallas kernel under
+`jax.vmap`). `line_search='outer'` keeps the explicit
 inverse a fleet, (F, N*m, N*m), and runs one line search an outer step.
 The dp method (the body of `ilqr_admm._ilqr_admm_dp`) vmaps the Riccati
 pass over the fleet on the penalty-augmented cost model and rolls the
 closed-loop candidates out for every instance and alpha. With
 anderson_m > 0 each instance's ADMM is Anderson-accelerated on its own
-memory (`admm._admm_solve_anderson`, an instance a row).
+memory.
 
 With tolerances that no stop test can pass (`admm.can_stop`,
 `ilqr_admm.outer_can_stop`: all <= 0, as in an MPC tick) the loops run
@@ -35,9 +39,6 @@ Three `torch.profiler` ranges split a solve's time: PROFILE_LINEARIZE
 inverse), PROFILE_ADMM (each ADMM iteration) and PROFILE_ROLLOUT (each
 line search: rollout, costs and argmin; inside PROFILE_ADMM in the inner
 mode).
-
-Not ported to the fleet yet: a fused `linesearch_rollout` (ROADMAP.md,
-queue 1, the arm fleet's item d).
 """
 
 from __future__ import annotations
@@ -55,12 +56,12 @@ from ilqr_admm_tpu_torch.ops.rollout import rollout_closed_loop, rollout_nonline
 from ilqr_admm_tpu_torch.ops.sqrt_riccati import ilqr_backward_sqrt
 from ilqr_admm_tpu_torch.problem import ADMMConfig, SolveStatus
 from ilqr_admm_tpu_torch.solvers.admm import (
-    can_stop,
+    _mv,
+    admm_fleet,
+    keep,
     read_flags,
-    stop_tests,
     validate_constraint_blocks,
 )
-from ilqr_admm_tpu_torch.solvers.fleet import keep
 from ilqr_admm_tpu_torch.solvers.ilqr import nan_to_inf
 from ilqr_admm_tpu_torch.solvers.ilqr_admm import (
     ILQRADMMResult,
@@ -78,11 +79,6 @@ PROFILE_ADMM = "ilqr_admm_fleet.admm_iteration"
 PROFILE_ROLLOUT = "ilqr_admm_fleet.rollout"
 
 
-def _norm(r):
-    """Each instance's 2-norm: (F, ...) -> (F,)."""
-    return torch.sqrt(torch.sum(r * r, dim=tuple(range(1, r.ndim))))
-
-
 def _bd_matmul(blocks, M):
     """block_diag(blocks) @ M for each instance: blocks (N, d, d) shared or
     (F, N, d, d), M (F, N*d, k)."""
@@ -90,20 +86,6 @@ def _bd_matmul(blocks, M):
     F, k = M.shape[0], M.shape[-1]
     eq = "tij,ftjk->ftik" if blocks.ndim == 3 else "ftij,ftjk->ftik"
     return torch.einsum(eq, blocks, M.reshape(F, N, d, k)).reshape(F, N * d, k)
-
-
-def _block_diag(blocks):
-    """Each instance's dense block-diagonal: (F, N, e, e) -> (F, N*e, N*e)."""
-    F, N, e, _ = blocks.shape
-    out = blocks.new_zeros((F, N, e, N, e))
-    idx = torch.arange(N, device=blocks.device)
-    out[:, idx, :, idx, :] = blocks.transpose(0, 1)  # the indexed axes come first
-    return out.reshape(F, N * e, N * e)
-
-
-def _mv(M, v):
-    """M @ v for each instance: M (F, n, k) or (n, k), v (F, k) -> (F, n)."""
-    return (M @ v[..., None])[..., 0]
 
 
 def _cho_solve(U, rhs):
@@ -116,161 +98,6 @@ def _cho_solve(U, rhs):
                                       upper=False)
     x = torch.linalg.solve_triangular(U, y, upper=True)
     return x[..., 0] if vec else x
-
-
-def _admm_fleet(f_argmin, project_x, project_u, shape_x, shape_u, cfg: ADMMConfig, z_x, z_u,
-                lmb_x, lmb_u, part):
-    """The plain branch of `admm.admm_solve` for each instance of a fleet.
-
-    part (F,): the instances that take part. Each iterates until its own
-    stop (converged, stalled or cfg.max_iter) and then keeps its carry;
-    the loop ends when none is left, after one host read an iteration.
-    Returns (x_x, x_u, lmb_x, lmb_u, z_x, z_u, iters (F,), the fleet's
-    iteration count).
-    """
-    has_x, has_u = project_x is not None, project_u is not None
-    F = part.shape[0]
-    kw = dict(dtype=z_u.dtype, device=z_u.device)
-    out = (torch.zeros((F,) + tuple(shape_x), **kw), torch.zeros((F,) + tuple(shape_u), **kw))
-    prim = torch.full((F,), 1e6, **kw)
-    dual = torch.full((F,), 1e6, **kw)
-    zero = torch.zeros((F,), **kw)
-    iters = torch.zeros((F,), dtype=torch.int64, device=part.device)
-    live = part
-    k, running = 0, True
-    while k < cfg.max_iter and running:
-        with record_function(PROFILE_ADMM):
-            out_new = f_argmin(z_x - lmb_x if has_x else None, z_u - lmb_u if has_u else None)
-            x_x, x_u = out_new
-            prim_new, dual_new = zero, zero
-            if has_x:
-                z_x_new = project_x(cfg.alpha * x_x + (1.0 - cfg.alpha) * z_x + lmb_x)
-                r_x = x_x - z_x_new
-                prim_new = prim_new + _norm(r_x)
-                dual_new = dual_new + _norm(z_x_new - z_x)
-                z_x, lmb_x = keep(live, z_x_new, z_x), keep(live, lmb_x + r_x, lmb_x)
-            if has_u:
-                z_u_new = project_u(cfg.alpha * x_u + (1.0 - cfg.alpha) * z_u + lmb_u)
-                r_u = x_u - z_u_new
-                prim_new = prim_new + _norm(r_u)
-                dual_new = dual_new + _norm(z_u_new - z_u)
-                z_u, lmb_u = keep(live, z_u_new, z_u), keep(live, lmb_u + r_u, lmb_u)
-            converged, stalled = stop_tests(prim, dual, prim_new, dual_new, cfg)
-            out = tuple(keep(live, n, o) for n, o in zip(out_new, out))
-            prim, dual = keep(live, prim_new, prim), keep(live, dual_new, dual)
-            iters = iters + live.to(iters.dtype)
-            live = live & ~(converged | stalled) & (iters < cfg.max_iter)
-            k += 1
-            if can_stop(cfg):
-                (running,) = read_flags(torch.any(live))
-    return out[0], out[1], lmb_x, lmb_u, z_x, z_u, iters, k
-
-
-def _admm_fleet_anderson(f_argmin, project_x, project_u, shape_x, shape_u, cfg: ADMMConfig,
-                         z_x, z_u, lmb_x, lmb_u, part):
-    """`admm._admm_solve_anderson` for each instance of a fleet: the same
-    safeguarded type-II Anderson mixing, with each instance's memory,
-    restarts, stop tests and returned best plain iterate its own, as
-    `jax.vmap` of the single loop keeps them. Freezing and the return
-    are those of `_admm_fleet`."""
-    has_x, has_u = project_x is not None, project_u is not None
-    F = part.shape[0]
-    kw = dict(dtype=z_u.dtype, device=z_u.device)
-    sx = math.prod(shape_x) if has_x else 0
-    su = math.prod(shape_u) if has_u else 0
-    D, m = 2 * (sx + su), cfg.anderson_m
-    consts = (z_x, z_u, lmb_x, lmb_u)
-
-    def pack(zx, zu, lx, lu):
-        parts = [t for t, on in ((zx, has_x), (zu, has_u), (lx, has_x), (lu, has_u)) if on]
-        return torch.cat(parts, dim=1)
-
-    def unpack(v):
-        zx = v[:, :sx] if has_x else consts[0]
-        zu = v[:, sx:sx + su] if has_u else consts[1]
-        lx = v[:, sx + su:2 * sx + su] if has_x else consts[2]
-        lu = v[:, 2 * sx + su:] if has_u else consts[3]
-        return zx, zu, lx, lu
-
-    def plain_step(zx, zu, lx, lu):
-        """One plain ADMM iteration, as `admm._make_plain_step`."""
-        x_x, x_u = f_argmin(zx - lx if has_x else None, zu - lu if has_u else None)
-        prim = dual = torch.zeros((F,), **kw)
-        if has_x:
-            zx_n = project_x(cfg.alpha * x_x + (1.0 - cfg.alpha) * zx + lx)
-            r = x_x - zx_n
-            lx, prim, dual = lx + r, prim + _norm(r), dual + _norm(zx_n - zx)
-            zx = zx_n
-        if has_u:
-            zu_n = project_u(cfg.alpha * x_u + (1.0 - cfg.alpha) * zu + lu)
-            r = x_u - zu_n
-            lu, prim, dual = lu + r, prim + _norm(r), dual + _norm(zu_n - zu)
-            zu = zu_n
-        return (x_x, x_u), zx, zu, lx, lu, prim, dual
-
-    inf = torch.full((F,), math.inf, **kw)
-    big = torch.full((F,), 1e6, **kw)
-    eye_m = torch.eye(m, **kw)
-    eps = torch.finfo(kw["dtype"]).eps
-    v = pack(z_x, z_u, lmb_x, lmb_u)
-    ret = ((torch.zeros((F,) + tuple(shape_x), **kw), torch.zeros((F,) + tuple(shape_u), **kw)),
-           z_x, z_u, lmb_x, lmb_u)
-    ret_score = (inf, big, big)
-    prim, dual = big, big
-    mem_dv = torch.zeros((F, m, D), **kw)
-    mem_dg = torch.zeros((F, m, D), **kw)
-    prev_v = torch.zeros((F, D), **kw)
-    prev_g = torch.zeros((F, D), **kw)
-    no = torch.zeros((F,), dtype=torch.bool, device=part.device)
-    has_prev, flat_prev, best = no, no, inf
-    iters = torch.zeros((F,), dtype=torch.int64, device=part.device)
-    live = part
-    k, running = 0, True
-    while k < cfg.max_iter and running:
-        with record_function(PROFILE_ADMM):
-            out, zx_n, zu_n, lx_n, lu_n, prim_new, dual_new = plain_step(*unpack(v))
-            v_plain = pack(zx_n, zu_n, lx_n, lu_n)
-            g = v_plain - v
-            gnorm = _norm(g)
-            restart = has_prev & (gnorm > cfg.anderson_safeguard * best)
-            push = has_prev & ~restart
-            mem_dv_p = torch.cat([mem_dv[:, 1:], (v - prev_v)[:, None]], dim=1)
-            mem_dg_p = torch.cat([mem_dg[:, 1:], (g - prev_g)[:, None]], dim=1)
-            mem_dv_n = keep(push, mem_dv_p, keep(restart, torch.zeros_like(mem_dv), mem_dv))
-            mem_dg_n = keep(push, mem_dg_p, keep(restart, torch.zeros_like(mem_dg), mem_dg))
-            # each instance's type-II least squares for its mixing weights
-            gram = mem_dg_n @ mem_dg_n.transpose(-1, -2)
-            reg = cfg.anderson_reg * torch.diagonal(gram, dim1=-2, dim2=-1).sum(-1) + 1e-30
-            gam = torch.linalg.solve(gram + reg[:, None, None] * eye_m, _mv(mem_dg_n, g))
-            v_aa = v + g - _mv((mem_dv_n + mem_dg_n).transpose(-1, -2), gam)
-            use_aa = (gnorm > 1e3 * eps * (1.0 + _norm(v_plain))) & ~restart
-            v_next = keep(use_aa, v_aa, v_plain)
-            best_n = torch.where(restart, inf, torch.minimum(best, gnorm))
-            converged = (prim_new < cfg.tol) & (dual_new < cfg.tol)
-            prim_change = torch.abs(prim - prim_new) / (prim + 1e-30)
-            dual_change = torch.abs(dual - dual_new) / (dual + 1e-30)
-            flat = (prim_change < cfg.stall) & (dual_change < cfg.stall) & ~restart
-            stalled = flat & flat_prev
-            score_new = prim_new + dual_new
-            take = live & ((score_new < ret_score[0]) | converged)
-            ret = (tuple(keep(take, n, o) for n, o in zip(out, ret[0])),) + tuple(
-                keep(take, n, o) for n, o in zip((zx_n, zu_n, lx_n, lu_n), ret[1:]))
-            ret_score = tuple(torch.where(take, n, o)
-                              for n, o in zip((score_new, prim_new, dual_new), ret_score))
-            prim, dual = keep(live, prim_new, prim), keep(live, dual_new, dual)
-            prev_v, prev_g = keep(live, v, prev_v), keep(live, g, prev_g)
-            has_prev = torch.where(live, ~restart, has_prev)
-            flat_prev = torch.where(live, flat, flat_prev)
-            mem_dv, mem_dg = keep(live, mem_dv_n, mem_dv), keep(live, mem_dg_n, mem_dg)
-            best = torch.where(live, best_n, best)
-            v = keep(live, v_next, v)
-            iters = iters + live.to(iters.dtype)
-            live = live & ~(converged | stalled) & (iters < cfg.max_iter)
-            k += 1
-            if can_stop(cfg):
-                (running,) = read_flags(torch.any(live))
-    (x_x, x_u), z_x, z_u, lmb_x, lmb_u = ret
-    return x_x, x_u, lmb_x, lmb_u, z_x, z_u, iters, k
 
 
 def _fleet_impl(f, get_AB, cost_fn, x_nom0, u_nom0, get_Cs=None, quad_cost=None,
@@ -286,11 +113,6 @@ def _fleet_impl(f, get_AB, cost_fn, x_nom0, u_nom0, get_Cs=None, quad_cost=None,
     if method == "dp" and line_search != "inner":
         raise ValueError("line_search='outer' is only supported with method='batch' "
                          "(the dp x-update's line search is closed-loop by design)")
-    if linesearch_rollout is not None:
-        raise NotImplementedError(
-            "ilqr_admm_fleet does not run linesearch_rollout yet (ROADMAP.md, queue 1, the "
-            "arm fleet's item d, the fleet's linesearch_rollout); solve the instances one by "
-            "one with ilqr_admm")
     F, N, d = x_nom0.shape
     m = u_nom0.shape[-1]
     dtype, device = x_nom0.dtype, x_nom0.device
@@ -303,7 +125,15 @@ def _fleet_impl(f, get_AB, cost_fn, x_nom0, u_nom0, get_Cs=None, quad_cost=None,
     Rr_on = Rr is not None and project_u is not None
     Rr_l = block_diag_stacked(Rr) if Rr_on else None
     cfg = ADMMConfig(max_iter=max_admm_iter, alpha=alpha, tol=tol, anderson_m=anderson_m)
-    admm = _admm_fleet_anderson if anderson_m > 0 else _admm_fleet
+
+    def admm(f_argmin, z_x, z_u, l_x, l_u, active):
+        """The fleet's ADMM on the instances still running their outer
+        loop: (x_x, x_u, lmb_x, lmb_u, z_x, z_u, iters (F,), the fleet's
+        iteration count)."""
+        x_x, x_u, _, l_x_n, l_u_n, z_x_n, z_u_n, info = admm_fleet(
+            f_argmin, project_x, project_u, cfg, z_x, z_u, l_x, l_u, part=active,
+            profile=PROFILE_ADMM)
+        return x_x, x_u, l_x_n, l_u_n, z_x_n, z_u_n, info.iters, info.fleet_iters
     fleet_cost = vmap(cost_fn)
     rows = torch.arange(F, device=device)
     backward = ilqr_backward_sqrt if riccati == "sqrt" else ilqr_backward
@@ -327,10 +157,14 @@ def _fleet_impl(f, get_AB, cost_fn, x_nom0, u_nom0, get_Cs=None, quad_cost=None,
         `pick` each instance's best."""
         with record_function(PROFILE_ROLLOUT):
             us_c = u_nom[:, None] + alphas[None, :, None, None] * delta_u[:, None]  # (F, A, N, m)
-            n_a = us_c.shape[1]
-            x0s = x_nom[:, None, 0].expand(F, n_a, d).reshape(F * n_a, d)
-            xs_c = vmap(lambda x0, us: rollout_nonlinear(f, x0, us))(
-                x0s, us_c.reshape(F * n_a, N, m)).reshape(F, n_a, N, d)
+            if linesearch_rollout is not None:
+                # every instance's candidates from its own x0 in one call
+                xs_c = linesearch_rollout(x_nom[:, 0].contiguous(), us_c.contiguous())
+            else:
+                n_a = us_c.shape[1]
+                x0s = x_nom[:, None, 0].expand(F, n_a, d).reshape(F * n_a, d)
+                xs_c = vmap(lambda x0, us: rollout_nonlinear(f, x0, us))(
+                    x0s, us_c.reshape(F * n_a, N, m)).reshape(F, n_a, N, d)
             return pick(xs_c, us_c, tx, tu)
 
     def closed_loop(x_n, u_n, K, k, a):
@@ -352,7 +186,7 @@ def _fleet_impl(f, get_AB, cost_fn, x_nom0, u_nom0, get_Cs=None, quad_cost=None,
         if get_Cs is not None:
             cts, Cts = vmap(get_Cs)(x_nom, u_nom)
             SuTQ = _bd_matmul(0.5 * Cts[..., :d, :d].transpose(-1, -2), Su).transpose(-1, -2)
-            l_side = SuTQ @ Su + 0.5 * _block_diag(Cts[..., d:, d:])
+            l_side = SuTQ @ Su + 0.5 * block_diag_stacked(Cts[..., d:, d:])
             r_side = (_mv(Su.transpose(-1, -2), -0.5 * cts[..., :d].reshape(F, -1))
                       - 0.5 * cts[..., d:].reshape(F, -1))
         else:
@@ -408,7 +242,7 @@ def _fleet_impl(f, get_AB, cost_fn, x_nom0, u_nom0, get_Cs=None, quad_cost=None,
             return xs.reshape(F, -1), us.reshape(F, -1)
 
         x_x, x_u, l_x_n, l_u_n, z_x_n, z_u_n, iters, n_iter = admm(
-            f_argmin, project_x, project_u, (N * d,), (N * m,), cfg, z_x, z_u, l_x, l_u, active)
+            f_argmin, z_x, z_u, l_x, l_u, active)
         return x_x.reshape(F, N, d), x_u.reshape(F, N, m), z_x_n, z_u_n, l_x_n, l_u_n, iters, n_iter
 
     def body_batch(x_nom, u_nom, z_x, z_u, l_x, l_u, active):
@@ -438,8 +272,7 @@ def _fleet_impl(f, get_AB, cost_fn, x_nom0, u_nom0, get_Cs=None, quad_cost=None,
             return x_nom_f + _mv(Su, delta_u), u_nom_f + delta_u
 
         x_x, x_u, l_x_n, l_u_n, z_x_n, z_u_n, iters, n_iter = admm(
-            f_argmin if line_search == "inner" else f_argmin_lin,
-            project_x, project_u, (N * d,), (N * m,), cfg, z_x, z_u, l_x, l_u, active)
+            f_argmin if line_search == "inner" else f_argmin_lin, z_x, z_u, l_x, l_u, active)
         if line_search == "outer":
             x_new, u_new = candidates(
                 x_nom, u_nom, (x_u - u_nom_f).reshape(F, N, m),
@@ -517,7 +350,11 @@ def ilqr_admm_fleet(f: Callable, get_AB: Callable, cost_fn: Callable, x_nom0, u_
     max_admm_iter, alpha, tol, outer_tol, osc_tol, method ('batch' or
     'dp' with riccati='chol' | 'sqrt'), warm (z_x, z_u, lmb_x, lmb_u, each
     with the fleet axis), line_search ('inner' | 'outer', batch method
-    only) and anderson_m. linesearch_rollout raises NotImplementedError.
+    only), anderson_m and linesearch_rollout: for the batch method, a
+    callable (x0s (F, d), u_cands (F, A, N, m)) -> xs (F, A, N, d) that
+    rolls every instance's candidates out at once, e.g.
+    `ops/fused_rollout.make_fused_linesearch_rollout` (the dp method's line
+    search is closed-loop and does not use it).
 
     Per instance it computes what `ilqr_admm` computes. The result's
     fields carry the fleet axis: x_nom (F, N, d), u_nom (F, N, m), cost

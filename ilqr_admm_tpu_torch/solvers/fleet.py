@@ -31,14 +31,9 @@ from typing import Callable
 import torch
 
 from ilqr_admm_tpu_torch.problem import SolveStatus
-from ilqr_admm_tpu_torch.solvers.admm import read_flags, read_status
+from ilqr_admm_tpu_torch.solvers.admm import keep, read_flags, read_status
 
 RUNNING = int(SolveStatus.RUNNING)
-
-
-def keep(mask, new, old):
-    """new where the instance's mask is set, else old: mask (F,)."""
-    return torch.where(mask.reshape(mask.shape + (1,) * (new.ndim - 1)), new, old)
 
 
 def bind(fn: Callable, extra) -> Callable:

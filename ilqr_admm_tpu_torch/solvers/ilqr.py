@@ -6,7 +6,8 @@ The whole line-search grid is rolled out at once through
 outer loop is a Python loop that stops on the same statuses as the JAX
 package's `lax.while_loop`, with one device-to-host read of the status an
 iteration (`fleet.run_single`). `ilqr_fleet_solve` runs a fleet of
-instances through the same iteration, vmapped (`fleet.run_fleet`).
+instances through the same iteration, vmapped (`fleet.run_fleet`), in
+each of the three methods.
 
 User functions are single-instance: f(x, u) -> x_next;
 cost_fn(xs, us) -> scalar; get_AB(xs, us) -> (A (N,d,d), B (N,d,m));
@@ -276,19 +277,18 @@ def ilqr_fleet_solve(
     `jax.vmap(ilqr_solve)`.
 
     state0: a fleet state (`ilqr_fleet_init`, `fleet_state`). Each
-    iteration is `ilqr_iterate_dp` under `torch.func.vmap`; an instance
+    iteration is the method's iterate function (`ilqr_iterate_dp`,
+    `ilqr_iterate_batch` or `ilqr_iterate_sls`) under `torch.func.vmap`; an instance
     that stops keeps its state, status and iteration count, and the loop
     reads one flag an iteration for the whole fleet (`fleet.run_fleet`;
-    stats= receives its counts). The user functions are
+    stats= receives its counts). method and riccati as in `ilqr_solve`. The user functions are
     single-instance and must work under vmap. args: tensors with a
     leading fleet axis; get_Cs and cost_fn receive the instance's rows as
     trailing arguments (per-instance multipliers, for example).
-    Only method='dp' runs as a fleet.
+    The lifted 'batch' and 'sls' steps run as a fleet too: their block
+    diagonals (`lqt.block_diag_stacked`) take no indexed write, so the
+    same iterate functions run under vmap.
     """
-    if method != "dp":
-        raise NotImplementedError(
-            f"the fleet runs method='dp' only, got {method!r} (the lifted 'batch' and 'sls' "
-            "steps build block diagonals that do not run under vmap)")
     alphas = line_search_alphas(cfg, state0.x_nom.dtype, state0.x_nom.device)
     body = vmap(_ilqr_body(f, get_AB, get_Cs, cost_fn, cfg, alphas, _iterate_fn(method, riccati)))
 

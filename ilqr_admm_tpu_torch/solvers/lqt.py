@@ -42,14 +42,15 @@ def broadcast_rho(rho, dim: int, N: int, dtype: torch.dtype | None = None, devic
 
 
 def block_diag_stacked(blocks: torch.Tensor) -> torch.Tensor:
-    """Dense block-diagonal (N*d, N*e) from stacked (N, d, e) blocks, in
-    one scatter (`torch.block_diag(*blocks)` copies block by block: N
-    launches on a card)."""
-    N, d, e = blocks.shape
-    out = blocks.new_zeros((N, d, N, e))
-    idx = torch.arange(N, device=blocks.device)
-    out[idx, :, idx, :] = blocks
-    return out.reshape(N * d, N * e)
+    """Dense block-diagonal (N*d, N*e) from stacked (N, d, e) blocks, or
+    each instance's from a fleet's (F, N, d, e), in one select against
+    the identity's pattern (`torch.block_diag(*blocks)` copies block by
+    block: N launches on a card). It takes no indexed write, so it runs
+    under `torch.func.vmap` (the fleet's lifted iLQR steps)."""
+    *lead, N, d, e = blocks.shape
+    diag = torch.eye(N, dtype=torch.bool, device=blocks.device)[:, None, :, None]
+    out = torch.where(diag, blocks[..., None, :], blocks.new_zeros(()))
+    return out.reshape(*lead, N * d, N * e)
 
 
 def sqrt_psd_stacked(blocks: torch.Tensor) -> torch.Tensor:

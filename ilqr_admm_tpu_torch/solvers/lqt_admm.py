@@ -40,9 +40,14 @@ def cho_solve(U, rhs):
     return torch.cholesky_solve(rhs, U, upper=True)
 
 
-def _blockwise(P, dim, N):
-    """r -> blockdiag(P) r for r (N*dim,), without the dense operator."""
-    return lambda r: torch.einsum("nij,nj->ni", P, r.reshape(N, dim)).reshape(-1)
+def blockwise(P, dim, N):
+    """r -> blockdiag(P) r for r (N*dim,), or for each row of a fleet's r
+    (F, N*dim), without the dense operator."""
+    def apply(r):
+        blocks = r.reshape(*r.shape[:-1], N, dim)
+        return torch.einsum("nij,...nj->...ni", P, blocks).reshape(r.shape)
+
+    return apply
 
 
 @full_f32_matmul()
@@ -120,11 +125,11 @@ def lqt_admm_batch(
             l_side = l_side + SuTQr_Su
             r_side = r_side - SuTQr @ free
             if cfg.accel:  # rho-weight the accel restart monitor a block
-                rho_wx = _blockwise(Qr, d, N)
+                rho_wx = blockwise(Qr, d, N)
         if Rr_l is not None:
             l_side = l_side + Rr_l
             if cfg.accel:
-                rho_wu = _blockwise(Rr, m, N)
+                rho_wu = blockwise(Rr, m, N)
         cf = cho_factor(l_side)
 
         def f_argmin(x, u):
@@ -313,28 +318,37 @@ def lqt_admm_dp(
     return x_x, x_u, aux, info
 
 
+def dp_adaptive_update(A, B, cost, Qr, Rr, x0, x_flat, u_flat, s):
+    """The adaptive-rho DP x-update of one instance: the whole backward
+    pass with s-scaled Qr/Rr toward the targets (x_flat, u_flat; None
+    for a disabled block), then the closed-loop rollout from x0. Returns
+    (xs, us, (K, k)); vmappable over (x0, x_flat, u_flat, s)."""
+    N, d = A.shape[0], A.shape[-1]
+    m = B.shape[-1]
+    kw = dict(dtype=A.dtype, device=A.device)
+    xr = torch.zeros((N, d), **kw) if x_flat is None else x_flat.reshape(N, d)
+    ur = torch.zeros((N, m), **kw) if u_flat is None else u_flat.reshape(N, m)
+    g = lqt_backward(
+        A, B, cost.Q, cost.xd, cost.R,
+        Qr=None if Qr is None else s * Qr, xr=xr,
+        Rr=None if Rr is None else s * Rr, ur=ur,
+    )
+    xs, us = _closed_loop(A, B, g.K, g.k, x0)
+    return xs, us, (g.K, g.k)
+
+
 def _lqt_admm_dp_adaptive(A, B, cost, x0, project_x, project_u, Qr, Rr, cfg):
     """Adaptive-rho DP x-update: each ADMM iteration re-runs the whole
     backward pass with s-scaled Qr/Rr, then the closed-loop rollout."""
     N, d = A.shape[0], A.shape[-1]
     m = B.shape[-1]
     dtype, device = A.dtype, A.device
-    zxr = torch.zeros((N, d), dtype=dtype, device=device)
-    zur = torch.zeros((N, m), dtype=dtype, device=device)
 
     def f_argmin(x_flat, u_flat, s):
-        xr = zxr if x_flat is None else x_flat.reshape(N, d)
-        ur = zur if u_flat is None else u_flat.reshape(N, m)
-        g = lqt_backward(
-            A, B, cost.Q, cost.xd, cost.R,
-            Qr=None if Qr is None else s * Qr, xr=xr,
-            Rr=None if Rr is None else s * Rr, ur=ur,
-        )
-        xs, us = _closed_loop(A, B, g.K, g.k, x0)
-        return xs, us, (g.K, g.k)
+        return dp_adaptive_update(A, B, cost, Qr, Rr, x0, x_flat, u_flat, s)
 
-    rho_wx = _blockwise(Qr, d, N) if Qr is not None and project_x is not None else None
-    rho_wu = _blockwise(Rr, m, N) if Rr is not None and project_u is not None else None
+    rho_wx = blockwise(Qr, d, N) if Qr is not None and project_x is not None else None
+    rho_wu = blockwise(Rr, m, N) if Rr is not None and project_u is not None else None
 
     x_x, x_u, aux, _, _, _, _, info = admm_solve(
         f_argmin, project_x, project_u, (N * d,), (N * m,), cfg,

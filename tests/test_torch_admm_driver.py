@@ -8,6 +8,13 @@ adaptive rho, and Anderson acceleration. Iterates, iteration counts,
 statuses and residual logs must agree to 1e-10 (the x-update is a
 Cholesky solve of a 12 x 12 system; only the order of f64 operations
 differs).
+
+`admm_solve` is the fleet loop `admm_fleet` on a fleet of one: in each
+branch a fleet of one, masked (`part` given) or not, is the single solve
+bit for bit; a fleet of three QPs (their linear terms apart) is its
+three single solves to 1e-12, iterations and statuses equal; and a solve
+reads one flag an iteration, a fleet one an iteration of its slowest
+instance.
 """
 
 import numpy as np
@@ -110,6 +117,108 @@ def test_admm_solve_matches_jax(qp, branch):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=TOL, atol=TOL, err_msg=name)
     for g, w in ((t_info.prim_res, j_info.prim_res), (t_info.dual_res, j_info.dual_res)):
         assert abs(float(g) - float(w)) <= TOL * max(1.0, abs(float(w)))
+
+
+def _fleet_make(qp, n):
+    """`_make`'s QP for n instances whose linear terms differ (instance 0's
+    is the single QP's): (f_scaled for the fleet's rows, the instances'
+    (qx, qu), project_x, project_u, weight) on (n, ...) rows."""
+    Px, Pu, wx = (torch.tensor(qp[k]) for k in ("Px", "Pu", "wx"))
+    rng = np.random.default_rng(11)
+    qx = torch.tensor(np.stack([qp["qx"]] + [3.0 * rng.normal(size=NX) for _ in range(n - 1)]))
+    qu = torch.tensor(np.stack([qp["qu"]] + [3.0 * rng.normal(size=NU) for _ in range(n - 1)]))
+    rx, ru = qp["rho_x"], qp["rho_u"]
+    eye = lambda k: torch.eye(k, dtype=torch.float64)  # noqa: E731
+
+    def f_scaled(reg_x, reg_u, s=None):
+        s = torch.ones(n, dtype=torch.float64) if s is None else s
+        sx, su = (s * rx)[:, None, None], (s * ru)[:, None, None]
+        x = (torch.linalg.solve(Px.expand(n, NX, NX), qx) if reg_x is None else
+             torch.linalg.solve(Px + sx * eye(NX), qx + sx[..., 0] * reg_x))
+        u = (torch.linalg.solve(Pu.expand(n, NU, NU), qu) if reg_u is None else
+             torch.linalg.solve(Pu + su * eye(NU), qu + su[..., 0] * reg_u))
+        return x, u, x[:, :2] * 2.0
+
+    return (f_scaled, (qx, qu), lambda x: torch.clamp(x, -1.0, 1.0),
+            lambda u: torch.clamp(u, -0.8, 0.8), lambda r: wx * r)
+
+
+def _fleet_run(qp, branch, n, part=None):
+    """admm_fleet of `branch` on n instances, z_u started as `_run` starts
+    the single solve (every instance alike)."""
+    spec = BRANCHES[branch]
+    f_scaled, _, px, pu, w = _fleet_make(qp, n)
+    blocks = spec.get("blocks", "xu")
+    if spec.get("scaled"):
+        f = f_scaled
+    else:
+        def f(reg_x, reg_u):
+            return f_scaled(reg_x, reg_u)
+    z_u = torch.tensor(np.random.default_rng(7).normal(size=NU) * 0.1).expand(n, NU).clone()
+    z_x = torch.zeros((n, NX), dtype=torch.float64)
+    return tadmm.admm_fleet(f, px if "x" in blocks else None, pu if "u" in blocks else None,
+                            ADMMConfig(**spec["cfg"]), z_x, z_u, torch.zeros_like(z_x),
+                            torch.zeros_like(z_u), part=part,
+                            weight_x=w if spec.get("weights") else None)
+
+
+def _single_of(qp, branch, i, n):
+    """The single solve of instance i of `_fleet_make(qp, n)`."""
+    spec = BRANCHES[branch]
+    _, (qx, qu), _, _, _ = _fleet_make(qp, n)
+    inst = dict(qp, qx=qx[i].numpy(), qu=qu[i].numpy())
+    return _run(torch, inst, branch)
+
+
+@pytest.mark.parametrize("branch", list(BRANCHES))
+def test_a_fleet_of_one_is_the_single_solve(qp, branch):
+    want = _run(torch, qp, branch)
+    for part in (None, torch.ones(1, dtype=torch.bool)):
+        got = _fleet_run(qp, branch, 1, part)
+        info = got[-1]
+        assert info.fleet_iters == want[-1].iters and info.iters.tolist() == [want[-1].iters]
+        assert info.status.tolist() == [want[-1].status]
+        assert torch.equal(info.logs[0], want[-1].logs)
+        assert torch.equal(info.prim_res[0], want[-1].prim_res)
+        assert torch.equal(info.dual_res[0], want[-1].dual_res)
+        for name, g, w in zip(("x_x", "x_u", "aux", "lmb_x", "lmb_u", "z_x", "z_u"), got[:7],
+                              want[:7]):
+            assert torch.equal(g[0], w), (name, part)
+
+
+@pytest.mark.parametrize("branch", list(BRANCHES))
+def test_fleet_instances_are_single_solves(qp, branch):
+    """Three QPs as one fleet, each to 1e-12 of its single solve (batched
+    and unbatched solves may sum in another order), each stopping at its
+    own iteration with its own status; the fleet reads one flag an
+    iteration until its slowest instance stops."""
+    before = tadmm.host_sync_count
+    got = _fleet_run(qp, branch, 3)
+    info = got[-1]
+    assert tadmm.host_sync_count - before == info.fleet_iters == int(info.iters.max())
+    for i in range(3):
+        want = _single_of(qp, branch, i, 3)
+        assert int(info.iters[i]) == want[-1].iters and int(info.status[i]) == want[-1].status
+        for name, g, w in zip(("x_x", "x_u", "aux", "lmb_x", "lmb_u", "z_x", "z_u"), got[:7],
+                              want[:7]):
+            np.testing.assert_allclose(g[i].numpy(), w.numpy(), rtol=1e-12, atol=1e-12,
+                                       err_msg=f"{name}, instance {i}")
+
+
+def test_instances_that_take_no_part_keep_their_carry(qp):
+    part = torch.tensor([True, False, True])
+    got = _fleet_run(qp, "accel", 3, part)
+    info = got[-1]
+    assert info.iters[1] == 0 and info.status[1] == SolveStatus.MAX_ITER
+    assert not bool(got[0][1].any()) and not bool(got[5][1].any())  # x_x and z_x stay zero
+    assert torch.equal(got[6][1], torch.tensor(np.random.default_rng(7).normal(size=NU) * 0.1))
+
+
+@pytest.mark.parametrize("branch", list(BRANCHES))
+def test_each_branch_reads_once_an_iteration(qp, branch):
+    before = tadmm.host_sync_count
+    info = _run(torch, qp, branch)[-1]
+    assert tadmm.host_sync_count - before == info.iters
 
 
 def test_branches_reach_their_statuses(qp):

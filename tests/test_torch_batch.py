@@ -3,9 +3,10 @@ and the certificates of the two fleets they serve on the card.
 
 The `batched_*` calls of `tests/test_parallel.py` without the mesh, in
 float64: the LQT-ADMM fleet with the DP x-update (24 instances, |u| <= 5,
-50 iterations; also with Anderson acceleration), the multi-start iLQR
+50 iterations; also with Anderson, accel or adaptive rho), the multi-start iLQR
 (32 instances), the boxDDP fleet (16) and the AL fleet (16), each against
-the JAX function on the same inputs: cost to 1e-10 relative, trajectories
+the JAX function on the same inputs (the LQT fleet in each ADMM mode,
+the iLQR fleet in each method): cost to 1e-10 relative, trajectories
 to 1e-8, iteration counts and statuses equal (CONVERGED and
 LINE_SEARCH_FAILED counting as one stop, as in
 `tests/test_torch_al_ilqr.py`: a converged solve's last step is a
@@ -94,28 +95,27 @@ def _problem():
     return (A, B, jc), (tA, tB, tc), jfns, tfns
 
 
-@pytest.mark.parametrize("anderson_m", [0, 3])
-def test_batched_lqt_admm_dp_matches_jax(anderson_m):
+@pytest.mark.parametrize("mode", [
+    pytest.param(dict(anderson_m=0), id="0"),
+    pytest.param(dict(anderson_m=3), id="3"),
+    pytest.param(dict(accel=True), id="accel"),
+    pytest.param(dict(adaptive_rho=True), id="adaptive_rho"),
+])
+def test_batched_lqt_admm_dp_matches_jax(mode):
     """`test_sharded_matches_unsharded`'s fleet: 24 x0 ~ N(0, 0.1^2), |u| <=
-    5, rho_u 1e-2, 50 iterations at tol 1e-4."""
+    5, rho_u 1e-2, 50 iterations at tol 1e-4; in each ADMM mode of the one
+    fleet loop (plain, Anderson, accel with restart, adaptive rho, whose
+    x-update re-runs each instance's backward pass at its own scale)."""
     (A, B, jc), (tA, tB, tc), _, _ = _problem()
     x0s = np.random.default_rng(0).normal(0, 0.1, size=(24, 2))
     x_j, u_j, it_j = jb.batched_lqt_admm_dp(
         A, B, jc, jnp.asarray(x0s), project_u=lambda u: j_project_bound(u, -5.0, 5.0),
-        rho_u=1e-2, cfg=JADMM(max_iter=50, tol=1e-4, anderson_m=anderson_m))
+        rho_u=1e-2, cfg=JADMM(max_iter=50, tol=1e-4, **mode))
     x_t, u_t, it_t = batched_lqt_admm_dp(
         tA, tB, tc, torch.tensor(x0s), project_u=lambda u: project_bound(u, -5.0, 5.0),
-        rho_u=1e-2, cfg=ADMMConfig(max_iter=50, tol=1e-4, anderson_m=anderson_m), device="cpu")
+        rho_u=1e-2, cfg=ADMMConfig(max_iter=50, tol=1e-4, **mode), device="cpu")
     assert it_t.tolist() == np.asarray(it_j).tolist()
     assert _rel(x_t, x_j) < TRAJ_TOL and _rel(u_t, u_j) < TRAJ_TOL
-
-
-def test_batched_lqt_admm_dp_refuses_the_loops_it_lacks():
-    (_, _, _), (tA, tB, tc), _, _ = _problem()
-    for cfg in (ADMMConfig(accel=True), ADMMConfig(adaptive_rho=True)):
-        with pytest.raises(NotImplementedError):
-            batched_lqt_admm_dp(tA, tB, tc, torch.zeros((2, 2), dtype=F64),
-                                project_u=lambda u: u, rho_u=1.0, cfg=cfg, device="cpu")
 
 
 def _fleet_inputs(n, seed, scale):
@@ -123,15 +123,18 @@ def _fleet_inputs(n, seed, scale):
     return x0s, np.zeros((n, N, 1))
 
 
-def test_batched_ilqr_solve_matches_jax():
+@pytest.mark.parametrize("method", ["dp", "batch", "sls"])
+def test_batched_ilqr_solve_matches_jax(method):
     """`test_batched_ilqr_multistart_sharded`: 32 starts x0 ~ N(0, 0.2^2),
-    10 iterations of 10 alphas."""
+    10 iterations of 10 alphas; the lifted 'batch' and 'sls' steps run
+    under vmap as the 'dp' one does."""
     _, _, jfns, tfns = _problem()
     x0s, u0s = _fleet_inputs(32, 1, 0.2)
     cfg = dict(max_iter=10, max_line_search_iter=10)
-    want = jb.batched_ilqr_solve(*jfns, jnp.asarray(x0s), jnp.asarray(u0s), JConfig(**cfg))
+    want = jb.batched_ilqr_solve(*jfns, jnp.asarray(x0s), jnp.asarray(u0s), JConfig(**cfg),
+                                 method=method)
     got = batched_ilqr_solve(*tfns, torch.tensor(x0s), torch.tensor(u0s), ILQRConfig(**cfg),
-                             device="cpu")
+                             method=method, device="cpu")
     _assert_fleet(got, want)
 
 

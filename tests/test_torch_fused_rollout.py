@@ -7,11 +7,15 @@ against `linesearch_rollout_xla` to 1e-12 (the same elementwise ops), and
 in f32 at the JAX test's shape (N = 60, A = 20) against the Pallas kernel
 in interpret mode with `asin_newton` and against `linesearch_rollout_xla`
 to 1e-5, the JAX file's own bound (`tests/test_pallas_rollout.py:81-83`).
-The CUDA kernel itself is held to the plain version on the card by
-`chip_smoke.py`.
+The fleet form (F initial states, each with its own A candidates, one
+launch on the card) is held in f32 to `jax.vmap` of the Pallas kernel and
+of `linesearch_rollout_xla` at the same 1e-5, and on CPU tensors it is
+its F single calls exactly, NaN positions included. The CUDA kernel
+itself is held to the plain version on the card by `chip_smoke.py`.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -74,6 +78,75 @@ def test_wrapper_on_cpu_matches_pallas_and_xla_in_f32(f32_case):
     assert np.abs(xs.numpy() - xla).max() < 1e-5
     # the first state is x0 for every candidate
     assert torch.equal(xs[:, 0], torch.tensor(x0).expand(A, 4))
+
+
+def _fleet_case(F, N, A, nan=False):
+    """x0s around X0 (N(0, 0.05^2)) and each instance's own candidates
+    (alphas x its own step), float32; nan: instance 1's first three
+    candidates leave the asin's domain."""
+    rng = np.random.default_rng(5)
+    x0s = (X0 + rng.normal(0, 0.05, (F, 4))).astype(np.float32)
+    u = np.stack([_cands(N, A, seed=10 + f) for f in range(F)]).astype(np.float32)
+    if nan:
+        u[1, :3, :, 0], u[1, :3, :, 1] = 1.5, 40.0
+    return x0s, u
+
+
+def test_fleet_plain_version_matches_vmapped_pallas_and_xla_in_f32():
+    F, N, A = 3, 60, 20
+    x0s, u = _fleet_case(F, N, A)
+    jcar = JCar(dt=15.0 / N)
+    roll = make_pallas_linesearch_rollout(
+        lambda s, v: jcar.step_cols(s, v, _asin=asin_newton), N, 4, 2, A, interpret=True
+    )
+    pallas = np.asarray(jax.vmap(roll)(jnp.asarray(x0s), jnp.asarray(u)))
+    xla = np.asarray(jax.vmap(lambda x0, c: linesearch_rollout_xla(jcar.step, x0, c))(
+        jnp.asarray(x0s), jnp.asarray(u)))
+    car = CarFrontWheel(dt=15.0 / N)
+    got = fr.linesearch_rollout_reference(car.step_cols, torch.tensor(x0s), torch.tensor(u))
+    assert got.shape == (F, A, N, 4) and got.dtype == torch.float32
+    assert np.abs(got.numpy() - pallas).max() < 1e-5
+    assert np.abs(got.numpy() - xla).max() < 1e-5
+    # each instance's candidates start from its own x0
+    assert torch.equal(got[:, :, 0], torch.tensor(x0s)[:, None].expand(F, A, 4))
+
+
+@pytest.mark.parametrize("F,N,A,nan", [(4, 37, 13, True), (2, 25, 128, False), (1, 60, 20, False)])
+def test_fleet_wrapper_is_its_single_calls(F, N, A, nan):
+    car = CarFrontWheel(dt=15.0 / N)
+    x0s, u = (torch.tensor(a) for a in _fleet_case(F, N, A, nan))
+    before = fr.launch_count
+    roll = fr.make_fused_linesearch_rollout(car, N, 4, 2, A, device="cpu")
+    xs = roll(x0s, u)
+    assert fr.launch_count == before  # CPU tensors: the plain version, no launch
+    assert xs.shape == (F, A, N, 4)
+    assert bool(torch.isnan(xs).any()) == nan
+    for f in range(F):
+        one = fr.linesearch_rollout(car, x0s[f], u[f])
+        assert torch.equal(torch.isnan(xs[f]), torch.isnan(one))
+        assert torch.equal(torch.nan_to_num(xs[f], nan=7.0), torch.nan_to_num(one, nan=7.0))
+
+
+def test_fleet_errors():
+    car = CarFrontWheel()
+    x0s = torch.zeros(3, 4)
+    with pytest.raises(ValueError, match=r"u_cands must be \(3, A, N, 2\)"):
+        fr.linesearch_rollout(car, x0s, torch.zeros(2, 8, 10, 2))
+    with pytest.raises(ValueError, match="u_cands must be"):
+        fr.linesearch_rollout(car, x0s, torch.zeros(8, 10, 2))
+    with pytest.raises(ValueError, match="at most 128 candidates an instance"):
+        fr.linesearch_rollout(car, x0s, torch.zeros(3, 129, 10, 2))
+    with pytest.raises(TypeError, match="float32"):
+        fr.linesearch_rollout(car, x0s.double(), torch.zeros(3, 8, 10, 2, dtype=torch.float64))
+    with pytest.raises(ValueError, match="x0 must be"):
+        fr.linesearch_rollout(car, torch.zeros(3, 5), torch.zeros(3, 8, 10, 2))
+    with pytest.raises(ValueError, match="x0 must be"):
+        fr.linesearch_rollout(car, torch.zeros(0, 4), torch.zeros(0, 8, 10, 2))
+    roll = fr.make_fused_linesearch_rollout(car, 10, 4, 2, 8, device="cpu")
+    with pytest.raises(ValueError, match="u_cands must be"):
+        roll(x0s, torch.zeros(3, 7, 10, 2))
+    with pytest.raises(ValueError, match="u_cands must be"):
+        roll(torch.zeros(4), torch.zeros(3, 8, 10, 2))
 
 
 def test_nan_candidates_stay_nan():

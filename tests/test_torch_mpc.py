@@ -275,7 +275,6 @@ def test_constrained_tick_reads_nothing(kw, fleet, monkeypatch):
     if fleet:
         from ilqr_admm_tpu_torch.solvers import batched_ilqr_admm as tbia
 
-        monkeypatch.setattr(tbia, "can_stop", lambda cfg: True)
         monkeypatch.setattr(tbia, "outer_can_stop", lambda a, b: True)
     before = tadmm.host_sync_count
     u_read, st_read = step(st, x)

@@ -36,10 +36,11 @@ struct CarFrontWheelStep {
 
 template <class Plant, int D, int M>
 __global__ void __launch_bounds__(kThreads)
-    linesearch_rollout_kernel(const float* __restrict__ x0, const float* __restrict__ u,
-                              float* __restrict__ xs, int A, int N, Plant plant) {
-  const int a = blockIdx.x * blockDim.x + threadIdx.x;
-  if (a >= A) return;
+    linesearch_rollout_kernel(const float* __restrict__ x0s, const float* __restrict__ u,
+                              float* __restrict__ xs, int R, int A, int N, Plant plant) {
+  const int a = blockIdx.x * blockDim.x + threadIdx.x;  // over the R * A rows
+  if (a >= R * A) return;
+  const float* x0 = x0s + static_cast<size_t>(a / A) * D;
   const float* ua = u + static_cast<size_t>(a) * N * M;
   float* xa = xs + static_cast<size_t>(a) * N * D;
 
@@ -65,22 +66,26 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <class Plant, int D, int M>
-int launch(const void* x0, const void* u, void* xs, int A, int N, Plant plant,
+int launch(const void* x0s, const void* u, void* xs, int R, int A, int N, Plant plant,
            cudaStream_t stream) {
-  if (A < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (A + kThreads - 1) / kThreads;
+  if (R < 1 || A < 1 || N < 1 || R > (0x7fffffff - kThreads) / A) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int blocks = (R * A + kThreads - 1) / kThreads;
   linesearch_rollout_kernel<Plant, D, M><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const float*>(x0), static_cast<const float*>(u), static_cast<float*>(xs), A,
-      N, plant);
+      static_cast<const float*>(x0s), static_cast<const float*>(u), static_cast<float*>(xs), R,
+      A, N, plant);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int linesearch_rollout_car_front_wheel_launch(const void* x0, const void* u, void* xs,
-                                                         int A, int N, float dt, float dist,
+// the launcher of csrc/linesearch_rollout.cu: x0s (R, 4), u (R, A, N, 2)
+extern "C" int linesearch_rollout_car_front_wheel_launch(const void* x0s, const void* u, void* xs,
+                                                         int R, int A, int N, float dt, float dist,
                                                          float dist_sq, void* stream) {
-  return launch<CarFrontWheelStep, 4, 2>(x0, u, xs, A, N, CarFrontWheelStep{dt, dist, dist_sq},
+  return launch<CarFrontWheelStep, 4, 2>(x0s, u, xs, R, A, N,
+                                         CarFrontWheelStep{dt, dist, dist_sq},
                                          static_cast<cudaStream_t>(stream));
 }
 
