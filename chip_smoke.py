@@ -14,6 +14,11 @@ Drives the port's paths on the card:
 - the same fleet with a velocity box |v| <= 1.3 (position free), rho_x =
   10, 200 iterations, through `make_fused_lqt_admm(..., x_lower, x_upper)`,
   whose loop is the `admm_box` kernel;
+- the same options on the planar double integrator of the examples
+  (`DoubleIntegrator(2, 2, dt=1/100)`, the target (1, 1) at rest,
+  |v_x|, |v_y| <= 1.3: Nm = 200, Nd = 400, 16,384 instances), past the
+  `admm_box` kernel's Nm = 128, whose loop is the wide route
+  `admm_box_wide` (operators read from L2);
 - the robust SLS-ADMM scenario fleet of `benchmarks/bench_pallas_sls.py`
   (1,024 chance-constrained syntheses, N = 100, robust_dim 1, bounds
   U(2, 4), rho_u = 1.0, 200 iterations) through `make_fused_sls_admm`
@@ -111,7 +116,12 @@ Phases:
    with refresh_every 8 and 1, 16-instance tiles, over-relaxation and
    early exit, and at an odd width (Nm = 516); `admm_box` at the full width, with a
    state box only, and at an odd width, also against the plain version
-   with its 3xTF32 products; `sls_admm` in the diamond,
+   with its 3xTF32 products; `admm_box_wide` likewise at the planar
+   width (1,024 instances, tile 32; the state box only, over-relaxed,
+   tile 16; N = 99, over-relaxed, with vector bounds) and at its edge
+   (the wide bench's plant with the velocity box: Nm = 512, Nd = 1,024,
+   tile 16), with each launch's geometry and its build's registers and
+   spills; `sls_admm` in the diamond,
    early-exit and consensus modes, at an odd width and with 16-instance
    tiles, against the plain version with its 3xTF32 products and
    against the f32 one, and the iterations its early-exit tiles ran; the
@@ -132,14 +142,16 @@ Phases:
    just after (the wide and robust_dim 2 fleets with their plain versions
    patched to raise), checked against the certificates (`utils/certify.py`;
    the wide fleet against its bench's gates, the robust_dim 2 fleet
-   against its set's violation and an f64 SLSQP oracle;
+   against its set's violation and an f64 SLSQP oracle, the planar
+   state-bounded fleet against the state-box gates, its oracle in a
+   worker process beside the later phases;
    for the car the cost and bound gates of `tests/test_ilqr_admm.py`, an
    f64 solve on the host, and an inner-line-search solve);
 5. for each path: time, the kernel and the plain version with CUDA
    events (for the u-only paths also 100 f32 cuBLAS products of the
    loop's shape as a yardstick, and the wide kernel with refresh_every 1;
    for the SLS path 200; for the
-   state-bounded path also the whole forward and the
+   state-bounded paths, 1-D and planar, also the whole forward and the
    plain fleet `make_batched_lqt_admm`; for the Riccati path, at N =
    100, 1,000 and 10,000, each kernel's device time from a CUDA graph of
    its launches and its wrapper's time a call, the whole backward pass,
@@ -429,8 +441,20 @@ ROBUST2_N_ORACLE = 2
 BOX_ITERS = 200
 RHO_X = 10.0
 V_MAX = 1.3
-BOX_TILE = 32
+BOX_TILE = 32  # the factory's default at this width
 BOX_TOL = 1e-4  # times max(1, max|u_hat|, max|x_hat|)
+
+# The planar state-bounded fleet: the same options on
+# DoubleIntegrator(2, 2, dt = 1/N) (examples/al_obstacle_avoidance.py:28-29),
+# the target (1, 1) at rest, |v_x|, |v_y| <= 1.3: Nm = 200, Nd = 400, past
+# the narrow kernel's Nm = 128, so its loop is the wide route
+# csrc/admm_box_wide.cu; the kernel is compared with its plain version on
+# the main path's BATCH instances, and at the route's edge on the wide
+# bench's plant (Nm = 512, Nd = 1,024) on BOX_WIDE_EDGE
+PLANAR_TARGET = (1.0, 1.0, 0.0, 0.0)
+BOX_WIDE_EDGE = 256
+# the via-point target of `via_point_problem` for each plant width
+TARGETS = {1: (1.0, 0.0), 2: PLANAR_TARGET, 4: WIDE_TARGET}
 
 # The robust SLS fleet of benchmarks/bench_pallas_sls.py:41-160
 SLS_BATCH = 1024
@@ -762,11 +786,15 @@ def check(ok: bool, msg: str):
         raise SmokeFailure(msg)
 
 
-def bench_problem(device, horizon: int = N, batch: int = BATCH, seed: int = 0):
-    """The bench's problem: same cost, f32 dynamics and x0s."""
-    plant = DoubleIntegrator(1, 2, dt=1.0 / horizon, dtype=torch.float32)
+def via_point_problem(device, nb_dim: int = 1, horizon: int = N, batch: int = BATCH,
+                      seed: int = 0):
+    """The bench's problem on `DoubleIntegrator(nb_dim, 2, dt = 1/N)`: the
+    via-point cost to TARGETS[nb_dim] with Q = 1e3 I at the last step and
+    r = 1e-2, f32 dynamics, x0 ~ N(0, 0.1^2) from default_rng(seed):
+    (A, B, cost, x0s), x0s on `device`."""
+    plant = DoubleIntegrator(nb_dim, 2, dt=1.0 / horizon, dtype=torch.float32)
     d, m = plant.x_dim, plant.u_dim
-    zs = np.stack([np.zeros(d), [1.0, 0.0]]).astype(np.float32)
+    zs = np.stack([np.zeros(d), TARGETS[nb_dim]]).astype(np.float32)
     Qs = np.stack([np.zeros((d, d)), np.eye(d) * 1e3]).astype(np.float32)
     seq = np.zeros(horizon, dtype=np.int32)
     seq[-1] = 1
@@ -775,6 +803,11 @@ def bench_problem(device, horizon: int = N, batch: int = BATCH, seed: int = 0):
     rng = np.random.default_rng(seed)
     x0s = torch.tensor(rng.normal(0.0, 0.1, size=(batch, d)), dtype=torch.float32, device=device)
     return A, B, cost, x0s
+
+
+def bench_problem(device, horizon: int = N, batch: int = BATCH, seed: int = 0):
+    """The bench's problem: same cost, f32 dynamics and x0s."""
+    return via_point_problem(device, 1, horizon, batch, seed)
 
 
 def soc_sets():
@@ -843,17 +876,7 @@ def wide_problem(device, batch: int = WIDE_BATCH, seed: int = 0, horizon: int = 
     1/N), the via-point cost to WIDE_TARGET with Q = 1e3 I at the end and
     r = 1e-2, f32 dynamics, x0 ~ N(0, 0.1^2) from default_rng(seed); the
     bench's N is 128."""
-    plant = DoubleIntegrator(4, 2, dt=1.0 / horizon, dtype=torch.float32)
-    d, m = plant.x_dim, plant.u_dim
-    zs = np.stack([np.zeros(d), WIDE_TARGET]).astype(np.float32)
-    Qs = np.stack([np.zeros((d, d)), np.eye(d) * 1e3]).astype(np.float32)
-    seq = np.zeros(horizon, dtype=np.int32)
-    seq[-1] = 1
-    cost = viapoint_cost(zs, Qs, seq, 1e-2, m, dtype=torch.float32)
-    A, B = plant.AB(horizon)
-    rng = np.random.default_rng(seed)
-    x0s = torch.tensor(rng.normal(0.0, 0.1, size=(batch, d)), dtype=torch.float32, device=device)
-    return A, B, cost, x0s
+    return via_point_problem(device, 4, horizon, batch, seed)
 
 
 def wide_solver(device, problem=None, **overrides):
@@ -866,20 +889,25 @@ def wide_solver(device, problem=None, **overrides):
     return make_fused_lqt_admm(A, B, cost, **kw)
 
 
-def velocity_box(horizon: int = N, v_max=V_MAX):
-    """(x_lower, x_upper) as (N*d,) vectors: position free, |v| <= v_max
-    (a scalar or one limit a step)."""
-    v = np.broadcast_to(np.asarray(v_max, np.float64), (horizon,))
-    inf = np.full(horizon, np.inf)
-    return np.stack([-inf, -v], 1).reshape(-1), np.stack([inf, v], 1).reshape(-1)
+def velocity_box(horizon: int = N, v_max=V_MAX, nb_dim: int = 1):
+    """(x_lower, x_upper) as (N*d,) vectors for x = [pos (nb_dim), vel
+    (nb_dim)]: position free, each |v| <= v_max (a scalar or one limit a
+    step)."""
+    v = np.repeat(np.broadcast_to(np.asarray(v_max, np.float64), (horizon,))[:, None], nb_dim, 1)
+    inf = np.full((horizon, nb_dim), np.inf)
+    return (np.concatenate([-inf, -v], 1).reshape(-1),
+            np.concatenate([inf, v], 1).reshape(-1))
 
 
-def box_solver(device, horizon: int = N, **overrides):
-    """`make_fused_lqt_admm` with the velocity box (the state-bounded main path)."""
-    A, B, cost, _ = bench_problem(device, horizon=horizon, batch=1)
-    x_lower, x_upper = velocity_box(horizon)
+def box_solver(device, horizon: int = N, nb_dim: int = 1, **overrides):
+    """`make_fused_lqt_admm` with the velocity box on `via_point_problem`'s
+    plant: the state-bounded main path (nb_dim 1, the narrow kernel) and
+    the planar one (nb_dim 2, N = 100: Nm = 200, Nd = 400, the wide
+    route); the factory's default tile."""
+    A, B, cost, _ = via_point_problem(device, nb_dim, horizon, batch=1)
+    x_lower, x_upper = velocity_box(horizon, nb_dim=nb_dim)
     kw = dict(u_lower=-U_MAX, u_upper=U_MAX, x_lower=x_lower, x_upper=x_upper, rho_x=RHO_X,
-              rho_u=RHO_U, n_iters=BOX_ITERS, batch_tile=BOX_TILE, device=device)
+              rho_u=RHO_U, n_iters=BOX_ITERS, device=device)
     kw.update(overrides)
     return (A, B, cost), make_fused_lqt_admm(A, B, cost, **kw)
 
@@ -888,6 +916,7 @@ def reset_launch_counts():
     fused_admm.launch_count = 0
     fused_admm.wide_launch_count = 0
     fused_admm.box_launch_count = 0
+    fused_admm.box_wide_launch_count = 0
     fused_sls.launch_count = 0
     fused_riccati.scan_launch_count = 0
     fused_riccati.join_launch_count = 0
@@ -898,6 +927,7 @@ def launch_counts() -> dict:
     return {"admm_u_only": fused_admm.launch_count,
             "admm_u_only_wide": fused_admm.wide_launch_count,
             "admm_box": fused_admm.box_launch_count,
+            "admm_box_wide": fused_admm.box_wide_launch_count,
             "sls_admm": fused_sls.launch_count, "riccati_scan": fused_riccati.scan_launch_count,
             "riccati_join": fused_riccati.join_launch_count,
             "linesearch_rollout": fused_rollout.launch_count}
@@ -1166,19 +1196,26 @@ def wide_cases(device):
     return problem, solver, inputs, cases
 
 
-def wide_ptxas(log: str) -> dict:
-    """{(instances a block, relax, delta): "stack and spills; registers"}
-    of each wide kernel build, from ptxas's -v output in nvcc.log (its
-    entry line, the function's properties, its stack and spills, its
-    registers)."""
+def ptxas_builds(log: str, kernel: str) -> dict:
+    """{(instances a block, its bool template arguments as 0 or 1...):
+    "stack and spills; registers"} of each build of `kernel` (a template
+    whose first argument is the m16 row tiles a block), from ptxas's -v
+    output in nvcc.log (its entry line, the function's properties, its
+    stack and spills, its registers)."""
     lines = log.splitlines()
     out = {}
     for i, line in enumerate(lines):
-        m = re.search(r"admm_u_only_wide_kernelILi(\d)ELb([01])ELb([01])E", line)
+        m = re.search(kernel + r"ILi(\d)E((?:Lb[01]E)+)", line)
         if m and "Compiling entry function" in line and i + 3 < len(lines):
-            key = (16 * int(m.group(1)), int(m.group(2)), int(m.group(3)))
+            key = (16 * int(m.group(1)), *map(int, re.findall(r"Lb([01])E", m.group(2))))
             out[key] = f"{lines[i + 2].strip()}; {lines[i + 3].split(':', 1)[-1].strip()}"
     return out
+
+
+def wide_ptxas(log: str) -> dict:
+    """`ptxas_builds` of the wide u-only kernel: keys (instances a block,
+    relax, delta)."""
+    return ptxas_builds(log, "admm_u_only_wide_kernel")
 
 
 def phase_wide_geometry(cases):
@@ -1422,15 +1459,66 @@ def box_cases(device, batch: int = BATCH):
     ]
 
 
-def phase_box_compare(device):
+def box_wide_cases(device, batch: int = BATCH):
+    """(label, solver, kernel inputs) of the wide route's kernel-vs-plain
+    cases, one for each of its four builds (16 or 32 instances a block,
+    alpha = 1 or not): the planar fleet at full width (batch instances, the
+    main path's BATCH by default, tile 32); its state box only,
+    over-relaxed (alpha 1.3), on at most 1,024 of them, tile 16; N = 99
+    (Nm = 198: the last n-tile of W_s single; Nd = 396: s_x padded), alpha
+    1.3 with vector bounds, tile 32; and the route's edge, the wide bench's
+    plant (`DoubleIntegrator(4, 2, dt=1/128)`, Nm = 512, Nd = 1,024) with
+    the velocity box, BOX_WIDE_EDGE instances at the default tile, 16."""
+    _, full = box_solver(device, nb_dim=2)
+    x0s = via_point_problem(device, 2, batch=batch)[3]
+    _, x_only = box_solver(device, nb_dim=2, u_lower=None, u_upper=None, rho_u=None, alpha=1.3,
+                           batch_tile=16)
+    A, B, cost, x0_odd = via_point_problem(device, 2, horizon=99, batch=64, seed=1)
+    x_lower, x_upper = velocity_box(99, 1.2 + 0.3 * np.cos(np.linspace(0.0, 3.0, 99)), nb_dim=2)
+    odd = make_fused_lqt_admm(
+        A, B, cost, u_lower=np.full(198, -4.0), u_upper=np.linspace(3.0, 5.0, 198),
+        x_lower=x_lower, x_upper=x_upper, rho_x=RHO_X, rho_u=RHO_U, n_iters=BOX_ITERS,
+        alpha=1.3, batch_tile=32, device=device,
+    )
+    _, edge = box_solver(device, horizon=WIDE_N, nb_dim=4)
+    x0_edge = via_point_problem(device, 4, horizon=WIDE_N, batch=BOX_WIDE_EDGE)[3]
+    return [
+        (f"planar, Nm=200, Nd=400 (batch {batch}, tile {full.kernel_options['batch_tile']})",
+         full, full.kernel_inputs(x0s)),
+        (f"planar, state box only, alpha=1.3 (batch {min(batch, 1024)}, tile 16)", x_only,
+         x_only.kernel_inputs(x0s[:1024])),
+        ("planar, N=99 (Nm=198, Nd=396), alpha=1.3, vector bounds (batch 64, tile 32)", odd,
+         odd.kernel_inputs(x0_odd)),
+        (f"edge, Nm=512, Nd=1024 (batch {BOX_WIDE_EDGE}, tile "
+         f"{edge.kernel_options['batch_tile']})", edge, edge.kernel_inputs(x0_edge)),
+    ]
+
+
+def phase_box_compare(cases):
     """`admm_box` against `admm_box_reference` on the same card inputs: the
     gate is the f32 plain version; the plain version with the kernel's
     3xTF32 products beside it separates the split from the order of the
-    sums."""
+    sums. Cases on the wide route also print their launch: threads, shared
+    memory, blocks an SM, waves and the build's registers and spills."""
     worst = 0.0
-    for label, solver, inputs in box_cases(device):
+    ptxas = ptxas_builds((_build.build_dir() / "nvcc.log").read_text(), "admm_box_wide_kernel")
+    props = torch.cuda.get_device_properties(0)
+    sm_smem = getattr(props, "shared_memory_per_multiprocessor", 233472)
+    for label, solver, inputs in cases:
         kw = solver.kernel_options
-        got = admm_box(*inputs, solver.packed, **kw)
+        tag = "box kernel vs plain" if solver.route == "narrow" else "box wide kernel vs plain"
+        if solver.route == "wide":
+            B, Nm = inputs[1].shape
+            threads, smem = fused_admm.box_wide_launch_geometry(kw["batch_tile"], Nm,
+                                                                inputs[0].shape[1])
+            per_sm = min(sm_smem // (smem + 1024), 2048 // threads)
+            blocks = B // kw["batch_tile"]
+            build = ptxas.get((kw["batch_tile"], int(kw["alpha"] != 1.0)))
+            print(f"[box wide geometry] {label}: {threads} threads, {smem} B of shared memory, "
+                  f"{per_sm} block(s) an SM: {-(-blocks // (per_sm * props.multi_processor_count))} "
+                  f"waves of {blocks} blocks; ptxas: {build}")
+            check(per_sm > 0 and build is not None, f"{label}: no build or no room for the block")
+        got = admm_box(*inputs, solver.packed, **kw, route=solver.route)
         torch.cuda.synchronize()
         want = admm_box_reference(*inputs, **kw)
         emulated = admm_box_reference(*inputs, **kw, products="tf32x3")
@@ -1444,38 +1532,26 @@ def phase_box_compare(device):
         worst = max(worst, err)
         err3 = max(float((g - e).abs().max()) for g, e in zip(got, emulated))
         split = max(float((e - w).abs().max()) for e, w in zip(emulated, want))
-        print(f"[box kernel vs plain] {label}: " + ", ".join(
+        print(f"[{tag}] {label}: " + ", ".join(
             f"max|d{k}| {v:.3e}" for k, v in errs.items()) + f" (tolerance {BOX_TOL * scale:.3g}); "
             f"kernel vs 3xTF32 plain {err3:.3e}, 3xTF32 plain vs f32 plain {split:.3e}")
         check(err <= BOX_TOL * scale, f"box {label}: kernel disagrees with plain version")
     return worst
 
 
-def phase_box_main_path(box, x0s):
-    """The state-bounded fleet at full width, through the kernel only,
-    certified. box: `box_solver`'s ((A, B, cost), solver)."""
-    (A, B, cost), solver = box
-
-    def plain_must_not_run(*args, **kwargs):
-        raise SmokeFailure("the state-bounded main path ran admm_box_reference")
-
-    reset_launch_counts()
-    with _swapped(fused_admm, admm_box_reference=plain_must_not_run):
-        x, u, z_x, z_u = solver(x0s)
-        torch.cuda.synchronize()
-    launches = fused_admm.box_launch_count
-    print(f"[box main path] admm_box kernel launches: {launches}; admm_u_only: "
-          f"{fused_admm.launch_count}")
-    check(launches == 1, f"the state-bounded main path launched admm_box {launches} times, not 1")
-    check(fused_admm.launch_count == 0, "the state-bounded main path launched admm_u_only")
-    check(tuple(x.shape) == tuple(z_x.shape) == (BATCH, 2 * N)
-          and tuple(u.shape) == tuple(z_u.shape) == (BATCH, N), "unexpected output shapes")
-    for name, t in (("x", x), ("u", u), ("z_x", z_x), ("z_u", z_u)):
-        check(bool(torch.isfinite(t).all()), f"box main path output {name} has non-finite values")
-    x_lower, x_upper = velocity_box()
+def _box_certificate(args):
+    """`certify_state_box(*args)` on the host, one BLAS thread (a worker
+    process beside the card's phases): (certificate, seconds)."""
+    torch.set_num_threads(1)
     t0 = time.perf_counter()
-    cert = certify_state_box(A, B, cost, x0s, x, u, z_x, z_u, -U_MAX, U_MAX, x_lower, x_upper)
-    print(f"[box main path] certificates ({time.perf_counter() - t0:.1f} s): max_violation "
+    return certify_state_box(*args), time.perf_counter() - t0
+
+
+def phase_box_certificate(label, cert, seconds):
+    """A state-bounded fleet's certificates and the bench's gates."""
+    if isinstance(cert, concurrent.futures.Future):
+        cert, seconds = cert.result()
+    print(f"[{label}] certificates ({seconds:.1f} s): max_violation "
           f"z_x {cert['max_violation_x']}, z_u {cert['max_violation_u']}; converged_frac "
           f"{cert['converged_frac']} (max ||x - z_x|| {cert['prim_x_max']:.3e}, ||u - z_u|| "
           f"{cert['prim_u_max']:.3e}); oracle |cost gap| median {cert['cost_gap_median']:.3e} "
@@ -1483,15 +1559,65 @@ def phase_box_main_path(box, x0s):
           f"{cert['state_violation_max']:.3e}, on instances {cert['oracle_indices']} "
           f"(oracle failures: {len(cert['oracle_failures'])})")
     failures = state_box_gate_failures(cert)
-    check(not failures, "; ".join(failures))
-    return launches, cert
+    check(not failures, f"{label}: " + "; ".join(failures))
+    return cert
 
 
-def phase_box_time(device, card):
+def phase_box_main_path(box, x0s, nb_dim: int = 1):
+    """The state-bounded fleet at full width, through its route's kernel
+    only: the plain version patched to raise, the counters set to 0, one
+    launch of the route's kernel and none of the other. box: `box_solver`'s
+    ((A, B, cost), solver); nb_dim: its plant's. The 1-D fleet is
+    certified here; the planar fleet's certificate (its SLSQP oracle ~1 s
+    an instance on a CPU) runs in a worker process beside the next phases,
+    and `phase_box_certificate` gates it. Returns (launches, the
+    certificate or its future, seconds)."""
+    (A, B, cost), solver = box
+    route = solver.route
+    tag = "box main path" if route == "narrow" else "box wide main path"
+    name, other = ("admm_box", "admm_box_wide") if route == "narrow" else ("admm_box_wide",
+                                                                          "admm_box")
+
+    def plain_must_not_run(*args, **kwargs):
+        raise SmokeFailure(f"the {tag} ran admm_box_reference")
+
+    reset_launch_counts()
+    with _swapped(fused_admm, admm_box_reference=plain_must_not_run):
+        x, u, z_x, z_u = solver(x0s)
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    launches = counts[name]
+    print(f"[{tag}] {name} kernel launches: {launches}; {other}: {counts[other]}; admm_u_only: "
+          f"{counts['admm_u_only']}; batch_tile {solver.kernel_options['batch_tile']}")
+    check(launches == 1, f"the {tag} launched {name} {launches} times, not 1")
+    check(counts[other] == 0 and counts["admm_u_only"] == 0,
+          f"the {tag} launched another kernel")
+    Nm = N * nb_dim
+    check(tuple(x.shape) == tuple(z_x.shape) == (x0s.shape[0], 2 * Nm)
+          and tuple(u.shape) == tuple(z_u.shape) == (x0s.shape[0], Nm), "unexpected output shapes")
+    for label, t in (("x", x), ("u", u), ("z_x", z_x), ("z_u", z_u)):
+        check(bool(torch.isfinite(t).all()), f"{tag} output {label} has non-finite values")
+    args = (A, B, cost, x0s, x, u, z_x, z_u, -U_MAX, U_MAX, *velocity_box(nb_dim=nb_dim))
+    if nb_dim == 1:
+        t0 = time.perf_counter()
+        cert = certify_state_box(*args)
+        return launches, phase_box_certificate(tag, cert, time.perf_counter() - t0)
+    ctx = multiprocessing.get_context("spawn")
+    pool = concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx)
+    future = pool.submit(_box_certificate, tuple(
+        a.detach().cpu() if isinstance(a, torch.Tensor) else a for a in args))
+    pool.shutdown(wait=False)
+    return launches, future
+
+
+def phase_box_time(device, card, nb_dim: int = 1):
     """The kernel, the whole forward, the plain version and the plain
-    fleet, per solve; windows alternate."""
-    (A, B, cost), solver = box_solver(device)
-    x0s = bench_problem(device)[3]
+    fleet, per solve, on the 16,384-instance fleet of `box_solver(nb_dim)`
+    (and, beside the 1-D fleet, the plain u-only bench fleet); windows
+    alternate."""
+    (A, B, cost), solver = box_solver(device, nb_dim=nb_dim)
+    x0s = via_point_problem(device, nb_dim)[3]
+    tag = "box time" if solver.route == "narrow" else "box wide time"
     inputs = solver.kernel_inputs(x0s)
     kw = solver.kernel_options
     xb, ub = solver.xb, solver.ub
@@ -1500,18 +1626,19 @@ def phase_box_time(device, card):
         project_u=lambda u: torch.minimum(torch.maximum(u, ub[0]), ub[1]),
         rho_x=RHO_X, rho_u=RHO_U, n_iters=BOX_ITERS, device=device, dtype=torch.float32,
     )
-    fleet_u = make_batched_lqt_admm(
-        A, B, cost, project_u=lambda u: torch.clamp(u, -U_MAX, U_MAX), rho_u=RHO_U,
-        n_iters=ADMM_ITERS, device=device, dtype=torch.float32,
-    )
     paths = {
-        "kernel": (lambda: admm_box(*inputs, solver.packed, **kw), TIMING_WINDOWS,
-                   CALLS_PER_WINDOW),
+        "kernel": (lambda: admm_box(*inputs, solver.packed, **kw, route=solver.route),
+                   TIMING_WINDOWS, CALLS_PER_WINDOW),
         "forward": (lambda: solver(x0s), TIMING_WINDOWS, CALLS_PER_WINDOW),
         "plain": (lambda: admm_box_reference(*inputs, **kw), 5, 2),
         "plain fleet": (lambda: fleet(x0s), 5, 2),
-        "plain fleet, u-only bench": (lambda: fleet_u(x0s), 5, 2),
     }
+    if nb_dim == 1:
+        fleet_u = make_batched_lqt_admm(
+            A, B, cost, project_u=lambda u: torch.clamp(u, -U_MAX, U_MAX), rho_u=RHO_U,
+            n_iters=ADMM_ITERS, device=device, dtype=torch.float32,
+        )
+        paths["plain fleet, u-only bench"] = (lambda: fleet_u(x0s), 5, 2)
     for fn, _, _ in paths.values():  # warm up
         fn()
     torch.cuda.synchronize()
@@ -1525,9 +1652,10 @@ def phase_box_time(device, card):
         med, q1, q3 = _median_iqr(samples)
         result[name] = med
         iters = ADMM_ITERS if name.endswith("u-only bench") else BOX_ITERS
-        print(f"[box time] {name}: {med:.4f} ms per solve (IQR {q1:.4f}-{q3:.4f}, "
+        print(f"[{tag}] {name}: {med:.4f} ms per solve (IQR {q1:.4f}-{q3:.4f}, "
               f"{len(samples)} windows) = {BATCH * iters / (med * 1e-3):.4g} ADMM iterations/s "
-              f"at B={BATCH}, {iters} iterations; card: {card}")
+              f"at B={BATCH}, Nm={inputs[1].shape[1]}, {iters} iterations, batch_tile "
+              f"{kw['batch_tile']}; card: {card}")
     return result
 
 
@@ -2044,11 +2172,7 @@ def existing_bounds(solver, inputs, box, x0s, sls, sls_fleet):
     Nm, Nd = u_base.shape[1], x_base.shape[1]
     u_only = bound(iters * 2 * BATCH * Nm * Nm + 2 * BATCH * Nm * Nd,
                    nbytes(*inputs) + nbytes(x_base, u_base, u_base), products=True)
-    free, bu, u0, W_s, SuT, xb, ub = box.kernel_inputs(x0s)
-    nnz = int(torch.count_nonzero(W_s)) + int(torch.count_nonzero(SuT))
-    box_bound = bound(2 * BATCH * (BOX_ITERS * nnz + int(torch.count_nonzero(SuT))),
-                      nbytes(free, bu, u0, *box.packed, xb, ub) + 2 * nbytes(free, bu),
-                      products=True)
+    box_bound = state_box_bound(box, x0s)
     kw = sls.kernel_options
     tile_iters = sls_tile_iterations(
         lambda **o: sls_admm(sls_fleet, sls.U_base, sls.W, sls.packed, **o), kw, SLS_BATCH)
@@ -2070,6 +2194,20 @@ def existing_bounds(solver, inputs, box, x0s, sls, sls_fleet):
           f"{n_pad}) at 1/{sms} of {PEAK_TF32_FLOPS / 1e12:g} TFLOP/s: {floor_ms:.4f} ms; the "
           f"card-wide bound {sls_bound['bound_ms']:.4f} ms")
     return {"admm_u_only": u_only, "admm_box": box_bound, "sls_admm": sls_bound}
+
+
+def state_box_bound(box, x0s):
+    """The least time of a state-bounded solve from x0s (either route):
+    the nonzeros of W_s and Su^T each iteration and Su^T's once more for
+    the warm start, as products on the f32 CUDA cores or in 3xTF32 on the
+    tensor cores, whichever is faster; bytes of the inputs (the packed
+    operators among them) and the four outputs."""
+    free, bu, u0, W_s, SuT, xb, ub = box.kernel_inputs(x0s)
+    nnz_suT = int(torch.count_nonzero(SuT))
+    nnz = int(torch.count_nonzero(W_s)) + nnz_suT
+    return bound(2 * free.shape[0] * (box.kernel_options["n_iters"] * nnz + nnz_suT),
+                 nbytes(free, bu, u0, *box.packed, xb, ub) + 2 * nbytes(free, bu),
+                 products=True)
 
 
 # ---- the control-limited car through ilqr_admm -----------------------------
@@ -4916,9 +5054,16 @@ def main(argv=None) -> int:
         wide_launches, _ = run("wide u-only main path", phase_wide_main_path, wide, wide_problem_)
         wide_times = run("wide u-only time", phase_wide_time, wide, wide_inputs, card)
         box = box_solver("cuda")
-        box_max_err = run("box compare", phase_box_compare, "cuda")
+        box_max_err = run("box compare", lambda: phase_box_compare(box_cases("cuda")))
         box_launches, _ = run("box main path", phase_box_main_path, box, x0s)
         box_times = run("box time", phase_box_time, "cuda", card)
+        planar = box_solver("cuda", nb_dim=2)
+        planar_x0s = via_point_problem("cuda", 2)[3]
+        box_wide_max_err = run("box wide compare",
+                               lambda: phase_box_compare(box_wide_cases("cuda")))
+        box_wide_launches, box_wide_cert = run("box wide main path", phase_box_main_path, planar,
+                                               planar_x0s, 2)
+        box_wide_times = run("box wide time", phase_box_time, "cuda", card, 2)
         sls = sls_solver("cuda", "diamond_ee")
         sls_fleet = sls_bounds("cuda", batch=SLS_BATCH, sort=True)
         sls_max_err = run("sls compare", phase_sls_compare, "cuda")
@@ -4928,6 +5073,8 @@ def main(argv=None) -> int:
         riccati_max_err = run("riccati compare", phase_riccati_compare, "cuda")
         riccati_launches, _ = run("riccati main path", phase_riccati_main_path, "cuda")
         riccati_times = run("riccati time", phase_riccati_time, "cuda", card)
+        run("box wide certificate", phase_box_certificate, "box wide main path", box_wide_cert,
+            None)
         if profile:
             run("riccati profile", phase_riccati_profile, "cuda", card)
         car_host = run("car f64 host start", start_car_host_f64)
@@ -4977,6 +5124,7 @@ def main(argv=None) -> int:
                       linesearch_rollout=car_times["bound"],
                       linesearch_rollout_fleet=car_admm_fleet["bound"],
                       admm_u_only_wide=wide_bound(wide, wide_inputs),
+                      admm_box_wide=state_box_bound(planar[1], planar_x0s),
                       sls_admm_robust_dim_2={k: robust2[k] for k in
                                              ("bound_ms", "bound_by", "bound_ops")})
     except SmokeFailure as exc:
@@ -5033,6 +5181,17 @@ def main(argv=None) -> int:
         "max_abs_err": box_max_err,
         "ms": box_times["kernel"],
         "plain_ms": box_times["plain"],
+    }, {
+        # the wide route of the same TPU kernel, its own kernel: the planar
+        # state-bounded fleet (Nm = 200, Nd = 400)
+        "name": "admm_box_wide",
+        "route": "cuda",
+        "source": "ilqr_admm_tpu_torch/csrc/admm_box_wide.cu",
+        "replaces": "ilqr_admm_tpu/ops/pallas_admm.py:229",
+        "launches": box_wide_launches,
+        "max_abs_err": box_wide_max_err,
+        "ms": box_wide_times["kernel"],
+        "plain_ms": box_wide_times["plain"],
     }]
     riccati_replaces = {
         "riccati_scan": "ilqr_admm_tpu/ops/pallas_riccati.py:145",

@@ -24,7 +24,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 _SOURCES = ("admm_u_only.cu", "admm_u_only_wide.cu", "sls_admm.cu", "admm_box.cu",
-            "riccati_scan.cu", "linesearch_rollout.cu")
+            "admm_box_wide.cu", "riccati_scan.cu", "linesearch_rollout.cu")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libilqr_admm_torch.so"
@@ -142,6 +142,16 @@ def load_library() -> ctypes.CDLL:
         _P,  # stream
     ]
     lib.admm_box_launch.restype = _I
+    lib.admm_box_wide_launch.argtypes = [
+        _P, _P, _P,  # free, u_base, u0
+        _P, _P,  # ops_f, ops_i (the pair tables of W_s and Su^T)
+        _P, _P,  # xb, ub
+        _P, _P, _P, _P,  # x_out, u_out, zx_out, zu_out
+        _I, _I, _I, _I, _I,  # batch, Nm, Nd, batch_tile, n_iters
+        _I, _F, _F,  # has_u, alpha, 1 - alpha
+        _P,  # stream
+    ]
+    lib.admm_box_wide_launch.restype = _I
     lib.admm_box_error_string.argtypes = [_I]
     lib.admm_box_error_string.restype = ctypes.c_char_p
     lib.riccati_scan_launch.argtypes = [

@@ -10,8 +10,12 @@ f32; the ADMM loop itself is one hand-written CUDA kernel:
   where W_u fits in a block's shared memory (`launch_geometry`) and
   `csrc/admm_u_only_wide.cu`, which streams W_u from L2, where it does
   not (`wide_launch_geometry`; Nm = 512 in `bench_wide_certified.py`);
-- state bounds, with or without control bounds: `csrc/admm_box.cu`,
-  launched by `admm_box`.
+- state bounds, with or without control bounds: `admm_box`, which
+  launches `csrc/admm_box.cu` where its packed operators fit in a block's
+  shared memory (`box_launch_geometry`; Nm <= 128, Nd <= 256) and
+  `csrc/admm_box_wide.cu`, which streams them from L2, where they do not
+  (`box_wide_launch_geometry`; Nm <= 512, Nd <= 1,024; `box_route`
+  chooses).
 
 On CPU tensors each wrapper runs its plain torch version
 (`admm_u_only_reference`, `admm_box_reference`) instead.
@@ -409,10 +413,12 @@ def admm_u_only(
     return x, u, z_u
 
 
-# ---- the state-bounded path: csrc/admm_box.cu -----------------------------
+# ---- the state-bounded path: csrc/admm_box.cu, csrc/admm_box_wide.cu -----
 
-# Number of times `admm_box` has launched its CUDA kernel in this process.
+# Number of times `admm_box` has launched each of its CUDA kernels in this
+# process: csrc/admm_box.cu, and the wide route csrc/admm_box_wide.cu.
 box_launch_count = 0
+box_wide_launch_count = 0
 
 
 # Kernel geometry, as in csrc/admm_box.cu: operators in 8 x 8 blocks; an
@@ -528,17 +534,29 @@ def box_schedule(table1, table2) -> torch.Tensor:
     return torch.tensor(sched, dtype=torch.int32, device=table1.device)
 
 
-def pack_box_operators(W_s, SuT):
+def pack_box_operators(W_s, SuT, route: str = "narrow"):
     """(ops_f, ops_i): W_s and Su^T in `pair_pack` storage, end to end,
-    and the kernel's warp schedule (`box_schedule`). W_s's rows for s_x
-    are zero-padded to whole 8-row tiles first, as the kernel pads s_x."""
+    and for the route's kernel (see `box_route`) either the narrow
+    kernel's warp schedule (`box_schedule`) or, for "wide", the two pair
+    tables, W_s's rows first (ceil(n1 / 2) + ceil(n2 / 2) rows of
+    (offset, klo, khi, nb)). Su^T's offsets count from the start of ops_f.
+    W_s's rows for s_x are zero-padded to whole 8-row tiles first, as both
+    kernels pad s_x. ops_f is the same for both routes."""
+    if route not in ("narrow", "wide"):
+        raise ValueError(f'route must be "narrow" or "wide", got {route!r}')
+    ops_f, t1, t2 = _pack_box_pairs(W_s, SuT)
+    return ops_f, box_schedule(t1, t2) if route == "narrow" else torch.cat([t1, t2])
+
+
+def _pack_box_pairs(W_s, SuT):
+    """(ops_f, W_s's pair table, Su^T's) of `pack_box_operators`."""
     Nm, Nd = SuT.shape
     gap = -Nd % _BOX_BLOCK
     W_s = torch.cat([W_s[:Nd], W_s.new_zeros(gap, Nm), W_s[Nd:]])
     (f1, t1), (f2, t2) = pair_pack(W_s), pair_pack(SuT)
     t2 = t2.clone()
     t2[:, 0] += f1.numel()
-    return torch.cat([f1, f2]), box_schedule(t1, t2)
+    return torch.cat([f1, f2]), t1, t2
 
 
 def box_launch_geometry(batch_tile: int, Nm: int, Nd: int, n_blocks: int) -> tuple[int, int]:
@@ -570,6 +588,91 @@ def box_launch_geometry(batch_tile: int, Nm: int, Nd: int, n_blocks: int) -> tup
             f"({256 * n_blocks} of them packed operators); the limit is {_MAX_SMEM} bytes"
         )
     return 32 * warps, smem
+
+
+# The wide route's geometry, as in csrc/admm_box_wide.cu: 16 warps; a
+# block owns 16 or 32 instances; warp w owns W_s's pairs of n-tiles w, w +
+# 16, ... and Su^T's likewise, at most _BOX_WIDE_PAIRS[tile] of each.
+_BOX_WIDE_WARPS = 16
+_BOX_WIDE_PAIRS = {16: (2, 4), 32: (1, 2)}
+
+
+def _box_wide_limits(batch_tile: int) -> tuple[int, int]:
+    """(Nm, Nd) the wide route takes at most with this tile."""
+    p1, p2 = _BOX_WIDE_PAIRS[batch_tile]
+    return 16 * _BOX_WIDE_WARPS * p1, 16 * _BOX_WIDE_WARPS * p2
+
+
+def box_wide_launch_geometry(batch_tile: int, Nm: int, Nd: int) -> tuple[int, int]:
+    """(threads, dynamic shared-memory bytes) of one block of
+    `csrc/admm_box_wide.cu`, the wide route, which reads its operators from
+    L2.
+
+    Raises ValueError when the tile cannot be launched: batch_tile must be
+    16 or 32, and each warp takes at most one pair of W_s's n-tiles and two
+    of Su^T's at batch_tile 32 (Nm <= 256, Nd <= 512), two and four at 16
+    (Nm <= 512, Nd <= 1,024). Shared memory holds s and u_hat, l_x and the
+    bounds: 158,400 B at Nm = 200, Nd = 400 and batch_tile 32, at most
+    208,896 B.
+    """
+    if batch_tile not in _BOX_WIDE_PAIRS:
+        raise ValueError(f"batch_tile={batch_tile}: the wide state-bounded kernel takes "
+                         f"{' or '.join(map(str, _BOX_WIDE_PAIRS))} instances a block")
+    max_m, max_d = _box_wide_limits(batch_tile)
+    if Nm > max_m or Nd > max_d:
+        raise ValueError(
+            f"Nm={Nm}, Nd={Nd} with batch_tile={batch_tile} is past the wide route's "
+            f"Nm <= {max_m}, Nd <= {max_d} (Nm <= {_box_wide_limits(16)[0]}, Nd <= "
+            f"{_box_wide_limits(16)[1]} at batch_tile 16)"
+        )
+    n1, n2 = -(-Nm // _BOX_BLOCK), -(-Nd // _BOX_BLOCK)
+    smem = 4 * (8 * batch_tile * (n2 + 2 * n1) + 16 * batch_tile * -(-n2 // 2) + 16 * (n1 + n2))
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"Nm={Nm}, Nd={Nd} with batch_tile={batch_tile} needs {smem} bytes of shared memory "
+            f"on the wide route; the limit is {_MAX_SMEM} bytes"
+        )
+    return 32 * _BOX_WIDE_WARPS, smem
+
+
+def box_route(batch_tile: int, Nm: int, Nd: int, n_blocks: int) -> str:
+    """"narrow" when `csrc/admm_box.cu` takes the tile (its packed
+    operators, n_blocks 8 x 8 blocks of `pack_box_operators`, staged in
+    shared memory), else "wide" when `csrc/admm_box_wide.cu` does
+    (operators read from L2); raises ValueError, with both kernels'
+    reasons and limits, when neither does. Every launch the narrow kernel
+    took before the wide route existed stays with it."""
+    try:
+        box_launch_geometry(batch_tile, Nm, Nd, n_blocks)
+        return "narrow"
+    except ValueError as narrow:
+        try:
+            box_wide_launch_geometry(batch_tile, Nm, Nd)
+            return "wide"
+        except ValueError as wide:
+            raise ValueError(
+                f"no state-bounded kernel takes this launch: the narrow kernel (csrc/admm_box.cu, "
+                f"Nm <= {_BOX_BLOCK * _BOX_MAX_WARPS}, Nd <= {2 * _BOX_BLOCK * _BOX_MAX_WARPS}, "
+                f"operators in shared memory): {narrow}; the wide kernel "
+                f"(csrc/admm_box_wide.cu, Nm <= {_box_wide_limits(16)[0]}, Nd <= "
+                f"{_box_wide_limits(16)[1]}): {wide}"
+            ) from None
+
+
+def default_box_tile(Nm: int, Nd: int, n_blocks: int) -> int:
+    """The largest tile (32 or 16) the narrow kernel takes at this width,
+    else the largest the wide route takes (32 at the 1-D fleet's Nm = 100
+    and at the planar fleet's Nm = 200; 16 at Nm = 512, Nd = 1,024);
+    raises ValueError when neither takes any."""
+    routes = {}
+    for tile in _BOX_TILES:
+        try:
+            routes[tile] = box_route(tile, Nm, Nd, n_blocks)
+        except ValueError as exc:
+            reason = exc
+    if not routes:
+        raise reason
+    return max((t for t, r in routes.items() if r == "narrow"), default=max(routes))
 
 
 def _check_box_inputs(free, u_base, u0, W_s, SuT, xb, ub, n_iters, batch_tile):
@@ -672,7 +775,7 @@ def _check_packed(packed, ref, ints_shape, origin, shapes):
 
 def admm_box(
     free, u_base, u0, W_s, SuT, xb, ub, packed, *, n_iters, alpha=1.0, has_u=True,
-    batch_tile=32,
+    batch_tile=32, route="narrow",
 ):
     """Run the state-and-control box ADMM loop on a fleet; returns
     (x_hat, u_hat, z_x, z_u).
@@ -685,19 +788,30 @@ def admm_box(
     kernel's storage (the solver packs them once, at setup). B must be a
     multiple of batch_tile. See `admm_box_reference` for the iteration.
 
-    CUDA tensors (float32) go to the kernel in `csrc/admm_box.cu`, which
-    reads only the packed operators and takes batch_tile 16 or 32 (see
-    `box_launch_geometry`); its products run on the tensor cores in
-    3xTF32, held to the f32 plain version. CPU tensors go to
-    `admm_box_reference` with f32 products, which reads only the dense
-    operators. Any other device raises.
+    route names the kernel (`box_route` chooses it; the solver holds its
+    factory's choice as `route`), and packed must be in its form
+    (`pack_box_operators(W_s, SuT, route)`). CUDA tensors (float32) go to
+    that kernel, which reads only the packed operators: "narrow" is
+    `csrc/admm_box.cu`, which stages them in shared memory (see
+    `box_launch_geometry`), "wide" is `csrc/admm_box_wide.cu`, which reads
+    them from L2 (see `box_wide_launch_geometry`); both take batch_tile 16
+    or 32, and a launch the route's kernel does not take raises. Both run
+    their products on the tensor cores in 3xTF32, held to the f32 plain
+    version. CPU tensors go to `admm_box_reference` with f32 products,
+    which reads only the dense operators. Any other device raises.
     """
-    global box_launch_count
+    global box_launch_count, box_wide_launch_count
     _check_box_inputs(free, u_base, u0, W_s, SuT, xb, ub, n_iters, batch_tile)
     batch, Nd = free.shape
     Nm = u_base.shape[1]
-    warps = _box_warps(-(-Nm // _BOX_BLOCK), -(-Nd // _BOX_BLOCK))
-    _check_packed(packed, free, (warps, _BOX_SCHED), "pack_box_operators(W_s, SuT)",
+    n1, n2 = -(-Nm // _BOX_BLOCK), -(-Nd // _BOX_BLOCK)
+    if route == "narrow":
+        ints_shape = (_box_warps(n1, n2), _BOX_SCHED)
+    elif route == "wide":
+        ints_shape = (-(-n1 // 2) + -(-n2 // 2), 4)
+    else:
+        raise ValueError(f'route must be "narrow" or "wide", got {route!r}')
+    _check_packed(packed, free, ints_shape, f"pack_box_operators(W_s, SuT, {route!r})",
                   f"Nm={Nm}, Nd={Nd}")
     kw = dict(n_iters=n_iters, alpha=alpha, has_u=has_u, batch_tile=batch_tile)
     device = free.device
@@ -708,7 +822,10 @@ def admm_box(
     if free.dtype != torch.float32:
         raise TypeError(f"the CUDA kernel takes float32, got {free.dtype}")
     ops_f, ops_i = packed
-    box_launch_geometry(batch_tile, Nm, Nd, ops_f.numel() // 64)
+    if route == "narrow":
+        box_launch_geometry(batch_tile, Nm, Nd, ops_f.numel() // 64)
+    else:
+        box_wide_launch_geometry(batch_tile, Nm, Nd)
 
     from ilqr_admm_tpu_torch._build import load_library
 
@@ -717,17 +834,29 @@ def admm_box(
     u, z_u = torch.empty_like(u0), torch.empty_like(u0)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.admm_box_launch(
-            free.data_ptr(), u_base.data_ptr(), u0.data_ptr(), ops_f.data_ptr(), ops_f.numel(),
-            ops_i.data_ptr(), ops_i.shape[0], xb.data_ptr(), ub.data_ptr(),
-            x.data_ptr(), u.data_ptr(), z_x.data_ptr(), z_u.data_ptr(),
-            batch, Nm, Nd, batch_tile, n_iters, int(has_u),
-            float(alpha), float(1.0 - alpha), stream,
-        )
+        if route == "narrow":
+            err = lib.admm_box_launch(
+                free.data_ptr(), u_base.data_ptr(), u0.data_ptr(), ops_f.data_ptr(),
+                ops_f.numel(), ops_i.data_ptr(), ops_i.shape[0], xb.data_ptr(), ub.data_ptr(),
+                x.data_ptr(), u.data_ptr(), z_x.data_ptr(), z_u.data_ptr(),
+                batch, Nm, Nd, batch_tile, n_iters, int(has_u),
+                float(alpha), float(1.0 - alpha), stream,
+            )
+        else:
+            err = lib.admm_box_wide_launch(
+                free.data_ptr(), u_base.data_ptr(), u0.data_ptr(), ops_f.data_ptr(),
+                ops_i.data_ptr(), xb.data_ptr(), ub.data_ptr(),
+                x.data_ptr(), u.data_ptr(), z_x.data_ptr(), z_u.data_ptr(),
+                batch, Nm, Nd, batch_tile, n_iters, int(has_u),
+                float(alpha), float(1.0 - alpha), stream,
+            )
     if err != 0:
         msg = lib.admm_box_error_string(err).decode()
-        raise RuntimeError(f"admm_box kernel launch failed: {msg} (cudaError {err})")
-    box_launch_count += 1
+        raise RuntimeError(f"admm_box ({route}) kernel launch failed: {msg} (cudaError {err})")
+    if route == "narrow":
+        box_launch_count += 1
+    else:
+        box_wide_launch_count += 1
     return x, u, z_x, z_u
 
 
@@ -773,7 +902,20 @@ class FusedLQTADMM(nn.Module):
 
 class FusedBoxLQTADMM(FusedLQTADMM):
     """The state-bounded solver: `forward(x0s)` returns (x, u, z_x, z_u)
-    like the JAX `solve`, through `admm_box`."""
+    like the JAX `solve`, through `admm_box`. `route` is the kernel the
+    factory chose ("narrow" or "wide", `box_route`), and `packed` is in
+    its form. A fleet that no kernel takes is built only for the CPU: its
+    route is None, it holds no packed operators, and `forward` runs
+    `admm_box_reference`."""
+
+    def __init__(self, operators: dict, route: str | None, **kernel_options):
+        super().__init__(operators, **kernel_options)
+        self.route = route
+
+    @property
+    def packed(self):
+        """(ops_f, ops_i) in the route's form; None without a route."""
+        return None if self.route is None else (self.ops_f, self.ops_i)
 
     def bases(self, x0s):
         """(free, r_base, u0): the JAX general path's per-solve products."""
@@ -797,7 +939,10 @@ class FusedBoxLQTADMM(FusedLQTADMM):
         return free, u_base, u0, self.W_s, self.SuT, self.xb, self.ub
 
     def forward(self, x0s):
-        return admm_box(*self.kernel_inputs(x0s), self.packed, **self.kernel_options)
+        if self.route is None:
+            return admm_box_reference(*self.kernel_inputs(x0s), **self.kernel_options)
+        return admm_box(*self.kernel_inputs(x0s), self.packed, **self.kernel_options,
+                        route=self.route)
 
 
 def make_fused_lqt_admm(
@@ -844,10 +989,19 @@ def make_fused_lqt_admm(
     u-only path is `default_u_tile`: the largest tile of 16, 32 or 64 the
     narrow kernel takes (see `launch_geometry`; 64 gives 256 blocks of 16
     warps at the bench width), else the largest of 16 or 32 the wide
-    route takes (`wide_launch_geometry`; 32 at Nm = 512). It is 32 on the
-    state-bounded path, whose block stages its packed operators in
-    shared memory and takes 16 or 32 (see `box_launch_geometry`). On a
-    CUDA device dtype must be float32.
+    route takes (`wide_launch_geometry`; 32 at Nm = 512). On the
+    state-bounded path the route and the default tile are chosen when the
+    fleet is built, from the packed operators: the default is
+    `default_box_tile`, the largest of 16 or 32 the narrow kernel takes
+    (its block stages the packed operators in shared memory, see
+    `box_launch_geometry`; 32 at Nm = 100), else the largest the wide route
+    takes (operators read from L2, see `box_wide_launch_geometry`; 32 at
+    the planar fleet's Nm = 200, Nd = 400, 16 to Nm = 512, Nd = 1,024);
+    then `box_route` picks the kernel for the tile (the solver's `route`)
+    and the operators are packed in its form. On a CUDA device a fleet
+    that neither kernel takes raises ValueError here, not at its first
+    call; on the CPU such a fleet builds with route None and runs the plain
+    version. On a CUDA device dtype must be float32.
 
     The problem data are rounded to `dtype` (as the JAX factory rounds
     them to f32), then the setup (Su, the lifted normal matrix, its
@@ -871,8 +1025,8 @@ def make_fused_lqt_admm(
     f64 = torch.float64
     A, B, cost = host_f64(A, B, cost, dtype)
     N, d, m = A.shape[0], A.shape[-1], B.shape[-1]
-    if batch_tile is None:
-        batch_tile = 32 if has_x else default_u_tile(N * m, alpha, refresh_every)
+    if batch_tile is None and not has_x:
+        batch_tile = default_u_tile(N * m, alpha, refresh_every)
 
     Su = build_Su(A, B)
     Sx = build_Sx(A).reshape(N * d, d)
@@ -906,13 +1060,29 @@ def make_fused_lqt_admm(
             W_s=torch.cat([(l_inv @ SuTQr).T, (l_inv @ Rr_l).T]), SuT=Su.T,
             xb=bounds(x_lower, x_upper, N * d), ub=bounds(u_lower, u_upper, N * m),
         )
-        operators = cast(operators)
-        # the kernel's storage of its two operators, packed once
-        operators["ops_f"], operators["ops_i"] = pack_box_operators(
-            operators["W_s"], operators["SuT"]
-        )
+        operators = {k: v.to(dtype).contiguous() for k, v in operators.items()}
+        # the route, chosen once, here, from the packed operators' size; the
+        # kernel's storage of its two operators, packed once in its form,
+        # on the host, so that a fleet no kernel takes raises before
+        # anything reaches the card; on the CPU such a fleet runs the plain
+        # version, unpacked
+        ops_f, t1, t2 = _pack_box_pairs(operators["W_s"], operators["SuT"])
+        widths = (N * m, N * d, ops_f.numel() // 64)
+        route = None
+        try:
+            if batch_tile is None:
+                batch_tile = default_box_tile(*widths)
+            route = box_route(batch_tile, *widths)
+        except ValueError:
+            if device.type == "cuda":
+                raise
+            batch_tile = 32 if batch_tile is None else batch_tile
+        if route is not None:
+            operators["ops_f"] = ops_f
+            operators["ops_i"] = box_schedule(t1, t2) if route == "narrow" else torch.cat([t1, t2])
+        operators = {k: v.to(device) for k, v in operators.items()}
         return FusedBoxLQTADMM(
-            operators, n_iters=n_iters, alpha=alpha, has_u=has_u, batch_tile=batch_tile,
+            operators, route, n_iters=n_iters, alpha=alpha, has_u=has_u, batch_tile=batch_tile,
         )
 
     Rr = broadcast_rho(rho_u, m, N, dtype).to(f64)
