@@ -18,7 +18,7 @@ Drives the port's paths on the card:
   (`DoubleIntegrator(2, 2, dt=1/100)`, the target (1, 1) at rest,
   |v_x|, |v_y| <= 1.3: Nm = 200, Nd = 400, 16,384 instances), past the
   `admm_box` kernel's Nm = 128, whose loop is the wide route
-  `admm_box_wide` (operators read from L2);
+  `admm_box_wide` (operators streamed from L2 as wgmma A fragments);
 - the robust SLS-ADMM scenario fleet of `benchmarks/bench_pallas_sls.py`
   (1,024 chance-constrained syntheses, N = 100, robust_dim 1, bounds
   U(2, 4), rho_u = 1.0, 200 iterations) through `make_fused_sls_admm`
@@ -117,11 +117,13 @@ Phases:
    early exit, and at an odd width (Nm = 516); `admm_box` at the full width, with a
    state box only, and at an odd width, also against the plain version
    with its 3xTF32 products; `admm_box_wide` likewise at the planar
-   width (1,024 instances, tile 32; the state box only, over-relaxed,
-   tile 16; N = 99, over-relaxed, with vector bounds) and at its edge
-   (the wide bench's plant with the velocity box: Nm = 512, Nd = 1,024,
-   tile 16), with each launch's geometry and its build's registers and
-   spills; `sls_admm` in the diamond,
+   width (the main path's 16,384 instances, tile 32, and 1,024 at tile
+   16; the state box only, over-relaxed, tile 16; N = 99, over-relaxed,
+   with vector bounds, tiles 32 and 8) and at its edge (the wide bench's
+   plant with the velocity box: Nm = 512, Nd = 1,024, tile 8), with each
+   launch's geometry (tile, warpgroups, shared memory, column groups, M
+   tiles, stored k-steps) and its build's registers and spills;
+   `sls_admm` in the diamond,
    early-exit and consensus modes, at an odd width and with 16-instance
    tiles, against the plain version with its 3xTF32 products and
    against the f32 one, and the iterations its early-exit tiles ran; the
@@ -1196,18 +1198,19 @@ def wide_cases(device):
     return problem, solver, inputs, cases
 
 
-def ptxas_builds(log: str, kernel: str) -> dict:
+def ptxas_builds(log: str, kernel: str, unit: int = 16) -> dict:
     """{(instances a block, its bool template arguments as 0 or 1...):
     "stack and spills; registers"} of each build of `kernel` (a template
-    whose first argument is the m16 row tiles a block), from ptxas's -v
-    output in nvcc.log (its entry line, the function's properties, its
-    stack and spills, its registers)."""
+    whose first argument is the block's instances in units of `unit`: 16
+    for m16 row tiles, 1 for instances), from ptxas's -v output in
+    nvcc.log (its entry line, the function's properties, its stack and
+    spills, its registers)."""
     lines = log.splitlines()
     out = {}
     for i, line in enumerate(lines):
-        m = re.search(kernel + r"ILi(\d)E((?:Lb[01]E)+)", line)
+        m = re.search(kernel + r"ILi(\d+)E((?:Lb[01]E)+)", line)
         if m and "Compiling entry function" in line and i + 3 < len(lines):
-            key = (16 * int(m.group(1)), *map(int, re.findall(r"Lb([01])E", m.group(2))))
+            key = (unit * int(m.group(1)), *map(int, re.findall(r"Lb([01])E", m.group(2))))
             out[key] = f"{lines[i + 2].strip()}; {lines[i + 3].split(':', 1)[-1].strip()}"
     return out
 
@@ -1461,34 +1464,40 @@ def box_cases(device, batch: int = BATCH):
 
 def box_wide_cases(device, batch: int = BATCH):
     """(label, solver, kernel inputs) of the wide route's kernel-vs-plain
-    cases, one for each of its four builds (16 or 32 instances a block,
+    cases, one for each of its six builds (8, 16 or 32 instances a block,
     alpha = 1 or not): the planar fleet at full width (batch instances, the
-    main path's BATCH by default, tile 32); its state box only,
-    over-relaxed (alpha 1.3), on at most 1,024 of them, tile 16; N = 99
-    (Nm = 198: the last n-tile of W_s single; Nd = 396: s_x padded), alpha
-    1.3 with vector bounds, tile 32; and the route's edge, the wide bench's
-    plant (`DoubleIntegrator(4, 2, dt=1/128)`, Nm = 512, Nd = 1,024) with
-    the velocity box, BOX_WIDE_EDGE instances at the default tile, 16."""
+    main path's BATCH by default, tile 32) and at tile 16 (1,024 of
+    them); its state box only, over-relaxed (alpha 1.3), on at most 1,024,
+    tile 16; N = 99 (Nm = 198, Nd = 396: each axis's columns padded), alpha
+    1.3 with vector bounds, tile 32 and tile 8; and the route's edge, the
+    wide bench's plant (`DoubleIntegrator(4, 2, dt=1/128)`, Nm = 512, Nd =
+    1,024) with the velocity box, BOX_WIDE_EDGE instances at the default
+    tile, 8."""
     _, full = box_solver(device, nb_dim=2)
     x0s = via_point_problem(device, 2, batch=batch)[3]
+    _, tile16 = box_solver(device, nb_dim=2, batch_tile=16)
     _, x_only = box_solver(device, nb_dim=2, u_lower=None, u_upper=None, rho_u=None, alpha=1.3,
                            batch_tile=16)
     A, B, cost, x0_odd = via_point_problem(device, 2, horizon=99, batch=64, seed=1)
     x_lower, x_upper = velocity_box(99, 1.2 + 0.3 * np.cos(np.linspace(0.0, 3.0, 99)), nb_dim=2)
-    odd = make_fused_lqt_admm(
+    odd = {tile: make_fused_lqt_admm(
         A, B, cost, u_lower=np.full(198, -4.0), u_upper=np.linspace(3.0, 5.0, 198),
         x_lower=x_lower, x_upper=x_upper, rho_x=RHO_X, rho_u=RHO_U, n_iters=BOX_ITERS,
-        alpha=1.3, batch_tile=32, device=device,
-    )
+        alpha=1.3, batch_tile=tile, device=device,
+    ) for tile in (32, 8)}
     _, edge = box_solver(device, horizon=WIDE_N, nb_dim=4)
     x0_edge = via_point_problem(device, 4, horizon=WIDE_N, batch=BOX_WIDE_EDGE)[3]
+    small = min(batch, 1024)
     return [
         (f"planar, Nm=200, Nd=400 (batch {batch}, tile {full.kernel_options['batch_tile']})",
          full, full.kernel_inputs(x0s)),
-        (f"planar, state box only, alpha=1.3 (batch {min(batch, 1024)}, tile 16)", x_only,
-         x_only.kernel_inputs(x0s[:1024])),
-        ("planar, N=99 (Nm=198, Nd=396), alpha=1.3, vector bounds (batch 64, tile 32)", odd,
-         odd.kernel_inputs(x0_odd)),
+        (f"planar (batch {small}, tile 16)", tile16, tile16.kernel_inputs(x0s[:small])),
+        (f"planar, state box only, alpha=1.3 (batch {small}, tile 16)", x_only,
+         x_only.kernel_inputs(x0s[:small])),
+    ] + [
+        (f"planar, N=99 (Nm=198, Nd=396), alpha=1.3, vector bounds (batch 64, tile {tile})",
+         solver, solver.kernel_inputs(x0_odd)) for tile, solver in odd.items()
+    ] + [
         (f"edge, Nm=512, Nd=1024 (batch {BOX_WIDE_EDGE}, tile "
          f"{edge.kernel_options['batch_tile']})", edge, edge.kernel_inputs(x0_edge)),
     ]
@@ -1501,7 +1510,8 @@ def phase_box_compare(cases):
     sums. Cases on the wide route also print their launch: threads, shared
     memory, blocks an SM, waves and the build's registers and spills."""
     worst = 0.0
-    ptxas = ptxas_builds((_build.build_dir() / "nvcc.log").read_text(), "admm_box_wide_kernel")
+    ptxas = ptxas_builds((_build.build_dir() / "nvcc.log").read_text(), "admm_box_wide_kernel",
+                         unit=1)
     props = torch.cuda.get_device_properties(0)
     sm_smem = getattr(props, "shared_memory_per_multiprocessor", 233472)
     for label, solver, inputs in cases:
@@ -1509,14 +1519,19 @@ def phase_box_compare(cases):
         tag = "box kernel vs plain" if solver.route == "narrow" else "box wide kernel vs plain"
         if solver.route == "wide":
             B, Nm = inputs[1].shape
+            layout = solver.layout
             threads, smem = fused_admm.box_wide_launch_geometry(kw["batch_tile"], Nm,
-                                                                inputs[0].shape[1])
+                                                                inputs[0].shape[1], layout)
             per_sm = min(sm_smem // (smem + 1024), 2048 // threads)
             blocks = B // kw["batch_tile"]
             build = ptxas.get((kw["batch_tile"], int(kw["alpha"] != 1.0)))
-            print(f"[box wide geometry] {label}: {threads} threads, {smem} B of shared memory, "
-                  f"{per_sm} block(s) an SM: {-(-blocks // (per_sm * props.multi_processor_count))} "
-                  f"waves of {blocks} blocks; ptxas: {build}")
+            print(f"[box wide geometry] {label}: tile {kw['batch_tile']}, {threads // 128} "
+                  f"warpgroups, {smem} B of shared memory, {per_sm} block(s) an SM: "
+                  f"{-(-blocks // (per_sm * props.multi_processor_count))} waves of {blocks} "
+                  f"blocks; {len(fused_admm.box_components(solver.W_s, solver.SuT))} column "
+                  f"group(s){' (original order)' if layout.identity else ''}, {layout.n_tiles} "
+                  f"M tiles, {layout.n_steps} k-steps stored ({512 * 4 * layout.n_steps} B a "
+                  f"block-iteration); ptxas: {build}")
             check(per_sm > 0 and build is not None, f"{label}: no build or no room for the block")
         got = admm_box(*inputs, solver.packed, **kw, route=solver.route)
         torch.cuda.synchronize()

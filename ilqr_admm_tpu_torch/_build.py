@@ -143,12 +143,13 @@ def load_library() -> ctypes.CDLL:
     ]
     lib.admm_box_launch.restype = _I
     lib.admm_box_wide_launch.argtypes = [
-        _P, _P, _P,  # free, u_base, u0
-        _P, _P,  # ops_f, ops_i (the pair tables of W_s and Su^T)
+        _P, _P, _P,  # free, u_base, u0 (the layout's column order)
+        _P, _P,  # ops_f, ops_i (A fragment streams; header, tiles, k-steps)
         _P, _P,  # xb, ub
         _P, _P, _P, _P,  # x_out, u_out, zx_out, zu_out
-        _I, _I, _I, _I, _I,  # batch, Nm, Nd, batch_tile, n_iters
-        _I, _F, _F,  # has_u, alpha, 1 - alpha
+        _I, _I, _I,  # batch, nx, nu
+        _I, _I,  # tiles, k-steps
+        _I, _I, _I, _F, _F,  # batch_tile, n_iters, has_u, alpha, 1 - alpha
         _P,  # stream
     ]
     lib.admm_box_wide_launch.restype = _I

@@ -39,6 +39,8 @@ JAX factory does.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 from torch import nn
 
@@ -534,18 +536,36 @@ def box_schedule(table1, table2) -> torch.Tensor:
     return torch.tensor(sched, dtype=torch.int32, device=table1.device)
 
 
-def pack_box_operators(W_s, SuT, route: str = "narrow"):
-    """(ops_f, ops_i): W_s and Su^T in `pair_pack` storage, end to end,
-    and for the route's kernel (see `box_route`) either the narrow
-    kernel's warp schedule (`box_schedule`) or, for "wide", the two pair
-    tables, W_s's rows first (ceil(n1 / 2) + ceil(n2 / 2) rows of
-    (offset, klo, khi, nb)). Su^T's offsets count from the start of ops_f.
-    W_s's rows for s_x are zero-padded to whole 8-row tiles first, as both
-    kernels pad s_x. ops_f is the same for both routes."""
-    if route not in ("narrow", "wide"):
+def pack_box_operators(W_s, SuT, route: str = "narrow", batch_tile: int | None = None):
+    """The two operators in the storage of the route's kernel (see
+    `box_route`).
+
+    "narrow": (ops_f, ops_i), W_s and Su^T in `pair_pack` storage end to
+    end (W_s's rows for s_x zero-padded to whole 8-row tiles first) and the
+    kernel's warp schedule (`box_schedule`).
+
+    "wide": a `BoxWidePacked` (ops_f, ops_i) with its `BoxWideLayout`:
+    the columns ordered component by component (`box_components`), each
+    warpgroup's M tiles of W_s^T and Su as TF32 wgmma A fragments in f32,
+    its phase-1 tiles then its phase-2 tiles, each tile's nonzero k-steps
+    only (`_fragments`), dealt to the warpgroups longest first; ops_i the
+    header, tile table and k-steps the kernel reads, then each original
+    column's padded position. With batch_tile, the one-component layout
+    when the components' do not fit that tile
+    (`box_wide_launch_geometry`).
+    """
+    if route == "narrow":
+        ops_f, t1, t2 = _pack_box_pairs(W_s, SuT)
+        return ops_f, box_schedule(t1, t2)
+    if route != "wide":
         raise ValueError(f'route must be "narrow" or "wide", got {route!r}')
-    ops_f, t1, t2 = _pack_box_pairs(W_s, SuT)
-    return ops_f, box_schedule(t1, t2) if route == "narrow" else torch.cat([t1, t2])
+    ops_f, ops_i, layout = _pack_box_wide(W_s, SuT)
+    if batch_tile is not None and not layout.identity:
+        try:
+            box_wide_launch_geometry(batch_tile, *SuT.shape, layout)
+        except ValueError:
+            ops_f, ops_i, layout = _pack_box_wide(W_s, SuT, components=False)
+    return BoxWidePacked(ops_f, ops_i, layout)
 
 
 def _pack_box_pairs(W_s, SuT):
@@ -590,58 +610,320 @@ def box_launch_geometry(batch_tile: int, Nm: int, Nd: int, n_blocks: int) -> tup
     return 32 * warps, smem
 
 
-# The wide route's geometry, as in csrc/admm_box_wide.cu: 16 warps; a
-# block owns 16 or 32 instances; warp w owns W_s's pairs of n-tiles w, w +
-# 16, ... and Su^T's likewise, at most _BOX_WIDE_PAIRS[tile] of each.
-_BOX_WIDE_WARPS = 16
-_BOX_WIDE_PAIRS = {16: (2, 4), 32: (1, 2)}
+# The wide route, csrc/admm_box_wide.cu: 4 warpgroups a block; the
+# operators' transposes as wgmma A fragments in 64-row M tiles, each
+# warpgroup streaming its own tiles' fragments from L2 through a ring of
+# _BOX_WIDE_STAGES k-steps in shared memory; the instances as N (8, 16 or
+# 32 a block). Each tile keeps only its nonzero 8-column k-steps, stored in
+# multiples of _BOX_WIDE_QUANTUM (the kernel's commit group; zero fragments
+# pad); a warpgroup owns at most 32 / batch_tile phase-1 tiles (their l_u
+# and u_hat in registers).
+_BOX_WIDE_GROUPS = 4
+_BOX_WIDE_TILES = (8, 16, 32)
+_BOX_WIDE_M = 64
+_BOX_WIDE_QUANTUM = 2
+_BOX_WIDE_STAGES = 4
+_BOX_WIDE_HEADER = 32
+_BOX_WIDE_LIMITS = (512, 1024)  # (Nm, Nd) the route takes at most
+# k-steps a wide product chains on the tensor cores before it adds the
+# chunk to its f32 total (the kernel's KC)
+BOX_WIDE_K_CHUNK = 8
 
 
-def _box_wide_limits(batch_tile: int) -> tuple[int, int]:
-    """(Nm, Nd) the wide route takes at most with this tile."""
-    p1, p2 = _BOX_WIDE_PAIRS[batch_tile]
-    return 16 * _BOX_WIDE_WARPS * p1, 16 * _BOX_WIDE_WARPS * p2
+@dataclass(frozen=True)
+class BoxWideLayout:
+    """Where `csrc/admm_box_wide.cu` keeps a fleet's columns and work.
+
+    The u and x columns are ordered component by component (`box_components`),
+    each component's padded to a multiple of 8: the U space (nu columns)
+    and the X space (nx). gather_u[c] / gather_x[c] is the original column
+    at padded position c, -1 for padding; M tiles are 64 rows of one
+    component's columns (its last tile shorter: `rows`, a multiple of 8).
+    Phase-1 tiles (u rows) multiply s = [s_x, s_u] over K = [X, U]; phase-2
+    tiles (x rows) multiply u_hat over U. `tiles` lists, warpgroup by
+    warpgroup, its phase-1 then its phase-2 tiles as (col0, rows, steps):
+    col0 the tile's first column in its space, steps its stored k-steps.
+    `ksteps` are
+    the tiles' k-steps (absolute 8-column groups of [X, U]) in the same
+    order. `groups` holds, for each warpgroup, (phase-1 tiles, phase-2
+    tiles, first tile, stream steps, first step, stream step of phase 2).
+    identity: the original order, each space padded at its end (one
+    component).
+    """
+
+    Nm: int
+    Nd: int
+    nx: int
+    nu: int
+    gather_x: tuple
+    gather_u: tuple
+    tiles: tuple
+    ksteps: tuple
+    groups: tuple
+    identity: bool
+
+    @property
+    def n_tiles(self) -> int:
+        return len(self.tiles)
+
+    @property
+    def n_steps(self) -> int:
+        return len(self.ksteps)
+
+    @property
+    def max_u_tiles(self) -> int:
+        """The most phase-1 tiles one warpgroup owns."""
+        return max(g[0] for g in self.groups)
+
+    @property
+    def ints(self) -> int:
+        """Length of ops_i: header, tile table, k-steps, then the padded
+        position of each original x and u column."""
+        return _BOX_WIDE_HEADER + 3 * self.n_tiles + self.n_steps + self.Nd + self.Nm
+
+    @property
+    def positions(self) -> int:
+        """Offset of the positions (x's, then u's) in ops_i."""
+        return self.ints - self.Nd - self.Nm
 
 
-def box_wide_launch_geometry(batch_tile: int, Nm: int, Nd: int) -> tuple[int, int]:
+class BoxWidePacked(tuple):
+    """(ops_f, ops_i) of `pack_box_operators(W_s, SuT, "wide")`, carrying
+    its `BoxWideLayout` as `layout` (host numbers: the wrapper sizes the
+    launch from it without reading the card)."""
+
+    def __new__(cls, ops_f, ops_i, layout: BoxWideLayout):
+        self = super().__new__(cls, (ops_f, ops_i))
+        self.layout = layout
+        return self
+
+
+def _pad8(n: int) -> int:
+    return -(-n // _BOX_BLOCK) * _BOX_BLOCK
+
+
+def box_components(W_s, SuT) -> list[tuple[list[int], list[int]]]:
+    """The groups of columns the wide kernel keeps together: [(u columns,
+    x columns)] in original numbering.
+
+    The connected components of the graph whose edges are W_s's and
+    Su^T's nonzeros (W_s[k, j] joins u_j with x_k, or with u_{k - Nd} for
+    k >= Nd; Su^T[j, i] joins u_j with x_i; a column that touches no
+    nonzero is a component of its own), largest first, each merged into
+    the first group whose 64-column M tiles still hold it (its u columns
+    and its x columns each within the group's count of whole tiles), else
+    a group of its own: merging never adds a tile. The planar double
+    integrator gives two groups (its axes), the 1-D one a single one."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    Nm, Nd = SuT.shape
+    n = Nm + Nd  # nodes: u_0..u_{Nm-1}, then x_0..x_{Nd-1}
+    k, j = (W_s != 0).nonzero(as_tuple=True)
+    uj, xi = (SuT != 0).nonzero(as_tuple=True)
+    a = torch.cat([torch.where(k < Nd, Nm + k, k - Nd), uj]).cpu().numpy()
+    b = torch.cat([j, Nm + xi]).cpu().numpy()
+    _, label = connected_components(coo_matrix(([1] * len(a), (a, b)), shape=(n, n)),
+                                    directed=False)
+    comps = {}
+    for node in range(n):
+        comps.setdefault(int(label[node]), []).append(node)
+    def tiles(c):
+        return -(-c // _BOX_WIDE_M)
+
+    groups = []
+    for nodes in sorted(comps.values(), key=lambda nodes: (-len(nodes), nodes[0])):
+        us, xs = [v for v in nodes if v < Nm], [v - Nm for v in nodes if v >= Nm]
+        for gu, gx in groups:
+            if (tiles(len(gu) + len(us)) <= max(tiles(len(gu)), 1)
+                    and tiles(len(gx) + len(xs)) <= max(tiles(len(gx)), 1)):
+                gu += us
+                gx += xs
+                break
+        else:
+            groups.append((us, xs))
+    return groups
+
+
+def _deal(costs: list[int], cap: int | None) -> list[list[int]]:
+    """Tile indices for each warpgroup: longest first to the least loaded
+    warpgroup with fewer than cap tiles (ties: the lowest)."""
+    load = [0] * _BOX_WIDE_GROUPS
+    owned = [[] for _ in range(_BOX_WIDE_GROUPS)]
+    for i in sorted(range(len(costs)), key=lambda i: (-costs[i], i)):
+        w = min((w for w in range(_BOX_WIDE_GROUPS) if cap is None or len(owned[w]) < cap),
+                key=lambda w: (load[w], w))
+        load[w] += costs[i]
+        owned[w].append(i)
+    return owned
+
+
+def _fragments(block: torch.Tensor) -> torch.Tensor:
+    """(64, 8) blocks (..., M rows, K columns) in the A-fragment order of a
+    TF32 `wgmma.m64nNk8`: thread 32 w + 4 g + t of the warpgroup holds
+    (16 w + g, t), (16 w + g + 8, t), (16 w + g, t + 4), (16 w + g + 8,
+    t + 4), 16 bytes a thread."""
+    lead = block.shape[:-2]
+    b = block.reshape(*lead, 4, 2, 8, 2, 4)  # w, h, g, q, t: row 16 w + 8 h + g, column 4 q + t
+    n = len(lead)
+    return b.permute(*range(n), n, n + 2, n + 4, n + 3, n + 1).reshape(*lead, 512)
+
+
+def _box_wide_spaces(W_s, SuT, components: bool):
+    """(gather_u, gather_x, [(u start, u width), ...], [(x start, x width),
+    ...]) of the padded spaces; one component, in the original order, if
+    components is False or the operators couple everything."""
+    Nm, Nd = SuT.shape
+    comps = box_components(W_s, SuT) if components else []
+    if len(comps) <= 1:
+        comps = [(list(range(Nm)), list(range(Nd)))]
+    gu, gx, cu, cx = [], [], [], []
+    for us, xs in comps:
+        cu.append((len(gu), _pad8(len(us))))
+        cx.append((len(gx), _pad8(len(xs))))
+        gu += us + [-1] * (_pad8(len(us)) - len(us))
+        gx += xs + [-1] * (_pad8(len(xs)) - len(xs))
+    return gu, gx, cu, cx, len(comps) == 1
+
+
+def _permuted(M, rows, cols):
+    """M[rows][:, cols] with -1 selecting a zero row or column."""
+    Mp = torch.nn.functional.pad(M, (0, 1, 0, 1))
+    r = torch.tensor(rows, dtype=torch.long, device=M.device) % Mp.shape[0]
+    c = torch.tensor(cols, dtype=torch.long, device=M.device) % Mp.shape[1]
+    return Mp[r][:, c]
+
+
+def _pack_box_wide(W_s, SuT, components: bool = True):
+    """(ops_f, ops_i, layout) of the wide route: see `pack_box_operators`."""
+    Nm, Nd = SuT.shape
+    gu, gx, cu, cx, identity = _box_wide_spaces(W_s, SuT, components)
+    nx, nu = len(gx), len(gu)
+    # A of phase 1 (nu x (nx + nu)): W_s^T with s = [s_x, s_u] over [X, U];
+    # of phase 2 (nx x nu): Su
+    A1 = _permuted(W_s, gx + [Nd + u if u >= 0 else -1 for u in gu], gu).T
+    A2 = _permuted(SuT, gu, gx).T
+    tiles, frags, steps = [[], []], [[], []], [[], []]
+    for phase, (A, spans, k0) in enumerate(((A1, cu, 0), (A2, cx, nx // 8))):
+        K = A.shape[1]
+        for start, width in spans:
+            for r0 in range(0, width, _BOX_WIDE_M):
+                rows = min(_BOX_WIDE_M, width - r0)
+                block = A.new_zeros(_BOX_WIDE_M, K)
+                block[:rows] = A[start + r0:start + r0 + rows]
+                blocks = block.reshape(_BOX_WIDE_M, K // 8, 8).permute(1, 0, 2)
+                keep = (blocks != 0).flatten(1).any(dim=1).nonzero().flatten().tolist()
+                pad = -len(keep) % _BOX_WIDE_QUANTUM
+                ks = keep + [keep[-1]] * pad if keep else []
+                f = _fragments(blocks[keep]) if keep else block.new_zeros(0, 512)
+                frags[phase].append(torch.cat([f, f.new_zeros(pad, 512)]))
+                steps[phase].append([k0 + k for k in ks])
+                tiles[phase].append((start + r0, rows, len(ks)))
+    owned = [_deal([t[2] for t in tiles[0]], -(-len(tiles[0]) // _BOX_WIDE_GROUPS)),
+             _deal([t[2] for t in tiles[1]], None)]
+    table, ksteps, stream, groups = [], [], [], []
+    for w in range(_BOX_WIDE_GROUPS):
+        first_tile, first_step, p2 = len(table), len(ksteps), 0
+        for phase in (0, 1):
+            if phase == 1:
+                p2 = len(ksteps) - first_step
+            for i in owned[phase][w]:
+                table.append(tiles[phase][i])
+                ksteps += steps[phase][i]
+                stream.append(frags[phase][i])
+        groups.append((len(owned[0][w]), len(owned[1][w]), first_tile,
+                       len(ksteps) - first_step, first_step, p2))
+    layout = BoxWideLayout(Nm, Nd, nx, nu, tuple(gx), tuple(gu), tuple(table), tuple(ksteps),
+                           tuple(groups), identity)
+    pos_x, pos_u = [0] * Nd, [0] * Nm
+    for c, x in enumerate(gx):
+        if x >= 0:
+            pos_x[x] = c
+    for c, u in enumerate(gu):
+        if u >= 0:
+            pos_u[u] = c
+    header = [nx, nu, layout.n_tiles, layout.n_steps]
+    header += [v for i in range(6) for v in (g[i] for g in groups)]
+    header += [0] * (_BOX_WIDE_HEADER - len(header))
+    ints = header + [v for row in table for v in row] + ksteps + pos_x + pos_u
+    ops_f = torch.cat(stream) if stream else W_s.new_zeros(0, 512)
+    return (ops_f.reshape(-1).contiguous(),
+            torch.tensor(ints, dtype=torch.int32, device=W_s.device), layout)
+
+
+def _identity_dims(Nm: int, Nd: int) -> dict:
+    """The widths of the one-group layout of (Nm, Nd) with every k-step
+    kept: no layout of that width needs less shared memory but for its
+    k-steps, which this counts at their most."""
+    nx, nu = _pad8(Nd), _pad8(Nm)
+    q = _BOX_WIDE_QUANTUM
+    n_u, n_x = -(-nu // _BOX_WIDE_M), -(-nx // _BOX_WIDE_M)
+    return dict(nx=nx, nu=nu, n_tiles=n_u + n_x,
+                n_steps=n_u * -(-(nx + nu) // 8 // q) * q + n_x * -(-nu // 8 // q) * q,
+                max_u_tiles=-(-n_u // _BOX_WIDE_GROUPS))
+
+
+def box_wide_smem(batch_tile: int, nx: int, nu: int, n_tiles: int, n_steps: int) -> int:
+    """Dynamic shared-memory bytes of one block of csrc/admm_box_wide.cu:
+    s = [s_x, s_u] (u_hat takes s_u's place during phase 2) as TF32 hi and
+    lo, each warpgroup's ring of A fragments, the bounds, the tile table
+    and the k-steps."""
+    T = batch_tile
+    ring = 2048 * _BOX_WIDE_STAGES * _BOX_WIDE_GROUPS
+    return ring + 4 * (2 * T * (nx + nu) + 2 * (nx + nu) + 3 * n_tiles + n_steps)
+
+
+def box_wide_launch_geometry(batch_tile: int, Nm: int, Nd: int,
+                             layout: BoxWideLayout | None = None) -> tuple[int, int]:
     """(threads, dynamic shared-memory bytes) of one block of
-    `csrc/admm_box_wide.cu`, the wide route, which reads its operators from
-    L2.
+    `csrc/admm_box_wide.cu`, the wide route, which streams its operators
+    from L2, for `layout` (None: the one-component layout of (Nm, Nd),
+    every k-step kept).
 
     Raises ValueError when the tile cannot be launched: batch_tile must be
-    16 or 32, and each warp takes at most one pair of W_s's n-tiles and two
-    of Su^T's at batch_tile 32 (Nm <= 256, Nd <= 512), two and four at 16
-    (Nm <= 512, Nd <= 1,024). Shared memory holds s and u_hat, l_x and the
-    bounds: 158,400 B at Nm = 200, Nd = 400 and batch_tile 32, at most
-    208,896 B.
+    8, 16 or 32, Nm <= 512 and Nd <= 1,024, a warpgroup may own at most
+    32 / batch_tile phase-1 tiles, and shared memory (`box_wide_smem`)
+    must fit: 196,448 B for the planar fleet's two components at
+    batch_tile 32; the route's edge (Nm = 512, Nd = 1,024) takes 8.
     """
-    if batch_tile not in _BOX_WIDE_PAIRS:
+    if batch_tile not in _BOX_WIDE_TILES:
         raise ValueError(f"batch_tile={batch_tile}: the wide state-bounded kernel takes "
-                         f"{' or '.join(map(str, _BOX_WIDE_PAIRS))} instances a block")
-    max_m, max_d = _box_wide_limits(batch_tile)
+                         f"{', '.join(map(str, _BOX_WIDE_TILES))} instances a block")
+    max_m, max_d = _BOX_WIDE_LIMITS
     if Nm > max_m or Nd > max_d:
+        raise ValueError(f"Nm={Nm}, Nd={Nd} is past the wide route's Nm <= {max_m}, "
+                         f"Nd <= {max_d}")
+    if layout is None:
+        dims = _identity_dims(Nm, Nd)
+    else:
+        if (layout.Nm, layout.Nd) != (Nm, Nd):
+            raise ValueError(f"the layout is for Nm={layout.Nm}, Nd={layout.Nd}, not Nm={Nm}, "
+                             f"Nd={Nd}")
+        dims = dict(nx=layout.nx, nu=layout.nu, n_tiles=layout.n_tiles,
+                    n_steps=layout.n_steps, max_u_tiles=layout.max_u_tiles)
+    cap = 32 // batch_tile
+    if dims["max_u_tiles"] > cap:
         raise ValueError(
-            f"Nm={Nm}, Nd={Nd} with batch_tile={batch_tile} is past the wide route's "
-            f"Nm <= {max_m}, Nd <= {max_d} (Nm <= {_box_wide_limits(16)[0]}, Nd <= "
-            f"{_box_wide_limits(16)[1]} at batch_tile 16)"
-        )
-    n1, n2 = -(-Nm // _BOX_BLOCK), -(-Nd // _BOX_BLOCK)
-    smem = 4 * (8 * batch_tile * (n2 + 2 * n1) + 16 * batch_tile * -(-n2 // 2) + 16 * (n1 + n2))
+            f"Nm={Nm}, Nd={Nd} with batch_tile={batch_tile} puts {dims['max_u_tiles']} tiles of "
+            f"u columns on a warpgroup; the kernel takes at most {cap} at this tile")
+    smem = box_wide_smem(batch_tile, dims["nx"], dims["nu"], dims["n_tiles"], dims["n_steps"])
     if smem > _MAX_SMEM:
         raise ValueError(
             f"Nm={Nm}, Nd={Nd} with batch_tile={batch_tile} needs {smem} bytes of shared memory "
             f"on the wide route; the limit is {_MAX_SMEM} bytes"
         )
-    return 32 * _BOX_WIDE_WARPS, smem
+    return 128 * _BOX_WIDE_GROUPS, smem
 
 
 def box_route(batch_tile: int, Nm: int, Nd: int, n_blocks: int) -> str:
     """"narrow" when `csrc/admm_box.cu` takes the tile (its packed
     operators, n_blocks 8 x 8 blocks of `pack_box_operators`, staged in
     shared memory), else "wide" when `csrc/admm_box_wide.cu` does
-    (operators read from L2); raises ValueError, with both kernels'
-    reasons and limits, when neither does. Every launch the narrow kernel
-    took before the wide route existed stays with it."""
+    (operators streamed from L2; `box_wide_launch_geometry` of the
+    one-component layout, which no layout needs less shared memory than
+    but for its k-steps); raises ValueError, with both kernels' reasons and
+    limits, when neither does. Every launch the narrow kernel took before
+    the wide route existed stays with it."""
     try:
         box_launch_geometry(batch_tile, Nm, Nd, n_blocks)
         return "narrow"
@@ -654,18 +936,19 @@ def box_route(batch_tile: int, Nm: int, Nd: int, n_blocks: int) -> str:
                 f"no state-bounded kernel takes this launch: the narrow kernel (csrc/admm_box.cu, "
                 f"Nm <= {_BOX_BLOCK * _BOX_MAX_WARPS}, Nd <= {2 * _BOX_BLOCK * _BOX_MAX_WARPS}, "
                 f"operators in shared memory): {narrow}; the wide kernel "
-                f"(csrc/admm_box_wide.cu, Nm <= {_box_wide_limits(16)[0]}, Nd <= "
-                f"{_box_wide_limits(16)[1]}): {wide}"
+                f"(csrc/admm_box_wide.cu, Nm <= {_BOX_WIDE_LIMITS[0]}, Nd <= "
+                f"{_BOX_WIDE_LIMITS[1]}): {wide}"
             ) from None
 
 
 def default_box_tile(Nm: int, Nd: int, n_blocks: int) -> int:
-    """The largest tile (32 or 16) the narrow kernel takes at this width,
-    else the largest the wide route takes (32 at the 1-D fleet's Nm = 100
-    and at the planar fleet's Nm = 200; 16 at Nm = 512, Nd = 1,024);
-    raises ValueError when neither takes any."""
+    """The largest tile (32 or 16) the narrow kernel takes at this width
+    (32 at the 1-D fleet's Nm = 100), else the largest (32, 16 or 8) the
+    wide route takes (32 at the planar fleet's Nm = 200, Nd = 400; 8 at
+    its edge, Nm = 512, Nd = 1,024); raises ValueError when neither takes
+    any."""
     routes = {}
-    for tile in _BOX_TILES:
+    for tile in sorted({*_BOX_TILES, *_BOX_WIDE_TILES}):
         try:
             routes[tile] = box_route(tile, Nm, Nd, n_blocks)
         except ValueError as exc:
@@ -773,6 +1056,20 @@ def _check_packed(packed, ref, ints_shape, origin, shapes):
         raise ValueError("packed must be contiguous")
 
 
+def _check_wide_packed(packed, ref, Nm: int, Nd: int):
+    """packed: a `BoxWidePacked` of `pack_box_operators(W_s, SuT, "wide")`
+    at (Nm, Nd), on ref's device, whole."""
+    origin = "pack_box_operators(W_s, SuT, 'wide')"
+    shapes = f"Nm={Nm}, Nd={Nd}"
+    layout = getattr(packed, "layout", None)
+    if not isinstance(layout, BoxWideLayout) or (layout.Nm, layout.Nd) != (Nm, Nd):
+        raise ValueError(f"packed does not have the shapes of {origin} at {shapes} (no layout "
+                         f"of this width)")
+    _check_packed(packed, ref, (layout.ints,), origin, shapes)
+    if packed[0].numel() != 512 * layout.n_steps:
+        raise ValueError(f"packed does not have the shapes of {origin} at {shapes}")
+
+
 def admm_box(
     free, u_base, u0, W_s, SuT, xb, ub, packed, *, n_iters, alpha=1.0, has_u=True,
     batch_tile=32, route="narrow",
@@ -783,36 +1080,38 @@ def admm_box(
     free (B, Nd): free responses; u_base (B, Nm): r_base l_inv^T; u0
     (B, Nm): the warm start; W_s (Nd + Nm, Nm): the response of u_hat to
     [z_x - l_x, z_u - l_u]; SuT (Nm, Nd); xb (2, Nd) and ub (2, Nm):
-    [lower; upper] bounds, +-inf where free; packed: (ops_f, ops_i) =
-    `pack_box_operators(W_s, SuT)`, the same two operators in the
-    kernel's storage (the solver packs them once, at setup). B must be a
-    multiple of batch_tile. See `admm_box_reference` for the iteration.
+    [lower; upper] bounds, +-inf where free; packed: the same two
+    operators in the kernel's storage (the solver packs them once, at
+    setup). B must be a multiple of batch_tile. See `admm_box_reference`
+    for the iteration.
 
     route names the kernel (`box_route` chooses it; the solver holds its
     factory's choice as `route`), and packed must be in its form
     (`pack_box_operators(W_s, SuT, route)`). CUDA tensors (float32) go to
     that kernel, which reads only the packed operators: "narrow" is
     `csrc/admm_box.cu`, which stages them in shared memory (see
-    `box_launch_geometry`), "wide" is `csrc/admm_box_wide.cu`, which reads
-    them from L2 (see `box_wide_launch_geometry`); both take batch_tile 16
-    or 32, and a launch the route's kernel does not take raises. Both run
-    their products on the tensor cores in 3xTF32, held to the f32 plain
-    version. CPU tensors go to `admm_box_reference` with f32 products,
-    which reads only the dense operators. Any other device raises.
+    `box_launch_geometry`; batch_tile 16 or 32), "wide" is
+    `csrc/admm_box_wide.cu`, which streams them from L2 (see
+    `box_wide_launch_geometry`; batch_tile 8, 16 or 32): its inputs are
+    spread to the layout's padded column order and its outputs gathered
+    back, unless the layout is the original order. A launch the route's
+    kernel does not take raises. Both run their products on the tensor
+    cores in 3xTF32, held to the f32 plain version. CPU tensors go to
+    `admm_box_reference` with f32 products, which reads only the dense
+    operators. Any other device raises.
     """
     global box_launch_count, box_wide_launch_count
     _check_box_inputs(free, u_base, u0, W_s, SuT, xb, ub, n_iters, batch_tile)
     batch, Nd = free.shape
     Nm = u_base.shape[1]
-    n1, n2 = -(-Nm // _BOX_BLOCK), -(-Nd // _BOX_BLOCK)
     if route == "narrow":
-        ints_shape = (_box_warps(n1, n2), _BOX_SCHED)
+        n1, n2 = -(-Nm // _BOX_BLOCK), -(-Nd // _BOX_BLOCK)
+        _check_packed(packed, free, (_box_warps(n1, n2), _BOX_SCHED),
+                      "pack_box_operators(W_s, SuT, 'narrow')", f"Nm={Nm}, Nd={Nd}")
     elif route == "wide":
-        ints_shape = (-(-n1 // 2) + -(-n2 // 2), 4)
+        _check_wide_packed(packed, free, Nm, Nd)
     else:
         raise ValueError(f'route must be "narrow" or "wide", got {route!r}')
-    _check_packed(packed, free, ints_shape, f"pack_box_operators(W_s, SuT, {route!r})",
-                  f"Nm={Nm}, Nd={Nd}")
     kw = dict(n_iters=n_iters, alpha=alpha, has_u=has_u, batch_tile=batch_tile)
     device = free.device
     if device.type == "cpu":
@@ -825,16 +1124,16 @@ def admm_box(
     if route == "narrow":
         box_launch_geometry(batch_tile, Nm, Nd, ops_f.numel() // 64)
     else:
-        box_wide_launch_geometry(batch_tile, Nm, Nd)
+        box_wide_launch_geometry(batch_tile, Nm, Nd, packed.layout)
 
     from ilqr_admm_tpu_torch._build import load_library
 
     lib = load_library()
-    x, z_x = torch.empty_like(free), torch.empty_like(free)
-    u, z_u = torch.empty_like(u0), torch.empty_like(u0)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         if route == "narrow":
+            x, z_x = torch.empty_like(free), torch.empty_like(free)
+            u, z_u = torch.empty_like(u0), torch.empty_like(u0)
             err = lib.admm_box_launch(
                 free.data_ptr(), u_base.data_ptr(), u0.data_ptr(), ops_f.data_ptr(),
                 ops_f.numel(), ops_i.data_ptr(), ops_i.shape[0], xb.data_ptr(), ub.data_ptr(),
@@ -843,13 +1142,32 @@ def admm_box(
                 float(alpha), float(1.0 - alpha), stream,
             )
         else:
+            layout = packed.layout
+            nx, nu = layout.nx, layout.nu
+            in_order = layout.identity and (nx, nu) == (Nd, Nm)
+            if not in_order:
+                pos = ops_i[layout.positions:].long()
+                pos_x, pos_u = pos[:Nd], pos[Nd:]
+
+                def widen(t, width, p):
+                    out = t.new_zeros(t.shape[0], width)
+                    return out.index_copy_(1, p, t)
+
+                free, xb = widen(free, nx, pos_x), widen(xb, nx, pos_x)
+                u_base, u0 = widen(u_base, nu, pos_u), widen(u0, nu, pos_u)
+                ub = widen(ub, nu, pos_u)
+            x, z_x = free.new_empty(batch, nx), free.new_empty(batch, nx)
+            u, z_u = free.new_empty(batch, nu), free.new_empty(batch, nu)
             err = lib.admm_box_wide_launch(
                 free.data_ptr(), u_base.data_ptr(), u0.data_ptr(), ops_f.data_ptr(),
                 ops_i.data_ptr(), xb.data_ptr(), ub.data_ptr(),
                 x.data_ptr(), u.data_ptr(), z_x.data_ptr(), z_u.data_ptr(),
-                batch, Nm, Nd, batch_tile, n_iters, int(has_u),
+                batch, nx, nu, layout.n_tiles, layout.n_steps, batch_tile, n_iters, int(has_u),
                 float(alpha), float(1.0 - alpha), stream,
             )
+            if err == 0 and not in_order:
+                x, z_x = x.index_select(1, pos_x), z_x.index_select(1, pos_x)
+                u, z_u = u.index_select(1, pos_u), z_u.index_select(1, pos_u)
     if err != 0:
         msg = lib.admm_box_error_string(err).decode()
         raise RuntimeError(f"admm_box ({route}) kernel launch failed: {msg} (cudaError {err})")
@@ -904,18 +1222,25 @@ class FusedBoxLQTADMM(FusedLQTADMM):
     """The state-bounded solver: `forward(x0s)` returns (x, u, z_x, z_u)
     like the JAX `solve`, through `admm_box`. `route` is the kernel the
     factory chose ("narrow" or "wide", `box_route`), and `packed` is in
-    its form. A fleet that no kernel takes is built only for the CPU: its
-    route is None, it holds no packed operators, and `forward` runs
+    its form (on the wide route with its `BoxWideLayout`, `layout`). A
+    fleet that no kernel takes is built only for the CPU: its route is
+    None, it holds no packed operators, and `forward` runs
     `admm_box_reference`."""
 
-    def __init__(self, operators: dict, route: str | None, **kernel_options):
+    def __init__(self, operators: dict, route: str | None, layout: BoxWideLayout | None = None,
+                 **kernel_options):
         super().__init__(operators, **kernel_options)
         self.route = route
+        self.layout = layout
 
     @property
     def packed(self):
         """(ops_f, ops_i) in the route's form; None without a route."""
-        return None if self.route is None else (self.ops_f, self.ops_i)
+        if self.route is None:
+            return None
+        if self.route == "wide":
+            return BoxWidePacked(self.ops_f, self.ops_i, self.layout)
+        return self.ops_f, self.ops_i
 
     def bases(self, x0s):
         """(free, r_base, u0): the JAX general path's per-solve products."""
@@ -1077,12 +1402,16 @@ def make_fused_lqt_admm(
             if device.type == "cuda":
                 raise
             batch_tile = 32 if batch_tile is None else batch_tile
-        if route is not None:
-            operators["ops_f"] = ops_f
-            operators["ops_i"] = box_schedule(t1, t2) if route == "narrow" else torch.cat([t1, t2])
+        layout = None
+        if route == "narrow":
+            operators["ops_f"], operators["ops_i"] = ops_f, box_schedule(t1, t2)
+        elif route == "wide":
+            packed = pack_box_operators(operators["W_s"], operators["SuT"], "wide", batch_tile)
+            (operators["ops_f"], operators["ops_i"]), layout = packed, packed.layout
         operators = {k: v.to(device) for k, v in operators.items()}
         return FusedBoxLQTADMM(
-            operators, route, n_iters=n_iters, alpha=alpha, has_u=has_u, batch_tile=batch_tile,
+            operators, route, layout, n_iters=n_iters, alpha=alpha, has_u=has_u,
+            batch_tile=batch_tile,
         )
 
     Rr = broadcast_rho(rho_u, m, N, dtype).to(f64)

@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""Builds of `csrc/admm_box_wide.cu` with other unrolls and chunks, timed on
-one CUDA card.
+"""Where the time of `csrc/admm_box_wide.cu` goes, on one CUDA card.
 
-Each build is a copy of the source with one or more of its constants
-rewritten: kUnroll32 / kUnroll16 (k-steps in flight at 32 and 16 instances
-a block) or KC (k-steps a product chains on the tensor cores before it
-adds the chunk to its total in f32; 0 is one chain). Each is timed on the planar state-bounded fleet of `chip_smoke.py`
-(16,384 instances, Nm = 200, Nd = 400, 200 iterations) at batch_tile 32
-and 16 (CUDA events, median of 3 windows of 2 calls, two rounds in turn),
-and prints its largest difference to the plain version with the
-kernel's products (`products="tf32x3"`) and to the f32 one, and the
-registers and spills `ptxas` reports for each build. The builds go to
-build/admm_box_wide_variants/ under the repository root.
+Builds copies of the kernel source with one or more of its constants
+rewritten (kStages, the k-steps of A fragments in flight a warpgroup;
+kGroup, the k-steps issued as one commit group, which the packing's
+multiple of 2 must allow; KC, the k-steps a product chains on the tensor
+cores before it adds the chunk to its total in f32) or with one part
+taken out
+(the copies without a part compute something else on purpose). Each is
+timed on the planar state-bounded fleet of `chip_smoke.py` (16,384
+instances, Nm = 200, Nd = 400, 200 iterations) at batch_tile 32 and 16
+(CUDA events, median of 3 windows of 2 calls, two rounds in turn), and
+prints its largest difference to the plain version with the kernel's
+products (`products="tf32x3"`) and to the f32 one, and the registers and
+spills `ptxas` reports and the local-memory loads and stores
+(`cuobjdump -sass`) of each build. Then builds and runs
+`tools/wgmma_tf32_bench.cu` (the SM's cycles a TF32 wgmma as the kernel
+issues them). The builds go to build/admm_box_wide_variants/ under the
+repository root.
 
 Run from the repository root on a machine with a card and nvcc:
     python3 tools/admm_box_wide_variants.py
@@ -21,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -36,36 +43,49 @@ from ilqr_admm_tpu_torch.ops import fused_admm  # noqa: E402
 
 CSRC = ROOT / "ilqr_admm_tpu_torch" / "csrc"
 WIDE = CSRC / "admm_box_wide.cu"
-# name: {constant: value} rewritten in the copy
+LOAD = "    copy16(ring + (stage % kStages) * 128, frag + static_cast<size_t>(next) * 128);\n"
+MMAS = ("      Mma<T>::run(part, hi[e], bh[e] + lo_step, (s + e) % KC != 0);\n"
+        "      Mma<T>::run(part, lo[e], bh[e], 1);\n"
+        "      Mma<T>::run(part, hi[e], bh[e], 1);\n")
+LX = "        const float l = P.x_out[gi];\n"
+# name: ({constant: value}, [(text, replacement)]) rewritten in the copy
 VARIANTS = {
-    "as committed (KC 8, unroll 1 at T = 32, 2 at 16)": {},
-    "unroll 2 at T = 32": {"kUnroll32": 2},
-    "unroll 1 at T = 16": {"kUnroll16": 1},
-    "one chain (KC 0)": {"KC": 0},
-    "KC 16": {"KC": 16},
+    "as committed": ({}, []),
+    "kStages 8": ({"kStages": 8}, []),
+    "kGroup 1 (each k-step waited for)": ({"kGroup": 1}, []),
+    "KC 16": ({"KC": 16}, []),
+    "1xTF32 products (hi_W hi_s only)": ({}, [(MMAS, MMAS.split("\n", 2)[2].replace(
+        ", 1);", ", (s + e) % KC != 0);"))]),
+    "l_x not kept (no x_out traffic)": ({}, [(LX, "        const float l = 0.0f;\n")]),
+    "no fragment loads (the ring's stale contents)": ({}, [(LOAD, "    (void)stage;\n")]),
+    "no products": ({}, [(MMAS, "")]),
 }
 FUNCTIONS = ("admm_box_launch", "admm_box_wide_launch", "admm_box_error_string")
 
 
-def variant_source(values: dict) -> str:
+def variant_source(values: dict, patches: list) -> str:
     """The wide kernel's source with each `constexpr int name = ...;` of
-    values rewritten."""
+    values rewritten and each patch applied."""
     text = WIDE.read_text()
     for name, value in values.items():
         text, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {value};",
                           text)
         if n != 1:
             raise SystemExit(f"{WIDE.name} has {n} definitions of {name}, not 1")
+    for old, new in patches:
+        if text.count(old) != 1:
+            raise SystemExit(f"{WIDE.name} no longer has {old!r} once")
+        text = text.replace(old, new)
     return text
 
 
 def build(out_dir: Path) -> dict:
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, values in VARIANTS.items():
+    for name, (values, patches) in VARIANTS.items():
         tag = "".join(c if c.isalnum() else "_" for c in name)
         source = out_dir / f"{tag}.cu"
-        source.write_text(variant_source(values))
+        source.write_text(variant_source(values, patches))
         cmd = [_build._nvcc(), *_build._FLAGS, "-I", str(CSRC), "-shared", "-o",
                str(out_dir / f"{tag}.so"), str(CSRC / "admm_box.cu"), str(source)]
         procs[name] = (tag, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -80,22 +100,26 @@ def build(out_dir: Path) -> dict:
         for fn in FUNCTIONS:
             getattr(lib, fn).argtypes = getattr(ours, fn).argtypes
             getattr(lib, fn).restype = getattr(ours, fn).restype
-        libs[name] = (lib, out)
+        libs[name] = (lib, out, out_dir / f"{tag}.so")
     return libs
 
 
-def ptxas_lines(log: str) -> list[str]:
-    """`kernel: spill line; registers line` of each wide build, from ptxas's
-    -v output (its entry line, the function's properties, its stack and
-    spills, its registers)."""
-    lines = log.splitlines()
-    out = []
-    for i, line in enumerate(lines):
-        m = re.search(r"(admm_box_wide_kernelILi[12]ELb[01]E)", line)
-        if m and "Compiling entry function" in line and i + 3 < len(lines):
-            out.append(f"{m.group(1)}: {lines[i + 2].strip()}; "
-                       f"{lines[i + 3].split(':', 1)[-1].strip()}")
-    return out
+def local_memory(so: Path) -> dict:
+    """{build key: (LDL, STL)} instructions in each wide build's SASS."""
+    tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True).stdout
+    out, key = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*admm_box_wide_kernelILi(\d+)ELb([01])E", line)
+        if m:
+            key = (int(m.group(1)), int(m.group(2)))
+            out[key] = [0, 0]
+        elif "Function :" in line:
+            key = None
+        elif key is not None:
+            out[key][0] += " LDL" in line
+            out[key][1] += " STL" in line
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def main() -> int:
@@ -104,9 +128,11 @@ def main() -> int:
         return 1
     _, card = chip_smoke.phase_device()
     libs = build(ROOT / "build" / "admm_box_wide_variants")
-    for name, (_, log) in libs.items():
-        for line in ptxas_lines(log):
-            print(f"[box wide variant] {name}: ptxas {line}", flush=True)
+    for name, (_, log, so) in libs.items():
+        for key, line in sorted(chip_smoke.ptxas_builds(log, "admm_box_wide_kernel",
+                                                         unit=1).items()):
+            print(f"[box wide variant] {name}: ptxas {key}: {line}", flush=True)
+        print(f"[box wide variant] {name}: (LDL, STL) in SASS {local_memory(so)}", flush=True)
     x0s = chip_smoke.via_point_problem("cuda", 2)[3]
     solvers = {tile: chip_smoke.box_solver("cuda", nb_dim=2, batch_tile=tile)[1]
                for tile in (32, 16)}
@@ -118,7 +144,7 @@ def main() -> int:
                 inputs = solver.kernel_inputs(x0s)
                 emulated = fused_admm.admm_box_reference(*inputs, **kw, products="tf32x3")
                 want = fused_admm.admm_box_reference(*inputs, **kw)
-                for name, (lib, _) in libs.items():
+                for name, (lib, _, _) in libs.items():
                     _build.load_library = lambda lib=lib: lib
 
                     def call():
@@ -136,7 +162,10 @@ def main() -> int:
                           f"{err:.3e}; card: {card}", flush=True)
     finally:
         _build.load_library = saved
-    return 0
+    exe = ROOT / "build" / "admm_box_wide_variants" / "wgmma_tf32_bench"
+    subprocess.run([_build._nvcc(), *_build._ARCH, "-O3", "-o", str(exe),
+                    str(ROOT / "tools" / "wgmma_tf32_bench.cu")], check=True)
+    return subprocess.run([str(exe)]).returncode
 
 
 if __name__ == "__main__":
