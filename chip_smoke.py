@@ -62,10 +62,13 @@ Drives the port's paths on the card:
   `solvers/mpc.py` (CarSimple(dt=0.1), H = 40, the via-point cost to
   (2, 1), |u| <= 0.6, rho_u = 1, 2 outer x 5 ADMM iterations a tick, 10
   alphas, x0 = (0, 0, 0.5, 0), 100 ticks, f32) in its dp and SQP ticks,
-  alone and as a fleet of 256, and the boxDDP tick of
-  `tests/test_mpc.py:117-181` (1-D double integrator, N = 50, |u| <= 3,
-  200 ticks) with each backward; no kernel lies on it (the car is
-  `CarSimple`, and the ticks pass no `linesearch_rollout`);
+  alone and as a fleet of 256, the DP tick of `examples/mpc_car.py`
+  (`make_mpc_step`, H = 40) alone and as a fleet of 256, and the boxDDP
+  tick of `tests/test_mpc.py:117-181` (1-D double integrator, N = 50,
+  |u| <= 3, 200 ticks) with each backward, alone and as a fleet of 256;
+  every closed loop through `run_mpc(graph=True)`, one captured CUDA
+  graph replayed a tick; no kernel lies on it (the car is `CarSimple`,
+  and the ticks pass no `linesearch_rollout`);
 - single barrier, AL and primal-dual iLQR solves (the barrier problem of
   `tests/test_boxddp.py:184-207`, `examples/al_obstacle_avoidance.py`,
   `examples/pd_ilqr_infeasible_start.py`) in f32 against the same solves
@@ -171,17 +174,20 @@ Phases:
    and IQR of 3 windows of one solve); a `torch.profiler` split of one
    inner-mode solve; the robust arm in f64 with the gates of
    `tests/test_isls_robust.py`;
-7. MPC, for each car tick alone, each tick as a fleet of 256 and each
-   boxDDP backward: 9 ticks through `run_mpc` with no host read between
-   them and the launch counters read around them, then a CUDA graph of
-   the tick replayed 100 times (200 for boxDDP) whose first 9 ticks must
-   be the eager ones; the gates on the graph's loop (max|u| <= 0.6 +
-   1e-4, the car parked within 0.05 of the target; the boxDDP gates of
-   `tests/test_mpc.py`; f64, labelled, where f32 misses); for one
-   controller the per-tick serving loop with the u readback in the timed
-   region, and the car's again with every stop flag read on the host;
-   the fleet's first 8 against 8 single ticks; a `torch.profiler` split
-   of one dp tick. Times are the median and IQR of 3 windows;
+7. MPC, for each car tick (the iLQR, dp and SQP ticks) and each boxDDP
+   backward, alone and as a fleet of 256: `run_mpc(graph=True)` over
+   100 ticks (200 for boxDDP), then `run_mpc(graph=False)` over 3 ticks
+   with the launch counters read around them and no synchronizing CUDA
+   call or stop-flag read inside, whose ticks the captured loop's first
+   must match within 1e-6; ms a tick of each and the capture's seconds;
+   the gates on the captured loop (max|u| <= 0.6 + 1e-4 for the bounded
+   car ticks, the car parked within 0.05 of the target; the boxDDP gates
+   of `tests/test_mpc.py`, and for its fleet max|u| <= 3 and finite
+   states; f64, labelled, where f32 misses); for one controller the
+   per-tick serving loop with the u readback in the timed region, and
+   the constrained ticks' again with every stop flag read on the host;
+   each fleet's first 8 against 8 single ticks (the iLQR tick's in f64);
+   with --profile a `torch.profiler` split of one dp tick;
 8. slice 12: the single barrier, AL and PD solves with their gates (cost
    within 1e-3 of the f64 host solve, the same stop, the keep-out
    margin, the box and its boxDDP cost, the final defect); the boxDDP
@@ -259,6 +265,7 @@ import bisect
 import concurrent.futures
 import contextlib
 import copy
+import gc
 import io
 import json
 import multiprocessing
@@ -363,7 +370,10 @@ from ilqr_admm_tpu_torch.solvers.lqt import sls_controller, sqrt_psd_stacked
 from ilqr_admm_tpu_torch.solvers.lqt_admm import lqt_admm_dp
 from ilqr_admm_tpu_torch.solvers.pd_ilqr import pd_ilqr_init, pd_ilqr_solve
 from ilqr_admm_tpu_torch.solvers.mpc import (
+    make_mpc_fleet_step,
+    make_mpc_fleet_step_boxddp,
     make_mpc_fleet_step_constrained,
+    make_mpc_step,
     make_mpc_step_boxddp,
     make_mpc_step_constrained,
     mpc_constrained_init,
@@ -619,6 +629,8 @@ MPC_TARGET = (2.0, 1.0)
 MPC_PARK_TOL = 0.05  # bench_mpc.py:209, 212
 MPC_X0 = (0.0, 0.0, 0.5, 0.0)
 MPC_TICK_KW = {"dp": {}, "sqp": dict(method="batch", line_search="outer")}
+MPC_ILQR = "ilqr"  # the DP tick of examples/mpc_car.py (make_mpc_step), no bound
+MPC_CAR_TICKS = (MPC_ILQR, *MPC_TICK_KW)
 MPC_WINDOWS = 1  # 3 before the car fleet phases (cut for the run's length)
 MPC_EAGER_TICKS = 3  # the eager and served loops (9 before the car fleet phases)
 MPC_GRAPH_TOL = 1e-6  # max |du| of a tick's CUDA graph against its eager run
@@ -3238,30 +3250,40 @@ def mpc_project(u):
 
 
 def mpc_step(problem, tick, fleet=False):
-    """bench_mpc.py's ticks: 'dp' (the default) or 'sqp' (method='batch',
-    line_search='outer'); |u| <= 0.6, rho_u = 1, 2 outer x 5 ADMM
-    iterations, 10 alphas. fleet: the fleet form."""
+    """The car's ticks: bench_mpc.py's 'dp' (the default) and 'sqp'
+    (method='batch', line_search='outer'), |u| <= 0.6, rho_u = 1, 2 outer
+    x 5 ADMM iterations, 10 alphas; and MPC_ILQR, the DP tick of
+    examples/mpc_car.py (`make_mpc_step`, 2 iLQR iterations, no bound).
+    fleet: the fleet form."""
+    car = problem["car"]
+    if tick == MPC_ILQR:
+        make = make_mpc_fleet_step if fleet else make_mpc_step
+        return make(car.step, car.get_AB, problem["get_Cs"], problem["quad"], n_ilqr_iters=2)
     make = make_mpc_fleet_step_constrained if fleet else make_mpc_step_constrained
-    return make(problem["car"].step, problem["car"].get_AB, problem["quad"],
-                get_Cs=problem["get_Cs"], project_u=mpc_project, rho_u=1.0, n_outer_iters=2,
-                n_admm_iters=5, **MPC_TICK_KW[tick])
+    return make(car.step, car.get_AB, problem["quad"], get_Cs=problem["get_Cs"],
+                project_u=mpc_project, rho_u=1.0, n_outer_iters=2, n_admm_iters=5,
+                **MPC_TICK_KW[tick])
 
 
-def mpc_state(problem):
+def _mpc_init(problem, tick):
+    return mpc_init if tick == MPC_ILQR else mpc_constrained_init
+
+
+def mpc_state(problem, tick="dp"):
     x0 = problem["x0"]
-    return mpc_constrained_init(problem["car"].step, x0, torch.zeros((MPC_H, 2), dtype=x0.dtype),
-                                device=x0.device)
+    return _mpc_init(problem, tick)(problem["car"].step, x0,
+                                    torch.zeros((MPC_H, 2), dtype=x0.dtype), device=x0.device)
 
 
-def mpc_fleet(problem, batch=MPC_FLEET):
+def mpc_fleet(problem, tick="dp", batch=MPC_FLEET):
     """The fleet's x0 ~ N(0, 0.3^2) from default_rng(0) (bench_mpc.py:136-140)
     and its initial states."""
     x0 = problem["x0"]
     x0s = torch.tensor(np.random.default_rng(0).normal(0, 0.3, size=(batch, 4)), dtype=x0.dtype,
                        device=x0.device)
     zeros = torch.zeros((MPC_H, 2), dtype=x0.dtype, device=x0.device)
-    states = vmap(lambda a: mpc_constrained_init(problem["car"].step, a, zeros,
-                                                 device=x0.device))(x0s)
+    init = _mpc_init(problem, tick)
+    states = vmap(lambda a: init(problem["car"].step, a, zeros, device=x0.device))(x0s)
     return x0s, states
 
 
@@ -3281,10 +3303,10 @@ def mpc_box_problem(device, dtype=torch.float32, horizon=MPC_BOX_N):
                 get_Cs=lambda xs, us: quad_cost_model(cost.Q, cost.xd, cost.R, xs, us))
 
 
-def mpc_box_step(problem, riccati):
-    return make_mpc_step_boxddp(problem["f"], problem["get_AB"], problem["cost"],
-                                problem["get_Cs"], -MPC_BOX_U, MPC_BOX_U, n_iters=3,
-                                riccati=riccati)
+def mpc_box_step(problem, riccati, fleet=False):
+    make = make_mpc_fleet_step_boxddp if fleet else make_mpc_step_boxddp
+    return make(problem["f"], problem["get_AB"], problem["cost"], problem["get_Cs"], -MPC_BOX_U,
+                MPC_BOX_U, n_iters=3, riccati=riccati)
 
 
 def mpc_box_state(problem):
@@ -3293,29 +3315,35 @@ def mpc_box_state(problem):
                     device=x0.device)
 
 
+def mpc_box_fleet(problem, batch=MPC_FLEET):
+    """The boxDDP fleet's x0 ~ N(0, 0.3^2) from default_rng(0) and its
+    initial states."""
+    x0 = problem["x0"]
+    x0s = torch.tensor(np.random.default_rng(0).normal(0, 0.3, size=(batch, 2)), dtype=x0.dtype,
+                       device=x0.device)
+    zeros = torch.zeros((MPC_BOX_N, 1), dtype=x0.dtype, device=x0.device)
+    states = vmap(lambda a: mpc_init(problem["f"], a, zeros, device=x0.device))(x0s)
+    return x0s, states
+
+
 def _window_sizes(n_ticks, windows=MPC_WINDOWS):
     return [n_ticks // windows + (i < n_ticks % windows) for i in range(windows)]
 
 
-def mpc_closed_loop(step, plant, state, x0, n_ticks):
-    """`run_mpc` over n_ticks in MPC_WINDOWS windows, the state carried
-    across; each window on the host clock with a synchronize at its ends
-    and no host read inside. Returns (xs, us, ms a tick of each window,
-    host reads of stop flags)."""
+def mpc_closed_loop(step, plant, state, x0, n_ticks, graph=False):
+    """`run_mpc(graph=graph)` over n_ticks on the host clock, with a
+    synchronize at its ends; the captured loop's capture (its warm-up tick
+    included) is taken out of its time. Returns (xs, us, ms a tick, the
+    capture's seconds, synchronizing CUDA calls, stop-flag reads)."""
     device = x0.device
-    xs_all, us_all, ms = [], [], []
-    x = x0
-    reads0 = admm_solver.host_sync_count
-    for n in _window_sizes(n_ticks):
-        sync(device)
-        t0 = time.perf_counter()
-        xs, us, state = run_mpc(plant, step, state, x, n)
-        x = plant(xs[-1], us[-1])
-        sync(device)
-        ms.append((time.perf_counter() - t0) * 1e3 / n)
-        xs_all.append(xs)
-        us_all.append(us)
-    return torch.cat(xs_all), torch.cat(us_all), ms, admm_solver.host_sync_count - reads0
+    stats = {}
+    sync(device)
+    t0 = time.perf_counter()
+    (xs, us, _), syncs, flags = _card_syncs(
+        lambda: run_mpc(plant, step, state, x0, n_ticks, graph=graph, stats=stats))
+    sync(device)
+    capture = stats.get("capture_seconds", 0.0)
+    return xs, us, (time.perf_counter() - t0 - capture) * 1e3 / n_ticks, capture, syncs, flags
 
 
 def mpc_served(step, plant, state, x, n_ticks):
@@ -3348,47 +3376,6 @@ def _stop_flags_read():
         yield
 
 
-def mpc_graph(step, plant, state, x0):
-    """A CUDA graph of one closed-loop tick on static buffers: each replay
-    runs the tick and the plant and writes the new state and x over the
-    old. A capture that fails raises. Returns (graph, the static x, the
-    static u of the last replay, the static state)."""
-    static = type(state)(*(t.clone() for t in state))
-    x_s = x0.clone()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up: workspaces, caches, handles
-        step(static, x_s)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        u, new = step(static, x_s)
-        x_next = plant(x_s, u)
-        for old, t in zip(static, new):
-            old.copy_(t)
-        x_s.copy_(x_next)
-    return graph, x_s, u, static
-
-
-def mpc_graph_loop(graph, x_s, u_s, n_ticks):
-    """n_ticks replays in MPC_WINDOWS windows, each x and u copied to a log
-    on the device. Returns (xs, us, ms a tick of each window)."""
-    xs = torch.empty((n_ticks,) + tuple(x_s.shape), dtype=x_s.dtype, device=x_s.device)
-    us = torch.empty((n_ticks,) + tuple(u_s.shape), dtype=u_s.dtype, device=u_s.device)
-    ms, t = [], 0
-    for n in _window_sizes(n_ticks):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            xs[t].copy_(x_s)
-            graph.replay()
-            us[t].copy_(u_s)
-            t += 1
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3 / n)
-    return xs, us, ms
-
-
 def _ms(label, ms):
     med, q1, q3 = _median_iqr(ms)
     return f"{label + ' ' if label else ''}{med:.3f} ms a tick (IQR {q1:.3f}-{q3:.3f}; {', '.join(f'{v:.3f}' for v in ms)})"
@@ -3401,11 +3388,11 @@ def _park_error(xs, us, problem):
     return float(torch.linalg.norm(x_end[:2] - target))
 
 
-def _mpc_car_gates(xs, us, problem):
+def _mpc_car_gates(xs, us, problem, bounded=True):
     u_max = float(us.abs().max())
     park = _park_error(xs, us, problem)
     failures = []
-    if not u_max <= MPC_U_MAX + MPC_U_TOL:
+    if bounded and not u_max <= MPC_U_MAX + MPC_U_TOL:
         failures.append(f"max|u| {u_max:.6f} > {MPC_U_MAX} + {MPC_U_TOL:g}")
     if not park <= MPC_PARK_TOL:
         failures.append(f"parked {park:.4f} from the target > {MPC_PARK_TOL}")
@@ -3413,24 +3400,35 @@ def _mpc_car_gates(xs, us, problem):
 
 
 def mpc_loops(step, plant, state, x0, n_ticks, label):
-    """The closed loops of one tick from one start: MPC_EAGER_TICKS ticks
-    through `run_mpc` with no host read between them (the launch counters
-    set to 0 before, read after), then a CUDA graph of the tick replayed
-    n_ticks times, whose first ticks must be the eager loop's. Returns
-    (xs, us of the graph's loop, eager ms a tick by window, graph ms a
-    tick by window)."""
+    """The closed loops of one tick from one start, through the library:
+    `run_mpc(graph=True)` over n_ticks, then `run_mpc(graph=False)` over
+    MPC_EAGER_TICKS (the launch counters set to 0 before it, read after;
+    its synchronizing CUDA calls and stop-flag reads counted), whose ticks
+    the captured loop's first must match within MPC_GRAPH_TOL. The
+    captured loop runs first, so its warm-up makes the tick's constants
+    and neither loop times that. Each loop's graph is freed when its call
+    returns. Returns (xs, us of the captured loop, eager ms a tick,
+    captured ms a tick)."""
+    xs, us, gms, capture, gsyncs, gflags = mpc_closed_loop(step, plant, state, x0, n_ticks,
+                                                           graph=True)
     reset_launch_counts()
-    exs, eus, ems, reads = mpc_closed_loop(step, plant, state, x0, MPC_EAGER_TICKS)
+    _, eus, ems, _, syncs, flags = mpc_closed_loop(step, plant, state, x0, MPC_EAGER_TICKS)
     counts = launch_counts()
-    check(reads == 0, f"mpc {label}: {reads} host reads in the closed loop")
-    graph, x_s, u_s, _ = mpc_graph(step, plant, state, x0)
-    xs, us, gms = mpc_graph_loop(graph, x_s, u_s, n_ticks)
+    check(syncs == 0 and flags == 0 and gflags == 0,
+          f"mpc {label}: {syncs} synchronizing CUDA calls and {flags + gflags} stop-flag reads in "
+          "the closed loop")
     du = float((us[:MPC_EAGER_TICKS] - eus).abs().max())
-    print(f"[mpc] {label}: {_ms(f'eager closed loop ({MPC_EAGER_TICKS} ticks, no host read)', ems)}"
-          f"; host reads of stop flags {reads}; kernel launches {sum(counts.values())} (no TPU "
-          f"kernel lies on this path); {_ms(f'one CUDA graph of the tick replayed {n_ticks} times', gms)}"
-          f"; max |du| of its first {MPC_EAGER_TICKS} ticks against the eager loop {du:.3e}")
+    same = "bit for bit" if torch.equal(us[:MPC_EAGER_TICKS], eus) else "not bit for bit"
+    print(f"[mpc] {label}: run_mpc(graph=True) {gms:.3f} ms a tick over {n_ticks} ticks (its "
+          f"capture {capture:.3f} s, a warm-up tick included, not in that time); "
+          f"run_mpc(graph=False) {ems:.3f} ms a tick over {MPC_EAGER_TICKS} ticks, {syncs} "
+          f"synchronizing CUDA calls and {flags} stop-flag reads (captured loop {gflags}); kernel "
+          f"launches {sum(counts.values())} (no TPU kernel lies on this path); max |du| of the "
+          f"first {MPC_EAGER_TICKS} ticks against the eager loop {du:.3e} ({same}; gate "
+          f"{MPC_GRAPH_TOL:g})")
     check(du <= MPC_GRAPH_TOL, f"mpc {label}: the graph's ticks differ from the eager ones by {du}")
+    gc.collect()
+    torch.cuda.empty_cache()
     return xs, us, ems, gms
 
 
@@ -3447,76 +3445,112 @@ def _f32_then_f64(run, label):
         print(f"[mpc] {label}: f32 misses the gates; the loops run again in f64")
 
 
+def _tick_name(tick):
+    return "iLQR tick (examples/mpc_car.py)" if tick == MPC_ILQR else f"{tick} tick"
+
+
 def phase_mpc_car(device, card):
-    """Each tick of bench_mpc.py on one controller, f32 (f64 where f32
-    misses a gate, labelled): `mpc_loops` over MPC_TICKS ticks, gated on
-    the graph's loop (max|u|, parking within 0.05), then the per-tick
-    serving loop with its u readback, and the same with every stop flag
-    read on the host."""
+    """Each car tick on one controller, f32 (f64 where f32 misses a gate,
+    labelled): `mpc_loops` over MPC_TICKS ticks, gated on the captured
+    loop (max|u| for the bounded ticks, parking within 0.05), then the
+    per-tick serving loop with its u readback, and for the constrained
+    ticks the same with every stop flag read on the host."""
     out = {}
-    for tick in MPC_TICK_KW:
+    for tick in MPC_CAR_TICKS:
+        bounded = tick != MPC_ILQR
+
         def run(dtype):
             problem = mpc_problem(device, dtype)
             step, plant = mpc_step(problem, tick), problem["car"].step
-            label = f"car {tick} tick, {str(dtype).replace('torch.', '')}"
-            xs, us, ems, gms = mpc_loops(step, plant, mpc_state(problem), problem["x0"], MPC_TICKS,
-                                         label)
-            print(f"[mpc] {label}: max|u| {float(us.abs().max()):.6f} (bound {MPC_U_MAX}), parked "
+            label = f"car {_tick_name(tick)}, {str(dtype).replace('torch.', '')}"
+            xs, us, ems, gms = mpc_loops(step, plant, mpc_state(problem, tick), problem["x0"],
+                                         MPC_TICKS, label)
+            print(f"[mpc] {label}: max|u| {float(us.abs().max()):.6f} "
+                  f"({f'bound {MPC_U_MAX}' if bounded else 'no bound'}), parked "
                   f"{_park_error(xs, us, problem):.5f} from (2, 1) after {MPC_TICKS} ticks (gate "
                   f"{MPC_PARK_TOL}); card: {card}")
             return (problem, step, ems, gms, str(dtype).replace("torch.", "")), \
-                _mpc_car_gates(xs, us, problem)
+                _mpc_car_gates(xs, us, problem, bounded)
 
-        problem, step, ems, gms, dtype = _f32_then_f64(run, f"car {tick} tick")
-        plant, label = problem["car"].step, f"car {tick} tick, {dtype}"
-        served, served_u, served_reads = mpc_served(step, plant, mpc_state(problem), problem["x0"],
-                                                    MPC_EAGER_TICKS)
-        with _stop_flags_read():
-            read_ms, _, read_reads = mpc_served(step, plant, mpc_state(problem), problem["x0"],
-                                                MPC_EAGER_TICKS)
-        check(served_u <= MPC_U_MAX + MPC_U_TOL, f"mpc {label}: served max|u| {served_u}")
-        print(f"[mpc] {label}: {_ms('served (a host call and the u readback a tick)', served)}, "
-              f"{served_reads:g} host reads a tick; with every stop flag read on the host "
-              f"{_ms('', read_ms)}, {read_reads:g} reads a tick; card: {card}")
-        out[tick] = dict(eager=ems, graph=gms, served=served, served_reads=read_ms, dtype=dtype)
+        problem, step, ems, gms, dtype = _f32_then_f64(run, f"car {_tick_name(tick)}")
+        plant, label = problem["car"].step, f"car {_tick_name(tick)}, {dtype}"
+        served, served_u, served_reads = mpc_served(step, plant, mpc_state(problem, tick),
+                                                    problem["x0"], MPC_EAGER_TICKS)
+        check(not bounded or served_u <= MPC_U_MAX + MPC_U_TOL,
+              f"mpc {label}: served max|u| {served_u}")
+        line = (f"[mpc] {label}: {_ms('served (a host call and the u readback a tick)', served)}, "
+                f"{served_reads:g} host reads a tick")
+        out[tick] = dict(eager=ems, graph=gms, served=served, dtype=dtype)
+        if bounded:
+            with _stop_flags_read():
+                read_ms, _, read_reads = mpc_served(step, plant, mpc_state(problem, tick),
+                                                    problem["x0"], MPC_EAGER_TICKS)
+            line += f"; with every stop flag read on the host {_ms('', read_ms)}, {read_reads:g} reads a tick"
+            out[tick]["served_reads"] = read_ms
+        print(f"{line}; card: {card}")
     return out
 
 
+def _fleet_against_singles(fleet_step, single_step, states, x0s, f, label, relative=False):
+    """The fleet's first MPC_COMPARE controllers against as many single
+    ticks over MPC_COMPARE_TICKS ticks, each on its own plant f: max |du|
+    within MPC_COMPARE_TOL, times max(1, max|u|) where relative (the
+    unbounded iLQR tick, whose first controls reach ~17)."""
+    sub = type(states)(*(t[:MPC_COMPARE] for t in states))
+    singles = [type(states)(*(t[i] for t in states)) for i in range(MPC_COMPARE)]
+    xf, xi = x0s[:MPC_COMPARE], list(x0s[:MPC_COMPARE])
+    du, u_max = 0.0, 0.0
+    for _ in range(MPC_COMPARE_TICKS):
+        uf, sub = fleet_step(sub, xf)
+        for i in range(MPC_COMPARE):
+            ui, singles[i] = single_step(singles[i], xi[i])
+            du = max(du, float((uf[i] - ui).abs().max()))
+            u_max = max(u_max, float(ui.abs().max()))
+            xi[i] = f(xi[i], ui)
+        xf = vmap(f)(xf, uf)
+    tol = MPC_COMPARE_TOL * (max(1.0, u_max) if relative else 1.0)
+    print(f"[mpc] {label}: the fleet of {MPC_COMPARE} against {MPC_COMPARE} single ticks over "
+          f"{MPC_COMPARE_TICKS} ticks: max |du| {du:.3e} (gate {tol:g}; max|u| {u_max:.4f})")
+    check(du <= tol, f"mpc fleet {label}: {du:.3e} from the single ticks")
+
+
 def phase_mpc_fleet(device, card):
-    """The fleet of MPC_FLEET controllers in each tick, f32: `mpc_loops`
-    over MPC_TICKS ticks (gated: max|u|), ms a fleet tick and
-    controller-ticks/s; then the first MPC_COMPARE controllers against as
-    many single ticks over MPC_COMPARE_TICKS ticks."""
+    """The fleet of MPC_FLEET controllers in each car tick, f32:
+    `mpc_loops` over MPC_TICKS ticks (gated: max|u| for the bounded ticks,
+    finite states), ms a fleet tick and controller-ticks/s; then the
+    first MPC_COMPARE controllers against as many single ticks."""
     problem = mpc_problem(device)
     plant = vmap(problem["car"].step)
-    x0s, states = mpc_fleet(problem)
     out = {}
-    for tick in MPC_TICK_KW:
+    for tick in MPC_CAR_TICKS:
+        x0s, states = mpc_fleet(problem, tick)
         step = mpc_step(problem, tick, fleet=True)
-        label = f"fleet of {MPC_FLEET}, {tick} tick, f32"
+        label = f"fleet of {MPC_FLEET}, {_tick_name(tick)}, f32"
         xs, us, ems, gms = mpc_loops(step, plant, states, x0s, MPC_TICKS, label)
         u_max = float(us.abs().max())
-        rates = [MPC_FLEET / _median_iqr(v)[0] * 1e3 for v in (ems, gms)]
-        print(f"[mpc] {label}: {rates[0]:.1f} controller-ticks/s eager, {rates[1]:.1f} as a graph; "
-              f"max|u| {u_max:.6f} (bound {MPC_U_MAX}); card: {card}")
-        check(u_max <= MPC_U_MAX + MPC_U_TOL, f"mpc {label}: max|u| {u_max}")
-        check(bool(torch.isfinite(xs).all()), f"mpc {label}: non-finite states")
+        park = torch.linalg.norm(plant(xs[-1], us[-1])[:, :2]
+                                 - torch.tensor(MPC_TARGET, device=xs.device), dim=-1)
+        print(f"[mpc] {label}: {MPC_FLEET / ems * 1e3:.1f} controller-ticks/s eager, "
+              f"{MPC_FLEET / gms * 1e3:.1f} as run_mpc(graph=True); max|u| {u_max:.6f} "
+              f"({f'bound {MPC_U_MAX}' if tick != MPC_ILQR else 'no bound'}); distance to (2, 1) "
+              f"after {MPC_TICKS} ticks (not gated for a fleet, as in bench_mpc.py): median "
+              f"{float(park.median()):.4f}, max {float(park.max()):.4f} (controller "
+              f"{int(park.argmax())}), {int((park > MPC_PARK_TOL).sum())} over {MPC_PARK_TOL}; "
+              f"card: {card}")
+        check(tick == MPC_ILQR or u_max <= MPC_U_MAX + MPC_U_TOL, f"mpc {label}: max|u| {u_max}")
+        check(bool(torch.isfinite(xs).all() and torch.isfinite(us).all()),
+              f"mpc {label}: non-finite states or controls")
         out[tick] = dict(eager=ems, graph=gms)
-        single = mpc_step(problem, tick)
-        sub = type(states)(*(t[:MPC_COMPARE] for t in states))
-        singles = [type(states)(*(t[i] for t in states)) for i in range(MPC_COMPARE)]
-        xf, xi = x0s[:MPC_COMPARE], list(x0s[:MPC_COMPARE])
-        du = 0.0
-        for _ in range(MPC_COMPARE_TICKS):
-            uf, sub = step(sub, xf)
-            for i in range(MPC_COMPARE):
-                ui, singles[i] = single(singles[i], xi[i])
-                du = max(du, float((uf[i] - ui).abs().max()))
-                xi[i] = problem["car"].step(xi[i], ui)
-            xf = plant(xf, uf)
-        print(f"[mpc] {tick} tick: the fleet of {MPC_COMPARE} against {MPC_COMPARE} single ticks "
-              f"over {MPC_COMPARE_TICKS} ticks: max |du| {du:.3e} (gate {MPC_COMPARE_TOL:g})")
-        check(du <= MPC_COMPARE_TOL, f"mpc fleet {tick}: {du:.3e} from the single ticks")
+        if tick == MPC_ILQR:
+            # f32 rounding moves the unbounded tick's line-search picks between the
+            # batched and the single ticks (1.2e-3 at max|u| 16 on the CPU): compare in f64
+            p64 = mpc_problem(device, torch.float64)
+            x64, s64 = mpc_fleet(p64, tick, batch=MPC_COMPARE)
+            _fleet_against_singles(mpc_step(p64, tick, fleet=True), mpc_step(p64, tick), s64, x64,
+                                   p64["car"].step, f"{_tick_name(tick)}, f64", relative=True)
+        else:
+            _fleet_against_singles(step, mpc_step(problem, tick), states, x0s,
+                                   problem["car"].step, _tick_name(tick))
     return out
 
 
@@ -3538,10 +3572,13 @@ def _box_gates(xs, us, riccati):
 
 
 def phase_mpc_boxddp(device, card):
-    """The boxDDP tick of tests/test_mpc.py:117-181 with each backward, f32
-    (f64 where f32 misses a gate, labelled): `mpc_loops` over
-    MPC_BOX_TICKS ticks with the test's gates on the graph's loop, and
-    the served loop."""
+    """The boxDDP tick of tests/test_mpc.py:117-181 with each backward: on
+    one controller, f32 (f64 where f32 misses a gate, labelled),
+    `mpc_loops` over MPC_BOX_TICKS ticks with the test's gates on the
+    captured loop, and the served loop; then as a fleet of MPC_FLEET from
+    x0 ~ N(0, 0.3^2) (`make_mpc_fleet_step_boxddp`, f32): max|u| <= 3
+    exactly, finite states, the spread of the final positions, and the
+    first MPC_COMPARE controllers against as many single ticks."""
     out = {}
     for riccati in MPC_BOX_RICCATI:
         def run(dtype):
@@ -3561,6 +3598,27 @@ def phase_mpc_boxddp(device, card):
         check(served_u <= MPC_BOX_U, f"mpc {label}: served max|u| {served_u}")
         print(f"[mpc] {label}: {_ms('served', served)}; card: {card}")
         out[riccati] = dict(eager=ems, graph=gms, served=served)
+
+        problem = mpc_box_problem(device)
+        x0s, states = mpc_box_fleet(problem)
+        fleet = mpc_box_step(problem, riccati, fleet=True)
+        label = f"fleet of {MPC_FLEET}, boxDDP tick, riccati={riccati}, f32"
+        xs, us, fems, fgms = mpc_loops(fleet, vmap(problem["f"]), states, x0s, MPC_BOX_TICKS,
+                                       label)
+        u_max = float(us.abs().max())
+        final = vmap(problem["f"])(xs[-1], us[-1])[:, 0]
+        q = torch.quantile(final.double(), torch.tensor([0.0, 0.5, 1.0], dtype=torch.float64,
+                                                        device=final.device))
+        print(f"[mpc] {label}: {MPC_FLEET / fems * 1e3:.1f} controller-ticks/s eager, "
+              f"{MPC_FLEET / fgms * 1e3:.1f} as run_mpc(graph=True); max|u| {u_max:.6f} (bound "
+              f"{MPC_BOX_U}); final positions min {float(q[0]):.5f}, median {float(q[1]):.5f}, max "
+              f"{float(q[2]):.5f}; card: {card}")
+        check(u_max <= MPC_BOX_U, f"mpc {label}: max|u| {u_max} > {MPC_BOX_U}")
+        check(bool(torch.isfinite(xs).all() and torch.isfinite(us).all()),
+              f"mpc {label}: non-finite states or controls")
+        _fleet_against_singles(fleet, mpc_box_step(problem, riccati), states, x0s, problem["f"],
+                               f"boxDDP tick, riccati={riccati}")
+        out[riccati].update(fleet_eager=fems, fleet_graph=fgms)
     return out
 
 

@@ -2,7 +2,8 @@
 
 Demonstrates `solvers/mpc.py`: a shift-and-resolve MPC step (2 iLQR
 iterations per tick, no host read) tracking a target pose under process
-noise and model mismatch, plus a vmapped fleet of controllers
+noise and model mismatch, the closed loop captured as one CUDA graph on
+the card (`run_mpc(graph=True)`), plus a vmapped fleet of controllers
 (`make_mpc_fleet_step`). The PyTorch twin of `examples/mpc_car.py`, in
 float32 on the CUDA card unless `--device` names another.
 
@@ -58,7 +59,8 @@ def main(device=None):
 
     rng = np.random.default_rng(0)
     ws = torch.tensor(rng.normal(0, 2e-3, size=(n_steps, d)), **like)
-    xs, us, _ = run_mpc(plant.step, step, state, x0, n_steps, ws=ws)
+    # on the card the closed loop is one CUDA graph, replayed n_steps times
+    xs, us, _ = run_mpc(plant.step, step, state, x0, n_steps, ws=ws, graph=device.type == "cuda")
 
     final = xs[-1].cpu().numpy()
     print(f"MPC: after {n_steps} ticks the car is at {final[:2].round(3)} "

@@ -47,6 +47,13 @@ def _stage_value(qx, qu, Qxx, Qux, Quu, Kt, kt):
     return V, v
 
 
+def _blocks(Cxx, Cxu, Cux, Cuu):
+    """The (N, x+u, x+u) Hessians of their four blocks, built out of place:
+    an indexed write into a Hessian the fleet shares fails under vmap when
+    the blocks are per instance."""
+    return torch.cat([torch.cat([Cxx, Cxu], dim=-1), torch.cat([Cux, Cuu], dim=-1)], dim=-2)
+
+
 def _stack_gains(Ks, ks, m, d, like):
     """Gains collected from t = N-2 down to 0, in time order, with the
     zero final step."""
@@ -133,8 +140,7 @@ def ilqr_backward_box_parallel(A, B, Cts, cts, u_nom, u_lower, u_upper, reg=0.0,
     lo, hi = box_bounds(u_lower, m, A), box_bounds(u_upper, m, A)
     eye_m = torch.eye(m, dtype=dtype, device=device)
 
-    Cts = Cts.clone()
-    Cts[:, d:, d:] = Cts[:, d:, d:] + reg * eye_m
+    Cts = _blocks(Cts[:, :d, :d], Cts[:, :d, d:], Cts[:, d:, :d], Cts[:, d:, d:] + reg * eye_m)
     dlo = lo - u_nom  # (N, m) increment bounds
     dhi = hi - u_nom
     Cuu_full, Cux_full, cu_full = Cts[:, d:, d:], Cts[:, d:, :d], cts[:, d:]
@@ -149,11 +155,8 @@ def ilqr_backward_box_parallel(A, B, Cts, cts, u_nom, u_lower, u_upper, reg=0.0,
         cu_eff = (cu_full + torch.einsum("tij,tj->ti", Cuu_full, c)) * F
         cx_eff = cts[:, :d] + torch.einsum("tji,tj->ti", Cux_full, c)
         B_eff = B * F[:, None, :]
-        Cts_eff = Cts.clone()
-        Cts_eff[:, d:, d:] = (Cuu_full * F[:, :, None] * F[:, None, :]
-                              + eye_m * (1.0 - F)[:, :, None])
-        Cts_eff[:, d:, :d] = Cux_full * F[:, :, None]
-        Cts_eff[:, :d, d:] = Cts[:, :d, d:] * F[:, None, :]
+        Cts_eff = _blocks(Cts[:, :d, :d], Cts[:, :d, d:] * F[:, None, :], Cux_full * F[:, :, None],
+                          Cuu_full * F[:, :, None] * F[:, None, :] + eye_m * (1.0 - F)[:, :, None])
         K, k, J, eta = backward(
             A, B_eff, Cts_eff, torch.cat([cx_eff, cu_eff], dim=-1), return_value=True,
             drift=drift, fast_inverse=fast)

@@ -45,13 +45,15 @@ def bind(fn: Callable, extra) -> Callable:
 
 def _graphed(iteration: Callable, state: tuple) -> tuple[Callable, tuple]:
     """Capture iteration(*state) -> (*state', flag) as a CUDA graph whose
-    replay writes the new state over static copies of `state`. Returns
-    (replay() -> the static flag, the static state)."""
+    replay writes the new state over static copies of `state` (an element
+    the iteration writes in place and returns is kept as it is). The
+    warm-up runs on copies, so the static state is `state` at the first
+    replay. Returns (replay() -> the static flag, the static state)."""
     static = tuple(t.clone() for t in state)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up: workspaces, handles, lazily made constants
-        iteration(*static)
+        iteration(*(t.clone() for t in static))
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):

@@ -13,18 +13,22 @@ No tick reads the device on the host: the iterations are bounded and
 the constrained tick's tolerances are 0, so no stop test can pass and
 none is read (`admm.can_stop`, `ilqr_admm.outer_can_stop`). `run_mpc`
 therefore runs its ticks back to back with the host never waiting on the
-card, as the JAX package's `lax.scan`, and a tick can be captured as a
-CUDA graph.
+card, and with graph=True (CUDA) it captures one closed-loop iteration,
+the tick, the plant, the noise and the log writes, as a CUDA graph and
+replays it n_steps times: the counterpart of the JAX package's
+`lax.scan`.
 
 Where the JAX package vmaps a tick over a fleet of controllers, the port
 has a fleet form with a leading fleet axis on every state tensor:
-`make_mpc_fleet_step` (`torch.func.vmap` of the DP tick) and
-`make_mpc_fleet_step_constrained` (through `ilqr_admm_fleet`). `run_mpc`
-drives either with a plant that takes the fleet's rows.
+`make_mpc_fleet_step` and `make_mpc_fleet_step_boxddp` (`torch.func.vmap`
+of the DP and boxDDP ticks) and `make_mpc_fleet_step_constrained`
+(through `ilqr_admm_fleet`). `run_mpc` drives each with a plant that
+takes the fleet's rows.
 """
 
 from __future__ import annotations
 
+import time
 from functools import partial
 from typing import Callable, NamedTuple
 
@@ -36,6 +40,7 @@ from ilqr_admm_tpu_torch.ops.rollout import rollout_nonlinear
 from ilqr_admm_tpu_torch.problem import ILQRConfig, SolveStatus, line_search_alphas
 from ilqr_admm_tpu_torch.solvers.batched_ilqr_admm import ilqr_admm_fleet
 from ilqr_admm_tpu_torch.solvers.boxddp import boxddp_iterate
+from ilqr_admm_tpu_torch.solvers.fleet import _graphed
 from ilqr_admm_tpu_torch.solvers.ilqr import ILQRState, ilqr_iterate_dp
 from ilqr_admm_tpu_torch.solvers.ilqr_admm import _to_device, ilqr_admm
 from ilqr_admm_tpu_torch.utils.device import resolve_device
@@ -247,24 +252,79 @@ def make_mpc_step_boxddp(f: Callable, get_AB: Callable, cost_fn: Callable, get_C
     return step
 
 
-def run_mpc(f_plant: Callable, mpc_step: Callable, state, x0, n_steps: int, ws=None):
+def make_mpc_fleet_step_boxddp(f: Callable, get_AB: Callable, cost_fn: Callable,
+                               get_Cs: Callable, u_lower, u_upper, *args, **kwargs):
+    """The boxDDP tick for a fleet of controllers, `torch.func.vmap` of
+    `make_mpc_step_boxddp`'s tick (the counterpart of `jax.vmap` of the
+    JAX tick): (state with (F, N, .) fields, x_measured (F, d)) ->
+    (u_apply (F, m), state'). The arguments are `make_mpc_step_boxddp`'s;
+    f, get_AB, get_Cs and cost_fn must work under vmap, and the bounds
+    are shared by the fleet."""
+    return vmap(make_mpc_step_boxddp(f, get_AB, cost_fn, get_Cs, u_lower, u_upper, *args,
+                                     **kwargs))
+
+
+def _closed_loop_iteration(f_plant: Callable, mpc_step: Callable, kind, ws):
+    """One closed-loop tick as a function of the carry (x, t, xs, us,
+    *state fields) -> (x', t + 1, xs, us, *state', t): the tick from the
+    measured x, x and u written into the logs at the tick counter t (a
+    0-d int64 tensor on the device), the plant and ws[t]. The logs are
+    written in place, and nothing is read on the host."""
+    def iteration(x, t, xs, us, *fields):
+        u, state = mpc_step(kind(*fields), x)
+        at = t.reshape(1)
+        xs.index_copy_(0, at, x.unsqueeze(0))
+        us.index_copy_(0, at, u.unsqueeze(0))
+        x = f_plant(x, u)
+        if ws is not None:
+            x = x + ws.index_select(0, at)[0]
+        return (x, t + 1, xs, us, *state, t)
+
+    return iteration
+
+
+def run_mpc(f_plant: Callable, mpc_step: Callable, state, x0, n_steps: int, ws=None, *,
+            graph: bool = False, stats: dict | None = None):
     """Closed-loop MPC on a (possibly different) plant: n_steps ticks back
     to back, with no host read between them.
 
     f_plant may differ from the model of mpc_step (model mismatch,
-    disturbance studies); ws is optional (n_steps, d) additive noise. With
-    a fleet tick, x0 is (F, d) and f_plant takes the fleet's rows. Runs
-    where the state lies. Returns (xs (n_steps, ..., d), us (n_steps, ...,
-    m), final state).
+    disturbance studies); ws is optional (n_steps, d) additive noise
+    ((n_steps, F, d) for a fleet), moved to the device once. With a fleet
+    tick, x0 is (F, d) and f_plant takes the fleet's rows. Runs where the
+    state lies. Returns (xs (n_steps, ..., d), us (n_steps, ..., m), final
+    state), xs[t] the state tick t measured.
+
+    graph=True (CUDA only) captures one iteration, the tick, the plant,
+    the noise and the log writes, as a CUDA graph and replays it n_steps
+    times (`fleet._graphed`; a capture that fails raises): the same
+    kernels on the same inputs as the eager loop, without the host's
+    per-op cost. stats, if given, receives 'capture_seconds' (the host
+    time of the warm-up and the capture).
     """
     device = state.x_nom.device
+    if graph and device.type != "cuda":
+        raise ValueError(f"graph=True captures a CUDA graph; the state is on {device}")
     x, ws = _to_device(x0, device), _to_device(ws, device)
-    xs, us = [], []
-    for t in range(n_steps):
-        u, state = mpc_step(state, x)
-        xs.append(x)
-        us.append(u)
-        x = f_plant(x, u)
-        if ws is not None:
-            x = x + ws[t]
-    return torch.stack(xs), torch.stack(us), state
+    xs = torch.empty((n_steps,) + tuple(x.shape), dtype=x.dtype, device=device)
+    us = torch.empty((n_steps,) + tuple(x.shape[:-1]) + (state.u_nom.shape[-1],),
+                     dtype=state.u_nom.dtype, device=device)
+    if n_steps == 0:
+        return xs, us, state
+    kind = type(state)
+    iteration = _closed_loop_iteration(f_plant, mpc_step, kind, ws)
+    carry = (x, torch.zeros((), dtype=torch.int64, device=device), xs, us, *state)
+    capture = 0.0
+    if graph:
+        t0 = time.perf_counter()
+        replay, carry = _graphed(iteration, carry)
+        capture = time.perf_counter() - t0
+    for _ in range(n_steps):
+        if graph:
+            replay()
+        else:
+            *carry, _ = iteration(*carry)
+    _, _, xs, us, *fields = carry
+    if stats is not None:
+        stats["capture_seconds"] = stats.get("capture_seconds", 0.0) + capture
+    return xs, us, kind(*fields)
