@@ -26,6 +26,11 @@ Drives the port's paths on the card:
   exit at 3e-3 every 16 iterations, fleet sorted by bound), and its
   consensus configuration with uncertainty on both initial-state
   components (robust_dim 2: p1 = 3 slabs, two SOC sets of q = 4 rows);
+- the same fleet refined to N = 400 (a 400 Hz plan: Nm = 400, past the
+  `sls_admm` kernel's Nm = 224; 400 iterations, which the oracle gap
+  needs at this width), whose loop is the wide route `sls_admm_wide` (W
+  streamed from L2 as wgmma A fragments), and a consensus shape without
+  a build of its own (the general z-update) on both routes;
 - the blocked time-parallel LQT Riccati backward pass of
   `benchmarks/bench_parallel_riccati.py` (2-D double integrator, dt =
   0.01, Q = 100 I, R = 0.01 I, N = 10,000, nb = 128 blocks) through
@@ -313,7 +318,13 @@ from ilqr_admm_tpu_torch.ops.fused_rollout import (
     linesearch_rollout_reference,
     make_fused_linesearch_rollout,
 )
-from ilqr_admm_tpu_torch.ops.fused_sls import make_fused_sls_admm, sls_admm, sls_admm_reference
+from ilqr_admm_tpu_torch.ops.fused_sls import (
+    make_fused_sls_admm,
+    sls_admm,
+    sls_admm_reference,
+    sls_wide_k_steps,
+    sls_wide_tiles,
+)
 from ilqr_admm_tpu_torch.ops.parallel_riccati import (
     lqt_backward_parallel,
     rollout_closed_loop_parallel,
@@ -487,6 +498,27 @@ C_COEF = PSI_INV * SIGMA
 SLS_FIXED_TOL = 1e-4  # times max(1, max|U|)
 SLS_EARLY_EXIT_TOL = 2e-3
 SLS_MODES = ("diamond", "diamond_ee", "consensus")
+# iterations of the consensus kernel-vs-plain cases (the solves' 200 before
+# the wide route's phases, cut for the run's length)
+SLS_COMPARE_CONS_ITERS = 50
+# The wide route (csrc/sls_admm_wide.cu): the bench's 1-D problem refined
+# to N = 400 (dt = 1/400, Nm = 400: W 640 KB, past the narrow kernel's
+# Nm = 224), and the route's edge at p1 = 2 checked at Nm = 1,024; a
+# consensus shape without a build of its own (the general z-update)
+SLS_WIDE_N = 400
+SLS_WIDE_EDGE = 1024
+SLS_GENERAL_SHAPE = (3, 3, 4)
+SLS_WIDE_CONS_ITERS = 20  # the consensus compares' iterations (their plain loops' length)
+SLS_WIDE_N_ORACLE = 2
+# worker processes of the bench fleet's 8-instance oracle, which runs
+# beside the card's phases (ORACLE_WORKERS when it held the run up)
+SLS_CERT_WORKERS = 4
+SLS_WIDE_MODE = "diamond_ee"  # the wide main path's z-update (the bench's serving mode)
+# the wide main path's iterations: at N = 400 the bench's 200 leave the
+# f32 plain version's median oracle gap at 1.02e-4 (16 instances) and
+# 1.09e-4 (instances 0 and 1,023 of the 1,024, fixed schedule), over the
+# 1e-4 gate; 400 reach 8.8e-5 (on a CPU, the f64 trust-constr oracle)
+SLS_WIDE_ITERS = 400
 
 # The time-parallel Riccati of benchmarks/bench_parallel_riccati.py:36-44:
 # the 2-D double integrator at dt = 0.01, Q = 100 I, R = 0.01 I, xd = 0
@@ -786,6 +818,9 @@ LINALG_TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 
 # Published peaks of one H100 SXM: f32 outside the tensor cores, dense
 # TF32 on the tensor cores, and HBM3
+# the run's length varies up to 1.3x between hosts: the [phases] line
+# prints the estimate for the slowest seen
+SLOW_HOST = 1.3
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -850,9 +885,31 @@ def soc_sets_2d():
     return [A_hi, A_lo], [b_fixed, b_fixed], [b_bound, b_bound]
 
 
-def sls_bounds(device, batch: int = SLS_BATCH, seed: int = 0, sort: bool = False):
-    """Scenario bounds ~ U(2, 4) (binding: the unconstrained |du| peaks near 4-5)."""
-    b = np.random.default_rng(seed).uniform(2.0, 4.0, batch).astype(np.float32)
+def chance_sets(p1: int, n_sets: int, q: int, seed: int = 0):
+    """n_sets SOC sets of q rows on rows phi = [du | p1 - 1 feedback
+    columns]: set i is ||G_i phi_fb|| <= bound / psi -+ du / psi (the sign
+    alternating), G_i (q - 1, p1 - 1) with entries sigma N(0, 1) from
+    default_rng(seed): A_i = [0 | G_i; -+e0^T / psi], b_fixed = 0, b_bound
+    = e_{q-1} / psi. With one set, or two of q = 3 and G = [0; sigma],
+    the shape of `soc_sets`. (soc_A, soc_b_fixed, soc_b_bound)."""
+    rng = np.random.default_rng(seed)
+    soc_A, b_fixed, b_bound = [], [], []
+    for i in range(n_sets):
+        G = np.zeros((q - 1, p1))
+        G[:, 1:] = SIGMA * rng.normal(size=(q - 1, p1 - 1))
+        t = np.zeros((1, p1))
+        t[0, 0] = (-1.0 if i % 2 == 0 else 1.0) / PSI_INV
+        soc_A.append(np.concatenate([G, t]))
+        b_fixed.append(np.zeros(q))
+        b_bound.append(np.eye(q)[-1] / PSI_INV)
+    return soc_A, b_fixed, b_bound
+
+
+def sls_bounds(device, batch: int = SLS_BATCH, seed: int = 0, sort: bool = False,
+               hi: float = 4.0):
+    """Scenario bounds ~ U(2, hi), 4 by default (binding: the unconstrained
+    |du| peaks near 4-5; past ~5.3 a bound is slack)."""
+    b = np.random.default_rng(seed).uniform(2.0, hi, batch).astype(np.float32)
     return torch.tensor(np.sort(b) if sort else b, device=device)
 
 
@@ -883,6 +940,20 @@ def sls_robust2_solver(device, horizon: int = N, **overrides):
               n_cons_iters=SLS_CONS_ITERS, cons_rho=SLS_CONS_RHO, device=device)
     kw.update(overrides)
     return (A, B, cost), make_fused_sls_admm(A, B, cost, *soc_sets_2d(), **kw)
+
+
+def sls_general_solver(device, shape=None, horizon: int = N, **overrides):
+    """`make_fused_sls_admm` with the consensus z-update at a shape
+    (p1, n_sets, q) without a build of its own (`chance_sets`; default
+    SLS_GENERAL_SHAPE), the bench's consensus options, on the 1-D double
+    integrator (p1 <= 3) or, for p1 > 3, the planar one (d = 4: Nm =
+    2 horizon)."""
+    p1, n_sets, q = shape or SLS_GENERAL_SHAPE
+    A, B, cost, _ = via_point_problem(device, 1 if p1 <= 3 else 2, horizon, batch=1)
+    kw = dict(rho_u=SLS_RHO_U, robust_dim=p1 - 1, n_iters=SLS_ITERS, batch_tile=SLS_TILE,
+              n_cons_iters=SLS_CONS_ITERS, cons_rho=SLS_CONS_RHO, device=device)
+    kw.update(overrides)
+    return (A, B, cost), make_fused_sls_admm(A, B, cost, *chance_sets(p1, n_sets, q), **kw)
 
 
 def wide_problem(device, batch: int = WIDE_BATCH, seed: int = 0, horizon: int = WIDE_N):
@@ -932,6 +1003,7 @@ def reset_launch_counts():
     fused_admm.box_launch_count = 0
     fused_admm.box_wide_launch_count = 0
     fused_sls.launch_count = 0
+    fused_sls.wide_launch_count = 0
     fused_riccati.scan_launch_count = 0
     fused_riccati.join_launch_count = 0
     fused_rollout.launch_count = 0
@@ -942,7 +1014,8 @@ def launch_counts() -> dict:
             "admm_u_only_wide": fused_admm.wide_launch_count,
             "admm_box": fused_admm.box_launch_count,
             "admm_box_wide": fused_admm.box_wide_launch_count,
-            "sls_admm": fused_sls.launch_count, "riccati_scan": fused_riccati.scan_launch_count,
+            "sls_admm": fused_sls.launch_count, "sls_admm_wide": fused_sls.wide_launch_count,
+            "riccati_scan": fused_riccati.scan_launch_count,
             "riccati_join": fused_riccati.join_launch_count,
             "linesearch_rollout": fused_rollout.launch_count}
 
@@ -1005,9 +1078,15 @@ def phase_build():
           f"{'found prebuilt, loaded' if prebuilt else 'built and loaded'} in {seconds:.2f} s")
     log = _build.build_dir() / "nvcc.log"
     if log.exists():
+        source = None
         for line in log.read_text().splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "entry function")):
                 print(f"[build] ptxas: {line.strip()}")
+            elif line.startswith("$ ") and " -c " in line:
+                source = Path(line.split(" -c ")[1].split()[0]).name
+            elif re.fullmatch(r"\[[0-9.]+ s\]", line) and source:
+                print(f"[build] {source} compiled in {line[1:-1]}")  # its nvcc's seconds
+                source = None
     return seconds
 
 
@@ -1372,10 +1451,8 @@ def phase_robust2(device, card):
     plain version on the same card inputs, with the kernel's 3xTF32
     products and in f32 (SLS_FIXED_TOL x max(1, max|U|)); the main path
     with the counters set to 0 and the plain version patched to raise;
-    the gates (converged_frac >= 0.99, the largest violation of a row's
-    set by U's rows <= ROBUST2_VIOLATION_TOL, the f64 oracle's cost gap on
-    2 instances, median and max <= ROBUST2_GAP_MEDIAN and _MAX); the kernel
-    and plain times and the bound."""
+    its certificate started in a worker process (`phase_robust2_certificate`
+    gates it); the kernel and plain times and the bound."""
     (A, B, cost), solver = sls_robust2_solver(device)
     bounds = sls_bounds(device, batch=SLS_BATCH)
     kw = solver.kernel_options
@@ -1383,7 +1460,14 @@ def phase_robust2(device, card):
     got = sls_admm(*ops, solver.packed, **kw)
     torch.cuda.synchronize()
     emulated = sls_admm_reference(*ops, **kw, products="tf32x3")
+    # the f32 plain version's run is also its time (one window: ~8 s a
+    # solve, ~1e4 small launches an iteration)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
     want = sls_admm_reference(*ops, **kw)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
     tol = SLS_FIXED_TOL * max(1.0, float(emulated.abs().max()))
     errs = {"3xTF32": float((got - emulated).abs().max()), "f32": float((got - want).abs().max())}
     print(f"[sls robust_dim 2 kernel vs plain] consensus p1=3 (batch {SLS_BATCH}, tile "
@@ -1407,25 +1491,14 @@ def phase_robust2(device, card):
     check(tuple(U.shape) == (SLS_BATCH, N, 3) and tuple(phi_u.shape) == (SLS_BATCH, N, 2 * N)
           and torch.equal(du, U[:, :, 0]) and torch.equal(phi_u[:, :, :2], U[:, :, 1:]),
           "unexpected robust_dim 2 outputs")
-    t0 = time.perf_counter()
-    cert = certify_sls(A, B, cost, bounds, U, C_COEF, n_oracle=ROBUST2_N_ORACLE,
-                       workers=ROBUST2_N_ORACLE)
-    print(f"[sls robust_dim 2 main path] certificates ({time.perf_counter() - t0:.1f} s): "
-          f"converged_frac {cert['converged_frac']} (||U - P(U)|| < 5e-3; max "
-          f"{cert['prim_max']:.3e}), cone violation of U's rows {cert['cone_violation']:.3e} "
-          f"(limit {ROBUST2_VIOLATION_TOL:g}; f64 on the host 2.63e-3), oracle cost gap median "
-          f"{cert['cost_gap_median']:.3e} max {cert['cost_gap_max']:.3e} on instances "
-          f"{cert['oracle_indices']} (limits {ROBUST2_GAP_MEDIAN:g}, {ROBUST2_GAP_MAX:g}; f64 on "
-          f"the host 3.29e-4, 3.33e-4)")
-    check(cert["converged_frac"] >= 0.99, f"robust_dim 2 converged_frac {cert['converged_frac']}")
-    check(cert["cone_violation"] <= ROBUST2_VIOLATION_TOL,
-          f"robust_dim 2 cone violation {cert['cone_violation']}")
-    check(cert["cost_gap_median"] <= ROBUST2_GAP_MEDIAN and cert["cost_gap_max"] <= ROBUST2_GAP_MAX,
-          f"robust_dim 2 cost gap {cert['cost_gap_median']}, {cert['cost_gap_max']}")
+    # its SLSQP oracle runs beside the next phases; `phase_robust2_certificate`
+    # gates it
+    certificate = start_sls_certificate(A, B, cost, bounds, U, n_oracle=ROBUST2_N_ORACLE,
+                                        workers=ROBUST2_N_ORACLE)
     timed = _timed({
         "kernel": (lambda: sls_admm(*ops, solver.packed, **kw), TIMING_WINDOWS, CALLS_PER_WINDOW),
-        "plain": (lambda: sls_admm_reference(*ops, **kw), 1, 1),
     })
+    timed["plain"] = (plain_ms, plain_ms, plain_ms, 1)
     for name, (med, q1, q3, n) in timed.items():
         print(f"[sls robust_dim 2 time] {name}: {med:.4f} ms per solve (IQR {q1:.4f}-{q3:.4f}, "
               f"{n} windows) = {SLS_BATCH / (med * 1e-3):.6g} syntheses/s; card: {card}")
@@ -1438,10 +1511,270 @@ def phase_robust2(device, card):
           f"({ms_mm:.4f} ms), bytes {ms_bytes:.4f} ms")
     bound_ms = max(ms_z, ms_mm, ms_bytes)
     return {"launches": launches, "max_abs_err": errs["3xTF32"], "ms": timed["kernel"][0],
+            "certificate": certificate,
             "plain_ms": timed["plain"][0], "bound_ms": bound_ms,
             "bound_by": "bytes" if ms_bytes == bound_ms else "operations",
             "bound_ops": "f32 CUDA cores (the consensus z-update)" if ms_z >= ms_mm
             else "3xTF32 tensor cores"}
+
+
+def sls_wide_solver(device, mode: str = "diamond_ee", **overrides):
+    """`sls_solver` at N = SLS_WIDE_N (Nm = 400) and SLS_WIDE_ITERS
+    iterations: the bench's 1-D problem refined to a 400 Hz plan, past
+    the narrow kernel's width, so the wide route (csrc/sls_admm_wide.cu)
+    on the card."""
+    return sls_solver(device, mode, horizon=SLS_WIDE_N,
+                      **dict(dict(n_iters=SLS_WIDE_ITERS), **overrides))
+
+
+def sls_wide_cases(device):
+    """(label, solver, bounds) of the wide kernel-vs-plain cases at Nm =
+    400: the main path's fleet (1,024 sorted, diamond_ee, SLS_WIDE_ITERS
+    iterations), the same on bounds U(2, 8), whose slack tiles leave early;
+    the fixed diamond at the bench's 200 iterations, at tiles 8 and 16;
+    the consensus z-updates (p1 = 2 and robust_dim 2's p1 = 3 builds, and
+    SLS_GENERAL_SHAPE, the general build) on the same 1,024 at
+    SLS_WIDE_CONS_ITERS iterations (their plain versions launch ~1e4 small
+    kernels an iteration); the route's edge at p1 = 2 (Nm = 1,024; 16
+    instances, 50 iterations)."""
+    fleet = sls_bounds(device, batch=SLS_BATCH)
+    short = dict(n_iters=SLS_WIDE_CONS_ITERS)
+    g = SLS_GENERAL_SHAPE
+    ee = f"{SLS_WIDE_ITERS} iterations, tile 8, sorted"
+    return [
+        (f"diamond_ee (N={SLS_WIDE_N}, batch {SLS_BATCH}, {ee})",
+         sls_wide_solver(device, "diamond_ee")[1], sls_bounds(device, SLS_BATCH, sort=True)),
+        (f"diamond_ee, bounds U(2, 8) (N={SLS_WIDE_N}, batch {SLS_BATCH}, {ee})",
+         sls_wide_solver(device, "diamond_ee")[1],
+         sls_bounds(device, SLS_BATCH, seed=6, sort=True, hi=8.0)),
+        (f"diamond (N={SLS_WIDE_N}, batch {SLS_BATCH}, {SLS_ITERS} iterations, tile 8)",
+         sls_wide_solver(device, "diamond", n_iters=SLS_ITERS)[1], fleet),
+        (f"diamond (N={SLS_WIDE_N}, batch {SLS_BATCH}, {SLS_ITERS} iterations, tile 16)",
+         sls_wide_solver(device, "diamond", n_iters=SLS_ITERS, batch_tile=16)[1], fleet),
+        (f"consensus (N={SLS_WIDE_N}, batch {SLS_BATCH}, {SLS_WIDE_CONS_ITERS} iterations)",
+         sls_wide_solver(device, "consensus", **short)[1], fleet),
+        (f"robust_dim 2 consensus p1=3 (N={SLS_WIDE_N}, batch {SLS_BATCH}, "
+         f"{SLS_WIDE_CONS_ITERS} iterations)",
+         sls_robust2_solver(device, horizon=SLS_WIDE_N, **short)[1], fleet),
+        (f"general consensus {g} (N={SLS_WIDE_N}, batch {SLS_BATCH}, {SLS_WIDE_CONS_ITERS} "
+         f"iterations)", sls_general_solver(device, horizon=SLS_WIDE_N, **short)[1], fleet),
+        (f"diamond at the edge (Nm={SLS_WIDE_EDGE}, batch 16, 50 iterations)",
+         sls_solver(device, "diamond", horizon=SLS_WIDE_EDGE, n_iters=50)[1],
+         sls_bounds(device, 16, seed=5)),
+    ]
+
+
+def phase_sls_wide_compare(device):
+    """`sls_admm` on the wide route against `sls_admm_reference` on the
+    same card inputs, with the kernel's 3xTF32 products and in f32, both
+    gated (SLS_FIXED_TOL x max(1, max|U|) on a fixed schedule,
+    SLS_EARLY_EXIT_TOL with early exit, as `phase_sls_compare` and
+    `phase_robust2`), with the iterations each early-exit tile ran. Also
+    the narrow route at the general shape (Nm = 100), whose build is new.
+    Returns the largest error against the 3xTF32 plain version."""
+    worst = 0.0
+    cases = [(label, solver, b, "sls wide compare") for label, solver, b in sls_wide_cases(device)]
+    cases.append((f"general consensus {SLS_GENERAL_SHAPE} (N={N}, batch {SLS_BATCH}, "
+                  f"{SLS_WIDE_CONS_ITERS} iterations)",
+                  sls_general_solver(device, n_iters=SLS_WIDE_CONS_ITERS)[1],
+                  sls_bounds(device, batch=SLS_BATCH), "sls compare"))
+    for label, solver, bounds, tag in cases:
+        kw = solver.kernel_options
+        ops = (bounds, solver.U_base, solver.W)
+        route = solver.route
+        check(route == ("narrow" if tag == "sls compare" else "wide"),
+              f"sls {label}: built on the {route} route")
+        got = sls_admm(*ops, solver.packed, **kw, route=route)
+        torch.cuda.synchronize()
+        plain_stats = {}
+        emulated = sls_admm_reference(*ops, **kw, products="tf32x3", stats=plain_stats)
+        want = sls_admm_reference(*ops, **kw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"sls {label}: kernel U has non-finite values")
+        errs = {"3xTF32": float((got - emulated).abs().max()),
+                "f32": float((got - want).abs().max())}
+        if kw["stop_tol"] > 0.0:
+            tol = SLS_EARLY_EXIT_TOL
+        else:
+            tol = SLS_FIXED_TOL * max(1.0, float(emulated.abs().max()))
+        worst = max(worst, errs["3xTF32"])
+        print(f"[{tag}] {label}, {route} route, p1={solver.U_base.shape[0]}: against the 3xTF32 "
+              f"plain version max|dU| {errs['3xTF32']:.3e}, against the f32 plain version "
+              f"{errs['f32']:.3e} (tolerance {tol:.3g}); 3xTF32 plain vs f32 plain "
+              f"{float((emulated - want).abs().max()):.3e}")
+        if kw["stop_tol"] > 0.0:
+            full = -(-kw["n_iters"] // kw["check_every"]) * kw["check_every"]
+            # the kernel's by `chunks_run`, the plain version's by its count
+            iters = {"kernel": sls_tile_iterations(
+                         lambda **o: sls_admm(*ops, solver.packed, **o, route=route), kw,
+                         bounds.shape[0]),
+                     "3xTF32 plain": plain_stats["tile_iterations"]}
+            for name, it in iters.items():
+                print(f"[{tag}] {label}: the {name}'s {it.numel()} tiles ran "
+                      f"{int(it.min())}-{int(it.max())} iterations, {float(it.float().mean()):.2f} "
+                      f"on average, against {full} in the fixed schedule; "
+                      f"{int((it != iters['kernel']).sum())} tiles apart from the kernel's")
+            if "U(2, 8)" in label:
+                check(int(iters["kernel"].min()) < full, f"sls {label}: no tile left early")
+        for name, err in errs.items():
+            check(err <= tol, f"sls {label}: kernel disagrees with the {name} plain version")
+    return worst
+
+
+def _sls_certificate(args, kwargs):
+    """`certify_sls(*args, **kwargs)` on the host (a worker process beside
+    the card's phases; the oracle's instances in spawned processes of their
+    own): (certificate, seconds)."""
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    return certify_sls(*args, **kwargs), time.perf_counter() - t0
+
+
+def start_sls_certificate(A, B, cost, bounds, U, **kwargs):
+    """`certify_sls` of a fleet's solve in a spawned worker process, which
+    runs beside the next phases: its future of (certificate, seconds)."""
+    args = tuple(a.detach().cpu() if isinstance(a, torch.Tensor) else a
+                 for a in (A, B, cost, bounds, U, C_COEF))
+    ctx = multiprocessing.get_context("spawn")
+    pool = concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx)
+    future = pool.submit(_sls_certificate, args, kwargs)
+    pool.shutdown(wait=False)
+    return future
+
+
+def phase_sls_wide_main_path(sls, bounds):
+    """The wide fleet (N = 400, 1,024 sorted instances, diamond_ee,
+    SLS_WIDE_ITERS iterations) through `make_fused_sls_admm` with the plain
+    version patched to raise
+    and the counters set to 0: one launch of the wide kernel, none of the
+    narrow one. Its certificate (the trust-constr oracle on 2 instances,
+    minutes an instance at Nm = 400 on a CPU) runs in a worker process
+    beside the next phases, and `phase_sls_wide_certificate` gates it.
+    Returns (launches, the certificate's future)."""
+    (A, B, cost), solver = sls
+    check(solver.route == "wide", f"the wide SLS fleet was built on the {solver.route} route")
+
+    def plain_must_not_run(*args, **kwargs):
+        raise SmokeFailure("the wide SLS main path ran the plain version of the kernel")
+
+    reset_launch_counts()
+    with _swapped(fused_sls, sls_admm_reference=plain_must_not_run):
+        du, phi_u, U = solver(bounds)
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    launches = counts["sls_admm_wide"]
+    print(f"[sls wide main path] sls_admm_wide kernel launches: {launches}; sls_admm: "
+          f"{counts['sls_admm']}; batch_tile {solver.kernel_options['batch_tile']}, Nm "
+          f"{solver.W.shape[0]}")
+    check(launches == 1 and counts["sls_admm"] == 0,
+          "the wide SLS main path did not launch sls_admm_wide once and sls_admm never")
+    Nm, batch = SLS_WIDE_N, bounds.shape[0]
+    check(tuple(du.shape) == (batch, Nm) and tuple(phi_u.shape) == (batch, Nm, 2 * Nm)
+          and tuple(U.shape) == (batch, Nm, 2), "unexpected wide SLS output shapes")
+    for name, t in (("du", du), ("phi_u", phi_u), ("U", U)):
+        check(bool(torch.isfinite(t).all()), f"wide SLS output {name} has non-finite values")
+    check(torch.equal(du, U[:, :, 0]) and torch.equal(phi_u[:, :, 0], U[:, :, 1]),
+          "phi_u is not [U's feedback column | PHI_unc's other columns]")
+    return launches, start_sls_certificate(A, B, cost, bounds, U, n_oracle=SLS_WIDE_N_ORACLE,
+                                           workers=SLS_WIDE_N_ORACLE)
+
+
+def phase_sls_wide_certificate(future):
+    """The wide fleet's certificates and the bench's gates (converged_frac
+    >= 0.99, oracle gap median <= 1e-4 and max <= 1e-3)."""
+    cert, seconds = future.result()
+    print(f"[sls wide certificate] certificates ({seconds:.1f} s, beside the phases since the "
+          f"main path): converged_frac {cert['converged_frac']} (||U - P(U)|| < 5e-3; max "
+          f"{cert['prim_max']:.3e}), oracle cost gap median {cert['cost_gap_median']:.3e} max "
+          f"{cert['cost_gap_max']:.3e} on instances {cert['oracle_indices']}")
+    failures = sls_gate_failures(cert)
+    check(not failures, "wide SLS fleet: " + "; ".join(failures))
+    return cert
+
+
+def sls_wide_bound(solver, bounds):
+    """The wide diamond_ee fleet's least time: the products of the
+    iterations its early-exit tiles ran (`sls_tile_iterations`), as 3xTF32
+    or f32, whichever is faster; bytes of bounds, U_base, W and U."""
+    kw = solver.kernel_options
+    batch = bounds.shape[0]
+    tile_iters = sls_tile_iterations(
+        lambda **o: sls_admm(bounds, solver.U_base, solver.W, solver.packed, **o, route="wide"),
+        kw, batch)
+    instance_iters = int(tile_iters.sum()) * kw["batch_tile"]
+    p1, Nm = solver.U_base.shape
+    out = bound(instance_iters * 2 * p1 * Nm * Nm,
+                nbytes(bounds, solver.U_base, solver.W) + 4 * batch * Nm * p1, products=True)
+    print(f"[sls wide bound] diamond_ee tiles ran {int(tile_iters.min())}-"
+          f"{int(tile_iters.max())} iterations, {instance_iters / batch:.2f} an instance on "
+          f"average: {out['bound_ms']:.4f} ms ({out['bound_by']}, {out['bound_ops']}); the L2 "
+          f"stream of W^T's fragments, {sls_wide_tiles(Nm) * sls_wide_k_steps(Nm) * 2048} B a "
+          f"block-iteration, {instance_iters / kw['batch_tile'] * sls_wide_tiles(Nm) * sls_wide_k_steps(Nm) * 2048 / 1e9:.4g} GB")
+    return out
+
+
+def phase_sls_wide_time(device, card):
+    """The wide kernel (CUDA events, median and IQR of windows) at 1,024
+    and 16,384 instances: the main path's diamond_ee (SLS_WIDE_ITERS
+    iterations) and, at the bench's 200, the diamond (the predictions'
+    configuration) and robust_dim 2's consensus (1,024); the plain version
+    at 1,024 (one window); 200 f32 cuBLAS products of the loop's shape as a
+    yardstick the port never calls. Returns {(mode, batch, path): ms}."""
+    result = {}
+    for mode, batches in (("diamond_ee", SLS_TIME_BATCHES), ("diamond", SLS_TIME_BATCHES),
+                          ("robust_dim 2", (SLS_BATCH,))):
+        if mode == "robust_dim 2":
+            _, solver = sls_robust2_solver(device, horizon=SLS_WIDE_N)
+        else:
+            _, solver = sls_wide_solver(
+                device, mode, n_iters=SLS_WIDE_ITERS if mode == SLS_WIDE_MODE else SLS_ITERS)
+        kw = solver.kernel_options
+        for batch in batches:
+            bounds = sls_bounds(device, batch=batch, sort=mode == "diamond_ee")
+            ops = (bounds, solver.U_base, solver.W)
+            big = batch > SLS_BATCH or mode == "robust_dim 2"
+            paths = {"kernel": (lambda: sls_admm(*ops, solver.packed, **kw, route="wide"),
+                                TIMING_WINDOWS, 2 if big else CALLS_PER_WINDOW)}
+            if batch == SLS_BATCH and mode != "robust_dim 2":
+                paths["plain"] = (lambda: sls_admm_reference(*ops, **kw), 1, 1)
+            for name, (med, q1, q3, n) in _timed(paths).items():
+                result[(mode, batch, name)] = med
+                print(f"[sls wide time] {mode}, N={SLS_WIDE_N}, {kw['n_iters']} iterations, batch "
+                      f"{batch}, {name}: {med:.4f} "
+                      f"ms per solve (IQR {q1:.4f}-{q3:.4f}, {n} windows) = "
+                      f"{batch / (med * 1e-3):.6g} syntheses/s; card: {card}")
+    _, solver = sls_wide_solver(device, SLS_WIDE_MODE)
+    Nm = solver.W.shape[0]
+    yardstick = (f"{SLS_WIDE_ITERS} f32 cuBLAS products ({2 * SLS_BATCH} x {Nm}) @ ({Nm} x "
+                 f"{Nm})")
+    med, q1, q3, n = _timed({yardstick: (sls_cublas_products(solver, n=SLS_WIDE_ITERS),
+                                         TIMING_WINDOWS, 2)})[yardstick]
+    result["cublas"] = med
+    print(f"[sls wide time] {yardstick}: {med:.4f} ms (IQR {q1:.4f}-{q3:.4f}, {n} windows); "
+          f"card: {card}")
+    return result
+
+
+def phase_robust2_certificate(future):
+    """The robust_dim 2 fleet's certificates and gates: converged_frac >=
+    0.99, the largest violation of a row's set by U's rows <=
+    ROBUST2_VIOLATION_TOL, the f64 oracle's cost gap on 2 instances, median
+    and max <= ROBUST2_GAP_MEDIAN and _MAX."""
+    cert, seconds = future.result()
+    print(f"[sls robust_dim 2 main path] certificates ({seconds:.1f} s, beside the phases since "
+          f"the main path): "
+          f"converged_frac {cert['converged_frac']} (||U - P(U)|| < 5e-3; max "
+          f"{cert['prim_max']:.3e}), cone violation of U's rows {cert['cone_violation']:.3e} "
+          f"(limit {ROBUST2_VIOLATION_TOL:g}; f64 on the host 2.63e-3), oracle cost gap median "
+          f"{cert['cost_gap_median']:.3e} max {cert['cost_gap_max']:.3e} on instances "
+          f"{cert['oracle_indices']} (limits {ROBUST2_GAP_MEDIAN:g}, {ROBUST2_GAP_MAX:g}; f64 on "
+          f"the host 3.29e-4, 3.33e-4)")
+    check(cert["converged_frac"] >= 0.99, f"robust_dim 2 converged_frac {cert['converged_frac']}")
+    check(cert["cone_violation"] <= ROBUST2_VIOLATION_TOL,
+          f"robust_dim 2 cone violation {cert['cone_violation']}")
+    check(cert["cost_gap_median"] <= ROBUST2_GAP_MEDIAN and cert["cost_gap_max"] <= ROBUST2_GAP_MAX,
+          f"robust_dim 2 cost gap {cert['cost_gap_median']}, {cert['cost_gap_max']}")
+    return cert
 
 
 def box_cases(device, batch: int = BATCH):
@@ -1692,10 +2025,18 @@ def sls_cases(device):
     single with four padded columns) with over-relaxation; 16-instance
     tiles (two m-tiles a block) in both z-updates; and 2,048 instances,
     more blocks than SMs, so that the pieces are not split over two warps
-    (`fused_sls.k_split`): every build of the kernel is checked."""
+    (`fused_sls.k_split`): every build of the kernel is checked. The
+    consensus cases run SLS_COMPARE_CONS_ITERS iterations (their plain
+    versions launch ~1e4 small kernels an iteration)."""
+    cons = dict(n_iters=SLS_COMPARE_CONS_ITERS)
+
+    def iters(mode):
+        return cons if mode == "consensus" else {}
+
     cases = [(f"{mode} (batch {SLS_BATCH}, tile {SLS_TILE}"
-              f"{', sorted' if mode == 'diamond_ee' else ''})",
-              sls_solver(device, mode)[1],
+              f"{', sorted' if mode == 'diamond_ee' else ''}"
+              f"{f', {SLS_COMPARE_CONS_ITERS} iterations' if mode == 'consensus' else ''})",
+              sls_solver(device, mode, **iters(mode))[1],
               sls_bounds(device, batch=SLS_BATCH, sort=mode == "diamond_ee"))
              for mode in SLS_MODES]
     cases += [
@@ -1704,13 +2045,13 @@ def sls_cases(device):
         (f"diamond_ee (batch {SLS_BATCH}, tile 16, sorted)",
          sls_solver(device, "diamond_ee", batch_tile=16)[1],
          sls_bounds(device, batch=SLS_BATCH, sort=True)),
-        ("consensus, Nm=98 (batch 64, tile 16)",
-         sls_solver(device, "consensus", horizon=98, batch_tile=16)[1],
+        (f"consensus, Nm=98 (batch 64, tile 16, {SLS_COMPARE_CONS_ITERS} iterations)",
+         sls_solver(device, "consensus", horizon=98, batch_tile=16, **cons)[1],
          sls_bounds(device, 64, seed=2)),
         ("diamond (batch 2048, tile 8, unsplit)", sls_solver(device, "diamond")[1],
          sls_bounds(device, 2048, seed=3)),
-        ("consensus (batch 2048, tile 8, unsplit)", sls_solver(device, "consensus")[1],
-         sls_bounds(device, 2048, seed=4)),
+        (f"consensus (batch 2048, tile 8, unsplit, {SLS_COMPARE_CONS_ITERS} iterations)",
+         sls_solver(device, "consensus", **cons)[1], sls_bounds(device, 2048, seed=4)),
     ]
     return cases
 
@@ -1726,11 +2067,10 @@ def phase_sls_compare(device):
     for label, solver, bounds in sls_cases(device):
         kw = solver.kernel_options
         ops = (bounds, solver.U_base, solver.W)
-        runs = {"kernel": lambda **o: sls_admm(*ops, solver.packed, **o),
-                "3xTF32 plain": lambda **o: sls_admm_reference(*ops, **o, products="tf32x3")}
-        got = runs["kernel"](**kw)
+        got = sls_admm(*ops, solver.packed, **kw)
         torch.cuda.synchronize()
-        emulated = runs["3xTF32 plain"](**kw)
+        plain_stats = {}
+        emulated = sls_admm_reference(*ops, **kw, products="tf32x3", stats=plain_stats)
         want = sls_admm_reference(*ops, **kw)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"sls {label}: kernel U has non-finite values")
@@ -1746,8 +2086,9 @@ def phase_sls_compare(device):
               f"{float((emulated - want).abs().max()):.3e}")
         if kw["stop_tol"] > 0.0:
             full = -(-kw["n_iters"] // kw["check_every"]) * kw["check_every"]
-            iters = {name: sls_tile_iterations(run, kw, bounds.shape[0])
-                     for name, run in runs.items()}
+            iters = {"kernel": sls_tile_iterations(
+                         lambda **o: sls_admm(*ops, solver.packed, **o), kw, bounds.shape[0]),
+                     "3xTF32 plain": plain_stats["tile_iterations"]}
             for name, it in iters.items():
                 print(f"[sls kernel vs plain] {label}: the {name}'s {it.numel()} tiles ran "
                       f"{int(it.min())}-{int(it.max())} iterations, {float(it.float().mean()):.2f} "
@@ -1776,15 +2117,22 @@ def phase_sls_main_path(sls, bounds):
     check(torch.equal(du, U[:, :, 0]) and torch.equal(phi_u[:, :, 0], U[:, :, 1])
           and torch.equal(phi_u[:, :, 1:], solver.PHI_unc[:, 1:].expand(SLS_BATCH, -1, -1)),
           "phi_u is not [U's feedback column | PHI_unc's other columns]")
-    t0 = time.perf_counter()
-    cert = certify_sls(A, B, cost, bounds, U, C_COEF, workers=ORACLE_WORKERS)
-    print(f"[sls main path] certificates ({time.perf_counter() - t0:.1f} s): converged_frac "
-          f"{cert['converged_frac']} (||U - P(U)|| < 5e-3; max {cert['prim_max']:.3e}), "
-          f"oracle cost gap median {cert['cost_gap_median']:.3e} max {cert['cost_gap_max']:.3e} "
-          f"on instances {cert['oracle_indices']}")
+    # its 8-instance oracle (~9 s an instance) runs beside the next phases;
+    # `phase_sls_certificate` gates it
+    return launches, start_sls_certificate(A, B, cost, bounds, U, workers=SLS_CERT_WORKERS)
+
+
+def phase_sls_certificate(future):
+    """The SLS bench fleet's certificates and the bench's gates
+    (`sls_gate_failures`)."""
+    cert, seconds = future.result()
+    print(f"[sls main path] certificates ({seconds:.1f} s, beside the phases since the main "
+          f"path): converged_frac {cert['converged_frac']} (||U - P(U)|| < 5e-3; max "
+          f"{cert['prim_max']:.3e}), oracle cost gap median {cert['cost_gap_median']:.3e} max "
+          f"{cert['cost_gap_max']:.3e} on instances {cert['oracle_indices']}")
     failures = sls_gate_failures(cert)
     check(not failures, "; ".join(failures))
-    return launches, cert
+    return cert
 
 
 def _event_ms(fn, calls):
@@ -1852,8 +2200,12 @@ def phase_sls_time(device, card):
                 "kernel": (lambda: sls_admm(*ops, solver.packed, **kw), TIMING_WINDOWS,
                            per_window),
                 "forward": (lambda: solver(bounds), TIMING_WINDOWS, per_window),
-                "plain": (lambda: sls_admm_reference(*ops, **kw), plain_windows, plain_calls),
             }
+            # the plain consensus loop (~5 s a solve, launch-bound) is timed at
+            # 1,024 only, for the run's length
+            if mode != "consensus" or batch == SLS_BATCH:
+                paths["plain"] = (lambda: sls_admm_reference(*ops, **kw), plain_windows,
+                                  plain_calls)
             for fn, _, calls in paths.values():  # warm up all but one-call paths, as _timed
                 if calls > 1:
                     fn()
@@ -5140,14 +5492,24 @@ def main(argv=None) -> int:
         sls = sls_solver("cuda", "diamond_ee")
         sls_fleet = sls_bounds("cuda", batch=SLS_BATCH, sort=True)
         sls_max_err = run("sls compare", phase_sls_compare, "cuda")
-        sls_launches, _ = run("sls main path", phase_sls_main_path, sls, sls_fleet)
+        sls_launches, sls_cert = run("sls main path", phase_sls_main_path, sls, sls_fleet)
         sls_times = run("sls time", phase_sls_time, "cuda", card)
         robust2 = run("sls robust_dim 2", phase_robust2, "cuda", card)
+        # the wide route: the main path first, so that its certificate's
+        # oracle (minutes an instance at Nm = 400) runs beside what follows
+        sls_wide = sls_wide_solver("cuda", SLS_WIDE_MODE)
+        sls_wide_fleet = sls_bounds("cuda", batch=SLS_BATCH, sort=True)
+        sls_wide_launches, sls_wide_cert = run("sls wide main path", phase_sls_wide_main_path,
+                                               sls_wide, sls_wide_fleet)
+        sls_wide_max_err = run("sls wide compare", phase_sls_wide_compare, "cuda")
+        sls_wide_times = run("sls wide time", phase_sls_wide_time, "cuda", card)
         riccati_max_err = run("riccati compare", phase_riccati_compare, "cuda")
         riccati_launches, _ = run("riccati main path", phase_riccati_main_path, "cuda")
         riccati_times = run("riccati time", phase_riccati_time, "cuda", card)
         run("box wide certificate", phase_box_certificate, "box wide main path", box_wide_cert,
             None)
+        run("sls certificate", phase_sls_certificate, sls_cert)
+        run("sls robust_dim 2 certificate", phase_robust2_certificate, robust2["certificate"])
         if profile:
             run("riccati profile", phase_riccati_profile, "cuda", card)
         car_host = run("car f64 host start", start_car_host_f64)
@@ -5173,6 +5535,7 @@ def main(argv=None) -> int:
         run("mpc boxddp", phase_mpc_boxddp, "cuda", card)
         if profile:
             run("mpc profile", phase_mpc_profile, "cuda", card)
+        run("sls wide certificate", phase_sls_wide_certificate, sls_wide_cert)
         run("single solves", phase_single_solves, "cuda", card)
         run("boxddp graph", phase_boxddp_graph, "cuda")
         car_fleet, _, certificate, main_ms = run("boxddp main path", phase_boxddp_main_path,
@@ -5198,13 +5561,16 @@ def main(argv=None) -> int:
                       linesearch_rollout_fleet=car_admm_fleet["bound"],
                       admm_u_only_wide=wide_bound(wide, wide_inputs),
                       admm_box_wide=state_box_bound(planar[1], planar_x0s),
+                      sls_admm_wide=sls_wide_bound(sls_wide[1], sls_wide_fleet),
                       sls_admm_robust_dim_2={k: robust2[k] for k in
                                              ("bound_ms", "bound_by", "bound_ops")})
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
+    total = sum(seconds.values())
     print("[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
-          + f"; total {sum(seconds.values()):.1f}")
+          + f"; total {total:.1f} (on a host {SLOW_HOST:g}x slower ~{SLOW_HOST * total:.0f}, "
+          f"against the 1,200 s contract)")
     # no single PyTorch call computes any of these functions
     kernels = [{
         "name": "admm_u_only",
@@ -5245,6 +5611,17 @@ def main(argv=None) -> int:
         "max_abs_err": robust2["max_abs_err"],
         "ms": robust2["ms"],
         "plain_ms": robust2["plain_ms"],
+    }, {
+        # the wide route of the same TPU kernel, its own kernel: the bench's
+        # 1-D problem refined to N = 400 (Nm = 400, W streamed from L2)
+        "name": "sls_admm_wide",
+        "route": "cuda",
+        "source": "ilqr_admm_tpu_torch/csrc/sls_admm_wide.cu",
+        "replaces": "ilqr_admm_tpu/ops/pallas_sls.py:99",
+        "launches": sls_wide_launches,
+        "max_abs_err": sls_wide_max_err,
+        "ms": sls_wide_times[(SLS_WIDE_MODE, SLS_BATCH, "kernel")],
+        "plain_ms": sls_wide_times[(SLS_WIDE_MODE, SLS_BATCH, "plain")],
     }, {
         "name": "admm_box",
         "route": "cuda",

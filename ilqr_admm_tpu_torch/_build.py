@@ -23,8 +23,8 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-_SOURCES = ("admm_u_only.cu", "admm_u_only_wide.cu", "sls_admm.cu", "admm_box.cu",
-            "admm_box_wide.cu", "riccati_scan.cu", "linesearch_rollout.cu")
+_SOURCES = ("admm_u_only.cu", "admm_u_only_wide.cu", "sls_admm.cu", "sls_admm_wide.cu",
+            "admm_box.cu", "admm_box_wide.cu", "riccati_scan.cu", "linesearch_rollout.cu")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libilqr_admm_torch.so"
@@ -61,7 +61,8 @@ def build() -> Path:
 
     One nvcc per source, started together, then one link. Their output
     (with `-Xptxas -v`: registers, shared memory and spills of each
-    kernel) is kept beside the library as `nvcc.log`.
+    kernel) and each compile's seconds are kept beside the library as
+    `nvcc.log`.
     """
     out_dir = build_dir()
     lib = out_dir / LIB_NAME
@@ -74,14 +75,24 @@ def build() -> Path:
     objs, procs = [], []
     for name in _SOURCES:
         obj = out_dir / f"{name}.{tag}.o"
+        out = out_dir / f"{name}.{tag}.log"
         cmd = [nvcc, *_FLAGS, "-c", str(_PKG / "csrc" / name), "-o", str(obj)]
         objs.append(obj)
-        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True)))
+        with open(out, "w") as sink:
+            procs.append((cmd, out, subprocess.Popen(cmd, stdout=sink,
+                                                     stderr=subprocess.STDOUT)))
+    # each compile's seconds, for the log: the build lasts as long as the slowest
+    seconds, running = {}, {i for i in range(len(procs))}
+    while running:
+        for i in list(running):
+            if procs[i][2].poll() is not None:
+                seconds[i] = time.perf_counter() - t0
+                running.discard(i)
+        time.sleep(0.05)
     log, failed = [], []
-    for cmd, proc in procs:
-        out, _ = proc.communicate()
-        log.append(f"$ {' '.join(cmd)}\n{out}")
+    for i, (cmd, out, proc) in enumerate(procs):
+        log.append(f"$ {' '.join(cmd)}\n{out.read_text()}[{seconds[i]:.2f} s]\n")
+        out.unlink(missing_ok=True)
         if proc.returncode != 0:
             failed.append(proc.returncode)
     tmp = out_dir / f"{LIB_NAME}.{tag}"
@@ -130,6 +141,18 @@ def load_library() -> ctypes.CDLL:
         _P,  # stream
     ]
     lib.sls_admm_launch.restype = _I
+    lib.sls_admm_wide_launch.argtypes = [
+        _P, _P,  # bounds, U_base
+        _P, _P,  # ops_f (W^T's A fragments), state (Z and L scratch)
+        _P,  # U_out
+        _I, _I, _I, _I, _I,  # batch, Nm, M tiles, k-steps, k-steps a chunk
+        _I, _I,  # batch_tile, p1
+        _I, _I,  # chunk_len, n_chunks
+        _F, _F, _F,  # alpha, 1 - alpha, stop_tol
+        _I, _P, _I, _I, _I,  # z_update, coeffs (host f32), n_sets, q, n_cons_iters
+        _P,  # stream
+    ]
+    lib.sls_admm_wide_launch.restype = _I
     lib.sls_admm_error_string.argtypes = [_I]
     lib.sls_admm_error_string.restype = ctypes.c_char_p
     lib.admm_box_launch.argtypes = [

@@ -14,10 +14,14 @@
 // from Z = U_base, L = 0. P is the exact projection of each row onto the
 // diamond w0 |du| + w1 |phi| <= bound (`Diamond`, p1 = 2), or a
 // fixed-count consensus ADMM onto an intersection of second-order cones
-// (`Consensus<P1, NSETS, Q>`, the TPU kernel's trace-time constants passed
-// by value in the kernel's parameters; built for (p1, NSETS, Q) = (2, 2,
-// 3) and (3, 2, 4), the rows of the (3, 2, 4) build one at a time so that
-// registers stay bounded). U is written as (batch, Nm, p1).
+// (csrc/sls_zupdate.cuh: `Consensus<P1, NSETS, Q>`, the TPU kernel's
+// trace-time constants passed by value in the kernel's parameters, built
+// for (p1, NSETS, Q) = (2, 2, 3) and (3, 2, 4), the rows of the (3, 2, 4)
+// build one at a time so that registers stay bounded; `General<H>` for
+// any other shape to p1 <= 8, 4 sets, q <= 9, read at run time, a build
+// for each count H of slab pairs). U is written as (batch, Nm, p1). W
+// staged whole takes Nm <= 224 (p1 = 2); csrc/sls_admm_wide.cu streams it
+// from L2 past that.
 //
 // What bounds it on an H100: the bench's serving solve (B = 1024, Nm =
 // 100, diamond z-update, early exit) runs 64-208 iterations a tile, each
@@ -94,189 +98,12 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "sls_zupdate.cuh"
 #include "tf32x3.cuh"
 
 namespace {
 
 constexpr int kMaxWarps = 16;
-constexpr float kEps = 1e-30f;
-
-__device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b); }
-
-// jnp.sign: 0 for +-0, NaN for NaN
-__device__ __forceinline__ float sign_of(float x) {
-  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
-}
-
-// Exact projection of rows (a, b) onto {w0 |a| + w1 |b| <= r}.
-struct Diamond {
-  static constexpr int kP1 = 2;
-  static constexpr int kRows = 0;  // projects all of a thread's rows at once
-  float w0, w1, den;  // den = w0^2 + w1^2, rounded from f64
-
-  // R rows of one instance, whose bound is r
-  template <int R>
-  __device__ __forceinline__ void project(const float (&y)[R][2], float r,
-                                          float (&out)[R][2]) const {
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      const float aa = fabsf(y[k][0]);
-      const float ab = fabsf(y[k][1]);
-      const float s = add(mul(w0, aa), mul(w1, ab));
-      const bool inside = s <= r;
-      const float lam = dvd(sub(s, r), den);
-      const float xa = sub(aa, mul(lam, w0));
-      const float xb = sub(ab, mul(lam, w1));
-      // if one soft-thresholded coordinate would go negative, it is
-      // clamped to 0 and the other goes to the diamond's vertex
-      const float na = xb < 0.0f ? dvd(r, w0) : (xa < 0.0f ? 0.0f : xa);
-      const float nb = xb < 0.0f ? 0.0f : (xa < 0.0f ? dvd(r, w1) : xb);
-      out[k][0] = inside ? y[k][0] : mul(sign_of(y[k][0]), na);
-      out[k][1] = inside ? y[k][1] : mul(sign_of(y[k][1]), nb);
-    }
-  }
-};
-
-// Consensus ADMM onto {phi : A_i phi + b_i in SOC, i < NSETS}, with
-// b_i = b_fixed_i + bound * b_bound_i; the last of a set's Q rows is the
-// cone's t. Zero coefficients are skipped, as in the TPU kernel.
-template <int P1, int NSETS, int Q>
-struct Consensus {
-  static_assert(NSETS >= 1 && Q >= 2, "consensus needs a set with a cone of dimension >= 2");
-  static constexpr int kP1 = P1;
-  // rows whose inner iterations run side by side: two while a row's
-  // consensus state (2 NSETS Q floats) is at most 12, else one, so that
-  // registers stay bounded
-  static constexpr int kRows = 2 * NSETS * Q <= 12 ? 2 : 1;
-  float a[NSETS][Q][P1];      // soc_A
-  float rho_a[NSETS][Q][P1];  // cons_rho * soc_A
-  float b_fixed[NSETS][Q];
-  float b_bound[NSETS][Q];
-  float l_inv[P1][P1];        // (I + cons_rho sum_i A_i^T A_i)^-1
-  int n_iters;
-
-  __device__ __forceinline__ void x_update(const float (&y)[P1], const float (&b)[NSETS][Q],
-                                           const float (&z)[NSETS][Q],
-                                           const float (&lmb)[NSETS][Q],
-                                           float (&x)[P1]) const {
-    float rx[P1];
-#pragma unroll
-    for (int k = 0; k < P1; ++k) {
-      float acc = y[k];
-#pragma unroll
-      for (int i = 0; i < NSETS; ++i)
-#pragma unroll
-        for (int r = 0; r < Q; ++r)
-          if (a[i][r][k] != 0.0f)
-            acc = add(acc, mul(rho_a[i][r][k], sub(sub(z[i][r], b[i][r]), lmb[i][r])));
-      rx[k] = acc;
-    }
-#pragma unroll
-    for (int k = 0; k < P1; ++k) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int j = 0; j < P1; ++j)
-        if (l_inv[k][j] != 0.0f) acc = add(acc, mul(l_inv[k][j], rx[j]));
-      x[k] = acc;
-    }
-  }
-
-  // One inner iteration of one row: the x-update, then each set's SOC
-  // projection and dual update.
-  __device__ __forceinline__ void inner(const float (&y)[P1], const float (&b)[NSETS][Q],
-                                        float (&z)[NSETS][Q], float (&lmb)[NSETS][Q]) const {
-    float x[P1];
-    x_update(y, b, z, lmb, x);
-#pragma unroll
-    for (int i = 0; i < NSETS; ++i) {
-      float axb[Q], w[Q];
-#pragma unroll
-      for (int r = 0; r < Q; ++r) {
-        float acc = b[i][r];
-#pragma unroll
-        for (int k = 0; k < P1; ++k)
-          if (a[i][r][k] != 0.0f) acc = add(acc, mul(a[i][r][k], x[k]));
-        axb[r] = acc;
-        w[r] = add(acc, lmb[i][r]);
-      }
-      // SOC projection of [w_0..w_{Q-2} | t] onto ||w|| <= t
-      float n2 = mul(w[0], w[0]);
-#pragma unroll
-      for (int r = 1; r < Q - 1; ++r) n2 = add(n2, mul(w[r], w[r]));
-      const float n = sqrtf(n2);
-      const float t = w[Q - 1];
-      const bool inside = n <= t;
-      const bool polar = n <= -t;
-      const float scale = dvd(mul(0.5f, add(n, t)), add(n, kEps));
-#pragma unroll
-      for (int r = 0; r < Q; ++r) {
-        float zn;
-        if (r < Q - 1)
-          zn = inside ? w[r] : (polar ? 0.0f : mul(scale, w[r]));
-        else
-          zn = inside ? t : (polar ? 0.0f : mul(0.5f, add(n, t)));
-        lmb[i][r] = sub(add(lmb[i][r], axb[r]), zn);
-        z[i][r] = zn;
-      }
-    }
-  }
-
-  // R rows of one instance (bound `bound`, so one set of cone offsets b),
-  // kRows at a time: with two, a pair's inner iterations run side by side
-  // in each pass of the loop, two independent chains (four spill on the
-  // 128 registers a thread has)
-  template <int R>
-  __device__ __forceinline__ void project(const float (&y)[R][P1], float bound,
-                                          float (&out)[R][P1]) const {
-    static_assert(R % kRows == 0, "rows come in (column 2 t, column 2 t + 1) pairs");
-#pragma unroll
-    for (int k0 = 0; k0 < R; k0 += kRows) {
-      float yp[kRows][P1], op[kRows][P1];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int j = 0; j < P1; ++j) yp[r][j] = y[k0 + r][j];
-      project_rows<kRows>(yp, bound, op);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int j = 0; j < P1; ++j) out[k0 + r][j] = op[r][j];
-    }
-  }
-
-  template <int R>
-  __device__ __forceinline__ void project_rows(const float (&y)[R][P1], float bound,
-                                               float (&out)[R][P1]) const {
-    float b[NSETS][Q], z[R][NSETS][Q], lmb[R][NSETS][Q];
-#pragma unroll
-    for (int i = 0; i < NSETS; ++i)
-#pragma unroll
-      for (int r = 0; r < Q; ++r)
-        b[i][r] = b_bound[i][r] != 0.0f ? add(b_fixed[i][r], mul(b_bound[i][r], bound))
-                                        : b_fixed[i][r];
-#pragma unroll
-    for (int k = 0; k < R; ++k)
-#pragma unroll
-      for (int i = 0; i < NSETS; ++i)
-#pragma unroll
-        for (int r = 0; r < Q; ++r) {
-          float acc = 0.0f;
-#pragma unroll
-          for (int j = 0; j < P1; ++j)
-            if (a[i][r][j] != 0.0f) acc = add(acc, mul(a[i][r][j], y[k][j]));
-          z[k][i][r] = add(acc, b[i][r]);
-          lmb[k][i][r] = 0.0f;
-        }
-    for (int it = 0; it < n_iters; ++it) {
-#pragma unroll
-      for (int k = 0; k < R; ++k) inner(y[k], b, z[k], lmb[k]);
-    }
-    // one final x-update, so the result reflects the last duals
-#pragma unroll
-    for (int k = 0; k < R; ++k) x_update(y[k], b, z[k], lmb[k], out[k]);
-  }
-};
-
 struct Problem {
   const float* bounds;  // (batch,)
   const float* U_base;  // (p1, Nm)
@@ -326,7 +153,10 @@ __device__ __forceinline__ void solve(const Problem& P, const ZU& zu, const floa
   const int c_own = 8 * (2 * pr + own);
   const size_t inst = static_cast<size_t>(blockIdx.x) * 8 * MT + 8 * m0 + g;
   const float bound = P.bounds[inst];
-  float* u_out = P.U_out + inst * P.Nm * P1;
+  // the slabs: P1 for the compiled z-updates, p1 <= P1 read at run time
+  // for the general one (its slabs past p1 held at 0, as a zero slab is)
+  const int p1 = zu.slabs();
+  float* u_out = P.U_out + inst * P.Nm * p1;
 
   // ub[o][j][i]: U_base of slab 2 j + i / 2 at column c_own + 8 o + 2 t +
   // i % 2 (0 for the zero slab); z and lam in the accumulator layout of
@@ -340,7 +170,7 @@ __device__ __forceinline__ void solve(const Problem& P, const ZU& zu, const floa
       for (int i = 0; i < 4; ++i) {
         const int c = c_own + 8 * o + 2 * t + (i & 1);
         const int slab = 2 * j + (i >> 1);
-        ub[o][j][i] = c < P.Nm && slab < P1 ? P.U_base[slab * P.Nm + c] : 0.0f;
+        ub[o][j][i] = c < P.Nm && slab < p1 ? P.U_base[slab * P.Nm + c] : 0.0f;
         z[o][j][i] = ub[o][j][i];
         lam[o][j][i] = 0.0f;
       }
@@ -356,7 +186,8 @@ __device__ __forceinline__ void solve(const Problem& P, const ZU& zu, const floa
                   make_float2(ub[o][0][e], ub[o][0][2 + e]);
             } else {
 #pragma unroll
-              for (int q = 0; q < P1; ++q) u_out[P1 * c + q] = ub[o][q / 2][2 * (q % 2) + e];
+              for (int q = 0; q < P1; ++q)
+                if (q < p1) u_out[p1 * c + q] = ub[o][q / 2][2 * (q % 2) + e];
             }
           }
         }
@@ -422,6 +253,7 @@ __device__ __forceinline__ void solve(const Problem& P, const ZU& zu, const floa
           const bool valid = c < P.Nm;
 #pragma unroll
           for (int q = 0; q < P1; ++q) {
+            if (q >= p1) continue;
             const int j = q / 2, i = 2 * (q % 2) + e;
             const float znq = valid ? zn[r][q] : 0.0f;
             if (test && valid) {
@@ -436,7 +268,8 @@ __device__ __forceinline__ void solve(const Problem& P, const ZU& zu, const floa
               *reinterpret_cast<float2*>(u_out + 2 * c) = make_float2(u[r][0], u[r][1]);
             } else {
 #pragma unroll
-              for (int q = 0; q < P1; ++q) u_out[P1 * c + q] = u[r][q];
+              for (int q = 0; q < P1; ++q)
+                if (q < p1) u_out[p1 * c + q] = u[r][q];
             }
           }
         }
@@ -472,9 +305,9 @@ __device__ __forceinline__ void solve(const Problem& P, const ZU& zu, const floa
 // group (its MS m-tiles), in order, then the last single n-tile (when
 // Nm / 8 rounds up to an odd count) cut likewise. Warp w takes piece
 // w / KS (half w % KS of it).
-template <int MT, int KS, class ZU>
-__global__ void __launch_bounds__(kMaxWarps * 32, 1) sls_admm_kernel(Problem P, ZU zu) {
-  constexpr int MS = (ZU::kP1 + 1) / 2;
+template <int MT, int KS, class ZP>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1) sls_admm_kernel(Problem P, ZP zp) {
+  constexpr int MS = (ZP::kP1 + 1) / 2;
   extern __shared__ float4 smem_f4[];
   __shared__ unsigned int residual[3];
   const int n1 = (P.Nm + 7) / 8;
@@ -487,6 +320,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) sls_admm_kernel(Problem P, 
   const float4* src = reinterpret_cast<const float4*>(P.ops_f);
   for (int i = tid; i < P.n_ops / 4; i += blockDim.x) smem_f4[i] = src[i];
   if (tid < 3) residual[tid] = 0u;
+  // the z-update: the compiled ones as they are, the general one's
+  // constants copied into shared memory (read after solve's first barrier)
+  decltype(auto) zu = stage(zp);
 
   const int piece = tid / 32 / KS, half = tid / 32 % KS;
   const int pair_pieces = (n1 / 2) * MT;
@@ -516,12 +352,15 @@ int launch(const Problem& P, int batch, const ZU& zu, cudaStream_t stream) {
 }
 
 // T = 16 has 14 warps at Nm = 100, so its pieces are never split; the
-// split is built for p1 = 2
+// split is built for p1 = 2; the general z-update for T = 8 only
 template <class ZU>
 int launch(const Problem& P, int batch, int T, int k_split, const ZU& zu, cudaStream_t stream) {
-  if (T == 16)
-    return k_split == 1 ? launch<2, 1>(P, batch, zu, stream)
-                        : static_cast<int>(cudaErrorInvalidValue);
+  if (T == 16) {
+    if constexpr (IsGeneral<ZU>::value) return static_cast<int>(cudaErrorInvalidValue);
+    else
+      return k_split == 1 ? launch<2, 1>(P, batch, zu, stream)
+                          : static_cast<int>(cudaErrorInvalidValue);
+  }
   if constexpr (ZU::kP1 == 2) {
     if (k_split == 2) return launch<1, 2>(P, batch, zu, stream);
   }
@@ -529,33 +368,14 @@ int launch(const Problem& P, int batch, int T, int k_split, const ZU& zu, cudaSt
                       : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int P1, int NSETS, int Q>
-Consensus<P1, NSETS, Q> unpack_consensus(const float* c, int n_iters) {
-  // packed as soc_A, cons_rho * soc_A, b_fixed, b_bound, l_inv (row-major)
-  Consensus<P1, NSETS, Q> zu;
-  for (int i = 0; i < NSETS; ++i)
-    for (int r = 0; r < Q; ++r)
-      for (int k = 0; k < P1; ++k) zu.a[i][r][k] = *c++;
-  for (int i = 0; i < NSETS; ++i)
-    for (int r = 0; r < Q; ++r)
-      for (int k = 0; k < P1; ++k) zu.rho_a[i][r][k] = *c++;
-  for (int i = 0; i < NSETS; ++i)
-    for (int r = 0; r < Q; ++r) zu.b_fixed[i][r] = *c++;
-  for (int i = 0; i < NSETS; ++i)
-    for (int r = 0; r < Q; ++r) zu.b_bound[i][r] = *c++;
-  for (int k = 0; k < P1; ++k)
-    for (int j = 0; j < P1; ++j) zu.l_inv[k][j] = *c++;
-  zu.n_iters = n_iters;
-  return zu;
-}
-
 }  // namespace
 
 // W arrives packed (ops_f, n_ops floats; ops_i, its pair table). z_update:
 // 0 = diamond (coeffs = w0, w1, w0^2 + w1^2; p1 = 2), 1 = consensus
 // (coeffs packed as in unpack_consensus). T 8 or 16, k_split (warps a
-// piece) 1 or 2 (2 at p1 = 2 only). The instantiated consensus shapes
-// (p1, n_sets, q) are listed in ops/fused_sls.py as CONSENSUS_SHAPES.
+// piece) 1 or 2 (2 at p1 <= 2 only). The consensus shapes (p1, n_sets, q)
+// with builds of their own are ops/fused_sls.py's CONSENSUS_SHAPES; the
+// general build takes the rest to CONSENSUS_MAX.
 extern "C" int sls_admm_launch(const void* bounds, const void* U_base, const void* ops_f,
                                int n_ops, const void* ops_i, void* U_out, int batch, int Nm,
                                int T, int p1, int chunk_len, int n_chunks, float alpha,
@@ -573,11 +393,18 @@ extern "C" int sls_admm_launch(const void* bounds, const void* U_base, const voi
   const float* c = static_cast<const float*>(coeffs);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (z_update == 0 && p1 == 2) return launch(P, batch, T, k_split, Diamond{c[0], c[1], c[2]}, s);
-  if (z_update == 1 && p1 == 2 && n_sets == 2 && q == 3)
+  if (z_update != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (p1 == 2 && n_sets == 2 && q == 3)
     return launch(P, batch, T, k_split, unpack_consensus<2, 2, 3>(c, n_cons_iters), s);
-  if (z_update == 1 && p1 == 3 && n_sets == 2 && q == 4)
+  if (p1 == 3 && n_sets == 2 && q == 4)
     return launch(P, batch, T, k_split, unpack_consensus<3, 2, 4>(c, n_cons_iters), s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (!general_shape(p1, n_sets, q)) return static_cast<int>(cudaErrorInvalidValue);
+  switch ((p1 + 1) / 2) {
+    case 1: return launch(P, batch, T, k_split, general_params<1>(c, p1, n_sets, q, n_cons_iters), s);
+    case 2: return launch(P, batch, T, k_split, general_params<2>(c, p1, n_sets, q, n_cons_iters), s);
+    case 3: return launch(P, batch, T, k_split, general_params<3>(c, p1, n_sets, q, n_cons_iters), s);
+    default: return launch(P, batch, T, k_split, general_params<4>(c, p1, n_sets, q, n_cons_iters), s);
+  }
 }
 
 extern "C" const char* sls_admm_error_string(int code) {

@@ -3,9 +3,11 @@
 Counterpart of `ilqr_admm_tpu/ops/pallas_sls.py` (`make_pallas_sls_admm`
 and its kernel `_sls_admm_kernel`). The one-time operator setup runs in
 float64 on the host and is cast to the working dtype once; the ADMM loop
-is one hand-written CUDA kernel (`csrc/sls_admm.cu`), launched by
-`sls_admm`. On CPU tensors `sls_admm` runs its plain torch version
-`sls_admm_reference` instead.
+is one hand-written CUDA kernel, launched by `sls_admm`: `csrc/sls_admm.cu`
+(the narrow route, W staged in shared memory, to Nm = 224 at p1 = 2) or
+`csrc/sls_admm_wide.cu` (the wide route, W streamed from L2, to Nm =
+1,552), chosen when the fleet is built (`sls_route`). On CPU tensors
+`sls_admm` runs its plain torch version `sls_admm_reference` instead.
 
 The decision matrix [du | Phi_u columns] of each instance is kept as
 p + 1 column slabs of Nm rows. Each iteration is
@@ -34,15 +36,18 @@ import numpy as np
 import torch
 from torch import nn
 
-from ilqr_admm_tpu_torch.ops.fused_admm import _check_packed, pair_pack
+from ilqr_admm_tpu_torch.ops.fused_admm import _check_packed, _fragments, pair_pack
 from ilqr_admm_tpu_torch.ops.lifted import build_Su, build_Sx
 from ilqr_admm_tpu_torch.problem import QuadCost, host_f64
 from ilqr_admm_tpu_torch.solvers.lqt import block_diag_stacked, broadcast_rho, lqt_solve_sls
 from ilqr_admm_tpu_torch.utils.device import resolve_device
 from ilqr_admm_tpu_torch.utils.precision import full_f32_matmul, tf32x3_matmul
 
-# Number of times `sls_admm` has launched its CUDA kernel in this process.
+# Number of times `sls_admm` has launched its CUDA kernels in this process:
+# the narrow route's (csrc/sls_admm.cu) and the wide route's
+# (csrc/sls_admm_wide.cu).
 launch_count = 0
+wide_launch_count = 0
 
 _EPS = 1e-30
 
@@ -56,9 +61,19 @@ _TILES = (8, 16)
 _MAX_WARPS = 16
 _MAX_SMEM = 232448 - 16  # an H100 block's 227 KB, less the kernel's static words
 
-# The (p1, n_sets, q) of the consensus z-updates that csrc/sls_admm.cu
-# instantiates; the diamond z-update is built for p1 = 2.
+# The (p1, n_sets, q) of the consensus z-updates that both kernels compile
+# as their own builds (the bench's shapes, `Consensus` in
+# csrc/sls_zupdate.cuh); every other shape up to CONSENSUS_MAX runs the
+# general build (`General`), which reads the shape at run time and its
+# constants from shared memory (_GENERAL_SMEM bytes of it). The diamond
+# z-update is built for p1 = 2. The JAX kernel takes no robust_dim = 0
+# (its setup divides by p), so p1 >= 2.
 CONSENSUS_SHAPES = ((2, 2, 3), (3, 2, 4))
+CONSENSUS_MAX = (8, 4, 9)  # p1, n_sets, q (q >= 2: a cone of dimension >= 2)
+_MAX_COEFFS = 2 * 4 * 9 * 8 + 2 * 4 * 9 + 8 * 8
+_GENERAL_SMEM = 4 * _MAX_COEFFS
+_GENERAL_TILE_ONLY = ("the general consensus build (a shape not in CONSENSUS_SHAPES) takes "
+                      "batch_tile 8")
 Z_UPDATES = ("consensus", "diamond")
 
 
@@ -101,20 +116,25 @@ def k_split(batch: int, batch_tile: int, Nm: int, sms: int, p1: int = 2) -> int:
     return 2 if fits and batch // batch_tile <= sms else 1
 
 
-def launch_geometry(batch_tile: int, Nm: int, p1: int, k_split: int = 1) -> tuple[int, int]:
-    """(threads, dynamic shared-memory bytes) of one kernel block.
+def launch_geometry(batch_tile: int, Nm: int, p1: int, k_split: int = 1,
+                    general: bool = False) -> tuple[int, int]:
+    """(threads, dynamic shared-memory bytes) of one block of the narrow
+    route, `csrc/sls_admm.cu`.
 
     Raises ValueError when the tile cannot be launched: p1 must be at
     least 2, batch_tile 8 or 16 (whole m16n8k8 row tiles), the block's
     pieces (each on k_split warps; 2 only at p1 = 2) must fit in 16 warps,
     and W with two copies of the tile's s (ceil(p1 / 2) 16-row m-tiles a
-    group of 8 instances) must fit in shared memory.
+    group of 8 instances) must fit in shared memory, beside the general
+    z-update's constants when it runs (general: tile 8 only).
     """
     if p1 < 2:
         raise ValueError(f"the kernel takes p1 >= 2 slabs (robust_dim >= 1), got p1 = {p1}")
     if batch_tile not in _TILES:
         raise ValueError(f"batch_tile={batch_tile}: the kernel takes "
                          f"{' or '.join(map(str, _TILES))} instances a block")
+    if general and batch_tile != 8:
+        raise ValueError(f"batch_tile={batch_tile}: {_GENERAL_TILE_ONLY}")
     warps = len(sls_pieces(batch_tile, Nm, p1)) * k_split
     if k_split == 2 and (batch_tile != 8 or p1 != 2):
         raise ValueError(f"the kernel splits the pieces of 8-instance tiles only, at p1 = 2; got "
@@ -125,12 +145,146 @@ def launch_geometry(batch_tile: int, Nm: int, p1: int, k_split: int = 1) -> tupl
     n1 = -(-Nm // 8)
     smem = 4 * (64 * n1 * n1 + 2 * (2 * -(-p1 // 2) * batch_tile) * 8 * n1
                 + (32 * 4 * warps if k_split == 2 else 0))
-    if smem > _MAX_SMEM:
+    if smem + (_GENERAL_SMEM if general else 0) > _MAX_SMEM:
         raise ValueError(
             f"Nm={Nm} with batch_tile={batch_tile} needs {smem} bytes of shared memory to "
             f"stage W and the tile's iterate; the limit is {_MAX_SMEM} bytes"
         )
     return 32 * warps, smem
+
+
+# The wide route, csrc/sls_admm_wide.cu: W^T as the A operand of TF32
+# `wgmma.m64nNk8` in 64-row M tiles (tile i on warpgroup i % 4 of 4), its
+# fragments streamed from L2 through a ring of _WIDE_STAGES k-steps in
+# shared memory; s as B, pre-split hi and lo in shared memory, its N = 2
+# batch_tile ceil(p1 / 2) columns laid out by `sls_wide_column`; K padded
+# to a multiple of 16 (whole commit groups of two k-steps). Builds: tiles
+# 8 and 16, N <= 64.
+_WIDE_TILES = (8, 16)
+_WIDE_GROUPS = 4
+_WIDE_M = 64
+_WIDE_STAGES = 4
+_WIDE_MAX_N = 64
+_WIDE_RING = 16 * 128 * _WIDE_STAGES * _WIDE_GROUPS
+# k-steps a wide product chains on the tensor cores before it adds the
+# chunk's sum to its f32 total (a multiple of the commit group, 2): at the
+# N = 400 fleet 2 halves the kernel's distance to the f64 loop against 8,
+# at the same time (tools/sls_admm_wide_variants.py)
+SLS_WIDE_K_CHUNK = 2
+
+
+def sls_wide_columns(batch_tile: int, p1: int) -> int:
+    """N, the wide kernel's B columns: batch_tile instances of ceil(p1 / 2)
+    slab pairs (an odd p1's last pair with a zero slab)."""
+    return 2 * batch_tile * -(-p1 // 2)
+
+
+def sls_wide_column(b: int, k: int, p1: int) -> int:
+    """Column of (instance b of a tile, slab k) in `csrc/sls_admm_wide.cu`'s
+    B operand and accumulators: 8 (b // 4 * H + k // 2) + 2 (b % 4) + k % 2
+    with H = ceil(p1 / 2). In the m64nNk8 accumulator layout thread t of a
+    quad holds columns 8 j + 2 t and 8 j + 2 t + 1 of every 8-column group
+    j, so every slab of instance b sits in thread b % 4 at each row it
+    holds, and the z-update needs no exchange."""
+    H = -(-p1 // 2)
+    return 8 * (b // 4 * H + k // 2) + 2 * (b % 4) + k % 2
+
+
+def sls_wide_k_steps(Nm: int) -> int:
+    """k-steps of 8 a wide product runs: Nm padded to a multiple of 16."""
+    return 2 * -(-Nm // 16)
+
+
+def sls_wide_tiles(Nm: int) -> int:
+    """64-row M tiles of the wide route's output columns."""
+    return -(-Nm // _WIDE_M)
+
+
+def sls_wide_smem(batch_tile: int, Nm: int, p1: int) -> int:
+    """Dynamic shared-memory bytes of one block of csrc/sls_admm_wide.cu:
+    s as TF32 hi and lo (2 N K floats, K = 8 sls_wide_k_steps(Nm)) and the
+    four warpgroups' rings of A fragments."""
+    N = sls_wide_columns(batch_tile, p1)
+    return 4 * 2 * N * 8 * sls_wide_k_steps(Nm) + _WIDE_RING
+
+
+def sls_wide_edge(batch_tile: int, p1: int, general: bool = False) -> int:
+    """The widest Nm the wide route takes at this tile and p1: where shared
+    memory ends (1,552 at p1 = 2 and tile 8; 768 at p1 = 3 or 4, or tile
+    16; 1,536 and 768 with the general z-update's constants)."""
+    N = sls_wide_columns(batch_tile, p1)
+    room = _MAX_SMEM - _WIDE_RING - (_GENERAL_SMEM if general else 0)
+    return room // (4 * 2 * N * 16) * 16
+
+
+def sls_wide_launch_geometry(batch_tile: int, Nm: int, p1: int,
+                             general: bool = False) -> tuple[int, int]:
+    """(threads, dynamic shared-memory bytes) of one block of the wide
+    route, `csrc/sls_admm_wide.cu`, which streams W from L2.
+
+    Raises ValueError when the tile cannot be launched: p1 from 2 to 8,
+    batch_tile 8 or 16 with N = `sls_wide_columns` <= 64 (tile 16 takes
+    p1 <= 4; the general z-update, tile 8 only), and s (hi and lo) with the
+    rings, and the general z-update's constants when it runs, must fit in
+    shared memory: to Nm = `sls_wide_edge` (1,552 at p1 = 2 and tile 8).
+    """
+    if not 2 <= p1 <= CONSENSUS_MAX[0]:
+        raise ValueError(f"the wide kernel takes 2 <= p1 <= {CONSENSUS_MAX[0]}, got p1 = {p1}")
+    if batch_tile not in _WIDE_TILES:
+        raise ValueError(f"batch_tile={batch_tile}: the wide SLS kernel takes "
+                         f"{' or '.join(map(str, _WIDE_TILES))} instances a block")
+    if general and batch_tile != 8:
+        raise ValueError(f"batch_tile={batch_tile}: {_GENERAL_TILE_ONLY}")
+    N = sls_wide_columns(batch_tile, p1)
+    if N > _WIDE_MAX_N:
+        raise ValueError(f"batch_tile={batch_tile} at p1 = {p1} needs {N} columns of B; the wide "
+                         f"kernel is built for at most {_WIDE_MAX_N} (tile 16 takes p1 <= 4)")
+    smem = sls_wide_smem(batch_tile, Nm, p1)
+    if smem + (_GENERAL_SMEM if general else 0) > _MAX_SMEM:
+        raise ValueError(
+            f"Nm={Nm} with batch_tile={batch_tile} at p1 = {p1} needs {smem} bytes of shared "
+            f"memory on the wide route; the limit is {_MAX_SMEM} bytes (Nm <= "
+            f"{sls_wide_edge(batch_tile, p1, general)} at this tile)"
+        )
+    return 128 * _WIDE_GROUPS, smem
+
+
+def sls_route(batch_tile: int, Nm: int, p1: int, general: bool = False) -> str:
+    """"narrow" when `csrc/sls_admm.cu` takes the tile (W staged in shared
+    memory; `launch_geometry`), else "wide" when `csrc/sls_admm_wide.cu`
+    does (W streamed from L2; `sls_wide_launch_geometry`); raises
+    ValueError, with both kernels' reasons and limits, when neither does.
+    general: the consensus z-update runs the general build (a shape not in
+    CONSENSUS_SHAPES). Every launch the narrow kernel took before the wide
+    route existed stays with it."""
+    try:
+        launch_geometry(batch_tile, Nm, p1, general=general)
+        return "narrow"
+    except ValueError as narrow:
+        try:
+            sls_wide_launch_geometry(batch_tile, Nm, p1, general)
+            return "wide"
+        except ValueError as wide:
+            raise ValueError(
+                f"no SLS kernel takes this launch: the narrow kernel (csrc/sls_admm.cu, W in "
+                f"shared memory, Nm <= 224 at p1 = 2): {narrow}; the wide kernel "
+                f"(csrc/sls_admm_wide.cu, W streamed from L2, Nm <= {sls_wide_edge(8, 2)} at "
+                f"p1 = 2 and batch_tile 8): {wide}"
+            ) from None
+
+
+def pack_sls_wide(W: torch.Tensor):
+    """W in the wide route's storage: (ops_f, ops_i). ops_f holds W^T,
+    zero-padded to (64 sls_wide_tiles(Nm), 8 sls_wide_k_steps(Nm)), as
+    (tile, k-step, 512) A fragments of a TF32 `wgmma.m64nNk8` (thread 32 w
+    + 4 g + t of the warpgroup: rows 16 w + g and 16 w + g + 8, columns t
+    and t + 4; `fused_admm._fragments`); ops_i = (tiles, k-steps) int32."""
+    Nm = W.shape[0]
+    n_tiles, nk = sls_wide_tiles(Nm), sls_wide_k_steps(Nm)
+    A = torch.nn.functional.pad(W.T, (0, 8 * nk - Nm, 0, _WIDE_M * n_tiles - Nm))
+    blocks = A.reshape(n_tiles, _WIDE_M, nk, 8).permute(0, 2, 1, 3)
+    ops_f = _fragments(blocks).reshape(-1).contiguous()
+    return ops_f, torch.tensor([n_tiles, nk], dtype=torch.int32, device=W.device)
 
 
 def _schedule(n_iters: int, stop_tol: float, check_every: int) -> tuple[int, int]:
@@ -273,7 +427,7 @@ def _check_inputs(bounds, U_base, W, batch_tile):
 def sls_admm_reference(
     bounds, U_base, W, *, n_iters, n_cons_iters=20, alpha=1.0, cons_rho=10.0, stop_tol=0.0,
     check_every=8, batch_tile=8, z_update="consensus", diamond_w=None, soc_A=(),
-    soc_b_fixed=(), soc_b_bound=(), l_inv_cons=None, products="f32",
+    soc_b_fixed=(), soc_b_bound=(), l_inv_cons=None, products="f32", stats=None,
 ):
     """Plain torch version of the kernel, in f32 or f64, on any device.
 
@@ -286,6 +440,8 @@ def sls_admm_reference(
     products: "f32" (full f32 matmuls) or "tf32x3", the product
     (Z - L) @ W as the kernel's tensor cores take it (`tf32x3_matmul`;
     float32 only). The z-update and the dual update are the same in both.
+    stats: a dict that receives "tile_iterations", the (n_tiles,)
+    iterations each tile ran.
     """
     if products == "f32":
         matmul = torch.matmul
@@ -323,7 +479,9 @@ def sls_admm_reference(
         L = torch.zeros_like(Z)
         U = Z
         active = None  # per-tile mask, once early exit has been tested
+        ran = torch.zeros(n_tiles, dtype=torch.long, device=W.device)
         for _ in range(n_chunks):
+            ran += chunk_len if active is None else chunk_len * active
             for _ in range(chunk_len):
                 Z_prev = Z
                 new = step(Z, L)
@@ -338,18 +496,29 @@ def sls_admm_reference(
                 active = running if active is None else active & running
                 if not bool(active.any()):
                     break
+    if stats is not None:
+        stats["tile_iterations"] = ran
     return U.permute(1, 2, 3, 0).reshape(batch, Nm, p1)
+
+
+def general_z_update(p1: int, z_update: str, soc_A) -> bool:
+    """Whether the kernels run the general consensus build: a consensus
+    shape without a build of its own (not in CONSENSUS_SHAPES)."""
+    n_sets = len(soc_A)
+    q = soc_A[0].shape[0] if n_sets else 0
+    return z_update == "consensus" and (p1, n_sets, q) not in CONSENSUS_SHAPES
 
 
 def kernel_z_update(p1, z_update, diamond_w, soc_A, soc_b_fixed, soc_b_bound, l_inv_cons,
                     cons_rho):
-    """(mode, coeffs, n_sets, q): the z-update as `csrc/sls_admm.cu` takes it.
+    """(mode, coeffs, n_sets, q): the z-update as both kernels take it.
 
     mode 0 is the diamond, with coeffs (w0, w1, w0^2 + w1^2); mode 1 the
     consensus, with coeffs A, cons_rho * A, b_fixed, b_bound and
-    l_inv_cons packed row-major. Each f32 coefficient is rounded once
-    from its f64 value, as the TPU kernel's trace-time constants are.
-    Raises ValueError for a shape the kernel is not built for.
+    l_inv_cons packed row-major (the shapes of CONSENSUS_SHAPES run their
+    own builds, the rest the general one). Each f32 coefficient is rounded
+    once from its f64 value, as the TPU kernel's trace-time constants are.
+    Raises ValueError for a shape past CONSENSUS_MAX.
     """
     if z_update == "diamond":
         if p1 != 2:
@@ -358,10 +527,12 @@ def kernel_z_update(p1, z_update, diamond_w, soc_A, soc_b_fixed, soc_b_bound, l_
         return 0, np.asarray([w0, w1, w0 * w0 + w1 * w1], np.float32), 0, 0
     n_sets = len(soc_A)
     q = soc_A[0].shape[0] if n_sets else 0
-    if (p1, n_sets, q) not in CONSENSUS_SHAPES:
+    max_p1, max_sets, max_q = CONSENSUS_MAX
+    if not (2 <= p1 <= max_p1 and 1 <= n_sets <= max_sets and 2 <= q <= max_q):
         raise ValueError(
-            f"the consensus kernel is not built for (p1, n_sets, q) = {(p1, n_sets, q)}; "
-            f"csrc/sls_admm.cu instantiates {list(CONSENSUS_SHAPES)}"
+            f"the consensus kernels are not built for (p1, n_sets, q) = {(p1, n_sets, q)}: they "
+            f"take 2 <= p1 <= {max_p1}, 1 <= n_sets <= {max_sets} and 2 <= q <= {max_q} "
+            f"(the general build's constants, {_MAX_COEFFS} floats, live in shared memory)"
         )
     A = np.stack([np.asarray(a, np.float64) for a in soc_A])
     parts = (A, cons_rho * A, np.stack(soc_b_fixed), np.stack(soc_b_bound), l_inv_cons)
@@ -369,33 +540,48 @@ def kernel_z_update(p1, z_update, diamond_w, soc_A, soc_b_fixed, soc_b_bound, l_
     return 1, coeffs.astype(np.float32), n_sets, q
 
 
+def _check_route_packed(packed, W, route):
+    """packed: W in the storage of `route`, on W's device."""
+    Nm = W.shape[0]
+    if route == "narrow":
+        _check_packed(packed, W, (-(-Nm // 16), 4), "pair_pack(W)", f"Nm={Nm}")
+    elif route == "wide":
+        _check_packed(packed, W, (2,), "pack_sls_wide(W)", f"Nm={Nm}")
+        if packed[0].numel() != 512 * sls_wide_tiles(Nm) * sls_wide_k_steps(Nm):
+            raise ValueError(f"packed does not have the shapes of pack_sls_wide(W) at Nm={Nm}")
+    else:
+        raise ValueError(f'route must be "narrow" or "wide", got {route!r}')
+
+
 def sls_admm(
     bounds, U_base, W, packed, *, n_iters, n_cons_iters=20, alpha=1.0, cons_rho=10.0,
     stop_tol=0.0, check_every=8, batch_tile=8, z_update="consensus", diamond_w=None, soc_A=(),
-    soc_b_fixed=(), soc_b_bound=(), l_inv_cons=None,
+    soc_b_fixed=(), soc_b_bound=(), l_inv_cons=None, route="narrow",
 ):
     """Run the robust SLS-ADMM loop on a fleet; returns U (batch, Nm, p1).
 
     bounds (batch,): the per-instance scenario bound; U_base (p1, Nm):
     the unconstrained x-update, shared by every instance; W (Nm, Nm):
-    the response to s = Z - L; packed: (ops_f, ops_i) = `pair_pack(W)`,
-    W in the kernel's storage (the solver packs it once, at setup).
-    batch must be a multiple of batch_tile. The z-update options are
-    those of `make_fused_sls_admm`; soc_* and l_inv_cons are float64
-    numpy arrays.
+    the response to s = Z - L; packed: W in the storage of `route`
+    (the solver packs it once, at setup): `pair_pack(W)` for "narrow",
+    `pack_sls_wide(W)` for "wide". batch must be a multiple of
+    batch_tile. The z-update options are those of `make_fused_sls_admm`;
+    soc_* and l_inv_cons are float64 numpy arrays.
 
-    CUDA tensors (float32) go to the kernel in `csrc/sls_admm.cu`, which
-    reads only the packed W, takes batch_tile 8 or 16 and any p1 >= 2
-    (see `launch_geometry`; `k_split` chooses its warps; the diamond at
-    p1 = 2, the consensus at the shapes of CONSENSUS_SHAPES) and runs its products
-    on the tensor cores in 3xTF32, held to `sls_admm_reference(...,
-    products="tf32x3")`. CPU tensors go to `sls_admm_reference` with f32
-    products, which reads only the dense W. Any other device raises.
+    CUDA tensors (float32) go to the route's kernel, which reads only the
+    packed W and runs its products on the tensor cores in 3xTF32, held to
+    `sls_admm_reference(..., products="tf32x3")`: "narrow" to
+    `csrc/sls_admm.cu` (W in shared memory; batch_tile 8 or 16, any p1 >=
+    2 to Nm = 224 at p1 = 2, see `launch_geometry`; `k_split` chooses its
+    warps), "wide" to `csrc/sls_admm_wide.cu` (W streamed from L2; see
+    `sls_wide_launch_geometry`). Both take the diamond at p1 = 2 and the
+    consensus at any shape to CONSENSUS_MAX (`kernel_z_update`). CPU
+    tensors go to `sls_admm_reference` with f32 products, which reads only
+    the dense W. Any other device raises.
     """
-    global launch_count
+    global launch_count, wide_launch_count
     _check_inputs(bounds, U_base, W, batch_tile)
-    Nm = W.shape[0]
-    _check_packed(packed, W, (-(-Nm // 16), 4), "pair_pack(W)", f"Nm={Nm}")
+    _check_route_packed(packed, W, route)
     kw = dict(
         n_iters=n_iters, n_cons_iters=n_cons_iters, alpha=alpha, cons_rho=cons_rho,
         stop_tol=stop_tol, check_every=check_every, batch_tile=batch_tile, z_update=z_update,
@@ -412,30 +598,52 @@ def sls_admm(
     chunk_len, n_chunks = _schedule(n_iters, stop_tol, check_every)
     batch = bounds.shape[0]
     p1, Nm = U_base.shape
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    split = k_split(batch, batch_tile, Nm, sms, p1)
-    launch_geometry(batch_tile, Nm, p1, split)
     mode, coeffs, n_sets, q = kernel_z_update(
         p1, z_update, diamond_w, soc_A, soc_b_fixed, soc_b_bound, l_inv_cons, cons_rho
     )
+    general = general_z_update(p1, z_update, soc_A)
+    if route == "narrow":
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        split = k_split(batch, batch_tile, Nm, sms, p1)
+        launch_geometry(batch_tile, Nm, p1, split, general)
+    else:
+        sls_wide_launch_geometry(batch_tile, Nm, p1, general)
 
     from ilqr_admm_tpu_torch._build import load_library
 
     lib = load_library()
     ops_f, ops_i = packed
     U = torch.empty((batch, Nm, p1), dtype=W.dtype, device=device)
+    schedule = (chunk_len, n_chunks, float(alpha), float(1.0 - alpha), float(stop_tol))
+    z_args = (mode, coeffs.ctypes.data, n_sets, q, int(n_cons_iters))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.sls_admm_launch(
-            bounds.data_ptr(), U_base.data_ptr(), ops_f.data_ptr(), ops_f.numel(),
-            ops_i.data_ptr(), U.data_ptr(), batch, Nm, batch_tile, p1, chunk_len, n_chunks,
-            float(alpha), float(1.0 - alpha), float(stop_tol),
-            mode, coeffs.ctypes.data, n_sets, q, int(n_cons_iters), split, stream,
-        )
+        if route == "narrow":
+            err = lib.sls_admm_launch(
+                bounds.data_ptr(), U_base.data_ptr(), ops_f.data_ptr(), ops_f.numel(),
+                ops_i.data_ptr(), U.data_ptr(), batch, Nm, batch_tile, p1, *schedule, *z_args,
+                split, stream,
+            )
+        else:
+            n_tiles, nk = sls_wide_tiles(Nm), sls_wide_k_steps(Nm)
+            # Z and L of every block, in each thread's accumulator order
+            state = torch.empty(
+                (batch // batch_tile) * n_tiles * sls_wide_columns(batch_tile, p1) * 128,
+                dtype=W.dtype, device=device,
+            )
+            err = lib.sls_admm_wide_launch(
+                bounds.data_ptr(), U_base.data_ptr(), ops_f.data_ptr(), state.data_ptr(),
+                U.data_ptr(), batch, Nm, n_tiles, nk, SLS_WIDE_K_CHUNK, batch_tile, p1,
+                *schedule, *z_args,
+                stream,
+            )
     if err != 0:
         msg = lib.sls_admm_error_string(err).decode()
-        raise RuntimeError(f"sls_admm kernel launch failed: {msg} (cudaError {err})")
-    launch_count += 1
+        raise RuntimeError(f"sls_admm ({route}) kernel launch failed: {msg} (cudaError {err})")
+    if route == "narrow":
+        launch_count += 1
+    else:
+        wide_launch_count += 1
     return U
 
 
@@ -443,26 +651,31 @@ class FusedSLSADMM(nn.Module):
     """Batched robust SLS-ADMM solver for one problem and z-update.
 
     Holds the one-time operators as buffers (PHI_unc (Nm, Nd), U_base
-    (p1, Nm), W (Nm, Nm) and W packed for the kernel, ops_f and ops_i);
-    `forward(bounds (batch,))` returns (du (batch, Nm), phi_u (batch, Nm,
-    Nd), U (batch, Nm, p1)) like the JAX `solve`.
+    (p1, Nm), W (Nm, Nm) and W packed for its kernel, ops_f and ops_i);
+    `route` is the kernel chosen at build ("narrow" or "wide", `sls_route`;
+    None on the CPU, where the plain version runs). `forward(bounds
+    (batch,))` returns (du (batch, Nm), phi_u (batch, Nm, Nd), U (batch,
+    Nm, p1)) like the JAX `solve`.
     """
 
-    def __init__(self, operators: dict, robust_dim: int, **kernel_options):
+    def __init__(self, operators: dict, robust_dim: int, route: str | None, **kernel_options):
         super().__init__()
         for name, value in operators.items():
             self.register_buffer(name, value)
         self.robust_dim = robust_dim
+        self.route = route
         self.kernel_options = kernel_options
 
     @property
     def packed(self):
-        """(ops_f, ops_i): W in the kernel's storage (`pair_pack`)."""
+        """(ops_f, ops_i): W in its route's storage (`pair_pack` for the
+        narrow route and on the CPU, `pack_sls_wide` for the wide one)."""
         return self.ops_f, self.ops_i
 
     def forward(self, bounds):
         bounds = torch.as_tensor(bounds).to(self.W.device, self.W.dtype).contiguous()
-        U = sls_admm(bounds, self.U_base, self.W, self.packed, **self.kernel_options)
+        U = sls_admm(bounds, self.U_base, self.W, self.packed, **self.kernel_options,
+                     route=self.route or "narrow")
         p = self.robust_dim
         phi_u = torch.cat(
             [U[:, :, 1:], self.PHI_unc[:, p:].expand(U.shape[0], -1, -1)], dim=-1
@@ -510,9 +723,14 @@ def make_fused_sls_admm(
     early exit, tested every check_every iterations.
 
     batch_tile is the number of instances one CUDA block owns (and the
-    early-exit group). The kernel takes 8 or 16 (see `launch_geometry`);
-    the default 8 gives the bench batch of 1024 128 blocks, about one for
-    each of an H100's 132 SMs. On a CUDA device dtype must be float32.
+    early-exit group). Both kernels take 8 or 16 (`launch_geometry`,
+    `sls_wide_launch_geometry`); the default 8 gives the bench batch of
+    1024 128 blocks, about one for each of an H100's 132 SMs. On a CUDA
+    device dtype must be float32, and the kernel is chosen here
+    (`sls_route`: W staged in shared memory to Nm = 224 at p1 = 2, else
+    streamed from L2 to Nm = 1,552): a fleet that neither kernel takes, or
+    a consensus shape past CONSENSUS_MAX, raises ValueError here, not at
+    its first call.
 
     The problem data are rounded to `dtype`, then the setup (PHI_unc
     from `lqt_solve_sls`, U_base = (l_inv r_base)^T and W = (l_inv Rr)^T)
@@ -521,6 +739,9 @@ def make_fused_sls_admm(
     device = resolve_device(device)
     if z_update not in Z_UPDATES:
         raise ValueError(f"unknown z_update {z_update!r}; expected one of {Z_UPDATES}")
+    if robust_dim < 1:
+        raise ValueError(f"robust_dim must be >= 1, got {robust_dim} (the JAX kernel's setup "
+                         "takes none either)")
     p1 = robust_dim + 1
     if z_update == "diamond":
         if p1 != 2 or diamond_w is None or len(diamond_w) != 2:
@@ -567,6 +788,13 @@ def make_fused_sls_admm(
     if gemm_precision != "f32":
         raise ValueError(f"unknown gemm_precision {gemm_precision!r}; the port has only 'f32'")
     _schedule(n_iters, stop_tol, check_every)
+    route = None
+    if device.type == "cuda":
+        # refuse what no kernel takes now, not at the first call
+        kernel_z_update(p1, z_update, diamond_w, soc_A, soc_b_fixed, soc_b_bound, l_inv_cons,
+                        cons_rho)
+        route = sls_route(batch_tile, A.shape[0] * B.shape[-1], p1,
+                          general_z_update(p1, z_update, soc_A))
 
     A, B, cost = host_f64(A, B, cost, dtype)
     N, m = A.shape[0], B.shape[-1]
@@ -586,9 +814,10 @@ def make_fused_sls_admm(
         )
     operators = {k: v.to(device=device, dtype=dtype).contiguous() for k, v in operators.items()}
     # the kernel's storage of W, packed once
-    operators["ops_f"], operators["ops_i"] = pair_pack(operators["W"])
+    pack = pack_sls_wide if route == "wide" else pair_pack
+    operators["ops_f"], operators["ops_i"] = pack(operators["W"])
     return FusedSLSADMM(
-        operators, robust_dim, n_iters=n_iters, n_cons_iters=n_cons_iters, alpha=alpha,
+        operators, robust_dim, route, n_iters=n_iters, n_cons_iters=n_cons_iters, alpha=alpha,
         cons_rho=cons_rho, stop_tol=float(stop_tol), check_every=int(check_every),
         batch_tile=batch_tile, z_update=z_update, diamond_w=diamond_w, soc_A=soc_A,
         soc_b_fixed=soc_b_fixed, soc_b_bound=soc_b_bound, l_inv_cons=l_inv_cons,

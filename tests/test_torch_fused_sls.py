@@ -277,7 +277,7 @@ def test_batch_not_a_multiple_of_the_tile_raises():
 
 
 def test_kernel_z_update_packing():
-    """The constants the CUDA kernel takes, and the shapes it is built for."""
+    """The constants the CUDA kernels take, and the shapes they are built for."""
     soc_A, b_fixed, b_bound = _soc()
     lc = np.eye(2) + 10.0 * sum(a.T @ a for a in soc_A)
     mode, coeffs, n_sets, q = kernel_z_update(2, "consensus", None, soc_A, b_fixed, b_bound,
@@ -289,9 +289,14 @@ def test_kernel_z_update_packing():
     mode, coeffs, _, _ = kernel_z_update(2, "diamond", (1.0, C_COEF), (), (), (), None, 10.0)
     assert mode == 0
     np.testing.assert_array_equal(coeffs, np.float32([1.0, C_COEF, 1.0 + C_COEF**2]))
-    with pytest.raises(ValueError, match=r"instantiates \[\(2, 2, 3\), \(3, 2, 4\)\]"):
-        kernel_z_update(2, "consensus", None, soc_A[:1], b_fixed[:1], b_bound[:1],
-                        np.eye(2), 10.0)
+    # one set: the general build's shape (2, 1, 3), packed the same way;
+    # five sets are past CONSENSUS_MAX
+    mode, coeffs, n_sets, q = kernel_z_update(2, "consensus", None, soc_A[:1], b_fixed[:1],
+                                              b_bound[:1], np.eye(2), 10.0)
+    assert (mode, n_sets, q) == (1, 1, 3) and coeffs.size == 3 * 2 * 2 + 3 * 2 + 4
+    with pytest.raises(ValueError, match=r"not built for \(p1, n_sets, q\) = \(2, 5, 3\)"):
+        kernel_z_update(2, "consensus", None, 2 * soc_A + soc_A[:1], 2 * b_fixed + b_fixed[:1],
+                        2 * b_bound + b_bound[:1], np.eye(2), 10.0)
     with pytest.raises(ValueError, match="p1 = 2"):
         kernel_z_update(3, "diamond", (1.0, 1.0), (), (), (), None, 10.0)
 

@@ -211,8 +211,8 @@ def test_kernel_z_update_packs_the_p1_3_cones():
     np.testing.assert_array_equal(coeffs[-9:], np.linalg.inv(lc).ravel().astype(np.float32))
     assert k_split(1024, 8, 100, 132, p1=3) == 1
     with pytest.raises(ValueError, match="not built for"):
-        kernel_z_update(3, "consensus", None, soc_A[:1], b_fixed[:1], b_bound[:1],
-                        np.eye(3), CONS_RHO)
+        kernel_z_update(3, "consensus", None, [np.zeros((10, 3))], [np.zeros(10)],
+                        [np.zeros(10)], np.eye(3), CONS_RHO)
 
 
 def test_cpu_wrapper_runs_the_plain_version_at_p1_3():
