@@ -49,6 +49,12 @@ Drives the port's paths on the card:
   through `ilqr_admm_fleet` in both line-search modes, whose line search
   is the same kernel's fleet form (every instance's candidates in one
   launch of F x A blocks);
+- the constrained solve of `examples/car_control_bounds.py` (CarSimple,
+  N = 500, |u| <= 0.5, rho_u 1, 50 alphas, the inner line search, up to
+  60 outer steps of 8 ADMM iterations, f32) through `ilqr_admm`, whose
+  line search is the generated rollout route: CarSimple's
+  `step_unwrapped` traced and emitted by `ops/rollout_codegen.py` and
+  compiled into `csrc/linesearch_rollout_generic.cuh`;
 - the fleet configurations of `parallel/batch.py` in f64:
   `batched_lqt_admm_dp` with accel and with adaptive rho, and
   `batched_ilqr_solve` with the lifted 'batch' and 'sls' methods, on
@@ -249,6 +255,24 @@ Phases:
    steps), then [fleet configs] (`phase_fleet_configs`: each fleet of
    1,024 against single solves of its first 8 in f64, iterations equal,
    trajectories or costs within 1e-10 relative, the same stops).
+13. slice 23, after [mpc car] (beside the arm certificates' workers;
+   the generated steps' libraries are built in [build], beside the
+   library's): [rollout generated ops] (each op of the emitter's table,
+   as a row of a plant of up to 8 such rows, over 65,536 values, ±0,
+   ±inf, NaN, subnormals and arguments outside the domains among them);
+   [rollout generated] (CarSimple's two steps at (N, A) = (500, 50), (37,
+   128) and (10,000, 1) and as a fleet (64, 50, 500) with NaN states in
+   one instance, CarFrontWheel through the generated route against the
+   staged kernel and the plain version, a d = m = 8 plant), all bit for
+   bit with the plain version on the card; [rollout generated main path]
+   (the example's solve with the plain version patched to raise and the
+   counters set to 0 just before: one generated launch a line search and
+   no other, the example's goldens, its host reads and wall time; its
+   first 2 outer iterations bit for bit a run with the plain version as
+   the hook); [rollout generated time] (the kernel and its plain version
+   at the path's line search and at the fleet shape, with the bound of
+   the traced step's loop-carried chain; CarFrontWheel at [car time]'s shape
+   through the generated route and the staged kernel).
 
 Any failure exits non-zero before the last line. The last line is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
@@ -273,6 +297,7 @@ import copy
 import gc
 import io
 import json
+import math
 import multiprocessing
 import os
 import re
@@ -318,6 +343,7 @@ from ilqr_admm_tpu_torch.ops.fused_rollout import (
     linesearch_rollout_reference,
     make_fused_linesearch_rollout,
 )
+from ilqr_admm_tpu_torch.ops.rollout_codegen import emit_step
 from ilqr_admm_tpu_torch.ops.fused_sls import (
     make_fused_sls_admm,
     sls_admm,
@@ -816,11 +842,11 @@ EXAMPLES_TIMEOUT = 600  # seconds a twin may take on the card
 LINALG_BATCH = 500
 LINALG_TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 
-# Published peaks of one H100 SXM: f32 outside the tensor cores, dense
-# TF32 on the tensor cores, and HBM3
 # the run's length varies up to 1.3x between hosts: the [phases] line
 # prints the estimate for the slowest seen
 SLOW_HOST = 1.3
+# Published peaks of one H100 SXM: f32 outside the tensor cores, dense
+# TF32 on the tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -1007,6 +1033,7 @@ def reset_launch_counts():
     fused_riccati.scan_launch_count = 0
     fused_riccati.join_launch_count = 0
     fused_rollout.launch_count = 0
+    fused_rollout.generated_launch_count = 0
 
 
 def launch_counts() -> dict:
@@ -1017,7 +1044,8 @@ def launch_counts() -> dict:
             "sls_admm": fused_sls.launch_count, "sls_admm_wide": fused_sls.wide_launch_count,
             "riccati_scan": fused_riccati.scan_launch_count,
             "riccati_join": fused_riccati.join_launch_count,
-            "linesearch_rollout": fused_rollout.launch_count}
+            "linesearch_rollout": fused_rollout.launch_count,
+            "linesearch_rollout_generated": fused_rollout.generated_launch_count}
 
 
 @contextlib.contextmanager
@@ -1070,12 +1098,22 @@ def phase_device():
 
 
 def phase_build():
+    """The library of csrc/*.cu and the generated rollout steps' libraries
+    (`generated_steps`), one nvcc for each, all started together. Returns
+    the generated steps (name -> (step, GeneratedStep))."""
     prebuilt = (_build.build_dir() / _build.LIB_NAME).exists()
+    steps = generated_steps()
     t0 = time.perf_counter()
-    _build.load_library()
-    seconds = time.perf_counter() - t0
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:  # the steps' nvcc beside the library's
+        rollouts = pool.submit(_build.build_rollouts, [g.source for _, g in steps.values()])
+        _build.load_library()
+        seconds = time.perf_counter() - t0
+        paths = rollouts.result()
     print(f"[build] {_build.build_dir() / _build.LIB_NAME}: "
           f"{'found prebuilt, loaded' if prebuilt else 'built and loaded'} in {seconds:.2f} s")
+    print(f"[build] {len(set(paths))} generated rollout steps' libraries "
+          f"(build/torch_kernels/rollout_*) ready in {time.perf_counter() - t0:.2f} s, built "
+          "beside it")
     log = _build.build_dir() / "nvcc.log"
     if log.exists():
         source = None
@@ -1087,7 +1125,13 @@ def phase_build():
             elif re.fullmatch(r"\[[0-9.]+ s\]", line) and source:
                 print(f"[build] {source} compiled in {line[1:-1]}")  # its nvcc's seconds
                 source = None
-    return seconds
+    for name in ("CarSimple.step_unwrapped", "CarSimple.step", "eight_state_step"):
+        log = _build.rollout_dir(steps[name][1].source) / "nvcc.log"
+        for line in log.read_text().splitlines():
+            if any(w in line for w in ("registers", "spill")) or re.fullmatch(r"\[[0-9.]+ s\]",
+                                                                             line):
+                print(f"[build] generated {name}: {line.strip()}")
+    return steps
 
 
 def odd_width_case(device):
@@ -2807,21 +2851,22 @@ def max_sm_clock_hz() -> float:
     return 1e6 * float(smi.stdout.split()[0])
 
 
-def car_bound(x0, u, xs, sm_clock_hz):
+def car_bound(x0, u, xs, sm_clock_hz, step_ops=CAR_STEP_OPS, chain=1.0):
     """The larger of: bytes of x0, the candidates and the trajectories
-    once each; the step's operations for every candidate and step; and
-    the dependency chain, N - 1 f32 additions in a row (each state's
-    component at t + 1 needs the one at t) at an FADD's latency and the
-    card's maximum SM clock. The chain is a bound of operations, so it is
-    reported as one, with `bound_ops` naming it."""
+    once each; the step's operations (step_ops) for every candidate and
+    step; and the dependency chain, N - 1 steps of `chain` dependent f32
+    operations (the step's longest loop-carried cycle: each state's
+    component at t + 1 needs the one at t; the car's is one add) at an
+    FADD's latency and the card's maximum SM clock. The chain is a bound of
+    operations, so it is reported as one, with `bound_ops` naming it."""
     horizon = u.shape[-2]
     n_cands = u.numel() // (horizon * u.shape[-1])  # a fleet's F * A
-    result = bound(CAR_STEP_OPS * n_cands * horizon, nbytes(x0, u, xs))
-    chain_ms = 1e3 * (horizon - 1) * FADD_LATENCY_CYCLES / sm_clock_hz
+    result = bound(step_ops * n_cands * horizon, nbytes(x0, u, xs))
+    chain_ms = 1e3 * (horizon - 1) * chain * FADD_LATENCY_CYCLES / sm_clock_hz
     if chain_ms > result["bound_ms"]:
         result.update(bound_ms=chain_ms, bound_by="operations", bound_ops=(
-            f"dependency chain: {horizon - 1} FADD at {FADD_LATENCY_CYCLES} cycles, "
-            f"{sm_clock_hz / 1e6:.0f} MHz"))
+            f"dependency chain: {horizon - 1} x {chain:g} FADD at {FADD_LATENCY_CYCLES} "
+            f"cycles, {sm_clock_hz / 1e6:.0f} MHz"))
     return result
 
 
@@ -3154,6 +3199,448 @@ def phase_car_fleet_profile(device, card, p):
               f"{host * 1e3:.1f} ms")
     for name, (t, c) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"[car fleet profile] {t * 1e3:9.3f} ms, {c:6d} calls: {name[:90]}")
+
+
+# ---- slice 23: the generated rollout route (any plant's step) ---------------
+
+
+# name -> (op on a tuple of operand rows, its number of operands): every
+# operation of the emitter's table, with a Python number on each side
+# where torch takes one, and each special case of `pow`
+# (ops/rollout_codegen.py)
+ROLLOUT_OPS = {
+    "add": (lambda r: r[0] + r[1], 2),
+    "add 0.1": (lambda r: r[0] + 0.1, 1),
+    "sub": (lambda r: r[0] - r[1], 2),
+    "sub 0.1": (lambda r: r[0] - 0.1, 1),
+    "0.1 - u": (lambda r: 0.1 - r[0], 1),
+    "mul": (lambda r: r[0] * r[1], 2),
+    "mul 0.1": (lambda r: 0.1 * r[0], 1),
+    "div": (lambda r: r[0] / r[1], 2),
+    "div 3.0": (lambda r: r[0] / 3.0, 1),
+    "3.0 / u": (lambda r: 3.0 / r[0], 1),
+    "neg": (lambda r: -r[0], 1),
+    "pow 2": (lambda r: r[0] ** 2, 1),
+    "pow 3": (lambda r: r[0] ** 3, 1),
+    "pow -2": (lambda r: r[0] ** -2, 1),
+    "pow 0.5": (lambda r: r[0] ** 0.5, 1),
+    "pow -0.5": (lambda r: r[0] ** -0.5, 1),
+    "pow -1": (lambda r: r[0] ** -1, 1),
+    "pow 2.5": (lambda r: r[0] ** 2.5, 1),
+    "pow 0": (lambda r: r[0] ** 0, 1),
+    "pow 1": (lambda r: r[0] ** 1, 1),
+    **{name: (lambda r, f=getattr(torch, name): f(r[0]), 1)
+       for name in ("sin", "cos", "tan", "asin", "acos", "atan", "sqrt", "exp", "log", "tanh",
+                    "abs")},
+    "atan2": (lambda r: torch.atan2(r[0], r[1]), 2),
+    "minimum": (lambda r: torch.minimum(r[0], r[1]), 2),
+    "maximum": (lambda r: torch.maximum(r[0], r[1]), 2),
+    "clamp": (lambda r: torch.clamp(r[0], -0.5, 0.5), 1),
+    "clamp min": (lambda r: torch.clamp(r[0], min=0.0), 1),
+    "clamp max": (lambda r: torch.clamp(r[0], max=1.0), 1),
+    "remainder 2 pi": (lambda r: torch.remainder(r[0], 2.0 * math.pi), 1),
+    "remainder": (lambda r: torch.remainder(r[0], r[1]), 2),
+    "u % -1.5": (lambda r: r[0] % -1.5, 1),
+    "2.0 % u": (lambda r: 2.0 % r[0], 1),
+    "full_like": (lambda r: torch.full_like(r[0], 2.5), 1),
+}
+
+
+def op_plants() -> dict:
+    """The op table packed into plants of at most 8 rows, one library
+    each: name -> (step, arity, the ops' names). Row k of a plant is op k
+    of its own operands u[k * arity], ..., with no state feedback, so each
+    row is one ATen op, held to the plain version on its own."""
+    plants = {}
+    for arity in (1, 2):
+        names = [name for name, (_, n) in ROLLOUT_OPS.items() if n == arity]
+        per = 8 // arity
+        for i in range(0, len(names), per):
+            group = names[i:i + per]
+
+            def step(x, u, group=group, arity=arity):
+                return torch.stack([
+                    ROLLOUT_OPS[name][0](tuple(u[k * arity + j] for j in range(arity)))
+                    for k, name in enumerate(group)])
+
+            plants[f"ops {arity}-ary {i // per}"] = (step, arity, tuple(group))
+    return plants
+
+
+# 128 candidates x 512 steps: 65,536 values through each op
+ROLLOUT_OP_CANDIDATES, ROLLOUT_OP_STEPS = 128, 512
+# the generated route's CarSimple cases (N, A): examples/car_control_bounds.py's
+# line search, the most candidates at an odd horizon, one candidate over a
+# long horizon; and a fleet (F, A, N) with NaN states in instance 1. One dt
+# (the example's 15 / 500) for all, so that they share the path's library
+ROLLOUT_GEN_CASES = ((500, 50), (37, 128), (10_000, 1))
+ROLLOUT_GEN_FLEET = (64, 50, 500)
+ROLLOUT_GEN_DT = 15.0 / 500
+# examples/car_control_bounds.py's constrained solve (N = 500, |u| <= 0.5,
+# rho_u 1, 50 alphas, the inner line search), gated by the example's
+# GOLDENS rows of tests/test_examples.py:54-59 that read it (cost in
+# [0.69, 0.71], max|u| <= 0.5001)
+CAR_BOUNDS_N = 500
+CAR_BOUNDS_ALPHAS = 50
+CAR_BOUNDS_U = 0.5
+CAR_BOUNDS_SOLVE = dict(rho_u=1e0, max_iter=60, max_admm_iter=8, tol=1e-3, outer_tol=1e-5)
+CAR_BOUNDS_GOLDEN_ROWS = ("ilqr_admm", "max")
+# outer iterations of the path run again with the plain version as the
+# hook, bit for bit the kernel's
+CAR_BOUNDS_COMPARE_ITERS = 2
+EIGHT_DT = 0.05
+EIGHT_X0 = (0.1, -0.2, 1.0, 0.0, 0.3, 0.2, 0.0, 0.5)
+
+
+def eight_state_step(x, u):
+    """A plant with d = m = 8 in the operations of the emitter's table that
+    CarSimple and CarFrontWheel do not use (tan, acos, atan, atan2, exp,
+    log, tanh, abs, minimum, maximum, clamp, `%`, division by a row, s / x,
+    pow at 3, -2, 0.5, -0.5, -1 and 1.5); its states stay bounded under any
+    controls (x[5] > 0 after a step)."""
+    dt = EIGHT_DT
+    speed = torch.tanh(u[0])
+    return torch.stack([
+        x[0] + dt * speed * torch.cos(x[2]),
+        x[1] + dt * speed * torch.sin(x[2]),
+        (x[2] + dt * torch.atan(u[1])) % (2.0 * math.pi),
+        0.9 * x[3] + 0.1 * torch.atan2(u[2], 1.0 + torch.abs(u[3])),
+        torch.clamp(x[4] + dt * u[4], -0.5, 0.5),
+        0.5 * torch.sqrt(x[5] ** 2 + 0.01) + 0.1 * torch.exp(-torch.abs(u[5])),
+        torch.maximum(torch.minimum(x[6] + dt * torch.log(1.0 + u[6] ** 2), 1.0 + x[5]),
+                      -1.0 - x[5]),
+        torch.acos(torch.clamp(0.5 * torch.cos(x[7]) + 0.1 * torch.tanh(u[7]), -1.0, 1.0)) / 3.0
+        + 0.01 * torch.tan(0.1 * x[3]) - dt * (1.0 + x[4] ** 2) ** -2
+        + 0.01 * (2.0 - x[5]) ** 3 + 0.01 * (3.0 / (1.0 + x[5])) + 0.001 * x[5] ** 0.5
+        + 0.001 * (x[5] + 0.1) ** 1.5 + 0.001 * (x[5] + 1.0) ** -0.5
+        - 0.001 * (1.0 + x[5]) ** -1 + 0.001 * x[0] / (1.0 + x[1] ** 2),
+    ])
+
+
+def generated_steps() -> dict:
+    """Every step the generated-route phases run, emitted: the op table's
+    plants (`op_plants`), CarSimple's two steps, CarFrontWheel's step as a plain function (so
+    that it takes the generated route), the d = 8 plant. name -> (step,
+    GeneratedStep)."""
+    steps = {name: (step, len(ops), arity * len(ops))
+             for name, (step, arity, ops) in op_plants().items()}
+    car, front = CarSimple(dt=ROLLOUT_GEN_DT), CarFrontWheel(dt=ROLLOUT_GEN_DT)
+    steps.update({
+        "CarSimple.step_unwrapped": (car.step_unwrapped, 4, 2),
+        "CarSimple.step": (car.step, 4, 2),
+        "CarFrontWheel.step_cols, generated": (lambda x, u: front.step_cols(x, u), 4, 2),
+        "eight_state_step": (eight_state_step, 8, 8),
+    })
+    return {name: (step, emit_step(step, d, m)) for name, (step, d, m) in steps.items()}
+
+
+def op_values(n: int, seed: int) -> np.ndarray:
+    """n float32 operands: the specials first (±0, ±inf, NaN, the smallest
+    and largest subnormals and normals, values at and just past ±1, π and
+    2π, arguments far outside the transcendentals' domains), then random
+    bit patterns (every class of float, NaNs included), log-uniform
+    magnitudes of either sign, and uniform values in [-10, 10]."""
+    f32 = np.float32
+    tiny, big = np.finfo(f32).tiny, np.finfo(f32).max
+    below_one, above_one = np.nextafter(f32(1), f32(0)), np.nextafter(f32(1), f32(2))
+    special = np.array([
+        0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45, tiny, -tiny,
+        np.nextafter(tiny, f32(0)), -np.nextafter(tiny, f32(0)), big, -big, 1.0, -1.0,
+        above_one, below_one, -above_one, -below_one, 0.5, -0.5, 2.0, -2.0, 3.0, -3.0, 1.5,
+        -1.5, np.pi, -np.pi, 2 * np.pi, -2 * np.pi, 1e30, -1e30, 1e-30, -1e-30, 88.72, -103.97,
+        1e4, -1e4,
+    ], f32)
+    rng = np.random.default_rng(seed)
+    rest = n - special.size
+    third = rest // 3
+    bits = rng.integers(0, 2**32, third, dtype=np.uint64).astype(np.uint32).view(f32)
+    mags = rng.choice([-1.0, 1.0], third) * 10.0 ** rng.uniform(-40, 38, third)
+    uni = rng.uniform(-10.0, 10.0, rest - 2 * third)
+    with np.errstate(over="ignore", under="ignore"):
+        return np.concatenate([special, bits, mags.astype(f32), uni.astype(f32)])
+
+
+OP_SPECIALS = 39  # op_values' specials, crossed with each other for two operands
+
+
+def op_inputs(device, rows: int, arity: int, seed: int = 0):
+    """(x0 (rows,), u (A, N, rows * arity)) for an op plant: N - 1 =
+    ROLLOUT_OP_STEPS steps, each value of `op_values` once an operand of
+    each row; a two-operand row's first pairs cross the specials with
+    each other."""
+    n = ROLLOUT_OP_CANDIDATES * ROLLOUT_OP_STEPS
+    cols = [op_values(n, seed + j) for j in range(rows * arity)]
+    if arity == 2:
+        s = OP_SPECIALS
+        for k in range(rows):
+            a, b = cols[2 * k], cols[2 * k + 1]
+            a[: s * s], b[: s * s] = np.repeat(a[:s], s), np.tile(b[:s], s)
+    m = rows * arity
+    u = np.zeros((ROLLOUT_OP_CANDIDATES, ROLLOUT_OP_STEPS + 1, m), np.float32)
+    u[:, :-1] = np.stack(cols, 1).reshape(ROLLOUT_OP_CANDIDATES, ROLLOUT_OP_STEPS, m)
+    return torch.zeros(rows, device=device), torch.tensor(u, device=device)
+
+
+def bits_equal(got, want) -> bool:
+    """Bit for bit, NaN positions included (a NaN's payload and sign are
+    not compared)."""
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan)
+                and torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32)))
+
+
+def generated_compare(fused, step, x0, u, label):
+    """The generated kernel against the plain version on the same card
+    inputs, bit for bit (the run fails otherwise): the max |dxs| over the
+    finite states."""
+    got = fused(x0, u)
+    torch.cuda.synchronize()
+    want = linesearch_rollout_reference(step, x0, u)
+    torch.cuda.synchronize()
+    check(tuple(got.shape) == tuple(want.shape), f"{label}: shape {tuple(got.shape)}")
+    fin = torch.isfinite(want) & torch.isfinite(got)
+    err = float((got - want)[fin].abs().max()) if bool(fin.any()) else 0.0
+    same = bits_equal(got, want)
+    print(f"[rollout generated] {label}: bit-identical {same}; max|dxs| {err:.3e} over finite "
+          f"states; NaN states {int(torch.isnan(want).sum())}")
+    check(same, f"{label}: the generated kernel and the plain version are not bit-identical")
+    return err
+
+
+def phase_rollout_generated_ops(device):
+    """[rollout generated ops]: each op of the table, as a row of an op
+    plant, over 65,536 values, bit for bit with the plain version on the
+    card, row by row."""
+    worst = 0.0
+    for plant, (step, arity, ops) in op_plants().items():
+        fused = make_fused_linesearch_rollout(step, ROLLOUT_OP_STEPS + 1, len(ops),
+                                              arity * len(ops), ROLLOUT_OP_CANDIDATES,
+                                              device=device)
+        x0, u = op_inputs(device, len(ops), arity)
+        got = fused(x0, u)
+        torch.cuda.synchronize()
+        want = linesearch_rollout_reference(step, x0, u)
+        torch.cuda.synchronize()
+        check(tuple(got.shape) == tuple(want.shape), f"{plant}: shape {tuple(got.shape)}")
+        for k, name in enumerate(ops):
+            g, w = got[..., k], want[..., k]
+            fin = torch.isfinite(w) & torch.isfinite(g)
+            err = float((g - w)[fin].abs().max()) if bool(fin.any()) else 0.0
+            same = bits_equal(g, w)
+            print(f"[rollout generated ops] {name} (row {k} of {plant}): bit-identical {same}; "
+                  f"max|dxs| {err:.3e} over finite states; NaN states {int(torch.isnan(w).sum())}")
+            check(same, f"op {name}: the generated kernel and the plain version are not "
+                        "bit-identical")
+            worst = max(worst, err)
+    return worst
+
+
+def carsimple_case(device, horizon, n_cands, n_fleet=None):
+    """(x0 (4,), u (A, N, 2)), `rollout_case`'s candidates, or a fleet's
+    (x0s (F, 4), u (F, A, N, 2)), `rollout_fleet_case`'s, where instance
+    1's first three candidates get a NaN control at step N // 10 (NaN
+    states from there on)."""
+    if n_fleet is None:
+        _, x0, u = rollout_case(device, horizon, n_cands)
+        return x0, u
+    _, x0s, u = rollout_fleet_case(device, n_fleet, n_cands, horizon)
+    u[1, :3, horizon // 10, 0] = float("nan")
+    return x0s, u
+
+
+def phase_rollout_generated_compare(device, steps):
+    """[rollout generated]: CarSimple (both steps) at ROLLOUT_GEN_CASES and
+    as a fleet with NaN states; CarFrontWheel through the generated route
+    against the staged kernel and the plain version; the d = 8 plant. All
+    bit for bit."""
+    worst = 0.0
+    car, front = CarSimple(dt=ROLLOUT_GEN_DT), CarFrontWheel(dt=ROLLOUT_GEN_DT)
+    for name, step in (("step_unwrapped", car.step_unwrapped), ("step", car.step)):
+        cases = [(n, a, None) for n, a in ROLLOUT_GEN_CASES]
+        cases.append((ROLLOUT_GEN_FLEET[2], ROLLOUT_GEN_FLEET[1], ROLLOUT_GEN_FLEET[0]))
+        for horizon, n_cands, fleet in cases:
+            fused = make_fused_linesearch_rollout(step, horizon, 4, 2, n_cands, device=device)
+            x0, u = carsimple_case(device, horizon, n_cands, fleet)
+            label = f"CarSimple.{name} N={horizon}, A={n_cands}" + (
+                f", fleet F={fleet}, NaN controls in instance 1" if fleet else "")
+            worst = max(worst, generated_compare(fused, step, x0, u, label))
+    # CarFrontWheel three ways: generated, staged, plain
+    generated = steps["CarFrontWheel.step_cols, generated"][0]
+    for horizon, n_cands, fleet in ((CAR_N, CAR_ALPHAS, None), (CAR_N, 128, 3)):
+        if fleet is None:
+            _, x0, u = rollout_case(device, horizon, n_cands, nan=True)
+        else:
+            _, x0, u = rollout_fleet_case(device, fleet, n_cands, horizon, nan=True)
+        front = CarFrontWheel(dt=ROLLOUT_GEN_DT)
+        fused = make_fused_linesearch_rollout(generated, horizon, 4, 2, n_cands, device=device)
+        check(fused.route.generated is not None,
+              "the car's step as a plain function did not take the generated route")
+        label = f"CarFrontWheel, generated, N={horizon}, A={n_cands}" + (
+            f", fleet F={fleet}" if fleet else "") + ", NaN candidates"
+        worst = max(worst, generated_compare(fused, front.step_cols, x0, u, label))
+        same = bits_equal(fused(x0, u), linesearch_rollout(front, x0, u))
+        print(f"[rollout generated] {label}: against the staged kernel bit-identical {same}")
+        check(same, f"{label}: the generated and the staged kernel are not bit-identical")
+    fused = make_fused_linesearch_rollout(eight_state_step, CAR_N, 8, 8, CAR_BOUNDS_ALPHAS,
+                                          device=device)
+    x0 = torch.tensor(EIGHT_X0, dtype=torch.float32, device=device)
+    u = torch.tensor(np.random.default_rng(8).normal(size=(CAR_BOUNDS_ALPHAS, CAR_N, 8)),
+                     dtype=torch.float32, device=device)
+    worst = max(worst, generated_compare(fused, eight_state_step, x0, u,
+                                         f"eight_state_step (d = m = 8) N={CAR_N}, "
+                                         f"A={CAR_BOUNDS_ALPHAS}"))
+    return worst
+
+
+def car_bounds_problem(device, horizon=CAR_BOUNDS_N):
+    """examples/car_control_bounds.py's constrained problem in f32:
+    CarSimple(dt = 15 / N), the final via-point cost (x_std 1e2, u_std
+    1e-2, target 0), x0 = (1, 1, 3 pi / 2, 0), u0 = 0, x_nom0 its
+    rollout through step_unwrapped, the 50 alphas."""
+    like = dict(dtype=torch.float32, device=device)
+    car = CarSimple(dt=15.0 / horizon)
+    seq = np.zeros(horizon, dtype=np.int32)
+    seq[-1] = 1
+    cost = viapoint_cost(torch.zeros(2, 4, **like),
+                         torch.stack([torch.zeros((4, 4), **like), torch.eye(4, **like) * 1e2]),
+                         seq, 1e-2, 2)
+    x0 = torch.tensor([1.0, 1.0, 3.0 * np.pi / 2, 0.0], **like)
+    u0 = torch.zeros((horizon, 2), **like)
+    return dict(car=car, cost=cost, x_nom0=rollout_nonlinear(car.step_unwrapped, x0, u0), u0=u0,
+                alphas=10.0 ** torch.linspace(0.0, -5.0, CAR_BOUNDS_ALPHAS, **like),
+                device=device)
+
+
+def car_bounds_solve(p, rollout=None, **over):
+    """The example's `ilqr_admm` call (|u| <= 0.5), with `rollout` as its
+    linesearch_rollout (None: the default vmapped rollout)."""
+    car, cost = p["car"], p["cost"]
+    return ilqr_admm(car.step_unwrapped, car.get_AB, cost, p["x_nom0"], p["u0"], quad_cost=cost,
+                     project_u=lambda u: project_bound(u, -CAR_BOUNDS_U, CAR_BOUNDS_U),
+                     alphas=p["alphas"], linesearch_rollout=rollout, device=p["device"],
+                     **dict(CAR_BOUNDS_SOLVE, **over))
+
+
+def car_bounds_gates(res) -> tuple[float, float, list]:
+    """(cost, max|u|, failures): the solve against the example's GOLDENS
+    rows that read the constrained solve (`examples_torch/goldens.py`), on
+    the line the example prints."""
+    from examples_torch.goldens import check_output, load_goldens
+
+    cost, u_max = float(res.cost), float(res.u_nom.abs().max())
+    line = (f"ilqr_admm |u|<=0.5: cost {cost:.4f}, max|u| {u_max:.4f}, outer iters "
+            f"{res.outer_iters}, status {SolveStatus(res.status).name}")
+    rows = [r for r in load_goldens()["car_control_bounds"]
+            if r[0] == "float" and any(k in r[1] for k in CAR_BOUNDS_GOLDEN_ROWS)]
+    failures, _ = check_output("car_control_bounds", line, {"car_control_bounds": rows})
+    return cost, u_max, failures
+
+
+def phase_rollout_generated_main_path(device, card):
+    """[rollout generated main path]: the example's constrained solve with
+    `make_fused_linesearch_rollout(car.step_unwrapped, ...)` as its line
+    search, the plain version patched to raise, the counters set to 0 just
+    before and read just after: one generated launch a line search and no
+    other, the example's goldens; then its first CAR_BOUNDS_COMPARE_ITERS
+    outer iterations with the plain version as the hook, bit for bit the
+    kernel's."""
+    p = car_bounds_problem(device)
+    car = p["car"]
+    fused = make_fused_linesearch_rollout(car.step_unwrapped, CAR_BOUNDS_N, 4, 2,
+                                          CAR_BOUNDS_ALPHAS, device=device)
+    searches = 0
+
+    def hook(x0, u):
+        nonlocal searches
+        searches += 1
+        return fused(x0, u)
+
+    def plain_must_not_run(*args, **kwargs):
+        raise SmokeFailure("the car_control_bounds path ran linesearch_rollout_reference")
+
+    reset_launch_counts()
+    syncs0 = admm_solver.host_sync_count
+    t0 = time.perf_counter()
+    with _swapped(fused_rollout, linesearch_rollout_reference=plain_must_not_run):
+        res = car_bounds_solve(p, hook)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    syncs = admm_solver.host_sync_count - syncs0
+    cost, u_max, failures = car_bounds_gates(res)
+    print(f"[rollout generated main path] examples/car_control_bounds.py's solve, N = "
+          f"{CAR_BOUNDS_N}, {CAR_BOUNDS_ALPHAS} alphas, inner line search, f32: cost {cost:.6f}, "
+          f"max|u| {u_max:.6f} (goldens: cost in [0.69, 0.71], max|u| <= 0.5001), "
+          f"{res.outer_iters} outer steps, status {SolveStatus(res.status).name}; "
+          f"{seconds:.2f} s of wall time with the library loaded; host reads of stop flags "
+          f"{syncs}; line searches {searches}; launches {counts}; card: {card}")
+    check(not failures, "; ".join(failures))
+    check(counts["linesearch_rollout_generated"] == searches > 0,
+          f"the generated kernel launched {counts['linesearch_rollout_generated']} times in "
+          f"{searches} line searches")
+    check(sum(counts.values()) == searches, f"other kernels launched on the path: {counts}")
+    # the first outer iterations through the plain version, then the kernel
+    plain = car_bounds_solve(
+        p, lambda x0, u: linesearch_rollout_reference(car.step_unwrapped, x0, u),
+        max_iter=CAR_BOUNDS_COMPARE_ITERS)
+    kernel = car_bounds_solve(p, fused, max_iter=CAR_BOUNDS_COMPARE_ITERS)
+    same = {name: bits_equal(getattr(kernel, name), getattr(plain, name))
+            for name in ("x_nom", "u_nom", "cost", "z_u", "lmb_u", "cost_log")}
+    same["main path's cost_log"] = bits_equal(res.cost_log[:CAR_BOUNDS_COMPARE_ITERS],
+                                              plain.cost_log)
+    print(f"[rollout generated main path] its first {CAR_BOUNDS_COMPARE_ITERS} outer iterations "
+          f"with the plain version as the hook against the kernel, bit for bit: {same}")
+    check(all(same.values()), f"the plain-hook iterations differ from the kernel's: {same}")
+    return {"launches": counts["linesearch_rollout_generated"], "seconds": seconds}
+
+
+def phase_rollout_generated_time(device, card, steps):
+    """[rollout generated time]: the kernel (device time from a CUDA graph
+    of 10 calls, and the wrapper's event time) and its plain version at
+    the path's (N, A) and at the fleet shape, with the bound: the traced
+    step's longest loop-carried cycle (`GeneratedStep.chain`) in FADD
+    latencies over N - 1 steps, or the bytes; and CarFrontWheel at
+    [car time]'s shape through the generated route and the staged
+    kernel."""
+    car = CarSimple(dt=ROLLOUT_GEN_DT)
+    generated = steps["CarSimple.step_unwrapped"][1]
+    clock = max_sm_clock_hz()
+    out = {}
+    F, A, horizon = ROLLOUT_GEN_FLEET
+    for label, fleet in (("path", None), ("fleet", F)):
+        # the fleet timed without NaN states
+        _, x0, u = (rollout_case(device, horizon, A) if fleet is None
+                    else rollout_fleet_case(device, fleet, A, horizon))
+        fused = make_fused_linesearch_rollout(car.step_unwrapped, horizon, 4, 2, A,
+                                              device=device)
+        kernel = (lambda: fused(x0, u))
+        plain = (lambda: linesearch_rollout_reference(car.step_unwrapped, x0, u))
+        timed = _timed({"wrapper": (kernel, TIMING_WINDOWS, CALLS_PER_WINDOW),
+                        "plain": (plain, 3, 1)})
+        timed["kernel"] = (*_graph_ms(kernel), TIMING_WINDOWS)
+        shape = f"N={horizon}, A={A}" + (f", F={fleet}" if fleet else "")
+        for name, (med, q1, q3, n) in timed.items():
+            how = "CUDA graph of 10 calls" if name == "kernel" else "CUDA events"
+            print(f"[rollout generated time] CarSimple.step_unwrapped {name}: {med:.4f} ms (IQR "
+                  f"{q1:.4f}-{q3:.4f}, {n} windows, {how}) at {shape}; card: {card}")
+        b = car_bound(x0, u, fused(x0, u), clock, step_ops=generated.n_ops,
+                      chain=generated.chain)
+        print(f"[rollout generated time] its bound at {shape}: {b['bound_ms']:.5f} ms by "
+              f"{b['bound_by']} ({b['bound_ops']}); the kernel "
+              f"{timed['kernel'][0] / b['bound_ms']:.1f}x it")
+        out[label] = {"ms": timed["kernel"][0], "plain_ms": timed["plain"][0], "bound": b}
+    # CarFrontWheel at [car time]'s shape: the generated route beside the staged
+    # kernel, in one run so that the two compare
+    front, x0, u = rollout_case(device, CAR_N, CAR_ALPHAS)
+    routes = {"generated": steps["CarFrontWheel.step_cols, generated"][0], "staged": front}
+    for name, step in routes.items():
+        fused = make_fused_linesearch_rollout(step, CAR_N, 4, 2, CAR_ALPHAS, device=device)
+        med, q1, q3 = _graph_ms(lambda: fused(x0, u))
+        print(f"[rollout generated time] CarFrontWheel, {name} route: {med:.4f} ms (IQR "
+              f"{q1:.4f}-{q3:.4f}, {TIMING_WINDOWS} windows, CUDA graph of 10 calls) at "
+              f"N={CAR_N}, A={CAR_ALPHAS}; card: {card}")
+        out[f"CarFrontWheel {name}"] = med
+    return out
 
 
 # ---- the fleet configurations of parallel/batch.py ---------------------------
@@ -5460,7 +5947,7 @@ def main(argv=None) -> int:
 
     try:
         name, card = run("device", phase_device)
-        run("build", phase_build)
+        steps = run("build", phase_build)
         A, B, cost, x0s = bench_problem("cuda")
         solver = make_fused_lqt_admm(
             A, B, cost, u_lower=-U_MAX, u_upper=U_MAX, rho_u=RHO_U,
@@ -5530,6 +6017,14 @@ def main(argv=None) -> int:
             run("arm profile", phase_arm_profile, "cuda", card, arm_problems, arm_dtypes)
         run("arm robust", phase_arm_robust, "cuda")
         run("mpc car", phase_mpc_car, "cuda", card)
+        # slice 23, beside the arm certificates' worker processes
+        gen_max_err = max(run("rollout generated ops", phase_rollout_generated_ops, "cuda"),
+                          run("rollout generated compare", phase_rollout_generated_compare,
+                              "cuda", steps))
+        gen_main = run("rollout generated main path", phase_rollout_generated_main_path, "cuda",
+                       card)
+        gen_times = run("rollout generated time", phase_rollout_generated_time, "cuda", card,
+                        steps)
         run("arm certificate", phase_arm_certificate, arm_certificates)
         run("mpc fleet", phase_mpc_fleet, "cuda", card)
         run("mpc boxddp", phase_mpc_boxddp, "cuda", card)
@@ -5559,6 +6054,7 @@ def main(argv=None) -> int:
                           sls[1], sls_fleet), **riccati_times["bounds"],
                       linesearch_rollout=car_times["bound"],
                       linesearch_rollout_fleet=car_admm_fleet["bound"],
+                      linesearch_rollout_generated=gen_times["path"]["bound"],
                       admm_u_only_wide=wide_bound(wide, wide_inputs),
                       admm_box_wide=state_box_bound(planar[1], planar_x0s),
                       sls_admm_wide=sls_wide_bound(sls_wide[1], sls_wide_fleet),
@@ -5685,6 +6181,20 @@ def main(argv=None) -> int:
         "max_abs_err": car_admm_fleet["max_abs_err"],
         "ms": car_admm_fleet["ms"],
         "plain_ms": car_admm_fleet["plain_ms"],
+    }, {
+        # the same TPU kernel for any other plant's step: the template with
+        # the step ops/rollout_codegen.py traced and emitted; its main path
+        # examples/car_control_bounds.py's CarSimple solve (N = 500, 50
+        # candidates), timed at that line search; max_abs_err over the op
+        # table, CarSimple, CarFrontWheel and the d = 8 plant
+        "name": "linesearch_rollout_generated",
+        "route": "cuda",
+        "source": "ilqr_admm_tpu_torch/csrc/linesearch_rollout_generic.cuh",
+        "replaces": "ilqr_admm_tpu/ops/pallas_rollout.py:90",
+        "launches": gen_main["launches"],
+        "max_abs_err": gen_max_err,
+        "ms": gen_times["path"]["ms"],
+        "plain_ms": gen_times["path"]["plain_ms"],
     }])
     for k in kernels:
         k.update(bounds[k["name"]], library_ms=None)

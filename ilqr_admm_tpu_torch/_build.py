@@ -9,6 +9,15 @@ covers the flags and every file under `csrc/` (`*.cu` and the `*.cuh`
 headers they include), so an edited header builds a new library. Nothing
 is built or loaded when the package is imported. A failed build raises
 with `nvcc`'s output; there is no fallback.
+
+The generated rollout steps (`ops/rollout_codegen.py`) build apart: each
+step's C++ and the template `csrc/linesearch_rollout_generic.cuh` are
+written into one `rollout.cu` under
+`build/torch_kernels/rollout_<hash of template, step and flags>/` and
+compiled there into `librollout.so` (`build_rollouts`, all at once),
+which `load_rollout` loads. A build writes temporary files named by its
+process and renames the finished library into place, so two processes
+building the same step do not corrupt each other.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -28,6 +38,8 @@ _SOURCES = ("admm_u_only.cu", "admm_u_only_wide.cu", "sls_admm.cu", "sls_admm_wi
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libilqr_admm_torch.so"
+ROLLOUT_TEMPLATE = "linesearch_rollout_generic.cuh"
+ROLLOUT_LIB = "librollout.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,6 +68,27 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _run_all(cmds, logs):
+    """Start every command at once, each one's output into its log file,
+    and wait for all: [(returncode, output, its seconds)]."""
+    procs = []
+    for cmd, log in zip(cmds, logs):
+        with open(log, "w") as sink:
+            procs.append((subprocess.Popen(cmd, stdout=sink, stderr=subprocess.STDOUT),
+                          time.perf_counter()))
+    seconds = {}
+    while len(seconds) < len(procs):
+        for i, (proc, start) in enumerate(procs):
+            if i not in seconds and proc.poll() is not None:
+                seconds[i] = time.perf_counter() - start
+        time.sleep(0.05)
+    results = []
+    for i, log in enumerate(logs):
+        results.append((procs[i][0].returncode, Path(log).read_text(), seconds[i]))
+        Path(log).unlink(missing_ok=True)
+    return results
+
+
 def build() -> Path:
     """Compile the library unless it exists; returns its path.
 
@@ -72,29 +105,15 @@ def build() -> Path:
     tag = f"{os.getpid()}.tmp"
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    objs, procs = [], []
-    for name in _SOURCES:
-        obj = out_dir / f"{name}.{tag}.o"
-        out = out_dir / f"{name}.{tag}.log"
-        cmd = [nvcc, *_FLAGS, "-c", str(_PKG / "csrc" / name), "-o", str(obj)]
-        objs.append(obj)
-        with open(out, "w") as sink:
-            procs.append((cmd, out, subprocess.Popen(cmd, stdout=sink,
-                                                     stderr=subprocess.STDOUT)))
-    # each compile's seconds, for the log: the build lasts as long as the slowest
-    seconds, running = {}, {i for i in range(len(procs))}
-    while running:
-        for i in list(running):
-            if procs[i][2].poll() is not None:
-                seconds[i] = time.perf_counter() - t0
-                running.discard(i)
-        time.sleep(0.05)
+    objs = [out_dir / f"{name}.{tag}.o" for name in _SOURCES]
+    cmds = [[nvcc, *_FLAGS, "-c", str(_PKG / "csrc" / name), "-o", str(obj)]
+            for name, obj in zip(_SOURCES, objs)]
     log, failed = [], []
-    for i, (cmd, out, proc) in enumerate(procs):
-        log.append(f"$ {' '.join(cmd)}\n{out.read_text()}[{seconds[i]:.2f} s]\n")
-        out.unlink(missing_ok=True)
-        if proc.returncode != 0:
-            failed.append(proc.returncode)
+    for cmd, (code, out, seconds) in zip(
+            cmds, _run_all(cmds, [out_dir / f"{name}.{tag}.log" for name in _SOURCES])):
+        log.append(f"$ {' '.join(cmd)}\n{out}[{seconds:.2f} s]\n")
+        if code != 0:
+            failed.append(code)
     tmp = out_dir / f"{LIB_NAME}.{tag}"
     if not failed:
         cmd = [nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
@@ -110,6 +129,65 @@ def build() -> Path:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed with exit code {failed[0]}:\n{text}")
     os.replace(tmp, lib)
+    return lib
+
+
+def rollout_dir(source: str) -> Path:
+    """Directory of a generated step's library: a hash of the flags, the
+    template and the step's source."""
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    h.update((_PKG / "csrc" / ROLLOUT_TEMPLATE).read_bytes())
+    h.update(source.encode())
+    return _PKG.parent / "build" / "torch_kernels" / f"rollout_{h.hexdigest()[:16]}"
+
+
+def build_rollouts(sources) -> list[Path]:
+    """Compile the library of each generated step (`GeneratedStep.source`)
+    unless it exists, one nvcc each, all started together; returns their
+    paths. Each directory keeps `rollout.cu` and `nvcc.log`
+    (`-Xptxas -v`, the compile's seconds). Raises with nvcc's output if a
+    step does not compile."""
+    dirs = [rollout_dir(s) for s in sources]
+    todo = {d: s for d, s in zip(dirs, sources) if not (d / ROLLOUT_LIB).exists()}
+    if todo:
+        nvcc = _nvcc()
+        tag = f"{os.getpid()}.{threading.get_ident()}.tmp"  # one build a thread
+        template = (_PKG / "csrc" / ROLLOUT_TEMPLATE).read_text()
+        cmds = []
+        for d, source in todo.items():
+            d.mkdir(parents=True, exist_ok=True)
+            (d / f"rollout.{tag}.cu").write_text(source + "\n" + template)
+            cmds.append([nvcc, *_FLAGS, "-shared", str(d / f"rollout.{tag}.cu"),
+                         "-o", str(d / f"{ROLLOUT_LIB}.{tag}")])
+        results = _run_all(cmds, [d / f"rollout.{tag}.log" for d in todo])
+        failed = []
+        for d, cmd, (code, out, seconds) in zip(todo, cmds, results):
+            text = f"$ {' '.join(cmd)}\n{out}[{seconds:.2f} s]\n"
+            (d / "nvcc.log").write_text(text)
+            if code != 0:
+                (d / f"{ROLLOUT_LIB}.{tag}").unlink(missing_ok=True)
+                failed.append(text)
+                continue
+            os.replace(d / f"rollout.{tag}.cu", d / "rollout.cu")
+            os.replace(d / f"{ROLLOUT_LIB}.{tag}", d / ROLLOUT_LIB)
+        if failed:
+            raise RuntimeError("nvcc failed for a generated rollout step:\n" + "\n".join(failed))
+    return [d / ROLLOUT_LIB for d in dirs]
+
+
+@functools.cache
+def load_rollout(source: str) -> ctypes.CDLL:
+    """A generated step's library, built if needed and loaded once per
+    process."""
+    lib = ctypes.CDLL(str(build_rollouts([source])[0]))
+    lib.linesearch_rollout_generic_launch.argtypes = [
+        _P, _P, _P,  # x0s, u_cands, xs
+        _I, _I, _I,  # R (initial states), A (candidates each), N
+        _P,  # stream
+    ]
+    lib.linesearch_rollout_generic_launch.restype = _I
+    lib.linesearch_rollout_generic_error_string.argtypes = [_I]
+    lib.linesearch_rollout_generic_error_string.restype = ctypes.c_char_p
     return lib
 
 

@@ -27,6 +27,7 @@ from ilqr_admm_tpu.ops.pallas_rollout import (
     make_pallas_linesearch_rollout,
 )
 from ilqr_admm_tpu_torch.models.car import CarFrontWheel, CarSimple
+from ilqr_admm_tpu_torch.models.double_integrator import DoubleIntegrator
 from ilqr_admm_tpu_torch.ops import fused_rollout as fr
 
 torch.set_num_threads(2)
@@ -222,8 +223,14 @@ def test_staged_order_replays_the_plain_version(N, A, nan):
 
 def test_errors():
     car = CarFrontWheel()
-    with pytest.raises(ValueError, match="has no CUDA step"):
+    # any step is taken (the generated route), but not a plant without
+    # step_cols, nor a step outside the emitter's table: the double
+    # integrator's A @ x
+    with pytest.raises(TypeError, match="plant with step_cols"):
         fr.make_fused_linesearch_rollout(CarSimple(), 10, 4, 2, 8, device="cpu")
+    with pytest.raises(ValueError, match="matmul"):
+        fr.make_fused_linesearch_rollout(DoubleIntegrator(1, 2, dt=0.1).step, 10, 2, 1, 8,
+                                         device="cpu")
     with pytest.raises(ValueError, match="d=4, m=2"):
         fr.make_fused_linesearch_rollout(car, 10, 5, 2, 8, device="cpu")
     with pytest.raises(ValueError, match="d=4, m=2"):
@@ -242,8 +249,8 @@ def test_errors():
         fr.linesearch_rollout(car, x0, torch.zeros(129, 10, 2))
     with pytest.raises(ValueError, match="x0 must be"):
         fr.linesearch_rollout(car, torch.zeros(5), torch.zeros(8, 10, 2))
-    with pytest.raises(ValueError, match="has no CUDA step"):
-        fr.linesearch_rollout(CarSimple(), x0, torch.zeros(8, 10, 2))
+    with pytest.raises(ValueError, match=r"dims 1\.\.8"):
+        fr.linesearch_rollout(CarSimple().step_unwrapped, torch.zeros(9), torch.zeros(8, 10, 2))
 
 
 def test_no_vmem_horizon_limit():

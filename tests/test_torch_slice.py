@@ -87,7 +87,8 @@ def test_port_imports_without_jax():
             importlib.import_module(name)
         for name in ("ops.riccati", "ops.parallel_riccati", "ops.scan", "ops.fused_riccati",
                      "ops.rollout", "solvers.lqt", "utils.device", "models.car",
-                     "ops.fused_rollout", "ops.sqrt_riccati", "solvers.admm", "solvers.ilqr",
+                     "ops.fused_rollout", "ops.rollout_codegen", "ops.sqrt_riccati",
+                     "solvers.admm", "solvers.ilqr",
                      "solvers.ilqr_admm", "solvers.lqt_admm", "solvers.sls_admm",
                      "models.arm", "chance", "solvers.isls_admm", "solvers.batched_ilqr_admm",
                      "ops.boxqp", "ops.constrained_riccati", "solvers.boxddp", "solvers.mpc",
