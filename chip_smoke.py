@@ -53,8 +53,10 @@ Drives the port's paths on the card:
   N = 500, |u| <= 0.5, rho_u 1, 50 alphas, the inner line search, up to
   60 outer steps of 8 ADMM iterations, f32) through `ilqr_admm`, whose
   line search is the generated rollout route: CarSimple's
-  `step_unwrapped` traced and emitted by `ops/rollout_codegen.py` and
-  compiled into `csrc/linesearch_rollout_generic.cuh`;
+  `step_unwrapped` traced, planned and emitted by `ops/rollout_codegen.py`
+  and compiled into the staged template `csrc/linesearch_rollout_generic.cuh`
+  (its chains x[3], then x[2], then x[0] and x[1], the rest in parallel
+  over the horizon);
 - the fleet configurations of `parallel/batch.py` in f64:
   `batched_lqt_admm_dp` with accel and with adaptive rho, and
   `batched_ilqr_solve` with the lifted 'batch' and 'sls' methods, on
@@ -263,15 +265,18 @@ Phases:
    [rollout generated] (CarSimple's two steps at (N, A) = (500, 50), (37,
    128) and (10,000, 1) and as a fleet (64, 50, 500) with NaN states in
    one instance, CarFrontWheel through the generated route against the
-   staged kernel and the plain version, a d = m = 8 plant), all bit for
-   bit with the plain version on the card; [rollout generated main path]
+   staged kernel and the plain version, two d = m = 8 plants, one over the
+   table, `cycles_step` over the stage plan's cases), all bit for bit with
+   the plain version on the card, through the staged kernel (the step's
+   stage plan, `StagePlan`); [rollout generated main path]
    (the example's solve with the plain version patched to raise and the
    counters set to 0 just before: one generated launch a line search and
    no other, the example's goldens, its host reads and wall time; its
    first 2 outer iterations bit for bit a run with the plain version as
    the hook); [rollout generated time] (the kernel and its plain version
-   at the path's line search and at the fleet shape, with the bound of
-   the traced step's loop-carried chain; CarFrontWheel at [car time]'s shape
+   at the path's line search, at the fleet shape and at N = 10,000, A = 1,
+   with the bound of the traced step's loop-carried chain; CarFrontWheel
+   at [car time]'s shape
    through the generated route and the staged kernel).
 
 Any failure exits non-zero before the last line. The last line is
@@ -294,6 +299,7 @@ import bisect
 import concurrent.futures
 import contextlib
 import copy
+import ctypes
 import gc
 import io
 import json
@@ -1125,13 +1131,31 @@ def phase_build():
             elif re.fullmatch(r"\[[0-9.]+ s\]", line) and source:
                 print(f"[build] {source} compiled in {line[1:-1]}")  # its nvcc's seconds
                 source = None
-    for name in ("CarSimple.step_unwrapped", "CarSimple.step", "eight_state_step"):
-        log = _build.rollout_dir(steps[name][1].source) / "nvcc.log"
+    for name in ("CarSimple.step_unwrapped", "CarSimple.step", "eight_state_step",
+                 "cycles_step"):
+        generated = steps[name][1]
+        log = _build.rollout_dir(generated.source) / "nvcc.log"
         for line in log.read_text().splitlines():
             if any(w in line for w in ("registers", "spill")) or re.fullmatch(r"\[[0-9.]+ s\]",
                                                                              line):
                 print(f"[build] generated {name}: {line.strip()}")
+        plan = generated.plan
+        shapes = "; ".join(
+            f"(R, A, N) = {shape}: threads, chunk, shared bytes "
+            f"{rollout_geometry(generated, *shape)}"
+            for shape in ((1, CAR_BOUNDS_ALPHAS, CAR_BOUNDS_N), ROLLOUT_GEN_FLEET, (1, 1, 10_000)))
+        print(f"[build] generated {name}: chains by level {plan.chains}, "
+              f"{len(plan.phases)} phases a chunk, {plan.arrays} staged arrays; {shapes}")
     return steps
+
+
+def rollout_geometry(generated, R, A, N, threads=0) -> tuple:
+    """The staged kernel's (threads a block, chunk, shared memory bytes)
+    for a generated step at R x A candidates over N steps."""
+    out = (ctypes.c_int * 3)()
+    _build.load_rollout(generated.source).linesearch_rollout_generic_geometry(R, A, N, threads,
+                                                                              out)
+    return tuple(out)
 
 
 def odd_width_case(device):
@@ -3317,6 +3341,32 @@ def eight_state_step(x, u):
     ])
 
 
+# cycles_step's rotation (an angle of 0.1 a step) and its start
+CYCLES_COS, CYCLES_SIN = math.cos(0.1), math.sin(0.1)
+CYCLES_X0 = (1.0, 0.5, 0.3, -0.7, 2.0, -3.0, 0.0, 0.0)
+
+
+def cycles_step(x, u):
+    """A d = m = 8 plant of the stage plan's cases (`StagePlan`): a
+    rotation (x[0], x[1]: a cycle through two states), an overdamped
+    pendulum with sin on its cycle (x[2]), a copied row (x[3] = x[0], a
+    function of the rotation), a swapped pair (x[4], x[5]: a cycle of no
+    operation), a constant row (x[6]) and a row that is a control (x[7]);
+    its states stay bounded under any controls of bounded size."""
+    dt = EIGHT_DT
+    c, s = CYCLES_COS, CYCLES_SIN
+    return torch.stack([
+        c * x[0] - s * x[1] + dt * u[0],
+        s * x[0] + c * x[1] + dt * u[1],
+        x[2] - dt * torch.sin(x[2]) + dt * (u[2] + u[4] * u[5]),
+        x[0],
+        x[5],
+        x[4],
+        torch.full_like(x[0], 0.25),
+        u[7],
+    ])
+
+
 def generated_steps() -> dict:
     """Every step the generated-route phases run, emitted: the op table's
     plants (`op_plants`), CarSimple's two steps, CarFrontWheel's step as a plain function (so
@@ -3330,6 +3380,7 @@ def generated_steps() -> dict:
         "CarSimple.step": (car.step, 4, 2),
         "CarFrontWheel.step_cols, generated": (lambda x, u: front.step_cols(x, u), 4, 2),
         "eight_state_step": (eight_state_step, 8, 8),
+        "cycles_step": (cycles_step, 8, 8),
     })
     return {name: (step, emit_step(step, d, m)) for name, (step, d, m) in steps.items()}
 
@@ -3481,14 +3532,18 @@ def phase_rollout_generated_compare(device, steps):
         same = bits_equal(fused(x0, u), linesearch_rollout(front, x0, u))
         print(f"[rollout generated] {label}: against the staged kernel bit-identical {same}")
         check(same, f"{label}: the generated and the staged kernel are not bit-identical")
-    fused = make_fused_linesearch_rollout(eight_state_step, CAR_N, 8, 8, CAR_BOUNDS_ALPHAS,
-                                          device=device)
-    x0 = torch.tensor(EIGHT_X0, dtype=torch.float32, device=device)
-    u = torch.tensor(np.random.default_rng(8).normal(size=(CAR_BOUNDS_ALPHAS, CAR_N, 8)),
-                     dtype=torch.float32, device=device)
-    worst = max(worst, generated_compare(fused, eight_state_step, x0, u,
-                                         f"eight_state_step (d = m = 8) N={CAR_N}, "
-                                         f"A={CAR_BOUNDS_ALPHAS}"))
+    for name, step, start in (("eight_state_step", eight_state_step, EIGHT_X0),
+                              ("cycles_step", cycles_step, CYCLES_X0)):
+        fused = make_fused_linesearch_rollout(step, CAR_N, 8, 8, CAR_BOUNDS_ALPHAS,
+                                              device=device)
+        x0 = torch.tensor(start, dtype=torch.float32, device=device)
+        u = torch.tensor(np.random.default_rng(8).normal(size=(CAR_BOUNDS_ALPHAS, CAR_N, 8)),
+                         dtype=torch.float32, device=device)
+        u[3, CAR_N // 5, 2] = float("nan")  # NaN states from there on in candidate 3
+        worst = max(worst, generated_compare(fused, step, x0, u,
+                                             f"{name} (d = m = 8) N={CAR_N}, "
+                                             f"A={CAR_BOUNDS_ALPHAS}, NaN controls in "
+                                             "candidate 3"))
     return worst
 
 
@@ -3572,7 +3627,8 @@ def phase_rollout_generated_main_path(device, card):
           f"{CAR_BOUNDS_N}, {CAR_BOUNDS_ALPHAS} alphas, inner line search, f32: cost {cost:.6f}, "
           f"max|u| {u_max:.6f} (goldens: cost in [0.69, 0.71], max|u| <= 0.5001), "
           f"{res.outer_iters} outer steps, status {SolveStatus(res.status).name}; "
-          f"{seconds:.2f} s of wall time with the library loaded; host reads of stop flags "
+          f"{seconds:.2f} s of wall time with the library loaded (the one-thread design's "
+          "path: 1.29-3.32 s on an H100, PERF.md row 6c); host reads of stop flags "
           f"{syncs}; line searches {searches}; launches {counts}; card: {card}")
     check(not failures, "; ".join(failures))
     check(counts["linesearch_rollout_generated"] == searches > 0,
@@ -3597,7 +3653,8 @@ def phase_rollout_generated_main_path(device, card):
 def phase_rollout_generated_time(device, card, steps):
     """[rollout generated time]: the kernel (device time from a CUDA graph
     of 10 calls, and the wrapper's event time) and its plain version at
-    the path's (N, A) and at the fleet shape, with the bound: the traced
+    the path's (N, A), at the fleet shape and at N = 10,000, A = 1, with
+    the bound: the traced
     step's longest loop-carried cycle (`GeneratedStep.chain`) in FADD
     latencies over N - 1 steps, or the bytes; and CarFrontWheel at
     [car time]'s shape through the generated route and the staged
@@ -3606,8 +3663,9 @@ def phase_rollout_generated_time(device, card, steps):
     generated = steps["CarSimple.step_unwrapped"][1]
     clock = max_sm_clock_hz()
     out = {}
-    F, A, horizon = ROLLOUT_GEN_FLEET
-    for label, fleet in (("path", None), ("fleet", F)):
+    F, A, N = ROLLOUT_GEN_FLEET
+    for label, fleet, horizon, A in (("path", None, N, A), ("fleet", F, N, A),
+                                     ("long", None, 10_000, 1)):
         # the fleet timed without NaN states
         _, x0, u = (rollout_case(device, horizon, A) if fleet is None
                     else rollout_fleet_case(device, fleet, A, horizon))
@@ -3615,8 +3673,9 @@ def phase_rollout_generated_time(device, card, steps):
                                               device=device)
         kernel = (lambda: fused(x0, u))
         plain = (lambda: linesearch_rollout_reference(car.step_unwrapped, x0, u))
+        # the plain version's 10,000 steps are ~130,000 small launches: one window
         timed = _timed({"wrapper": (kernel, TIMING_WINDOWS, CALLS_PER_WINDOW),
-                        "plain": (plain, 3, 1)})
+                        "plain": (plain, 1 if horizon > N else 3, 1)})
         timed["kernel"] = (*_graph_ms(kernel), TIMING_WINDOWS)
         shape = f"N={horizon}, A={A}" + (f", F={fleet}" if fleet else "")
         for name, (med, q1, q3, n) in timed.items():

@@ -11,7 +11,8 @@ is built or loaded when the package is imported. A failed build raises
 with `nvcc`'s output; there is no fallback.
 
 The generated rollout steps (`ops/rollout_codegen.py`) build apart: each
-step's C++ and the template `csrc/linesearch_rollout_generic.cuh` are
+step's C++ (its staged program too) and the template
+`csrc/linesearch_rollout_generic.cuh` are
 written into one `rollout.cu` under
 `build/torch_kernels/rollout_<hash of template, step and flags>/` and
 compiled there into `librollout.so` (`build_rollouts`, all at once),
@@ -186,6 +187,15 @@ def load_rollout(source: str) -> ctypes.CDLL:
         _P,  # stream
     ]
     lib.linesearch_rollout_generic_launch.restype = _I
+    lib.linesearch_rollout_generic_launch_threads.argtypes = [
+        _P, _P, _P, _I, _I, _I,
+        _I,  # threads a block (0: the template's choice)
+        _P,
+    ]
+    lib.linesearch_rollout_generic_launch_threads.restype = _I
+    # (R, A, N, threads) -> (threads, chunk, shared memory bytes) into an int[3]
+    lib.linesearch_rollout_generic_geometry.argtypes = [_I, _I, _I, _I, _P]
+    lib.linesearch_rollout_generic_geometry.restype = None
     lib.linesearch_rollout_generic_error_string.argtypes = [_I]
     lib.linesearch_rollout_generic_error_string.restype = ctypes.c_char_p
     return lib

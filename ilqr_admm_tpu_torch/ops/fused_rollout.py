@@ -15,10 +15,14 @@ kernels:
   plain version's order, bit for bit.
 - any other step (a `step_cols` callable, or a plant's `step_cols`):
   the generated route.
-  `ops/rollout_codegen.py` traces the step and emits it as C++, each
-  operation as ATen's CUDA kernel computes it, and `_build.build_rollouts`
-  compiles it into the template `csrc/linesearch_rollout_generic.cuh`
-  (one thread a candidate), a library of its own a step. A step the
+  `ops/rollout_codegen.py` traces the step, plans it (`StagePlan`: the
+  state graph's strongly connected components by level, which values run
+  in series and which in parallel over the horizon) and emits it as C++,
+  each operation as ATen's CUDA kernel computes it, and
+  `_build.build_rollouts` compiles it into the template
+  `csrc/linesearch_rollout_generic.cuh` (staged as the car's kernel is:
+  one block a candidate, each chain on a thread of its own, the rest in
+  parallel over t), a library of its own a step. A step the
   emitter does not take raises ValueError when the rollout is built,
   naming the operation, on every device; there is no fallback.
 

@@ -7,17 +7,21 @@ every other step takes the generated route, whose step
 rollout runs its plain version for any step, so these tests hold that
 plain version to the JAX package: to the Pallas kernel in interpret mode
 at 1e-5 in f32, and to `linesearch_rollout_xla` at 1e-12 in f64 (`tests/test_torch_fused_rollout.py`'s
-conventions), for CarSimple and for a d = m = 8 plant written in both
+conventions), for CarSimple and for two d = m = 8 plants written in both
 frameworks (`chip_smoke.eight_state_step` and `_j_eight_state_step`
-here); the fleet form to its single calls; and
+here, over the op table; `chip_smoke.cycles_step` and `_j_cycles_step`,
+over the stage plan's cases: a rotation, a pendulum, a copied row, a
+swapped pair, a constant row and a control row); the fleet form to its
+single calls; and
 `examples/car_control_bounds.py`'s constrained solve through JAX's and the
 port's hooks at N = 60 (the same stop and outer iterations, the cost
 within 1e-3 relative). The emitted step is compiled for the host by g++
 and held to the plain version a step at a time, at 1e-6 relative (the
 host's libm and torch's CPU kernels differ by ulps). Every refusal raises
-when the rollout is built, on the CPU as on the card. The CUDA kernel
-itself is held to the plain version bit for bit on the card by
-`chip_smoke.py`.
+when the rollout is built, on the CPU as on the card. The staged
+program the kernel runs is held to `rollout_step` bit for bit on the
+host by tests/test_torch_rollout_staged.py; the CUDA kernel itself to the
+plain version bit for bit on the card by `chip_smoke.py`.
 """
 
 import ctypes
@@ -70,6 +74,21 @@ def _j_eight_state_step(x, u):
     ])
 
 
+def _j_cycles_step(x, u):
+    """`chip_smoke.cycles_step` in jnp."""
+    dt, c, s = cs.EIGHT_DT, cs.CYCLES_COS, cs.CYCLES_SIN
+    return jnp.stack([
+        c * x[0] - s * x[1] + dt * u[0],
+        s * x[0] + c * x[1] + dt * u[1],
+        x[2] - dt * jnp.sin(x[2]) + dt * (u[2] + u[4] * u[5]),
+        x[0],
+        x[5],
+        x[4],
+        jnp.full_like(x[0], 0.25),
+        u[7],
+    ])
+
+
 def _car_cands(n, a, seed=2):
     delta = np.random.default_rng(seed).normal(size=(n, 2)) * 0.5
     alphas = 10.0 ** np.linspace(0.0, -5.0, max(50, a))[:a]
@@ -81,12 +100,15 @@ def _plant(name, n=N, a=A, seed=2):
     if name == "eight_state_step":
         u = np.random.default_rng(seed).normal(size=(a, n, 8))
         return _j_eight_state_step, cs.eight_state_step, 8, 8, np.array(cs.EIGHT_X0), u
+    if name == "cycles_step":
+        u = np.random.default_rng(seed).normal(size=(a, n, 8))
+        return _j_cycles_step, cs.cycles_step, 8, 8, np.array(cs.CYCLES_X0), u
     method = name.split(".")[1]
     jcar, car = JCarSimple(dt=15.0 / n), CarSimple(dt=15.0 / n)
     return getattr(jcar, method), getattr(car, method), 4, 2, X0, _car_cands(n, a, seed)
 
 
-PLANTS = ("CarSimple.step_unwrapped", "CarSimple.step", "eight_state_step")
+PLANTS = ("CarSimple.step_unwrapped", "CarSimple.step", "eight_state_step", "cycles_step")
 
 
 @pytest.mark.parametrize("which", ["step_unwrapped", "step"])
