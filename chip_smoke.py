@@ -183,8 +183,8 @@ Phases:
    stop flags and the bench's certificates (`certify_arm`: converged
    fraction, violation, an f64 L-BFGS-B oracle on 8 instances; where f32
    misses a gate, the fleet again in f64, certified and labelled so);
-   the fleet of 8 against 8 single `ilqr_admm` solves; solves/s (median
-   and IQR of 3 windows of one solve); a `torch.profiler` split of one
+   the fleet of ARM_COMPARE against as many single `ilqr_admm` solves;
+   solves/s (median and IQR of 3 windows of one solve); a `torch.profiler` split of one
    inner-mode solve; the robust arm in f64 with the gates of
    `tests/test_isls_robust.py`;
 7. MPC, for each car tick (the iLQR, dp and SQP ticks) and each boxDDP
@@ -199,7 +199,8 @@ Phases:
    states; f64, labelled, where f32 misses); for one controller the
    per-tick serving loop with the u readback in the timed region, and
    the constrained ticks' again with every stop flag read on the host;
-   each fleet's first 8 against 8 single ticks (the iLQR tick's in f64);
+   each fleet's first MPC_COMPARE against as many single ticks (the iLQR
+   tick's in f64);
    with --profile a `torch.profiler` split of one dp tick;
 8. slice 12: the single barrier, AL and PD solves with their gates (cost
    within 1e-3 of the f64 host solve, the same stop, the keep-out
@@ -278,6 +279,20 @@ Phases:
    with the bound of the traced step's loop-carried chain; CarFrontWheel
    at [car time]'s shape
    through the generated route and the staged kernel).
+14. slice 25, in the same phases: the table grown to every step form the
+   Pallas rollout takes (`ROLLOUT_BLOCK_OPS`, 9 more op plants of 8 rows:
+   the new unary and binary ops, floor and trunc division, 0-d tensor
+   constants, every comparison and logical operator under `where`,
+   clamp's row bounds, sums, products, maxima and minima over 1 to 8
+   rows of the state axis) in [rollout generated ops]; `blocks_step`, a
+   d = m = 8 plant written on blocks over the new table, at (500, 50) and
+   as the fleets (64, 50, 500) and (256, 128, 100) with NaN states in one
+   instance, and `car_whole_state_step` at CarSimple's cases, in
+   [rollout generated]; [rollout generated whole state] (the example's
+   solve with `car_whole_state_step`, the car's dynamics on the whole
+   state, as the line search's step, gated and counted as the main
+   path); its kernel timed beside step_unwrapped's in [rollout generated
+   time], with its bound.
 
 Any failure exits non-zero before the last line. The last line is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
@@ -1132,7 +1147,7 @@ def phase_build():
                 print(f"[build] {source} compiled in {line[1:-1]}")  # its nvcc's seconds
                 source = None
     for name in ("CarSimple.step_unwrapped", "CarSimple.step", "eight_state_step",
-                 "cycles_step"):
+                 "cycles_step", "blocks_step", "car_whole_state_step"):
         generated = steps[name][1]
         log = _build.rollout_dir(generated.source) / "nvcc.log"
         for line in log.read_text().splitlines():
@@ -3270,11 +3285,90 @@ ROLLOUT_OPS = {
 }
 
 
+def _unary(f):
+    return lambda u, k: f(u[k])
+
+
+def _binary(f):
+    return lambda u, k: f(u[2 * k % 8], u[(2 * k + 1) % 8])
+
+
+def _ternary(f):
+    return lambda u, k: f(u[3 * k % 8], u[(3 * k + 1) % 8], u[(3 * k + 2) % 8])
+
+
+def _where(compare):
+    return _binary(lambda a, b: torch.where(compare(a, b), a, b))
+
+
+# name -> op of row k on the (8, A) controls u: the forms PR 25 adds to the
+# emitter's table (ops/rollout_codegen.py), packed 8 rows to a plant of m =
+# 8 (row k of a plant reads u[k], the pair u[2k % 8], u[(2k + 1) % 8], a
+# triple, or a slice of u), each on its own: the new unary and binary ops
+# with a number on either side where torch takes one, floor and trunc
+# division by rows and by numbers (0 included), 0-d tensor constants (a
+# product, the divisor's reciprocal, a pow exponent, a `where` operand),
+# every comparison and logical operator under `where`, clamp's row bounds,
+# and the reductions over the state axis at 1 to 8 rows, keepdim, a strided
+# slice and torch.stack's block among them
+ROLLOUT_BLOCK_OPS = {
+    **{name: _unary(getattr(torch, name))
+       for name in ("sign", "square", "floor", "ceil", "trunc", "round", "reciprocal", "rsqrt",
+                    "sinh", "cosh", "expm1", "log1p", "sigmoid")},
+    "u // 0.3": _unary(lambda a: a // 0.3),
+    "u // -1.7": _unary(lambda a: a // -1.7),
+    "u // 0.0": _unary(lambda a: a // 0.0),
+    "0.3 // u": _unary(lambda a: 0.3 // a),
+    "div 0.7 floor": _unary(lambda a: torch.div(a, 0.7, rounding_mode="floor")),
+    "div 0.7 trunc": _unary(lambda a: torch.div(a, 0.7, rounding_mode="trunc")),
+    "fmod 2.5": _unary(lambda a: torch.fmod(a, 2.5)),
+    "2.0 ** u": _unary(lambda a: 2.0 ** a),
+    "mul tensor(2.0)": _unary(lambda a: a * torch.tensor(2.0)),
+    "div tensor(3.0)": _unary(lambda a: a / torch.tensor(3.0)),
+    "pow tensor(2.0)": _unary(lambda a: a ** torch.tensor(2.0)),
+    "pow tensor(0.5)": _unary(lambda a: a ** torch.tensor(0.5)),
+    "where u > 0.5": _unary(lambda a: torch.where(a > 0.5, a, -1.5)),
+    "where ~(u <= 0)": _unary(lambda a: torch.where(~(a <= 0.0), 2.0, a)),
+    "where tensor(0.25)": _unary(lambda a: torch.where(a < 1.0, torch.tensor(0.25), a)),
+    "where and": _unary(lambda a: torch.where((a > -1.0) & (a < 1.0), a, 0.5)),
+    "hypot": _binary(torch.hypot),
+    "fmod": _binary(torch.fmod),
+    "u // v": _binary(lambda a, b: a // b),
+    "div floor": _binary(lambda a, b: torch.div(a, b, rounding_mode="floor")),
+    "div trunc": _binary(lambda a, b: torch.div(a, b, rounding_mode="trunc")),
+    "pow rows": _binary(lambda a, b: a ** b),
+    "clamp min row": _binary(lambda a, b: torch.clamp(a, min=b)),
+    "clamp max row": _binary(lambda a, b: torch.clamp(a, max=b)),
+    "where gt": _where(lambda a, b: a > b),
+    "where lt": _where(lambda a, b: a < b),
+    "where ge": _where(lambda a, b: torch.ge(a, b)),
+    "where le": _where(lambda a, b: a <= b),
+    "where eq": _where(lambda a, b: a == b),
+    "where ne": _where(lambda a, b: torch.ne(a, b)),
+    "where or": _binary(lambda a, b: torch.where((a > 0.0) | (b > 0.0), b, a)),
+    "where logical_and": _binary(lambda a, b: torch.where(
+        torch.logical_and(a > b, torch.logical_not(b < 0.0)), a, -b)),
+    "where logical_or": _binary(lambda a, b: torch.where(torch.logical_or(a < b, a == 0.0),
+                                                         1.0, 2.0)),
+    "clamp rows": _ternary(torch.clamp),
+    "where rows": _ternary(lambda a, b, c: torch.where(a > b, c, a)),
+    **{f"sum of {n}": (lambda u, k, n=n: u[0:n].sum(dim=0)) for n in range(1, 9)},
+    **{f"{op} of {n}": (lambda u, k, op=op, n=n: getattr(u[8 - n:], op)(dim=0))
+       for op in ("prod", "amax", "amin") for n in (2, 3, 5, 8)},
+    "sum keepdim of 4": lambda u, k: u[2:6].sum(0, keepdim=True)[0],
+    "torch.sum of u[1::2]": lambda u, k: torch.sum(u[1::2], 0),
+    "amax of a stack": lambda u, k: torch.stack([u[7], u[0], u[3]]).amax(dim=0),
+    "sum of a cat": lambda u, k: torch.cat([u[5:7], u[0:1]]).sum(dim=0),
+}
+
+
 def op_plants() -> dict:
-    """The op table packed into plants of at most 8 rows, one library
-    each: name -> (step, arity, the ops' names). Row k of a plant is op k
-    of its own operands u[k * arity], ..., with no state feedback, so each
-    row is one ATen op, held to the plain version on its own."""
+    """The op tables packed into plants, one library each: name -> (step,
+    m, the ops' names, their arity: None for ROLLOUT_BLOCK_OPS).
+    ROLLOUT_OPS: row k of a plant is op k of its own operands u[k *
+    arity], ..., no state feedback; ROLLOUT_BLOCK_OPS: 8 ops a plant, m =
+    8, row k reads the controls `ROLLOUT_BLOCK_OPS` says. Each row is one
+    ATen op (or a reduction), held to the plain version on its own."""
     plants = {}
     for arity in (1, 2):
         names = [name for name, (_, n) in ROLLOUT_OPS.items() if n == arity]
@@ -3287,7 +3381,16 @@ def op_plants() -> dict:
                     ROLLOUT_OPS[name][0](tuple(u[k * arity + j] for j in range(arity)))
                     for k, name in enumerate(group)])
 
-            plants[f"ops {arity}-ary {i // per}"] = (step, arity, tuple(group))
+            plants[f"ops {arity}-ary {i // per}"] = (step, arity * len(group), tuple(group),
+                                                     arity)
+    names = list(ROLLOUT_BLOCK_OPS)
+    for i in range(0, len(names), 8):
+        group = names[i:i + 8]
+
+        def step(x, u, group=group):
+            return torch.stack([ROLLOUT_BLOCK_OPS[name](u, k) for k, name in enumerate(group)])
+
+        plants[f"ops of PR 25 {i // 8}"] = (step, 8, tuple(group), None)
     return plants
 
 
@@ -3299,6 +3402,9 @@ ROLLOUT_OP_CANDIDATES, ROLLOUT_OP_STEPS = 128, 512
 # (the example's 15 / 500) for all, so that they share the path's library
 ROLLOUT_GEN_CASES = ((500, 50), (37, 128), (10_000, 1))
 ROLLOUT_GEN_FLEET = (64, 50, 500)
+# blocks_step as the widest fleet a line search makes (F * A = 32,768
+# columns): ATen's sums over the state axis at that width
+ROLLOUT_GEN_WIDE_FLEET = (256, 128, 100)
 ROLLOUT_GEN_DT = 15.0 / 500
 # examples/car_control_bounds.py's constrained solve (N = 500, |u| <= 0.5,
 # rho_u 1, 50 alphas, the inner line search), gated by the example's
@@ -3367,13 +3473,52 @@ def cycles_step(x, u):
     ])
 
 
+# blocks_step's start
+BLOCKS_X0 = (0.4, -0.3, 0.2, 0.8, 0.5, 0.1, -0.2, 0.3)
+
+
+def blocks_step(x, u):
+    """A d = m = 8 plant over the table PR 25 adds, written on blocks: a
+    `where` on a loop-carried row (x[0], folded back past +-1), a sum over
+    a slice of the state (x[1]), a row-bounded `clamp` (x[2]), `pow` with
+    a row exponent (x[3]), fmod and sinh (x[4]), amax over a slice (x[5]),
+    floor division and the new unary ops of the controls (x[6]), a select
+    between two states (x[7]); its states stay bounded under any controls
+    of bounded size."""
+    dt = EIGHT_DT
+    head = x[0:4] + dt * torch.tanh(u[0:4])
+    first = torch.stack([
+        torch.where((head[0] > 1.0) | (head[0] < -1.0), -0.5 * head[0], head[0]),
+        0.3 * x[1:4].sum(dim=0) + dt * u[1],
+        0.9 * torch.clamp(head[2], x[4] - 1.0, x[4] + 1.0),
+        0.5 * (torch.abs(x[3]) + 0.5) ** torch.sigmoid(u[3]) + 0.1 * torch.sign(u[3]),
+    ])
+    second = torch.stack([
+        torch.fmod(x[4] + dt * torch.sinh(u[4]), 2.0),
+        0.8 * x[5] + 0.1 * x[0:3].amax(dim=0),
+        0.9 * x[6] + dt * (torch.expm1(0.1 * u[6]) + torch.log1p(torch.abs(u[5]))
+                           - (u[6] // 0.5) * torch.square(torch.cos(u[7]))),
+        torch.where(x[7] >= x[6], torch.minimum(x[7], x[6] + 1.0), 0.5 * (x[7] + x[6])),
+    ])
+    return torch.cat([first, second])
+
+
+def car_whole_state_step(x, u, dt=15.0 / CAR_BOUNDS_N):
+    """CarSimple.step_unwrapped written on the whole state, the form the
+    Pallas rollout takes (its jnp twin: jnp.concatenate). The same
+    dynamics in exact arithmetic; in f32 its sums round apart from
+    step_unwrapped's (x + dt (v cos) against x + (dt v) cos)."""
+    th, v = x[2:3], x[3:4]
+    return x + dt * torch.cat([v * torch.cos(th), v * torch.sin(th), v * u[0:1], u[1:2]])
+
+
 def generated_steps() -> dict:
     """Every step the generated-route phases run, emitted: the op table's
-    plants (`op_plants`), CarSimple's two steps, CarFrontWheel's step as a plain function (so
-    that it takes the generated route), the d = 8 plant. name -> (step,
+    plants (`op_plants`), CarSimple's two steps, CarFrontWheel's step as a
+    plain function (so that it takes the generated route), the d = 8
+    plants and CarSimple's step on the whole state. name -> (step,
     GeneratedStep)."""
-    steps = {name: (step, len(ops), arity * len(ops))
-             for name, (step, arity, ops) in op_plants().items()}
+    steps = {name: (step, len(ops), m) for name, (step, m, ops, _) in op_plants().items()}
     car, front = CarSimple(dt=ROLLOUT_GEN_DT), CarFrontWheel(dt=ROLLOUT_GEN_DT)
     steps.update({
         "CarSimple.step_unwrapped": (car.step_unwrapped, 4, 2),
@@ -3381,6 +3526,8 @@ def generated_steps() -> dict:
         "CarFrontWheel.step_cols, generated": (lambda x, u: front.step_cols(x, u), 4, 2),
         "eight_state_step": (eight_state_step, 8, 8),
         "cycles_step": (cycles_step, 8, 8),
+        "blocks_step": (blocks_step, 8, 8),
+        "car_whole_state_step": (car_whole_state_step, 4, 2),
     })
     return {name: (step, emit_step(step, d, m)) for name, (step, d, m) in steps.items()}
 
@@ -3414,19 +3561,23 @@ def op_values(n: int, seed: int) -> np.ndarray:
 OP_SPECIALS = 39  # op_values' specials, crossed with each other for two operands
 
 
-def op_inputs(device, rows: int, arity: int, seed: int = 0):
-    """(x0 (rows,), u (A, N, rows * arity)) for an op plant: N - 1 =
-    ROLLOUT_OP_STEPS steps, each value of `op_values` once an operand of
-    each row; a two-operand row's first pairs cross the specials with
-    each other."""
+def op_inputs(device, rows: int, m: int, arity=None, seed: int = 0):
+    """(x0 (rows,), u (A, N, m)) for an op plant: N - 1 = ROLLOUT_OP_STEPS
+    steps, each value of `op_values` once in each column. Where a plant's
+    rows take two operands each (arity 2) row k's first pairs cross the
+    specials with each other; in the PR 25 plants (arity None) every even
+    column against every odd one, so each pair of u[2k % 8], u[(2k + 1) % 8]
+    and each slice's neighbours."""
     n = ROLLOUT_OP_CANDIDATES * ROLLOUT_OP_STEPS
-    cols = [op_values(n, seed + j) for j in range(rows * arity)]
+    cols = [op_values(n, seed + j) for j in range(m)]
+    s = OP_SPECIALS
     if arity == 2:
-        s = OP_SPECIALS
         for k in range(rows):
             a, b = cols[2 * k], cols[2 * k + 1]
             a[: s * s], b[: s * s] = np.repeat(a[:s], s), np.tile(b[:s], s)
-    m = rows * arity
+    elif arity is None:
+        for j, col in enumerate(cols):
+            col[: s * s] = (np.tile if j % 2 else np.repeat)(col[:s], s)
     u = np.zeros((ROLLOUT_OP_CANDIDATES, ROLLOUT_OP_STEPS + 1, m), np.float32)
     u[:, :-1] = np.stack(cols, 1).reshape(ROLLOUT_OP_CANDIDATES, ROLLOUT_OP_STEPS, m)
     return torch.zeros(rows, device=device), torch.tensor(u, device=device)
@@ -3463,11 +3614,10 @@ def phase_rollout_generated_ops(device):
     plant, over 65,536 values, bit for bit with the plain version on the
     card, row by row."""
     worst = 0.0
-    for plant, (step, arity, ops) in op_plants().items():
-        fused = make_fused_linesearch_rollout(step, ROLLOUT_OP_STEPS + 1, len(ops),
-                                              arity * len(ops), ROLLOUT_OP_CANDIDATES,
-                                              device=device)
-        x0, u = op_inputs(device, len(ops), arity)
+    for plant, (step, m, ops, arity) in op_plants().items():
+        fused = make_fused_linesearch_rollout(step, ROLLOUT_OP_STEPS + 1, len(ops), m,
+                                              ROLLOUT_OP_CANDIDATES, device=device)
+        x0, u = op_inputs(device, len(ops), m, arity)
         got = fused(x0, u)
         torch.cuda.synchronize()
         want = linesearch_rollout_reference(step, x0, u)
@@ -3500,21 +3650,27 @@ def carsimple_case(device, horizon, n_cands, n_fleet=None):
 
 
 def phase_rollout_generated_compare(device, steps):
-    """[rollout generated]: CarSimple (both steps) at ROLLOUT_GEN_CASES and
-    as a fleet with NaN states; CarFrontWheel through the generated route
-    against the staged kernel and the plain version; the d = 8 plant. All
-    bit for bit."""
-    worst = 0.0
+    """[rollout generated]: CarSimple (both steps, and the whole-state
+    step) at ROLLOUT_GEN_CASES and as a fleet with NaN states; CarFrontWheel
+    through the generated route against the staged kernel and the plain
+    version; the d = 8 plants; blocks_step as two fleets. All bit for bit:
+    (max |dxs| over all, over car_whole_state_step's cases)."""
+    worst = whole = 0.0
     car, front = CarSimple(dt=ROLLOUT_GEN_DT), CarFrontWheel(dt=ROLLOUT_GEN_DT)
-    for name, step in (("step_unwrapped", car.step_unwrapped), ("step", car.step)):
+    for name, step in (("CarSimple.step_unwrapped", car.step_unwrapped),
+                       ("CarSimple.step", car.step),
+                       ("car_whole_state_step", car_whole_state_step)):
         cases = [(n, a, None) for n, a in ROLLOUT_GEN_CASES]
         cases.append((ROLLOUT_GEN_FLEET[2], ROLLOUT_GEN_FLEET[1], ROLLOUT_GEN_FLEET[0]))
         for horizon, n_cands, fleet in cases:
             fused = make_fused_linesearch_rollout(step, horizon, 4, 2, n_cands, device=device)
             x0, u = carsimple_case(device, horizon, n_cands, fleet)
-            label = f"CarSimple.{name} N={horizon}, A={n_cands}" + (
+            label = f"{name} N={horizon}, A={n_cands}" + (
                 f", fleet F={fleet}, NaN controls in instance 1" if fleet else "")
-            worst = max(worst, generated_compare(fused, step, x0, u, label))
+            err = generated_compare(fused, step, x0, u, label)
+            worst = max(worst, err)
+            if step is car_whole_state_step:
+                whole = max(whole, err)
     # CarFrontWheel three ways: generated, staged, plain
     generated = steps["CarFrontWheel.step_cols, generated"][0]
     for horizon, n_cands, fleet in ((CAR_N, CAR_ALPHAS, None), (CAR_N, 128, 3)):
@@ -3533,7 +3689,8 @@ def phase_rollout_generated_compare(device, steps):
         print(f"[rollout generated] {label}: against the staged kernel bit-identical {same}")
         check(same, f"{label}: the generated and the staged kernel are not bit-identical")
     for name, step, start in (("eight_state_step", eight_state_step, EIGHT_X0),
-                              ("cycles_step", cycles_step, CYCLES_X0)):
+                              ("cycles_step", cycles_step, CYCLES_X0),
+                              ("blocks_step", blocks_step, BLOCKS_X0)):
         fused = make_fused_linesearch_rollout(step, CAR_N, 8, 8, CAR_BOUNDS_ALPHAS,
                                               device=device)
         x0 = torch.tensor(start, dtype=torch.float32, device=device)
@@ -3544,7 +3701,18 @@ def phase_rollout_generated_compare(device, steps):
                                              f"{name} (d = m = 8) N={CAR_N}, "
                                              f"A={CAR_BOUNDS_ALPHAS}, NaN controls in "
                                              "candidate 3"))
-    return worst
+    # blocks_step as the fleets, NaN states in instance 1
+    for seed, (F, A, N) in ((9, ROLLOUT_GEN_FLEET), (10, ROLLOUT_GEN_WIDE_FLEET)):
+        fused = make_fused_linesearch_rollout(blocks_step, N, 8, 8, A, device=device)
+        rng = np.random.default_rng(seed)
+        x0s = torch.tensor(np.array(BLOCKS_X0) + rng.normal(0.0, 0.1, (F, 8)),
+                           dtype=torch.float32, device=device)
+        u = torch.tensor(rng.normal(size=(F, A, N, 8)), dtype=torch.float32, device=device)
+        u[1, :, N // 10, 0] = float("nan")
+        worst = max(worst, generated_compare(fused, blocks_step, x0s, u,
+                                             f"blocks_step (d = m = 8) fleet F={F}, A={A}, "
+                                             f"N={N}, NaN states in instance 1"))
+    return worst, whole
 
 
 def car_bounds_problem(device, horizon=CAR_BOUNDS_N):
@@ -3591,18 +3759,17 @@ def car_bounds_gates(res) -> tuple[float, float, list]:
     return cost, u_max, failures
 
 
-def phase_rollout_generated_main_path(device, card):
-    """[rollout generated main path]: the example's constrained solve with
-    `make_fused_linesearch_rollout(car.step_unwrapped, ...)` as its line
-    search, the plain version patched to raise, the counters set to 0 just
-    before and read just after: one generated launch a line search and no
-    other, the example's goldens; then its first CAR_BOUNDS_COMPARE_ITERS
-    outer iterations with the plain version as the hook, bit for bit the
-    kernel's."""
+def car_bounds_path(device, card, step, tag):
+    """The example's constrained solve with `make_fused_linesearch_rollout(
+    step, ...)` as its line search, the plain version patched to raise,
+    the counters set to 0 just before and read just after: one generated
+    launch a line search and no other, the example's goldens; then its
+    first CAR_BOUNDS_COMPARE_ITERS outer iterations with the plain version
+    of the same step as the hook, bit for bit the kernel's. tag: the
+    phase's name in its lines."""
     p = car_bounds_problem(device)
-    car = p["car"]
-    fused = make_fused_linesearch_rollout(car.step_unwrapped, CAR_BOUNDS_N, 4, 2,
-                                          CAR_BOUNDS_ALPHAS, device=device)
+    fused = make_fused_linesearch_rollout(step, CAR_BOUNDS_N, 4, 2, CAR_BOUNDS_ALPHAS,
+                                          device=device)
     searches = 0
 
     def hook(x0, u):
@@ -3623,12 +3790,12 @@ def phase_rollout_generated_main_path(device, card):
     counts = launch_counts()
     syncs = admm_solver.host_sync_count - syncs0
     cost, u_max, failures = car_bounds_gates(res)
-    print(f"[rollout generated main path] examples/car_control_bounds.py's solve, N = "
-          f"{CAR_BOUNDS_N}, {CAR_BOUNDS_ALPHAS} alphas, inner line search, f32: cost {cost:.6f}, "
+    print(f"[{tag}] examples/car_control_bounds.py's solve, N = "
+          f"{CAR_BOUNDS_N}, {CAR_BOUNDS_ALPHAS} alphas, inner line search, f32, the line search "
+          f"rolling out {getattr(step, '__qualname__', step)}: cost {cost:.6f}, "
           f"max|u| {u_max:.6f} (goldens: cost in [0.69, 0.71], max|u| <= 0.5001), "
           f"{res.outer_iters} outer steps, status {SolveStatus(res.status).name}; "
-          f"{seconds:.2f} s of wall time with the library loaded (the one-thread design's "
-          "path: 1.29-3.32 s on an H100, PERF.md row 6c); host reads of stop flags "
+          f"{seconds:.2f} s of wall time with the library loaded; host reads of stop flags "
           f"{syncs}; line searches {searches}; launches {counts}; card: {card}")
     check(not failures, "; ".join(failures))
     check(counts["linesearch_rollout_generated"] == searches > 0,
@@ -3636,18 +3803,31 @@ def phase_rollout_generated_main_path(device, card):
           f"{searches} line searches")
     check(sum(counts.values()) == searches, f"other kernels launched on the path: {counts}")
     # the first outer iterations through the plain version, then the kernel
-    plain = car_bounds_solve(
-        p, lambda x0, u: linesearch_rollout_reference(car.step_unwrapped, x0, u),
-        max_iter=CAR_BOUNDS_COMPARE_ITERS)
+    plain = car_bounds_solve(p, lambda x0, u: linesearch_rollout_reference(step, x0, u),
+                             max_iter=CAR_BOUNDS_COMPARE_ITERS)
     kernel = car_bounds_solve(p, fused, max_iter=CAR_BOUNDS_COMPARE_ITERS)
     same = {name: bits_equal(getattr(kernel, name), getattr(plain, name))
             for name in ("x_nom", "u_nom", "cost", "z_u", "lmb_u", "cost_log")}
     same["main path's cost_log"] = bits_equal(res.cost_log[:CAR_BOUNDS_COMPARE_ITERS],
                                               plain.cost_log)
-    print(f"[rollout generated main path] its first {CAR_BOUNDS_COMPARE_ITERS} outer iterations "
+    print(f"[{tag}] its first {CAR_BOUNDS_COMPARE_ITERS} outer iterations "
           f"with the plain version as the hook against the kernel, bit for bit: {same}")
     check(all(same.values()), f"the plain-hook iterations differ from the kernel's: {same}")
     return {"launches": counts["linesearch_rollout_generated"], "seconds": seconds}
+
+
+def phase_rollout_generated_main_path(device, card):
+    """[rollout generated main path]: `car_bounds_path` of
+    CarSimple.step_unwrapped."""
+    car = CarSimple(dt=15.0 / CAR_BOUNDS_N)
+    return car_bounds_path(device, card, car.step_unwrapped, "rollout generated main path")
+
+
+def phase_rollout_generated_whole_state(device, card):
+    """[rollout generated whole state]: `car_bounds_path` of
+    `car_whole_state_step`, the example's dynamics written on the whole
+    state (blocks, a `torch.cat`), its own gates as the example's."""
+    return car_bounds_path(device, card, car_whole_state_step, "rollout generated whole state")
 
 
 def phase_rollout_generated_time(device, card, steps):
@@ -3656,7 +3836,8 @@ def phase_rollout_generated_time(device, card, steps):
     the path's (N, A), at the fleet shape and at N = 10,000, A = 1, with
     the bound: the traced
     step's longest loop-carried cycle (`GeneratedStep.chain`) in FADD
-    latencies over N - 1 steps, or the bytes; and CarFrontWheel at
+    latencies over N - 1 steps, or the bytes; `car_whole_state_step` at
+    the path's (N, A) beside it, with its bound; and CarFrontWheel at
     [car time]'s shape through the generated route and the staged
     kernel."""
     car = CarSimple(dt=ROLLOUT_GEN_DT)
@@ -3688,6 +3869,26 @@ def phase_rollout_generated_time(device, card, steps):
               f"{b['bound_by']} ({b['bound_ops']}); the kernel "
               f"{timed['kernel'][0] / b['bound_ms']:.1f}x it")
         out[label] = {"ms": timed["kernel"][0], "plain_ms": timed["plain"][0], "bound": b}
+    # the same line search through the whole-state step, in the same run as the
+    # path's, so that the two compare
+    whole = steps["car_whole_state_step"][1]
+    N, A = CAR_BOUNDS_N, CAR_BOUNDS_ALPHAS
+    _, x0, u = rollout_case(device, N, A)
+    fused = make_fused_linesearch_rollout(car_whole_state_step, N, 4, 2, A, device=device)
+    kernel = (lambda: fused(x0, u))
+    timed = _timed({"plain": (lambda: linesearch_rollout_reference(car_whole_state_step, x0, u),
+                              3, 1)})
+    timed["kernel"] = (*_graph_ms(kernel), TIMING_WINDOWS)
+    for name, (med, q1, q3, n) in timed.items():
+        how = "CUDA graph of 10 calls" if name == "kernel" else "CUDA events"
+        print(f"[rollout generated time] car_whole_state_step {name}: {med:.4f} ms (IQR "
+              f"{q1:.4f}-{q3:.4f}, {n} windows, {how}) at N={N}, A={A}; beside "
+              f"step_unwrapped's {out['path']['ms']:.4f} ms; card: {card}")
+    b = car_bound(x0, u, kernel(), clock, step_ops=whole.n_ops, chain=whole.chain)
+    print(f"[rollout generated time] its bound at N={N}, A={A}: {b['bound_ms']:.5f} ms by "
+          f"{b['bound_by']} ({b['bound_ops']}); the kernel "
+          f"{timed['kernel'][0] / b['bound_ms']:.1f}x it")
+    out["whole state"] = {"ms": timed["kernel"][0], "plain_ms": timed["plain"][0], "bound": b}
     # CarFrontWheel at [car time]'s shape: the generated route beside the staged
     # kernel, in one run so that the two compare
     front, x0, u = rollout_case(device, CAR_N, CAR_ALPHAS)
@@ -6077,11 +6278,14 @@ def main(argv=None) -> int:
         run("arm robust", phase_arm_robust, "cuda")
         run("mpc car", phase_mpc_car, "cuda", card)
         # slice 23, beside the arm certificates' worker processes
-        gen_max_err = max(run("rollout generated ops", phase_rollout_generated_ops, "cuda"),
-                          run("rollout generated compare", phase_rollout_generated_compare,
-                              "cuda", steps))
+        gen_ops_err = run("rollout generated ops", phase_rollout_generated_ops, "cuda")
+        gen_cmp_err, gen_whole_err = run("rollout generated compare",
+                                         phase_rollout_generated_compare, "cuda", steps)
+        gen_max_err = max(gen_ops_err, gen_cmp_err)
         gen_main = run("rollout generated main path", phase_rollout_generated_main_path, "cuda",
                        card)
+        gen_whole = run("rollout generated whole state", phase_rollout_generated_whole_state,
+                        "cuda", card)
         gen_times = run("rollout generated time", phase_rollout_generated_time, "cuda", card,
                         steps)
         run("arm certificate", phase_arm_certificate, arm_certificates)
@@ -6114,6 +6318,7 @@ def main(argv=None) -> int:
                       linesearch_rollout=car_times["bound"],
                       linesearch_rollout_fleet=car_admm_fleet["bound"],
                       linesearch_rollout_generated=gen_times["path"]["bound"],
+                      linesearch_rollout_generated_whole_state=gen_times["whole state"]["bound"],
                       admm_u_only_wide=wide_bound(wide, wide_inputs),
                       admm_box_wide=state_box_bound(planar[1], planar_x0s),
                       sls_admm_wide=sls_wide_bound(sls_wide[1], sls_wide_fleet),
@@ -6254,6 +6459,19 @@ def main(argv=None) -> int:
         "max_abs_err": gen_max_err,
         "ms": gen_times["path"]["ms"],
         "plain_ms": gen_times["path"]["plain_ms"],
+    }, {
+        # the same kernel built for car_whole_state_step, the example's
+        # dynamics written on the whole state; its main path is the same
+        # solve, timed at that line search; max_abs_err over its cases in
+        # [rollout generated]
+        "name": "linesearch_rollout_generated_whole_state",
+        "route": "cuda",
+        "source": "ilqr_admm_tpu_torch/csrc/linesearch_rollout_generic.cuh",
+        "replaces": "ilqr_admm_tpu/ops/pallas_rollout.py:90",
+        "launches": gen_whole["launches"],
+        "max_abs_err": gen_whole_err,
+        "ms": gen_times["whole state"]["ms"],
+        "plain_ms": gen_times["whole state"]["plain_ms"],
     }])
     for k in kernels:
         k.update(bounds[k["name"]], library_ms=None)

@@ -13,8 +13,9 @@ kernels:
   state, so the kernel runs its few chains of f32 additions one thread
   each and every transcendental in parallel over the horizon, in the
   plain version's order, bit for bit.
-- any other step (a `step_cols` callable, or a plant's `step_cols`):
-  the generated route.
+- any other step (a `step_cols` callable, a plant's `step_cols`, or a
+  callable plant without one, such as CarSimple, rolled out through its
+  `__call__` as JAX's builder rolls it out): the generated route.
   `ops/rollout_codegen.py` traces the step, plans it (`StagePlan`: the
   state graph's strongly connected components by level, which values run
   in series and which in parallel over the horizon) and emits it as C++,
@@ -95,20 +96,21 @@ def _staged_car(step_or_plant) -> Optional[CarFrontWheel]:
 
 
 def step_route(step_or_plant) -> Route:
-    """The route of a step or plant, not yet traced: a plant (an object
-    with a `step`) rolls out its `step_cols`; any other callable is the
-    `step_cols` itself."""
+    """The route of a step or plant, not yet traced: a plant with
+    `step_cols` rolls out its `step_cols`; any other callable (a step
+    function, or a callable plant such as CarSimple, whose `__call__` is
+    its step) is the step itself, as JAX's builder calls whatever it is
+    given on columns."""
     car = _staged_car(step_or_plant)
     if car is not None:
         return Route(car.step_cols, car=car)
     step_cols = getattr(step_or_plant, "step_cols", None)
     if callable(step_cols):
         return Route(step_cols)
-    if callable(step_or_plant) and not hasattr(step_or_plant, "step"):
+    if callable(step_or_plant):
         return Route(step_or_plant)
-    raise TypeError(f"linesearch_rollout takes a step_cols callable or a plant with step_cols, "
-                    f"got {type(step_or_plant).__name__} (pass the step to roll out, such as "
-                    "CarSimple's step_unwrapped)")
+    raise TypeError(f"linesearch_rollout takes a step_cols callable, a callable plant or a "
+                    f"plant with step_cols, got {type(step_or_plant).__name__}")
 
 
 def _check_dims(route: Route, d: int, m: int):
@@ -139,8 +141,16 @@ def linesearch_rollout_reference(step_cols: Callable, x0: torch.Tensor,
 
 def _rollout_cols(step_cols, x, u_cands):
     """The loop over t from the (d, C) start x for the C candidates u_cands
-    (C, N, m) -> xs (C, N, d)."""
-    u_cols = u_cands.permute(1, 2, 0)  # (N, m, C)
+    (C, N, m) -> xs (C, N, d). The state and each step's controls are
+    contiguous (d, C) and (m, C) tensors of at least two columns, so that
+    ATen's CUDA reductions over the state axis fold each column in the one
+    order the generated kernel computes (`rollout_codegen.ro_fold`): on a
+    block whose candidates are not its fastest axis, or of one column, ATen
+    reduces in other orders. Elementwise ops give the same bits either way."""
+    if u_cands.shape[0] == 1:
+        return _rollout_cols(step_cols, x.expand(x.shape[0], 2), u_cands.expand(2, -1, -1))[:1]
+    x = x.contiguous()
+    u_cols = u_cands.permute(1, 2, 0).contiguous()  # (N, m, C)
     xs = []
     for t in range(u_cands.shape[1]):
         xs.append(x)
@@ -284,10 +294,11 @@ def make_fused_linesearch_rollout(step_or_plant, N: int, d: int, m: int, n_alpha
     calls it.
 
     step_or_plant: what JAX's `make_pallas_linesearch_rollout` takes, a
-    `step_cols` callable, or a plant with `step_cols` (a CarFrontWheel, or
-    its bound `step_cols` or `step`, keeps the staged car kernel; any
-    other step the generated route; a plant without `step_cols` raises
-    TypeError). The step is traced and emitted here, on every
+    `step_cols` callable, a plant with `step_cols` or a callable plant (a
+    CarFrontWheel, or its bound `step_cols` or `step`, keeps the staged
+    car kernel; any other step the generated route; an object that is not
+    callable and has no `step_cols` raises TypeError). The step is traced
+    and emitted here, on every
     device, so a step the generated kernel does not take raises
     ValueError here, naming the operation (`ops/rollout_codegen.py`); on
     the card its library is built here too (a step nvcc refuses raises

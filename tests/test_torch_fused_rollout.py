@@ -223,11 +223,13 @@ def test_staged_order_replays_the_plain_version(N, A, nan):
 
 def test_errors():
     car = CarFrontWheel()
-    # any step is taken (the generated route), but not a plant without
-    # step_cols, nor a step outside the emitter's table: the double
-    # integrator's A @ x
-    with pytest.raises(TypeError, match="plant with step_cols"):
-        fr.make_fused_linesearch_rollout(CarSimple(), 10, 4, 2, 8, device="cpu")
+    # any step or callable plant is taken (the generated route; CarSimple
+    # through its __call__), but not an object that is neither, nor a step
+    # outside the emitter's table: the double integrator's A @ x
+    assert fr.make_fused_linesearch_rollout(CarSimple(), 10, 4, 2, 8,
+                                            device="cpu").route.generated is not None
+    with pytest.raises(TypeError, match="step_cols callable, a callable plant"):
+        fr.make_fused_linesearch_rollout(object(), 10, 4, 2, 8, device="cpu")
     with pytest.raises(ValueError, match="matmul"):
         fr.make_fused_linesearch_rollout(DoubleIntegrator(1, 2, dt=0.1).step, 10, 2, 1, 8,
                                          device="cpu")

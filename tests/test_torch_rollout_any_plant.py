@@ -258,6 +258,12 @@ def _set_row(x, u):
     return x
 
 
+def _add_alpha(x, u):
+    return torch.stack([torch.add(x[0], u[0], alpha=2.0)])
+
+
+_VECTOR = torch.tensor([1.0, 2.0])
+
 REFUSALS = {
     "d > 8": (CarSimple().step_unwrapped, 9, 2, 8, r"dims 1\.\.8"),
     "m > 8": (CarSimple().step_unwrapped, 4, 9, 8, r"dims 1\.\.8"),
@@ -266,18 +272,27 @@ REFUSALS = {
     "an in-place write": (_set_row, 4, 2, 8, r"in place \(`__setitem__`\)"),
     "an in-place op": (_inplace_add, 1, 1, 8, r"in place \(`add_`\)"),
     "matmul": (DoubleIntegrator(1, 2, dt=0.1).step, 2, 1, 8, "`matmul`"),
-    "an op outside the table": (lambda x, u: torch.stack([torch.sinh(x[0])]), 1, 1, 8,
-                                "`sinh`"),
-    "a comparison": (lambda x, u: torch.stack([torch.where(x[0] > 0, x[0], u[0])]), 1, 1, 8,
-                     "`gt`"),
-    "a tensor constant": (lambda x, u: torch.stack([x[0] * torch.tensor(2.0)]), 1, 1, 8,
-                          "tensor constant"),
-    "an op on the whole state": (lambda x, u: x * 2.0, 4, 2, 8, "whole state x"),
+    "an op outside the table": (lambda x, u: torch.stack([torch.erf(x[0])]), 1, 1, 8, "`erf`"),
     "an index out of range": (lambda x, u: torch.stack([x[4]]), 4, 2, 8, "out of range"),
-    "a slice": (lambda x, u: torch.stack([x[1:3].sum()]), 4, 2, 8, "index"),
-    "a tensor exponent": (lambda x, u: torch.stack([x[0] ** x[1]]), 2, 1, 8, "tensor exponent"),
-    "a tensor clamp bound": (lambda x, u: torch.stack([torch.clamp(x[0], max=x[1])]), 2, 1, 8,
-                             "tensor bound"),
+    "a sum over the candidates too": (lambda x, u: torch.stack([x[1:3].sum()]), 4, 2, 8,
+                                      "over every dim: it would reduce over the candidates"),
+    "a sum over the candidates' axis": (lambda x, u: torch.stack([x[1:3].sum(dim=1)]), 4, 2, 8,
+                                        "dim 1 is the candidates'"),
+    "a sum of a row": (lambda x, u: torch.stack([x[0].sum(dim=0)]), 1, 1, 8,
+                       r"of a row \(A,\)"),
+    "a closed-over vector constant": (lambda x, u: torch.stack([x[0] * _VECTOR[0] + _VECTOR]),
+                                      1, 1, 8, r"tensor constant of shape \(2,\)"),
+    "add with alpha": (_add_alpha, 1, 1, 8, "alpha"),
+    "a step that returns a mask": (lambda x, u: torch.stack([x[0] > 0.0]), 1, 1, 8,
+                                   "returns a mask"),
+    "arithmetic on a mask": (lambda x, u: torch.stack([(x[0] > 0.0) * 2.0]), 1, 1, 8,
+                             "`mul` of a mask"),
+    "a 0-d tensor clamp bound": (lambda x, u: torch.stack([torch.clamp(x[0], torch.tensor(0.0),
+                                                                       torch.tensor(1.0))]),
+                                 1, 1, 8, "0-d tensor bound"),
+    "clamp with a number and a row": (
+        lambda x, u: torch.stack([torch.clamp(x[0], -1.0, x[1]), x[1]]), 2, 1, 8,
+        "a number and a row as its bounds"),
     "too few rows": (lambda x, u: torch.stack([x[0], x[1]]), 4, 2, 8, "returns 2 rows, d = 4"),
 }
 
@@ -287,6 +302,31 @@ def test_refusals_raise_at_build(case):
     step, d, m, n_alphas, match = REFUSALS[case]
     with pytest.raises(ValueError, match=match):
         fr.make_fused_linesearch_rollout(step, 10, d, m, n_alphas, device="cpu")
+
+
+# what the port refused before PR 25 and now takes, as the Pallas rollout
+# does: each case, its dims and the table's op that it uses
+ACCEPTED = {
+    "an op outside the table": (lambda x, u: torch.stack([torch.sinh(x[0])]), 1, 1, "sinh"),
+    "a comparison": (lambda x, u: torch.stack([torch.where(x[0] > 0, x[0], u[0])]), 1, 1,
+                     "gt"),
+    "a tensor constant": (lambda x, u: torch.stack([x[0] * torch.tensor(2.0)]), 1, 1, "mul"),
+    "an op on the whole state": (lambda x, u: x * 2.0, 4, 2, "mul"),
+    "a tensor exponent": (lambda x, u: torch.stack([x[0] ** x[1], x[1]]), 2, 1, "pow"),
+    "a tensor clamp bound": (lambda x, u: torch.stack([torch.clamp(x[0], max=x[1]), x[1]]), 2, 1,
+                             "minimum"),
+}
+
+
+@pytest.mark.parametrize("case", ACCEPTED)
+def test_former_refusals_are_taken(case):
+    """Built on the CPU as on the card (the same trace), and rolled out:
+    its plain version, finite from a finite start."""
+    step, d, m, op = ACCEPTED[case]
+    roll = fr.make_fused_linesearch_rollout(step, 10, d, m, 8, device="cpu")
+    assert op in roll.route.generated.ops
+    xs = roll(torch.full((d,), 0.5), torch.full((8, 10, m), 0.25))
+    assert xs.shape == (8, 10, d) and bool(torch.isfinite(xs).all())
 
 
 def test_emitter_writes_atens_arithmetic():
@@ -322,8 +362,11 @@ def test_emitter_writes_atens_arithmetic():
 def test_routes():
     """CarFrontWheel (the plant, its bound step_cols and step) keeps the
     staged kernel; any other step, the car's step as a plain function
-    included, takes the generated route; a plant without step_cols
-    raises, as does an object that is neither."""
+    included, takes the generated route; so does a callable plant without
+    step_cols (CarSimple: its `__call__`, as JAX's builder calls it), and
+    one whose call the emitter does not take (DoubleIntegrator's `A @ x`)
+    raises ValueError at build, as the Pallas call refuses it; an object
+    that is neither a callable nor a plant with step_cols raises TypeError."""
     car = CarFrontWheel()
     for step in (car, car.step_cols, car.step):
         route = fr.step_route(step)
@@ -331,16 +374,22 @@ def test_routes():
     assert fr.step_route(lambda x, u: car.step_cols(x, u)).car is None
     simple = CarSimple()
     assert fr.step_route(simple.step).step_cols == simple.step
-    for plant in (simple, DoubleIntegrator(1, 2, dt=0.1)):
-        with pytest.raises(TypeError, match="plant with step_cols"):
-            fr.make_fused_linesearch_rollout(plant, 10, 4, 2, 8, device="cpu")
-        with pytest.raises(TypeError, match="plant with step_cols"):
-            fr.linesearch_rollout(plant, torch.zeros(4), torch.zeros(8, 10, 2))
+    assert fr.step_route(simple).step_cols is simple
+    roll = fr.make_fused_linesearch_rollout(simple, 10, 4, 2, 8, device="cpu")
+    assert roll.route.car is None and roll.route.generated.ops[-1] == "remainder"
+    x0, u = torch.zeros(4), torch.zeros(8, 10, 2)
+    assert torch.equal(fr.linesearch_rollout(simple, x0, u), roll(x0, u))
+    with pytest.raises(ValueError, match="`matmul`"):
+        fr.make_fused_linesearch_rollout(DoubleIntegrator(1, 2, dt=0.1), 10, 2, 1, 8,
+                                         device="cpu")
     assert fr.make_fused_linesearch_rollout(car, 10, 4, 2, 8, device="cpu").route.car is car
     with pytest.raises(ValueError, match="d=4, m=2"):
         fr.make_fused_linesearch_rollout(car.step, 10, 4, 3, 8, device="cpu")
-    with pytest.raises(TypeError, match="step_cols callable or a plant"):
-        fr.make_fused_linesearch_rollout(object(), 10, 4, 2, 8, device="cpu")
+    for thing in (object(), 3.0):
+        with pytest.raises(TypeError, match="step_cols callable, a callable plant"):
+            fr.make_fused_linesearch_rollout(thing, 10, 4, 2, 8, device="cpu")
+        with pytest.raises(TypeError, match="step_cols callable, a callable plant"):
+            fr.linesearch_rollout(thing, x0, u)
 
 
 @pytest.mark.parametrize("fleet", [False, True])

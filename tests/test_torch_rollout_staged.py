@@ -8,8 +8,9 @@ shared memory; and it emits the staged program that
 the chunk's steps on all threads, or a level's chains, one thread each),
 a block barrier after each. These tests check the plan of every plant the
 card's checks run (CarSimple's two steps, CarFrontWheel's, the op plants,
-`chip_smoke.eight_state_step` and `chip_smoke.cycles_step`) and of a step
-too wide to stage. Then they compile the emitted program with g++ (no FMA
+`chip_smoke.eight_state_step`, `chip_smoke.cycles_step`,
+`chip_smoke.blocks_step` and `chip_smoke.car_whole_state_step`) and of a
+step too wide to stage. Then they compile the emitted program with g++ (no FMA
 contraction, as tests/test_torch_rollout_any_plant.py builds
 `rollout_step`) beside a host harness that runs the kernel's loop: each
 phase on every thread before the next phase, the chunk's rows of xs last.
@@ -184,6 +185,17 @@ PLANS = {
                       (6,): ("add", "minimum", "maximum"),
                       (7,): ("cos", "mul", "add", "clamp", "acos", "div", "add", "sub", "add",
                              "add", "add", "add", "add", "sub", "add")}},
+    # the car written on the whole state: step_unwrapped's chains
+    "car_whole_state_step": {"chains": CAR_CHAINS,
+                             "cycle_ops": {(3,): ADD, (2,): ADD, (0,): ADD, (1,): ADD}},
+    # a compare and a select on x[0]'s and x[7]'s cycles, a sum on x[1]'s
+    "blocks_step": {
+        "chains": (((0,), (3,), (4,), (6,)), ((2,), (7,)), ((1,),), ((5,),)),
+        "cycle_ops": {(0,): ("add", "gt", "lt", "or", "mul", "where"),
+                      (3,): ("abs", "add", "pow", "mul", "add"), (4,): ("add", "fmod"),
+                      (6,): ("mul", "add"), (2,): ("add", "clamp", "mul"),
+                      (7,): ("ge", "minimum", "add", "mul", "where"),
+                      (1,): ("sum", "mul", "add"), (5,): ("mul", "add")}},
     # a rotation, a pendulum with sin on its cycle, a swapped pair of no operation
     "cycles_step": {
         "chains": (((0, 1), (2,), (4, 5)),),
@@ -251,6 +263,7 @@ CHAINS = {
     **{name: 0.0 for name in PLANTS if name.startswith("ops ")},
     "CarSimple.step_unwrapped": 1.0, "CarSimple.step": 2.0,
     "CarFrontWheel.step_cols, generated": 1.0, "eight_state_step": 15.0,
+    "car_whole_state_step": 1.0, "blocks_step": 6.0,
 }
 
 
